@@ -1,0 +1,113 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+`nvcc` compiles every source under `csrc/` into one shared library with a
+plain C interface for Hopper (`sm_90a`), at first use, into
+`build/polyp_tpu_torch/` at the repository root; `ctypes` loads it. The
+library's file name carries a hash of the sources and flags, so an edited
+kernel is rebuilt and a stale library is never loaded. The compiler's
+`-Xptxas -v` report (registers, shared memory, spills per kernel) is kept
+beside the library as `<name>.log`.
+
+A failed build raises: there is no fallback to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "polyp_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: name -> argument types. Every entry returns a cudaError_t.
+SIGNATURES = {
+    # q, k, v, o, n, h, tq, tk, d, scale, stream
+    "polyp_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, w1, b1, w2, b2, workspace, out, t, c, h, stream
+    "polyp_fused_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, gamma, beta, y, n, c, hw, groups, eps, silu, is_bf16, stream
+    "polyp_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        candidate = Path(CUDA_HOME) / "bin" / "nvcc"
+        if candidate.exists():
+            return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these exact sources exists;
+    returns its path."""
+    lib = BUILD_DIR / f"libpolyp_tpu_torch_{source_hash()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{proc.stderr[-12000:]}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first call and loaded once."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.polyp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.polyp_cuda_error_string.restype = ctypes.c_char_p
+    # t, c, h -> floats of fp32 workspace the GEGLU kernel needs
+    lib.polyp_fused_geglu_workspace.argtypes = [_I, _I, _I]
+    lib.polyp_fused_geglu_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().polyp_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on `t`'s device, as a C pointer."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

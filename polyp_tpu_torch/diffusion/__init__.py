@@ -1,0 +1,9 @@
+from polyp_tpu_torch.diffusion.schedule import (  # noqa: F401
+    DiffusionSchedule,
+    inference_timesteps,
+)
+from polyp_tpu_torch.diffusion.samplers import (  # noqa: F401
+    ddim_sample,
+    sample,
+    with_cfg,
+)

@@ -1,0 +1,93 @@
+"""Diffusion samplers: the twin of polyp_tpu/diffusion/samplers.py.
+
+This slice ports DDIM (η = 0) and classifier-free guidance. The steps run
+as a Python loop: PyTorch runs eagerly, so the reference's `lax.scan` has
+no counterpart the port needs. Sampling runs under `torch.no_grad()`; that
+is the port's form of the reference's `ops.dispatch.inference()` scope and
+what lets the inference-only kernels (fused GEGLU, GroupNorm) run.
+
+`model_fn(x, t_batch) -> model_out` is an already-conditioned denoiser;
+`init` supplies the starting latents x_T instead of drawing them from the
+generator (the per-sample noise hook). Latents are fp32 throughout.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from polyp_tpu_torch.diffusion.schedule import (
+    DiffusionSchedule,
+    inference_timesteps,
+)
+
+ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def with_cfg(raw_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                              torch.Tensor],
+             cond: torch.Tensor, uncond: torch.Tensor,
+             guidance_scale: float) -> ModelFn:
+    """Classifier-free guidance by batch doubling: one forward over
+    (uncond, cond), in that order, as the reference's with_cfg (:102-112)."""
+
+    def model_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        emb2 = torch.cat([uncond.expand(n, *uncond.shape[-2:]),
+                          cond.expand(n, *cond.shape[-2:])])
+        out_u, out_c = raw_fn(torch.cat([x, x]), torch.cat([t, t]),
+                              emb2).chunk(2)
+        return out_u + guidance_scale * (out_c - out_u)
+
+    return model_fn
+
+
+@torch.no_grad()
+def ddim_sample(model_fn: ModelFn, schedule: DiffusionSchedule,
+                shape: tuple[int, ...],
+                generator: torch.Generator | None = None,
+                num_steps: int = 50,
+                init: torch.Tensor | None = None) -> torch.Tensor:
+    """Deterministic DDIM with SD-v1's scheduler config (reference
+    :221-232): leading spacing with steps_offset=1, and
+    set_alpha_to_one=False, so the last step lands on ᾱ₀ =
+    alphas_cumprod[0], not 1. The distilled students' trailing grid
+    comes with slice 3."""
+    if init is not None:
+        x = init.to(torch.float32)
+    else:
+        if generator is None:
+            raise ValueError("ddim_sample needs a generator or init latents")
+        x = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32)
+    schedule = schedule.to(x.device)
+    abar = schedule.alphas_cumprod
+    ts = inference_timesteps(schedule.num_train_timesteps, num_steps,
+                             "leading", 1)
+    for i, t in enumerate(ts):
+        abar_prev = abar[ts[i + 1]] if i + 1 < num_steps else abar[0]
+        out = model_fn(x, torch.full((x.shape[0],), t, device=x.device))
+        x0, eps = schedule.to_x0_eps(out, x, t)
+        dir_xt = torch.sqrt(torch.clamp(1.0 - abar_prev, min=0.0)) * eps
+        x = torch.sqrt(abar_prev) * x0 + dir_xt
+    return x
+
+
+SAMPLERS = {"ddim": ddim_sample}
+
+
+def get_sampler(name: str) -> Callable[..., torch.Tensor]:
+    if name not in SAMPLERS:
+        raise NotImplementedError(
+            f"sampler {name!r} is not ported yet: polyp_tpu_torch runs "
+            f"{sorted(SAMPLERS)}; ROADMAP.md Queue 1 lists when the others "
+            "land")
+    return SAMPLERS[name]
+
+
+def sample(name: str, model_fn: ModelFn, schedule: DiffusionSchedule,
+           shape: tuple[int, ...], generator: torch.Generator | None,
+           num_steps: int, **kwargs) -> torch.Tensor:
+    return get_sampler(name)(model_fn, schedule, shape, generator,
+                             num_steps=num_steps, **kwargs)

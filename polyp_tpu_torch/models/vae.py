@@ -1,0 +1,94 @@
+"""AutoencoderKL decode path — the SD latent-space VAE: the twin of
+polyp_tpu/models/vae.py (Decoder, post_quant_conv, decode).
+
+State-dict keys are diffusers' `AutoencoderKL` keys under `decoder.*` and
+`post_quant_conv.*` (tests/fixtures/manifests/sd14_vae.json); the encoder,
+`quant_conv` and the posterior come with the LoRA-training slice.
+`post_quant_conv` and the decoder's `conv_out` run in fp32, as in the
+reference (vae.py:103,119).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from polyp_tpu_torch.models.unet_blocks import (
+    GroupNorm,
+    ResnetBlock2D,
+    SpatialSelfAttention,
+    Upsample2D,
+    conv3x3,
+)
+from polyp_tpu_torch.models.unet_condition import UNetStage
+
+SD_VAE_SCALING = 0.18215
+
+
+class Decoder(nn.Module):
+
+    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
+                 layers_per_block: int = 3, out_channels: int = 3,
+                 latent_channels: int = 4,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        ch = list(reversed(block_out_channels))  # (512, 512, 256, 128)
+        kw = dict(dtype=dtype, device=device)
+
+        def resnet(cin, cout):
+            return ResnetBlock2D(cin, cout, None, eps=1e-6, **kw)
+
+        self.conv_in = conv3x3(latent_channels, ch[0], **kw)
+        self.mid_block = UNetStage(
+            [resnet(ch[0], ch[0]), resnet(ch[0], ch[0])],
+            [SpatialSelfAttention(ch[0], num_heads=1, eps=1e-6, qkv_bias=True,
+                                  **kw)])
+        self.up_blocks = nn.ModuleList()
+        c_prev = ch[0]
+        for i, c in enumerate(ch):
+            resnets = [resnet(c_prev if j == 0 else c, c)
+                       for j in range(layers_per_block)]
+            up = Upsample2D(c, c, **kw) if i < len(ch) - 1 else None
+            self.up_blocks.append(UNetStage(resnets, upsample=up))
+            c_prev = c
+        self.conv_norm_out = GroupNorm(ch[-1], 32, 1e-6, "silu", device)
+        self.conv_out = conv3x3(ch[-1], out_channels, torch.float32, device)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(z.to(self.dtype))
+        h = self.mid_block.resnets[0](h)
+        h = self.mid_block.attentions[0](h)
+        h = self.mid_block.resnets[1](h)
+        for block in self.up_blocks:
+            for resnet in block.resnets:
+                h = resnet(h)
+            if block.upsamplers is not None:
+                h = block.upsamplers[0](h)
+        return self.conv_out(self.conv_norm_out(h).float())
+
+
+class AutoencoderKL(nn.Module):
+    """The decode half of SD's AutoencoderKL."""
+
+    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
+                 latent_channels: int = 4,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.decoder = Decoder(block_out_channels, 3, 3, latent_channels,
+                               dtype=dtype, device=device)
+        self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1,
+                                         dtype=torch.float32, device=device)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Unscaled latents [N, 4, h, w] → fp32 images [N, 3, 8h, 8w] in
+        about [-1, 1]."""
+        return self.decoder(self.post_quant_conv(z.float()))
+
+
+def tiny_vae(dtype: torch.dtype = torch.float32, device=None) -> AutoencoderKL:
+    """Miniature VAE for tests and smoke runs (same 8× downsampling)."""
+    return AutoencoderKL(block_out_channels=(16, 16, 32, 32), dtype=dtype,
+                         device=device)

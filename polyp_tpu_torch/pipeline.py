@@ -1,0 +1,138 @@
+"""Generation pipeline: the twin of polyp_tpu/pipeline.py (the SD path).
+
+Prompt → CLIP → classifier-free-guided UNet sampling → VAE decode → uint8
+PNGs, with quota-driven batching and idempotent top-up resume.
+
+Determinism contract: batch `i` of a run uses the generator
+`torch.Generator(device).manual_seed(seed + i)`, so a top-up resumes at
+batch `existing // eval_batch` and regenerates identical batches. torch's
+Philox and JAX's threefry draw different noise from the same seed, so the
+two packages' samples are not identical for one seed; given the same
+initial latents (`init`) they agree to rounding
+(tests/test_torch_port_pipeline.py).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+from PIL import Image
+
+from polyp_tpu_torch.diffusion import DiffusionSchedule, sample, with_cfg
+from polyp_tpu_torch.diffusion.samplers import get_sampler
+from polyp_tpu_torch.models.vae import SD_VAE_SCALING
+
+# fn(batch_size, seed) -> float images in [-1, 1], NCHW
+BatchSampler = Callable[[int, int], torch.Tensor]
+
+
+def to_uint8(images: torch.Tensor) -> np.ndarray:
+    """[-1, 1] float NCHW → uint8 NHWC (diffusers numpy_to_pil parity)."""
+    arr = (images.float() / 2 + 0.5).clamp(0.0, 1.0)
+    arr = arr.permute(0, 2, 3, 1).cpu().numpy()
+    return (arr * 255).round().astype(np.uint8)
+
+
+class StableDiffusionSampler:
+    """StableDiffusionPipeline equivalent over the port's modules (which
+    carry their weights and device). Only DDIM is ported (ROADMAP.md
+    Queue 1), so it is the default sampler here."""
+
+    def __init__(self, unet, vae, text_model, tokenizer,
+                 schedule: DiffusionSchedule, image_size: int = 256,
+                 num_steps: int = 25, guidance_scale: float = 7.5,
+                 sampler: str = "ddim"):
+        get_sampler(sampler)  # refuse an unported sampler before any work
+        self.unet = unet
+        self.vae = vae
+        self.text_model = text_model
+        self.tokenizer = tokenizer
+        self.schedule = schedule
+        self.image_size = image_size
+        self.num_steps = num_steps
+        self.guidance_scale = guidance_scale
+        self.sampler = sampler
+        self.device = next(unet.parameters()).device
+        self._encode_cache: dict[str, torch.Tensor] = {}
+
+    @torch.no_grad()
+    def encode_prompt(self, prompt: str) -> torch.Tensor:
+        if prompt not in self._encode_cache:
+            ids = torch.as_tensor(self.tokenizer([prompt]), dtype=torch.long,
+                                  device=self.device)
+            self._encode_cache[prompt] = self.text_model(ids)
+        return self._encode_cache[prompt]
+
+    @torch.no_grad()
+    def generate(self, cond: torch.Tensor, uncond: torch.Tensor,
+                 batch_size: int, generator: torch.Generator | None = None,
+                 init: torch.Tensor | None = None) -> torch.Tensor:
+        """CFG sampling + VAE decode. `init` ([B, 4, s/8, s/8] fp32) replaces
+        the initial noise drawn from `generator`. Returns fp32 NCHW images
+        in about [-1, 1]."""
+        latent = self.image_size // 8
+        model_fn = with_cfg(self.unet, cond, uncond, self.guidance_scale)
+        latents = sample(self.sampler, model_fn, self.schedule,
+                         (batch_size, 4, latent, latent), generator,
+                         self.num_steps, init=init)
+        return self.vae.decode(latents / SD_VAE_SCALING)
+
+    def for_prompt(self, prompt: str) -> BatchSampler:
+        cond = self.encode_prompt(prompt)
+        uncond = self.encode_prompt("")
+
+        def sampler_fn(batch_size: int, seed: int) -> torch.Tensor:
+            gen = torch.Generator(self.device).manual_seed(seed)
+            return self.generate(cond, uncond, batch_size, gen)
+
+        return sampler_fn
+
+
+def generate_to_dir(sampler_fn: BatchSampler, num_images: int,
+                    out_dir: str | Path, eval_batch_size: int = 20,
+                    seed: int = 0, start_index: int = 0, start_batch: int = 0,
+                    progress: Callable[[int, int], None] | None = None) -> int:
+    """Quota loop: batch `i` is drawn with seed + i and written as 1-based
+    PNG files. Returns images written."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    total = 0
+    batch_id = start_batch
+    while total < num_images:
+        bs = min(eval_batch_size, num_images - total)
+        images = to_uint8(sampler_fn(bs, seed + batch_id))
+        for i, img in enumerate(images):
+            Image.fromarray(img).save(
+                out_dir / f"{start_index + total + i + 1}.png",
+                compress_level=4)
+        total += bs
+        batch_id += 1
+        if progress:
+            progress(total, num_images)
+    return total
+
+
+def count_samples(out_dir: str | Path) -> int:
+    p = Path(out_dir)
+    if not p.exists():
+        return 0
+    return sum(1 for f in p.iterdir() if f.is_file())
+
+
+def top_up_samples(sampler_fn: BatchSampler, quota: int, out_dir: str | Path,
+                   eval_batch_size: int = 20, seed: int = 0,
+                   progress: Callable[[int, int], None] | None = None) -> int:
+    """Idempotent top-up: generate only the missing tail, resuming the
+    deterministic batch sequence. A partial last batch is regenerated in
+    full to keep the seed↔image mapping exact."""
+    existing = count_samples(out_dir)
+    if existing >= quota:
+        return 0
+    resume_batch = existing // eval_batch_size
+    resume_index = resume_batch * eval_batch_size
+    return generate_to_dir(sampler_fn, quota - resume_index, out_dir,
+                           eval_batch_size, seed, start_index=resume_index,
+                           start_batch=resume_batch, progress=progress)

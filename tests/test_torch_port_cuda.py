@@ -1,0 +1,147 @@
+"""polyp_tpu_torch's CUDA kernels against their plain PyTorch versions, on
+the card, at shapes the main path does not reach: every head dim, ragged
+token counts, narrow widths, odd spatial sizes, fp32 GroupNorm.
+
+These tests need an NVIDIA card and nvcc; elsewhere they skip. This file
+imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+Tolerances: bf16 outputs of O(1) values round at ~2^-8 relative, so the
+bf16 kernels are held to 2e-2 (attention) and 3e-2 (GEGLU, which also
+rounds its hidden activation to bf16) absolute against the plain version
+in fp32 on the same bf16 inputs. GroupNorm's outputs reach |y| ≈ 10 with
+these affine parameters, so it is held relative to max|y|: 2^-7 (two bf16
+ulps) in bf16, 1e-5 in fp32 (summation order only). TF32 is off.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from polyp_tpu_torch.ops import fused_geglu as fg
+from polyp_tpu_torch.ops import fused_gn
+from polyp_tpu_torch.ops.attention import dot_product_attention
+from polyp_tpu_torch.ops.flash_attention import (
+    SUPPORTED_HEAD_DIMS,
+    flash_attention,
+    reference_attention,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run: python -m pytest --noconftest "
+                    "-m cuda tests/test_torch_port_cuda.py")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _randn(dev, *shape, scale=1.0, shift=0.0, seed=0, dtype=torch.bfloat16):
+    g = torch.Generator(dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale
+            + shift).to(dtype)
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk", [(1024, 1024), (200, 130), (64, 77)])
+def test_flash_matches_plain(dev, d, tq, tk):
+    q = _randn(dev, 2, tq, 3, d, seed=1)
+    k = _randn(dev, 2, tk, 3, d, seed=2)
+    v = _randn(dev, 2, tk, 3, d, seed=3)
+    before = flash_attention.launches
+    with torch.no_grad():
+        got = flash_attention(q, k, v)
+    want = reference_attention(q.float(), k.float(), v.float())
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _max_err(got, want) < 2e-2
+
+
+def test_flash_backward_recomputes_plain(dev):
+    q, k, v = (_randn(dev, 1, 128, 2, 64, seed=s).requires_grad_()
+               for s in (4, 5, 6))
+    flash_attention(q, k, v).float().square().sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    reference_attention(q, k, v).float().square().sum().backward()
+    for a, b in zip(got, (q.grad, k.grad, v.grad)):
+        # same plain backward; only the saved forward output differs
+        assert _max_err(a, b) < 2e-2 * b.float().abs().max().item()
+
+
+def test_flash_refuses_what_it_cannot_do(dev):
+    q = _randn(dev, 1, 1024, 2, 64)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, is_causal=True)
+    with pytest.raises(ValueError):
+        flash_attention(q.float(), q.float(), q.float())  # kernel is bf16
+    with pytest.raises(ValueError):
+        flash_attention(*(_randn(dev, 1, 1024, 2, 32),) * 3)  # head dim
+
+
+def test_dispatch_sends_level0_self_attention_to_the_kernel(dev):
+    q = _randn(dev, 2, 1024, 8, 40)
+    ctx = _randn(dev, 2, 77, 8, 40)
+    before = flash_attention.launches
+    with torch.no_grad():
+        dot_product_attention(q, q, q)
+        dot_product_attention(q, ctx, ctx)  # cross-attention stays plain
+        dot_product_attention(q, q, q, is_causal=True)
+    assert flash_attention.launches == before + 1
+
+
+# the kernel splits the hidden dimension by 256, 128 or 64 by how many token
+# tiles there are: these cases take each split, ragged T and a ragged split
+@pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
+                                   (2000, 320, 1280), (64, 1280, 5120),
+                                   (5, 40, 80)])
+def test_geglu_matches_plain(dev, t, c, h):
+    x = _randn(dev, 1, t, c, seed=1)
+    w1 = _randn(dev, 2 * h, c, scale=c ** -0.5, seed=2)
+    b1 = _randn(dev, 2 * h, scale=0.1, seed=3)
+    w2 = _randn(dev, c, h, scale=h ** -0.5, seed=4)
+    b2 = _randn(dev, c, scale=0.1, seed=5)
+    args = (x, w1, b1, w2, b2)
+    before = fg.fused_geglu.launches
+    with torch.no_grad():
+        got = fg.fused_geglu(*args)
+    want = fg.reference_geglu(*(a.float() for a in args))
+    assert fg.fused_geglu.launches == before + 1
+    assert got.shape == x.shape
+    assert _max_err(got, want) < 3e-2
+
+
+def test_geglu_refuses_grad(dev):
+    w = _randn(dev, 128, 64).requires_grad_()
+    x = _randn(dev, 1, 8, 64)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        fg.fused_geglu(x, w, w[:, 0], w[:64, :64], w[:64, 0])
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2 ** -7),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n,c,h,w,act", [(2, 320, 32, 32, "silu"),
+                                         (1, 48, 7, 5, None),
+                                         (3, 2560, 4, 4, "silu")])
+def test_group_norm_matches_plain(dev, dtype, rel, n, c, h, w, act):
+    x = _randn(dev, n, c, h, w, scale=2.0, shift=0.3, dtype=dtype)
+    gamma = _randn(dev, c, scale=0.5, shift=1.0, dtype=torch.float32)
+    beta = _randn(dev, c, scale=0.2, dtype=torch.float32)
+    before = fused_gn.fused_group_norm.launches
+    with torch.no_grad():
+        got = fused_gn.fused_group_norm(x, gamma, beta, 32, 1e-5, act)
+    want = fused_gn.group_norm(x.float(), gamma, beta, 32, 1e-5, act)
+    assert fused_gn.fused_group_norm.launches == before + 1
+    assert got.dtype == dtype
+    assert _max_err(got, want) <= rel * want.abs().max().item()

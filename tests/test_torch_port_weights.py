@@ -1,0 +1,184 @@
+"""polyp_tpu_torch's weight layout: diffusers/transformers keys, the JAX →
+port weight carrier, and the package's independence from JAX.
+
+* Round trip: a fabricated diffusers state dict goes through polyp_tpu's
+  importer (diffusers → flax) and back through the port's `*_from_jax`,
+  and must come back key for key and bit for bit; the port's modules load
+  it natively with strict=True.
+* The full-size SD-v1-4 modules, built on the meta device, must have
+  exactly the manifests' keys and shapes (tests/fixtures/manifests).
+* polyp_tpu_torch imports no jax, flax, optax, orbax or polyp_tpu: by an
+  AST scan of its sources and by importing every module in a fresh
+  interpreter.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from polyp_tpu.models import importers as jimp
+from polyp_tpu_torch.models import (
+    TINY_TEXT_CONFIG,
+    AutoencoderKL,
+    CLIPTextModel,
+    sd14_unet,
+    tiny_condition_unet,
+    tiny_vae,
+)
+from polyp_tpu_torch.models import importers as timp
+from test_torch_block_goldens import (
+    Fab,
+    fabricate_tiny_unet_sd,
+    fabricate_tiny_vae_sd,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+MANIFESTS = ROOT / "tests" / "fixtures" / "manifests"
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "polyp_tpu"}
+DECODER_KEYS = ("decoder.", "post_quant_conv.")
+
+
+def _manifest(name: str) -> dict[str, list[int]]:
+    return json.loads((MANIFESTS / f"{name}.json").read_text())
+
+
+def _save(sd: dict[str, np.ndarray], path: Path) -> Path:
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return path
+
+
+def _tensors(sd: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def _assert_same(got: dict[str, torch.Tensor], want: dict[str, np.ndarray]):
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), val, err_msg=key)
+
+
+def fabricate_tiny_clip_sd() -> dict[str, np.ndarray]:
+    """transformers-layout dict for TINY_TEXT_CONFIG (width 32, 2 layers)."""
+    fab = Fab(14)
+    c, cfg = 32, TINY_TEXT_CONFIG
+    emb = "text_model.embeddings"
+    fab.sd[f"{emb}.token_embedding.weight"] = fab._w((cfg.vocab_size, c))
+    fab.sd[f"{emb}.position_embedding.weight"] = fab._w((cfg.max_length, c))
+    for i in range(cfg.layers):
+        p = f"text_model.encoder.layers.{i}"
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            fab.linear(f"{p}.self_attn.{proj}", c, c)
+        fab.norm(f"{p}.layer_norm1", c)
+        fab.linear(f"{p}.mlp.fc1", 4 * c, c)
+        fab.linear(f"{p}.mlp.fc2", c, 4 * c)
+        fab.norm(f"{p}.layer_norm2", c)
+    fab.norm("text_model.final_layer_norm", c)
+    return fab.sd
+
+
+def test_unet_round_trip_through_jax_importer(tmp_path):
+    sd = fabricate_tiny_unet_sd()
+    tree = jimp.import_unet_condition(_save(sd, tmp_path / "unet.bin"))
+    _assert_same(timp.unet_from_jax(tree), sd)
+    tiny_condition_unet().load_state_dict(_tensors(sd), strict=True)
+
+
+def test_vae_decoder_round_trip_through_jax_importer(tmp_path):
+    sd = fabricate_tiny_vae_sd()
+    tree = jimp.import_vae(_save(sd, tmp_path / "vae.bin"))
+    want = {k: v for k, v in sd.items() if k.startswith(DECODER_KEYS)}
+    _assert_same(timp.vae_decoder_from_jax(tree), want)
+    tiny_vae().load_state_dict(_tensors(want), strict=True)
+
+
+def test_clip_round_trip_through_jax_importer(tmp_path):
+    sd = fabricate_tiny_clip_sd()
+    tree = jimp.import_clip_text(_save(sd, tmp_path / "text.bin"))
+    _assert_same(timp.clip_text_from_jax(tree), sd)
+    CLIPTextModel(TINY_TEXT_CONFIG).load_state_dict(_tensors(sd), strict=True)
+
+
+def _placeholders(manifest: dict[str, list[int]]) -> dict[str, np.ndarray]:
+    # keys only: one element per tensor keeps the full-size check cheap
+    return {k: np.zeros((1,) * len(s), np.float32) for k, s in manifest.items()}
+
+
+@pytest.mark.parametrize("name,rules,back,prefixes", [
+    ("sd14_unet", "unet_condition_rules", "unet_from_jax", None),
+    ("sd14_vae", "vae_rules", "vae_decoder_from_jax", DECODER_KEYS),
+    ("sd14_text_encoder", "clip_text_rules", "clip_text_from_jax", None),
+])
+def test_full_size_keys_round_trip(name, rules, back, prefixes):
+    """Every full-size checkpoint key survives diffusers → flax → port."""
+    manifest = _manifest(name)
+    flat = jimp.apply_rules(_placeholders(manifest), getattr(jimp, rules)())
+    tree = jimp.to_pytree({k: v for k, v in flat.items()
+                           if not k.startswith("__drop")})
+    want = {k for k in manifest if prefixes is None or k.startswith(prefixes)}
+    assert set(getattr(timp, back)(tree)) == want
+
+
+def _shapes(module: torch.nn.Module) -> dict[str, list[int]]:
+    return {k: list(v.shape) for k, v in module.state_dict().items()}
+
+
+def test_sd14_unet_matches_manifest_and_param_count():
+    unet = sd14_unet(device="meta")
+    assert _shapes(unet) == _manifest("sd14_unet")
+    assert sum(p.numel() for p in unet.parameters()) == 859_520_964
+
+
+def test_sd14_vae_decoder_matches_manifest():
+    want = {k: v for k, v in _manifest("sd14_vae").items()
+            if k.startswith(DECODER_KEYS)}
+    assert _shapes(AutoencoderKL(device="meta")) == want
+
+
+def test_sd14_text_encoder_matches_manifest():
+    assert _shapes(CLIPTextModel(device="meta")) == \
+        _manifest("sd14_text_encoder")
+
+
+def _port_sources() -> list[Path]:
+    return sorted((ROOT / "polyp_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_import_no_jax():
+    offenders = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names
+                          if n.split(".")[0] in BANNED]
+    assert not offenders
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import polyp_tpu_torch, chip_smoke\n"
+        "for m in pkgutil.walk_packages(polyp_tpu_torch.__path__,\n"
+        "                               'polyp_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        f"bad = sorted({{n.split('.')[0] for n in sys.modules}} & {BANNED!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
