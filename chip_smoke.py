@@ -9,18 +9,37 @@ caught:
 1. a CUDA card is required; prints its name and power limit (nvidia-smi);
 2. builds the hand-written kernels from polyp_tpu_torch/csrc/ and prints
    the build seconds;
-3. holds each kernel (flash attention, fused GEGLU, GroupNorm+SiLU) against
-   its plain PyTorch version at the main path's shapes: both in bf16,
-   measured against the plain version in fp32 on the same inputs, with the
-   tolerance in TOLERANCE; prints both times from CUDA events;
-4. drives the main path: the full-width SD-v1-4 stack (UNet 859,520,964
+3. holds each kernel against its plain PyTorch version at the main paths'
+   shapes, measured against the plain version in fp32 on the same inputs,
+   and prints both times from CUDA events: flash attention, fused GEGLU and
+   GroupNorm+SiLU in bf16 (tolerance in TOLERANCE); the int8 kernels — the
+   W8A8 dense, the static and the per-token int8 GEGLU — by relative L2
+   and max error (Q8_REL_L2, Q8_MAX_REL), and GroupNorm's int8 epilogue by
+   the share of codes that differ (at most one code, in at most
+   GN_Q8_SHARE of the elements);
+4. drives the main paths on the full-width SD-v1-4 stack (UNet 859,520,964
    params, VAE decoder, CLIP ViT-L/14 text encoder; bf16, random weights
-   from seed 0) → StableDiffusionSampler (256px, 20 DDIM steps, CFG 7.5)
-   → generate_to_dir of 4 images at batch 2. Requires finite images, 4
-   PNGs of 256×256×3, and every kernel's launch count above zero;
-5. holds one UNet forward and one VAE decode on the card (bf16, kernels)
+   from seed 0) through StableDiffusionSampler (256px, 20 DDIM steps, CFG
+   7.5) and generate_to_dir, with every launch count set to 0 just before
+   each path and read just after it:
+   - bf16: 4 images at batch 2;
+   - w8a8_static with a 5-step bf16 head: calibration (its seconds and
+     layer count printed), then 4 images at batch 2, from the same seeds
+     as the bf16 images, whose relative L2 against them must be ≤
+     INT8_IMAGE_REL_L2;
+   - dynamic w8a8: one batch of 2 images.
+   Each requires finite images, PNGs of 256×256×3, and a launch count
+   above zero for each kernel that path runs; images/s of each path are
+   printed side by side;
+5. holds one bf16 UNet forward and one VAE decode on the card (kernels)
    against the same weights run on the CPU in fp32 (plain versions), by
-   relative L2 error;
+   relative L2 error; and one w8a8_static UNet forward (the calibrated
+   scales) layer by layer: every quantized layer it ran (convs, linears,
+   feed-forwards, GroupNorm int8 epilogues) is re-run on the CPU in fp32
+   from the card's own input to that layer and must agree within
+   LAYER_REL_L2 (codes within GN_Q8_SHARE); the whole int8 forward must
+   stay within INT8_FORWARD_NOISE times the CPU's own int8-vs-fp32
+   distance (see there);
 6. prints the kernel table as one JSON line, the card line, and last the
    result line {"ok": true, "device": {...}}.
 
@@ -31,6 +50,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -48,8 +68,30 @@ SD14_UNET_PARAMS = 859_520_964
 # product, as the TPU kernel does. A wrong tile or mask gives O(1) errors.
 TOLERANCE = {"flash_attention": 2e-2, "fused_geglu": 6e-2,
              "fused_group_norm": 6e-2}
-# relative L2 of a whole bf16 forward on the card vs fp32 on the CPU
+# int8 kernels vs their plain version's fp32 result on the same inputs: the
+# kernels round their output to bf16 (2^-9 relative), and an int8 code of an
+# intermediate (the GEGLU's h) may break a rounding tie the other way. A
+# wrong scale, tile or mask gives O(1).
+Q8_REL_L2 = 4e-3
+Q8_MAX_REL = 2 ** -6   # max |err| / max |y|
+GN_Q8_SHARE = 2e-3     # share of int8 codes one apart (never more)
+# relative L2 of a whole forward on the card (bf16) vs fp32 on the CPU
 REL_L2_TOLERANCE = 5e-2
+# one quantized layer of the card's int8 forward vs the same layer on the
+# CPU (fp32, plain versions) from the same input: bf16 output rounding,
+# twice on the patch-matrix conv path (dequantize, then + bias), and rare
+# ties. A wrong scale, weight or layout gives O(1).
+LAYER_REL_L2 = 5e-3
+# A whole int8 forward cannot be held to REL_L2_TOLERANCE: an activation
+# code that breaks a rounding tie the other way (which bf16 vs fp32 makes
+# common) moves the next layers' inputs and so their ties, and the two
+# forwards drift apart until they differ by about as much as int8 differs
+# from fp32 (PERF.md, Findings). So the card's int8 forward is held to twice
+# the CPU's own int8-vs-fp32 distance; a broken path gives O(1).
+INT8_FORWARD_NOISE = 2.0
+# w8a8_static (+ 5-step bf16 head) images vs the bf16 images of the same
+# seeds; a wrong scale or code path gives O(1)
+INT8_IMAGE_REL_L2 = 0.15
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -63,6 +105,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).norm() / b.norm()).item()
 
 
 def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
@@ -83,17 +130,47 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
     return row
 
 
+def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
+               shape: str) -> dict:
+    """An int8 kernel (bf16 out) vs its plain version's fp32 result."""
+    out = kernel_fn()
+    torch.cuda.synchronize()
+    err = (out.float() - fp32_ref).abs().max().item()
+    rel = rel_l2(out, fp32_ref)
+    bound = Q8_MAX_REL * fp32_ref.abs().max().item()
+    row = {"name": name, "shape": shape, "max_abs_err": err,
+           "max_abs_tolerance": bound, "rel_l2": rel,
+           "rel_l2_tolerance": Q8_REL_L2,
+           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn)}
+    print(f"[check] {name} {shape}: rel L2 {rel:.3e} (tol {Q8_REL_L2:.0e}), "
+          f"max|err| {err:.3e} (tol {bound:.3e}); kernel {row['ms']:.4f} ms,"
+          f" plain {row['plain_ms']:.4f} ms", flush=True)
+    if not (rel <= Q8_REL_L2 and err <= bound):
+        raise AssertionError(f"{name} {shape}: kernel disagrees with its "
+                             f"plain version: rel L2 {rel}, max {err}")
+    return row
+
+
 def check_kernels(dev: torch.device) -> list[dict]:
+    from polyp_tpu_torch.ops import quant
+    from polyp_tpu_torch.ops.fused_dense import (
+        fused_w8a8_dense, reference_w8a8_dense)
     from polyp_tpu_torch.ops.flash_attention import (
         flash_attention, reference_attention)
-    from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
-    from polyp_tpu_torch.ops.fused_gn import fused_group_norm, group_norm
+    from polyp_tpu_torch.ops.fused_geglu import (
+        fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt, reference_geglu,
+        reference_geglu_w8a8, reference_geglu_w8a8_pt)
+    from polyp_tpu_torch.ops.fused_gn import (
+        fused_group_norm, group_norm, reference_gn_q8)
 
     g = torch.Generator(dev).manual_seed(0)
 
     def randn(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device=dev) * scale
                 + shift).to(torch.bfloat16)
+
+    def amax_scale(t):
+        return (t.float().abs().amax() * 1.05 / 127).reshape(())
 
     rows = []
     # level-0 self-attention at 256px, batch 2 under CFG: [4, 1024, 8, 40]
@@ -104,21 +181,59 @@ def check_kernels(dev: torch.device) -> list[dict]:
         reference_attention(q.float(), k.float(), v.float()),
         "[4,1024,8,40]"))
 
-    # transformer FF per UNet level (tokens = 4 x H x W at 256px) and mid
+    # transformer FF per UNet level (tokens = 4 x H x W at 256px) and mid,
+    # in bf16 and in both int8 forms
     for c, tokens in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
         h = 4 * c
         x = randn(4, tokens // 4, c)
         w1, b1 = randn(2 * h, c, scale=c ** -0.5), randn(2 * h, scale=0.1)
         w2, b2 = randn(c, h, scale=h ** -0.5), randn(c, scale=0.1)
         args = (x, w1, b1, w2, b2)
+        shape = f"[{tokens},{c}]x[{c},{2 * h}]"
         rows.append(compare(
             "fused_geglu", lambda: fused_geglu(*args),
             lambda: reference_geglu(*args),
-            reference_geglu(*(t.float() for t in args)),
-            f"[{tokens},{c}]x[{c},{2 * h}]"))
+            reference_geglu(*(t.float() for t in args)), shape))
+        q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2),
+              b2)
+        s1 = amax_scale(x)
+        a, gate = torch.nn.functional.linear(
+            x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
+        s2 = amax_scale(a * torch.nn.functional.gelu(gate))
+        rows.append(compare_q8(
+            "fused_geglu_w8a8", lambda: fused_geglu_w8a8(x, *q8, s1, s2),
+            lambda: reference_geglu_w8a8(x, *q8, s1, s2),
+            reference_geglu_w8a8(x, *q8, s1, s2, out_dtype=torch.float32),
+            shape))
+        rows.append(compare_q8(
+            "fused_geglu_w8a8_pt", lambda: fused_geglu_w8a8_pt(x, *q8),
+            lambda: reference_geglu_w8a8_pt(x, *q8),
+            reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape))
+
+    # W8A8 dense: to_q at level 0, cross-attention to_k (4 x 77 tokens of
+    # 768), and proj_in at level 1 (bf16 in, and int8 in from the GroupNorm
+    # handoff)
+    for m, c, o, int8_in, what in ((4096, 320, 320, False, "to_q"),
+                                   (308, 768, 320, False, "to_k"),
+                                   (1024, 640, 640, False, "proj_in"),
+                                   (1024, 640, 640, True, "proj_in int8")):
+        x = randn(m, c)
+        wq, sw = quant.weight_q8_matrix(randn(o, c, scale=c ** -0.5))
+        bias = randn(o, scale=0.1)
+        s = amax_scale(x)
+        if int8_in:
+            x = quant.quantize_activation(x, s)[0]
+        dense_args = (x, wq, sw, bias, s)
+        rows.append(compare_q8(
+            "fused_w8a8_dense",
+            lambda: fused_w8a8_dense(*dense_args, out_dtype=torch.bfloat16),
+            lambda: reference_w8a8_dense(*dense_args,
+                                         out_dtype=torch.bfloat16),
+            reference_w8a8_dense(*dense_args, out_dtype=torch.float32),
+            f"{what} [{m},{c}]x[{c},{o}]"))
 
     # GN+SiLU: UNet level widths (incl. the up path's concat widths) and the
-    # VAE decoder's largest tensor
+    # VAE decoder's largest tensor; the int8 epilogue at the UNet's widths
     for n, c, hw, eps in ((4, 320, 32, 1e-5), (4, 960, 32, 1e-5),
                           (4, 640, 16, 1e-5), (4, 1280, 8, 1e-5),
                           (4, 2560, 4, 1e-5), (2, 512, 32, 1e-6),
@@ -126,25 +241,46 @@ def check_kernels(dev: torch.device) -> list[dict]:
         x = randn(n, c, hw, hw, scale=2.0, shift=0.3)
         gamma = randn(c, scale=0.1, shift=1.0).float()
         beta = randn(c, scale=0.1).float()
+        shape = f"[{n},{c},{hw},{hw}]"
         rows.append(compare(
             "fused_group_norm",
             lambda: fused_group_norm(x, gamma, beta, 32, eps, "silu"),
             lambda: group_norm(x, gamma, beta, 32, eps, "silu"),
-            group_norm(x.float(), gamma, beta, 32, eps, "silu"),
-            f"[{n},{c},{hw},{hw}]"))
+            group_norm(x.float(), gamma, beta, 32, eps, "silu"), shape))
+        if n != 4:
+            continue  # the VAE is not quantized
+        s = amax_scale(group_norm(x.float(), gamma, beta, 32, eps, "silu"))
+        got = fused_group_norm(x, gamma, beta, 32, eps, "silu", act_scale=s)
+        want = reference_gn_q8(x, gamma, beta, s, 32, eps, "silu")
+        diff = (got.int() - want.int()).abs()
+        row = {"name": "fused_group_norm_q8", "shape": shape,
+               "max_abs_err": diff.max().item(),
+               "codes_differing": (diff > 0).float().mean().item(),
+               "share_tolerance": GN_Q8_SHARE,
+               "ms": time_ms(lambda: fused_group_norm(
+                   x, gamma, beta, 32, eps, "silu", act_scale=s)),
+               "plain_ms": time_ms(lambda: reference_gn_q8(
+                   x, gamma, beta, s, 32, eps, "silu"))}
+        print(f"[check] fused_group_norm_q8 {shape}: codes differing "
+              f"{row['codes_differing']:.3e} (tol {GN_Q8_SHARE:.0e}), max "
+              f"{row['max_abs_err']} code; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms", flush=True)
+        if row["max_abs_err"] > 1 or row["codes_differing"] > GN_Q8_SHARE:
+            raise AssertionError(f"GroupNorm int8 epilogue {shape}: {row}")
+        rows.append(row)
     return rows
 
 
-def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.float().cpu(), b.float().cpu()
-    return ((a - b).norm() / b.norm()).item()
-
-
-def check_against_cpu(stack, dev: torch.device) -> dict:
+def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
     """One UNet forward (latents 32×32, CFG batch 2) and one VAE decode
     (8×8 latents) with the kernels, vs the same weights in fp32 on the CPU
-    running the plain versions."""
+    running the plain versions; and one w8a8_static UNet forward with
+    `scales`, whose every quantized layer is re-run on the CPU from the
+    card's input to it."""
     from polyp_tpu_torch.models import AutoencoderKL, sd14_unet
+    from polyp_tpu_torch.models.unet_blocks import (
+        FeedForward, GroupNorm, QConv2d, QLinear)
+    from polyp_tpu_torch.ops import quant
 
     g = torch.Generator("cpu").manual_seed(1)
     x = torch.randn(2, 4, 32, 32, generator=g)
@@ -157,20 +293,131 @@ def check_against_cpu(stack, dev: torch.device) -> dict:
     vae_cpu = AutoencoderKL(dtype=torch.float32, device="meta")
     vae_cpu = vae_cpu.to_empty(device="cpu")
     vae_cpu.load_state_dict(stack.vae.state_dict())
+    bank = quant.ScaleBank(scales)
+
+    # every call of a quantizable layer in the card's int8 forward, with its
+    # inputs and output copied to the CPU
+    calls = []
+
+    def capture(name):
+        def hook(module, args, output):
+            if isinstance(module, GroupNorm) and (len(args) < 2
+                                                  or args[1] is None):
+                return  # a GroupNorm without the int8 epilogue
+            calls.append((name, [a.detach().to("cpu", copy=True)
+                                 for a in args],
+                          output.detach().to("cpu", copy=True)))
+        return hook
+
+    def int8(unet, device):
+        tt = t.to(device)
+        with quant.override("w8a8_static", scales=bank, t=tt):
+            return unet(x.to(device), tt, ctx.to(device))
+
     with torch.no_grad():
         want_unet = unet_cpu(x, t, ctx)
+        want_q8 = int8(unet_cpu, "cpu")
         want_img = vae_cpu.decode(z)
         got_unet = stack.unet(x.to(dev), t.to(dev), ctx.to(dev))
+        hooks = [m.register_forward_hook(capture(name))
+                 for name, m in stack.unet.named_modules()
+                 if isinstance(m, (QConv2d, QLinear, FeedForward, GroupNorm))]
+        try:
+            got_q8 = int8(stack.unet, dev)
+        finally:
+            for h in hooks:
+                h.remove()
         got_img = stack.vae.decode(z.to(dev))
+
+        # each captured layer again on the CPU, from the card's input
+        worst, worst_name, codes, flipped, max_code = 0.0, "", 0, 0, 0
+        with quant.override("w8a8_static", scales=bank, t=t):
+            for name, args, out in calls:
+                args = [a.float() if a.is_floating_point() else a
+                        for a in args]
+                want = unet_cpu.get_submodule(name)(*args)
+                if out.dtype == torch.int8:
+                    diff = (out.int() - want.int()).abs()
+                    codes += diff.numel()
+                    flipped += int((diff > 0).sum())
+                    max_code = max(max_code, int(diff.max()))
+                    continue
+                err = rel_l2(out, want)
+                if err > worst:
+                    worst, worst_name = err, name
     out = {"unet_rel_l2": rel_l2(got_unet, want_unet),
-           "vae_rel_l2": rel_l2(got_img, want_img)}
+           "vae_rel_l2": rel_l2(got_img, want_img),
+           "w8a8_static_layers_checked": len(calls),
+           "w8a8_static_layer_max_rel_l2": worst,
+           "w8a8_static_worst_layer": worst_name,
+           "gn_q8_codes_differing": flipped / max(codes, 1),
+           "gn_q8_max_code_diff": max_code,
+           "unet_w8a8_static_rel_l2": rel_l2(got_q8, want_q8),
+           "cpu_int8_vs_fp32_rel_l2": rel_l2(want_q8, want_unet),
+           "card_int8_vs_bf16_rel_l2": rel_l2(got_q8, got_unet)}
     print(f"[check] card bf16 vs cpu fp32: UNet rel L2 "
           f"{out['unet_rel_l2']:.3e}, VAE decode rel L2 "
           f"{out['vae_rel_l2']:.3e} (tol {REL_L2_TOLERANCE:.0e})", flush=True)
-    for key, val in out.items():
-        if not val <= REL_L2_TOLERANCE:
-            raise AssertionError(f"{key} {val} > {REL_L2_TOLERANCE}")
+    print(f"[check] card w8a8_static UNet forward, layer by layer vs cpu fp32 "
+          f"from the card's inputs: {len(calls)} layer calls, max rel L2 "
+          f"{worst:.3e} ({worst_name}; tol {LAYER_REL_L2:.0e}); GN int8 "
+          f"codes differing {out['gn_q8_codes_differing']:.3e}, max "
+          f"{max_code} (tol {GN_Q8_SHARE:.0e})", flush=True)
+    print(f"[check] whole w8a8_static forward: card vs cpu rel L2 "
+          f"{out['unet_w8a8_static_rel_l2']:.3e}; int8 vs fp32 on the cpu "
+          f"{out['cpu_int8_vs_fp32_rel_l2']:.3e}, int8 vs bf16 on the card "
+          f"{out['card_int8_vs_bf16_rel_l2']:.3e} (tol "
+          f"{INT8_FORWARD_NOISE} x the cpu's)", flush=True)
+    for key in ("unet_rel_l2", "vae_rel_l2"):
+        if not out[key] <= REL_L2_TOLERANCE:
+            raise AssertionError(f"{key} {out[key]} > {REL_L2_TOLERANCE}")
+    # every quantized conv and feed-forward must have been seen
+    expected = sum(isinstance(m, (QConv2d, FeedForward))
+                   for m in stack.unet.modules())
+    if len(calls) < expected or not worst <= LAYER_REL_L2:
+        raise AssertionError(f"int8 layer {worst_name}: rel L2 {worst} > "
+                             f"{LAYER_REL_L2} ({len(calls)} calls)")
+    if max_code > 1 or out["gn_q8_codes_differing"] > GN_Q8_SHARE:
+        raise AssertionError(f"GN int8 codes: {out}")
+    if not out["unet_w8a8_static_rel_l2"] <= (
+            INT8_FORWARD_NOISE * out["cpu_int8_vs_fp32_rel_l2"]):
+        raise AssertionError(f"int8 forward: {out}")
     return out
+
+
+def run_path(sampler, out_dir: Path, n_images: int, batch: int
+             ) -> tuple[float, torch.Tensor]:
+    """generate_to_dir of `n_images` from seed 0; checks the images and
+    PNGs, returns (seconds, images)."""
+    from PIL import Image
+
+    from polyp_tpu_torch.pipeline import generate_to_dir
+
+    fn = sampler.for_prompt(PROMPT)
+    kept = []
+
+    def checked(batch_size: int, seed: int) -> torch.Tensor:
+        images = fn(batch_size, seed)
+        if images.shape != (batch_size, 3, 256, 256):
+            raise AssertionError(f"images {tuple(images.shape)}")
+        if not torch.isfinite(images).all():
+            raise AssertionError("non-finite images")
+        kept.append(images.float().cpu())
+        return images
+
+    start = time.perf_counter()
+    written = generate_to_dir(checked, n_images, out_dir,
+                              eval_batch_size=batch, seed=0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    pngs = sorted(out_dir.glob("*.png"))
+    if written != n_images or len(pngs) != n_images:
+        raise AssertionError(f"{written} written, {len(pngs)} PNGs")
+    for p in pngs:
+        with Image.open(p) as im:
+            if im.size != (256, 256) or im.mode != "RGB":
+                raise AssertionError(f"{p.name}: {im.size} {im.mode}")
+    return seconds, torch.cat(kept)
 
 
 def main() -> int:
@@ -183,10 +430,11 @@ def main() -> int:
     from polyp_tpu_torch.cli.common import load_sd_stack
     from polyp_tpu_torch.diffusion import DiffusionSchedule
     from polyp_tpu_torch.ops.flash_attention import flash_attention
-    from polyp_tpu_torch.ops.fused_geglu import fused_geglu
+    from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
+    from polyp_tpu_torch.ops.fused_geglu import (
+        fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt)
     from polyp_tpu_torch.ops.fused_gn import fused_group_norm
-    from polyp_tpu_torch.pipeline import (
-        StableDiffusionSampler, generate_to_dir)
+    from polyp_tpu_torch.pipeline import StableDiffusionSampler
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -209,8 +457,25 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
 
-    kernels = {"flash_attention": flash_attention, "fused_geglu": fused_geglu,
-               "fused_group_norm": fused_group_norm}
+    # each row's launch count: its wrapper's counter, read after the path
+    # that runs it; the GN epilogue has a counter of its own
+    counters = {
+        "flash_attention": (flash_attention, "launches"),
+        "fused_geglu": (fused_geglu, "launches"),
+        "fused_group_norm": (fused_group_norm, "launches"),
+        "fused_w8a8_dense": (fused_w8a8_dense, "launches"),
+        "fused_geglu_w8a8": (fused_geglu_w8a8, "launches"),
+        "fused_geglu_w8a8_pt": (fused_geglu_w8a8_pt, "launches"),
+        "fused_group_norm_q8": (fused_group_norm, "q8_launches")}
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+
     with torch.no_grad():
         rows = check_kernels(dev)
 
@@ -219,72 +484,115 @@ def main() -> int:
     if n_params != SD14_UNET_PARAMS:
         raise AssertionError(f"UNet has {n_params} params")
     schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085, 0.012)
-    sampler = StableDiffusionSampler(
-        stack.unet, stack.vae, stack.text, stack.tokenizer, schedule,
-        image_size=256, num_steps=20, guidance_scale=7.5, sampler="ddim")
 
-    def run_main_path(out_dir: Path) -> float:
-        fn = sampler.for_prompt(PROMPT)
+    def sampler_for(**quant_kw):
+        return StableDiffusionSampler(
+            stack.unet, stack.vae, stack.text, stack.tokenizer, schedule,
+            image_size=256, num_steps=20, guidance_scale=7.5,
+            sampler="ddim", **quant_kw)
 
-        def checked(batch_size: int, seed: int) -> torch.Tensor:
-            images = fn(batch_size, seed)
-            if images.shape != (batch_size, 3, 256, 256):
-                raise AssertionError(f"images {tuple(images.shape)}")
-            if not torch.isfinite(images).all():
-                raise AssertionError("non-finite images")
-            return images
-
-        start = time.perf_counter()
-        written = generate_to_dir(checked, 4, out_dir, eval_batch_size=2,
-                                  seed=0)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
-        pngs = sorted(out_dir.glob("*.png"))
-        if written != 4 or len(pngs) != 4:
-            raise AssertionError(f"{written} written, {len(pngs)} PNGs")
-        from PIL import Image
-        for p in pngs:
-            with Image.open(p) as im:
-                if im.size != (256, 256) or im.mode != "RGB":
-                    raise AssertionError(f"{p.name}: {im.size} {im.mode}")
-        return seconds
-
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for fn in kernels.values():
-            fn.launches = 0
-        cold_s = run_main_path(Path(tmp) / "cold")
-        launches = {name: fn.launches for name, fn in kernels.items()}
-        warm_s = run_main_path(Path(tmp) / "warm")
-    print(f"[main] 4 images, 256px, 20 DDIM steps, CFG 7.5, batch 2: "
-          f"first run {cold_s:.2f} s, second run {warm_s:.2f} s = "
-          f"{4 / warm_s:.3f} samples/s on {card}; launches {launches}",
-          flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"main path never launched {name}")
+        tmp = Path(tmp)
+        # calibration is cached by weight fingerprint: a fresh cache here,
+        # so this run calibrates and writes nothing outside the checkout
+        os.environ["POLYP_TORCH_QUANT_CACHE"] = str(tmp / "quant_cache")
 
-    agreement = check_against_cpu(stack, dev)
+        # bf16: counted on the first run, timed on the second
+        bf16 = sampler_for()
+        reset_counts()
+        cold_s, _ = run_path(bf16, tmp / "bf16_cold", 4, 2)
+        launches = read_counts()
+        warm_s, bf16_images = run_path(bf16, tmp / "bf16_warm", 4, 2)
+        paths["bf16"] = {"images": 4, "batch": 2, "first_run_s": cold_s,
+                         "second_run_s": warm_s, "images_per_s": 4 / warm_s,
+                         "launches": launches}
 
-    sources = {"flash_attention": ("polyp_tpu_torch/csrc/flash_attention.cu",
-                                   "polyp_tpu/ops/flash_attention.py:185"),
-               "fused_geglu": ("polyp_tpu_torch/csrc/fused_geglu.cu",
-                               "polyp_tpu/ops/fused_geglu.py:139"),
-               "fused_group_norm": ("polyp_tpu_torch/csrc/fused_gn.cu",
-                                    "polyp_tpu/ops/fused_gn.py:136")}
+        # w8a8_static + 5-step bf16 head: calibrate, count, time
+        static = sampler_for(quantize="w8a8_static", quant_fp_head=5)
+        start = time.perf_counter()
+        static.for_prompt(PROMPT)  # calibrates
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - start
+        n_layers = len(static.quant_scales)
+        print(f"[calibrate] w8a8_static scales for {n_layers} layers (8-point "
+              f"CFG trajectory) in {calib_s:.2f} s", flush=True)
+        reset_counts()
+        cold_q_s, _ = run_path(static, tmp / "static_cold", 4, 2)
+        launches = read_counts()
+        warm_q_s, static_images = run_path(static, tmp / "static_warm", 4, 2)
+        image_rel = rel_l2(static_images, bf16_images)
+        paths["w8a8_static"] = {
+            "images": 4, "batch": 2, "fp_head": 5, "first_run_s": cold_q_s,
+            "second_run_s": warm_q_s, "images_per_s": 4 / warm_q_s,
+            "calibration_s": calib_s, "calibrated_layers": n_layers,
+            "image_rel_l2_vs_bf16": image_rel, "launches": launches}
+
+        # dynamic w8a8: one batch of 2, counted, then timed
+        dynamic = sampler_for(quantize="w8a8")
+        reset_counts()
+        cold_d_s, _ = run_path(dynamic, tmp / "dynamic_cold", 2, 2)
+        launches = read_counts()
+        warm_d_s, _ = run_path(dynamic, tmp / "dynamic_warm", 2, 2)
+        paths["w8a8"] = {"images": 2, "batch": 2, "first_run_s": cold_d_s,
+                         "second_run_s": warm_d_s,
+                         "images_per_s": 2 / warm_d_s, "launches": launches}
+
+    for name, path in paths.items():
+        print(f"[main] {name}: {path['images']} images, 256px, 20 DDIM steps, "
+              f"CFG 7.5, batch 2: first run {path['first_run_s']:.2f} s, "
+              f"second {path['second_run_s']:.2f} s = "
+              f"{path['images_per_s']:.3f} images/s on {card}; launches "
+              f"{path['launches']}", flush=True)
+    print(f"[main] w8a8_static images vs bf16 images, same seeds: rel L2 "
+          f"{image_rel:.4f} (tol {INT8_IMAGE_REL_L2})", flush=True)
+    # each path must have run each of its kernels
+    need = {"bf16": ("flash_attention", "fused_geglu", "fused_group_norm"),
+            "w8a8_static": ("flash_attention", "fused_w8a8_dense",
+                            "fused_geglu_w8a8", "fused_group_norm_q8"),
+            "w8a8": ("flash_attention", "fused_w8a8_dense",
+                     "fused_geglu_w8a8_pt")}
+    for name, kernels in need.items():
+        for kernel in kernels:
+            if paths[name]["launches"][kernel] <= 0:
+                raise AssertionError(f"{name} path never launched {kernel}")
+    if not image_rel <= INT8_IMAGE_REL_L2:
+        raise AssertionError(f"w8a8_static images differ from bf16 by "
+                             f"{image_rel} > {INT8_IMAGE_REL_L2}")
+
+    agreement = check_against_cpu(stack, dev, static.quant_scales)
+
+    sources = {
+        "flash_attention": ("bf16", "polyp_tpu_torch/csrc/flash_attention.cu",
+                            "polyp_tpu/ops/flash_attention.py:185"),
+        "fused_geglu": ("bf16", "polyp_tpu_torch/csrc/fused_geglu.cu",
+                        "polyp_tpu/ops/fused_geglu.py:139"),
+        "fused_group_norm": ("bf16", "polyp_tpu_torch/csrc/fused_gn.cu",
+                             "polyp_tpu/ops/fused_gn.py:136"),
+        "fused_w8a8_dense": ("w8a8_static",
+                             "polyp_tpu_torch/csrc/fused_dense.cu",
+                             "polyp_tpu/ops/fused_dense.py:97"),
+        "fused_geglu_w8a8": ("w8a8_static",
+                             "polyp_tpu_torch/csrc/fused_geglu_w8a8.cu",
+                             "polyp_tpu/ops/fused_geglu.py:256"),
+        "fused_geglu_w8a8_pt": ("w8a8",
+                                "polyp_tpu_torch/csrc/fused_geglu_w8a8.cu",
+                                "polyp_tpu/ops/fused_geglu.py:398"),
+        "fused_group_norm_q8": ("w8a8_static",
+                                "polyp_tpu_torch/csrc/fused_gn.cu",
+                                "polyp_tpu/ops/fused_gn.py:136")}
     table = []
-    for name, (source, replaces) in sources.items():
+    for name, (path, source, replaces) in sources.items():
         mine = [r for r in rows if r["name"] == name]
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": launches[name],
+                      "replaces": replaces,
+                      "launches": paths[path]["launches"][name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
                       # first row: the main path's headline shape
                       "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"]})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "checks": rows, "main_path": {
-                  "images": 4, "image_size": 256, "steps": 20, "batch": 2,
-                  "first_run_s": cold_s, "second_run_s": warm_s,
-                  "samples_per_s": 4 / warm_s, "launches": launches},
+              "checks": rows, "main_paths": paths,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -33,8 +33,16 @@ SIGNATURES = {
     "polyp_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, workspace, out, t, c, h, stream
     "polyp_fused_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, gamma, beta, y, n, c, hw, groups, eps, silu, is_bf16, stream
-    "polyp_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    # x, gamma, beta, y, n, c, hw, groups, eps, silu, is_bf16, act_scale,
+    # stream
+    "polyp_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
+    # x, x_is_int8, wq, sw, bias, act_scale, out, m, c, o, stream
+    "polyp_w8a8_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, wq1, sw1, b1, wq2, sw2, b2, act_scale1, act_scale2, workspace, out,
+    # t, c, h, stream
+    "polyp_geglu_w8a8": [_P] * 11 + [_I, _I, _I, _P],
+    # x, wq1, sw1, b1, wq2, sw2, b2, workspace, out, t, c, h, block_h, stream
+    "polyp_geglu_w8a8_pt": [_P] * 9 + [_I, _I, _I, _I, _P],
 }
 
 
@@ -96,6 +104,10 @@ def library() -> ctypes.CDLL:
     # t, c, h -> floats of fp32 workspace the GEGLU kernel needs
     lib.polyp_fused_geglu_workspace.argtypes = [_I, _I, _I]
     lib.polyp_fused_geglu_workspace.restype = ctypes.c_longlong
+    # t, c, h, block_h (0: static form) -> 4-byte elements of int8 GEGLU
+    # workspace
+    lib.polyp_geglu_w8a8_workspace.argtypes = [_I, _I, _I, _I]
+    lib.polyp_geglu_w8a8_workspace.restype = ctypes.c_longlong
     return lib
 
 

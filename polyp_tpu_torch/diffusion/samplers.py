@@ -6,14 +6,18 @@ no counterpart the port needs. Sampling runs under `torch.no_grad()`; that
 is the port's form of the reference's `ops.dispatch.inference()` scope and
 what lets the inference-only kernels (fused GEGLU, GroupNorm) run.
 
-`model_fn(x, t_batch) -> model_out` is an already-conditioned denoiser;
-`init` supplies the starting latents x_T instead of drawing them from the
-generator (the per-sample noise hook). Latents are fp32 throughout.
+`model_fn(x, t_batch) -> model_out` is an already-conditioned denoiser,
+or a segment list [(n_steps, fn), ...] covering the steps in order (the
+hybrid-precision split, pipeline.py): segment k runs its fn for its steps
+with the step index continuing, which is the same loop as one fn when every
+fn is the same. `init` supplies the starting latents x_T instead of drawing
+them from the generator (the per-sample noise hook). Latents are fp32
+throughout.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence, Union
 
 import torch
 
@@ -23,6 +27,28 @@ from polyp_tpu_torch.diffusion.schedule import (
 )
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+Segments = Sequence[tuple[int, ModelFn]]
+
+
+def _as_segments(model_fn: Union[ModelFn, Segments],
+                 num_steps: int) -> list[tuple[int, ModelFn]]:
+    """A model fn or a segment list → the segment list (reference :134-142):
+    the counts must cover `num_steps`; empty segments are dropped."""
+    if callable(model_fn):
+        return [(num_steps, model_fn)]
+    segments = [(int(n), fn) for n, fn in model_fn]
+    total = sum(n for n, _ in segments)
+    if total != num_steps:
+        raise ValueError(f"model_fn segments cover {total} steps, "
+                         f"sampler runs {num_steps}")
+    return [(n, fn) for n, fn in segments if n > 0]
+
+
+def _step_fns(model_fn: Union[ModelFn, Segments],
+              num_steps: int) -> list[ModelFn]:
+    """The fn of each step, in order."""
+    return [fn for n, fn in _as_segments(model_fn, num_steps)
+            for _ in range(n)]
 
 
 def with_cfg(raw_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -44,7 +70,8 @@ def with_cfg(raw_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
 
 
 @torch.no_grad()
-def ddim_sample(model_fn: ModelFn, schedule: DiffusionSchedule,
+def ddim_sample(model_fn: Union[ModelFn, Segments],
+                schedule: DiffusionSchedule,
                 shape: tuple[int, ...],
                 generator: torch.Generator | None = None,
                 num_steps: int = 50,
@@ -65,9 +92,10 @@ def ddim_sample(model_fn: ModelFn, schedule: DiffusionSchedule,
     abar = schedule.alphas_cumprod
     ts = inference_timesteps(schedule.num_train_timesteps, num_steps,
                              "leading", 1)
-    for i, t in enumerate(ts):
+    fns = _step_fns(model_fn, num_steps)
+    for i, (t, fn) in enumerate(zip(ts, fns)):
         abar_prev = abar[ts[i + 1]] if i + 1 < num_steps else abar[0]
-        out = model_fn(x, torch.full((x.shape[0],), t, device=x.device))
+        out = fn(x, torch.full((x.shape[0],), t, device=x.device))
         x0, eps = schedule.to_x0_eps(out, x, t)
         dir_xt = torch.sqrt(torch.clamp(1.0 - abar_prev, min=0.0)) * eps
         x = torch.sqrt(abar_prev) * x0 + dir_xt
@@ -86,7 +114,8 @@ def get_sampler(name: str) -> Callable[..., torch.Tensor]:
     return SAMPLERS[name]
 
 
-def sample(name: str, model_fn: ModelFn, schedule: DiffusionSchedule,
+def sample(name: str, model_fn: Union[ModelFn, Segments],
+           schedule: DiffusionSchedule,
            shape: tuple[int, ...], generator: torch.Generator | None,
            num_steps: int, **kwargs) -> torch.Tensor:
     return get_sampler(name)(model_fn, schedule, shape, generator,

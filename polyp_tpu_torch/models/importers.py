@@ -110,6 +110,26 @@ def vae_decoder_from_jax(params: Any) -> dict[str, torch.Tensor]:
     return _convert(keep, _BLOCK_RULES)
 
 
+def scales_from_jax(scales: dict[str, Any]) -> dict[str, Any]:
+    """polyp_tpu calibrated quantization scales ({flax layer path: float or
+    per-timestep table}, e.g. `down_0_attn_0/transformer_blocks_0/ff/
+    ff_net_0_proj`) → the port's keys (the module names, e.g.
+    `down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj`), by
+    the same rules as the weights, so both packages can run with one set of
+    scales."""
+    compiled = [(re.compile(p), r) for p, r in _BLOCK_RULES]
+    out: dict[str, Any] = {}
+    for path, val in scales.items():
+        path += "/"
+        for pat, repl in compiled:
+            path = pat.sub(repl, path)
+        key = path.rstrip("/").replace("/", ".")
+        if key in out:
+            raise KeyError(f"two scales map to {key}")
+        out[key] = val
+    return out
+
+
 def clip_text_from_jax(params: Any) -> dict[str, torch.Tensor]:
     """polyp_tpu CLIPTextModel params → the port's CLIPTextModel state dict
     (transformers CLIPTextModel keys)."""

@@ -6,6 +6,12 @@ State-dict keys are exactly diffusers' `UNet2DConditionModel` keys
 `mid_block.*`, `up_blocks.*`, ...), listed for the full model in
 tests/fixtures/manifests/sd14_unet.json. Activations run in `dtype`;
 `conv_out` runs in fp32, as in the reference (unet_condition.py:108).
+
+Under ops/quant.py's modes every QConv2d and QLinear is keyed by its
+module name (`down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj`,
+`up_blocks.1.upsamplers.0.conv`, ...): the names of calibrated scales.
+`conv_in`, `conv_out` and the time-embedding linears stay full precision,
+as in the reference (:69, :108).
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from torch import nn
 from polyp_tpu_torch.models.unet_blocks import (
     Downsample2D,
     GroupNorm,
+    QConv2d,
+    QLinear,
     ResnetBlock2D,
     TimestepEmbedding,
     Transformer2D,
@@ -117,6 +125,9 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = GroupNorm(ch[0], 32, 1e-5, "silu", device)
         self.conv_out = conv3x3(ch[0], out_channels, torch.float32, device)
+        for name, module in self.named_modules():
+            if isinstance(module, (QConv2d, QLinear)):
+                module.path = name
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,13 @@ Philox and JAX's threefry draw different noise from the same seed, so the
 two packages' samples are not identical for one seed; given the same
 initial latents (`init`) they agree to rounding
 (tests/test_torch_port_pipeline.py).
+
+int8 sampling (`quantize="w8a8_static"` or `"w8a8"`) quantizes the UNet
+only; the VAE decode stays in the stack's dtype. `quant_fp_head` /
+`quant_fp_tail` run the first / last steps in full precision (the
+hybrid-precision trajectory, `_precision_split`). w8a8_static calibrates
+its scales once per sampler on this stack's own CFG trajectory
+(diffusion/calibrate.py, disk-cached by weight fingerprint).
 """
 
 from __future__ import annotations
@@ -24,9 +31,32 @@ from PIL import Image
 from polyp_tpu_torch.diffusion import DiffusionSchedule, sample, with_cfg
 from polyp_tpu_torch.diffusion.samplers import get_sampler
 from polyp_tpu_torch.models.vae import SD_VAE_SCALING
+from polyp_tpu_torch.ops import quant
 
 # fn(batch_size, seed) -> float images in [-1, 1], NCHW
 BatchSampler = Callable[[int, int], torch.Tensor]
+
+
+def _precision_split(num_steps: int, quantize: str | None,
+                     fp_head: int = 0, fp_tail: int = 0
+                     ) -> tuple[str | None, tuple[int, int] | None]:
+    """Resolve the hybrid-precision knobs (reference :59-81): `fp_head` /
+    `fp_tail` first / final steps run full precision, the rest quantized.
+    Returns (effective mode, (head, tail) or None for no split); a head and
+    tail that cover every step drop the mode."""
+    if quantize is None or (fp_head <= 0 and fp_tail <= 0):
+        return quantize, None
+    if fp_head + fp_tail >= num_steps:
+        return None, None  # every step full precision — drop the mode
+    return quantize, (max(fp_head, 0), max(fp_tail, 0))
+
+
+def _precision_segments(q_fn, fp_fn, num_steps: int,
+                        split: tuple[int, int]) -> list:
+    """The sampler segment list of a split: fp head, quantized middle, fp
+    tail (diffusion/samplers._as_segments)."""
+    head, tail = split
+    return [(head, fp_fn), (num_steps - head - tail, q_fn), (tail, fp_fn)]
 
 
 def to_uint8(images: torch.Tensor) -> np.ndarray:
@@ -39,13 +69,21 @@ def to_uint8(images: torch.Tensor) -> np.ndarray:
 class StableDiffusionSampler:
     """StableDiffusionPipeline equivalent over the port's modules (which
     carry their weights and device). Only DDIM is ported (ROADMAP.md
-    Queue 1), so it is the default sampler here."""
+    Queue 1), so it is the default sampler here. `quantize` is None,
+    "w8a8_static" or "w8a8" (ops/quant.py)."""
 
     def __init__(self, unet, vae, text_model, tokenizer,
                  schedule: DiffusionSchedule, image_size: int = 256,
                  num_steps: int = 25, guidance_scale: float = 7.5,
-                 sampler: str = "ddim"):
+                 sampler: str = "ddim", quantize: str | None = None,
+                 quant_fp_head: int = 0, quant_fp_tail: int = 0):
         get_sampler(sampler)  # refuse an unported sampler before any work
+        if quantize not in (None, "w8a8", "w8a8_static"):
+            raise ValueError(f"unknown quantization mode: {quantize!r}")
+        self.quantize, self._split = _precision_split(
+            num_steps, quantize, quant_fp_head, quant_fp_tail)
+        self.quant_scales: dict | None = None
+        self._scale_bank: quant.ScaleBank | None = None
         self.unet = unet
         self.vae = vae
         self.text_model = text_model
@@ -74,15 +112,47 @@ class StableDiffusionSampler:
         the initial noise drawn from `generator`. Returns fp32 NCHW images
         in about [-1, 1]."""
         latent = self.image_size // 8
-        model_fn = with_cfg(self.unet, cond, uncond, self.guidance_scale)
+        self._ensure_calibrated(cond, uncond)
+
+        def unet_in(mode):
+            def raw(x, t, emb):
+                # the UNet alone is quantized; the decode below is not
+                with quant.override(mode, scales=self._scale_bank, t=t):
+                    return self.unet(x, t, emb)
+            return with_cfg(raw, cond, uncond, self.guidance_scale)
+
+        model_fn = unet_in(self.quantize)
+        if self._split is not None:
+            model_fn = _precision_segments(model_fn, unet_in(None),
+                                           self.num_steps, self._split)
         latents = sample(self.sampler, model_fn, self.schedule,
                          (batch_size, 4, latent, latent), generator,
                          self.num_steps, init=init)
         return self.vae.decode(latents / SD_VAE_SCALING)
 
+    def _ensure_calibrated(self, cond: torch.Tensor,
+                           uncond: torch.Tensor) -> None:
+        """w8a8_static's one-time calibration on this stack's own CFG
+        trajectory over min(8, num_steps) points (reference :303-324);
+        reused for every prompt and cached on disk by weight fingerprint."""
+        if self.quantize != "w8a8_static" or self._scale_bank is not None:
+            return
+        from polyp_tpu_torch.diffusion.calibrate import ensure_scales
+        latent = self.image_size // 8
+        self.quant_scales = ensure_scales(
+            self.unet, self.schedule, (2, 4, latent, latent), cond[:1],
+            uncond[:1], num_steps=min(8, self.num_steps),
+            guidance_scale=self.guidance_scale,
+            fingerprint_extras=(self.image_size,
+                                self.schedule.num_train_timesteps,
+                                self.guidance_scale,
+                                self.schedule.prediction_type))
+        self._scale_bank = quant.ScaleBank(self.quant_scales)
+
     def for_prompt(self, prompt: str) -> BatchSampler:
         cond = self.encode_prompt(prompt)
         uncond = self.encode_prompt("")
+        self._ensure_calibrated(cond, uncond)
 
         def sampler_fn(batch_size: int, seed: int) -> torch.Tensor:
             gen = torch.Generator(self.device).manual_seed(seed)

@@ -1,6 +1,8 @@
 """polyp_tpu_torch's CUDA kernels against their plain PyTorch versions, on
 the card, at shapes the main path does not reach: every head dim, ragged
-token counts, narrow widths, odd spatial sizes, fp32 GroupNorm.
+token counts, narrow widths, odd spatial sizes, fp32 GroupNorm, and the
+int8 kernels (W8A8 dense, static and per-token GEGLU, the GroupNorm int8
+epilogue) at main-path and ragged shapes.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. This file
 imports no JAX, so it runs on a machine without it:
@@ -20,8 +22,9 @@ from __future__ import annotations
 import pytest
 import torch
 
+from polyp_tpu_torch.ops import fused_dense as fd
 from polyp_tpu_torch.ops import fused_geglu as fg
-from polyp_tpu_torch.ops import fused_gn
+from polyp_tpu_torch.ops import fused_gn, quant
 from polyp_tpu_torch.ops.attention import dot_product_attention
 from polyp_tpu_torch.ops.flash_attention import (
     SUPPORTED_HEAD_DIMS,
@@ -145,3 +148,131 @@ def test_group_norm_matches_plain(dev, dtype, rel, n, c, h, w, act):
     assert fused_gn.fused_group_norm.launches == before + 1
     assert got.dtype == dtype
     assert _max_err(got, want) <= rel * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# int8 (W8A8) kernels against their plain versions, which run on the CPU on
+# the same inputs (exact int32 sums; torch._int_mm's CUDA shape rules do not
+# apply there). The kernels return bf16, which rounds at 2^-9 relative, and
+# may break a rounding tie of a quantized intermediate the other way (one
+# code): held to relative L2 4e-3 and max |err| ≤ 2^-6 · max |y|. The
+# GroupNorm epilogue's codes: at most one apart, in at most 0.2% of the
+# elements (its y differs from the plain version's in the last bits: __expf,
+# summation order).
+# ---------------------------------------------------------------------------
+
+
+def _q8_close(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 4e-3, rel
+    assert _max_err(got, want) <= 2 ** -6 * want.abs().max().item()
+
+
+def _amax_scale(x):
+    return (x.float().abs().amax() * 1.05 / 127).reshape(())
+
+
+@pytest.mark.parametrize("m,c,o", [(4096, 320, 320), (308, 768, 320),
+                                   (1024, 640, 640), (5, 64, 72),
+                                   (130, 1280, 1280)])
+@pytest.mark.parametrize("int8_in", [False, True])
+def test_w8a8_dense_matches_plain(dev, m, c, o, int8_in):
+    x = _randn(dev, m, c, seed=1)
+    wq, sw = quant.weight_q8_matrix(_randn(dev, o, c, scale=c ** -0.5,
+                                           seed=2))
+    bias = _randn(dev, o, scale=0.1, seed=3)
+    s = _amax_scale(x)
+    if int8_in:
+        x = quant.quantize_activation(x, s)[0]
+    before = fd.fused_w8a8_dense.launches
+    with torch.no_grad():
+        got = fd.fused_w8a8_dense(x, wq, sw, bias, s,
+                                  out_dtype=torch.bfloat16)
+    want = fd.reference_w8a8_dense(*(t.cpu() for t in (x, wq, sw, bias, s)),
+                                   out_dtype=torch.float32)
+    assert fd.fused_w8a8_dense.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, o)
+    _q8_close(got, want)
+
+
+def _q8_geglu_case(dev, t, c, h):
+    x = _randn(dev, 1, t, c, seed=1)
+    w1 = _randn(dev, 2 * h, c, scale=c ** -0.5, seed=2)
+    b1 = _randn(dev, 2 * h, scale=0.1, seed=3)
+    w2 = _randn(dev, c, h, scale=h ** -0.5, seed=4)
+    b2 = _randn(dev, c, scale=0.1, seed=5)
+    q1, q2 = quant.weight_q8_matrix(w1), quant.weight_q8_matrix(w2)
+    return x, (*q1, b1, *q2, b2), (w1, b1, w2, b2)
+
+
+# the static form halves its split of 256 hidden units down to 64 when T
+# is small; the per-token form takes one reference group (block_h) per
+# block: 640 at C=320, 512 at 640/1280, the whole hidden at C=64
+@pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
+                                   (4096, 320, 1280), (64, 1280, 5120),
+                                   (300, 640, 2560)])
+def test_geglu_w8a8_matches_plain(dev, t, c, h):
+    x, weights, (w1, b1, w2, b2) = _q8_geglu_case(dev, t, c, h)
+    s1 = _amax_scale(x)
+    a, gate = torch.nn.functional.linear(x.float(), w1.float(),
+                                         b1.float()).chunk(2, dim=-1)
+    s2 = _amax_scale(a * torch.nn.functional.gelu(gate))
+    before = fg.fused_geglu_w8a8.launches
+    with torch.no_grad():
+        got = fg.fused_geglu_w8a8(x, *weights, s1, s2)
+    want = fg.reference_geglu_w8a8(*(w.cpu() for w in (x, *weights, s1, s2)),
+                                   out_dtype=torch.float32)
+    assert fg.fused_geglu_w8a8.launches == before + 1
+    assert got.shape == x.shape
+    _q8_close(got, want)
+
+
+@pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
+                                   (64, 1280, 5120), (300, 640, 2560)])
+def test_geglu_w8a8_pt_matches_plain(dev, t, c, h):
+    x, weights, _ = _q8_geglu_case(dev, t, c, h)
+    before = fg.fused_geglu_w8a8_pt.launches
+    with torch.no_grad():
+        got = fg.fused_geglu_w8a8_pt(x, *weights)
+    want = fg.reference_geglu_w8a8_pt(*(w.cpu() for w in (x, *weights)),
+                                      out_dtype=torch.float32)
+    assert fg.fused_geglu_w8a8_pt.launches == before + 1
+    _q8_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c,h,w,act", [(4, 320, 32, 32, "silu"),
+                                         (1, 48, 7, 5, None),
+                                         (4, 2560, 4, 4, "silu")])
+def test_group_norm_q8_matches_plain(dev, dtype, n, c, h, w, act):
+    x = _randn(dev, n, c, h, w, scale=2.0, shift=0.3, dtype=dtype)
+    gamma = _randn(dev, c, scale=0.5, shift=1.0, dtype=torch.float32)
+    beta = _randn(dev, c, scale=0.2, dtype=torch.float32)
+    y = fused_gn.group_norm(x.float(), gamma, beta, 32, 1e-5, act)
+    s = _amax_scale(y)
+    before = fused_gn.fused_group_norm.launches
+    with torch.no_grad():
+        got = fused_gn.fused_group_norm(x, gamma, beta, 32, 1e-5, act,
+                                        act_scale=s)
+    want = fused_gn.reference_gn_q8(x, gamma, beta, s, 32, 1e-5, act)
+    assert fused_gn.fused_group_norm.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 2e-3
+
+
+def test_int8_kernels_refuse_what_they_cannot_do(dev):
+    x = _randn(dev, 40, 72)  # C not a multiple of 16
+    wq, sw = quant.weight_q8_matrix(_randn(dev, 64, 72))
+    with pytest.raises(ValueError, match="C % 16"):
+        fd.fused_w8a8_dense(x, wq, sw, None, _amax_scale(x))
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        fd.fused_w8a8_dense(x.float(), wq, sw, None, _amax_scale(x))
+    with pytest.raises(ValueError, match="fp32 on x's device"):
+        fd.fused_w8a8_dense(_randn(dev, 40, 64), *quant.weight_q8_matrix(
+            _randn(dev, 64, 64)), None, torch.tensor(0.1))
+    with pytest.raises(ValueError, match="M > 16"):
+        quant.int_mm(torch.zeros(8, 64, dtype=torch.int8, device=dev),
+                     torch.zeros(64, 64, dtype=torch.int8, device=dev))
