@@ -7,41 +7,60 @@ Phases; any failure raises and exits non-zero, and no phase's failure is
 caught:
 
 1. a CUDA card is required; prints its name and power limit (nvidia-smi);
-2. builds the hand-written kernels from polyp_tpu_torch/csrc/ and prints
-   the build seconds;
-3. holds each kernel against its plain PyTorch version at the main paths'
-   shapes, measured against the plain version in fp32 on the same inputs,
-   and prints both times from CUDA events: flash attention, fused GEGLU and
-   GroupNorm+SiLU in bf16 (tolerance in TOLERANCE); the int8 kernels — the
-   W8A8 dense, the static and the per-token int8 GEGLU — by relative L2
-   and max error (Q8_REL_L2, Q8_MAX_REL), and GroupNorm's int8 epilogue by
-   the share of codes that differ (at most one code, in at most
-   GN_Q8_SHARE of the elements);
+2. builds the hand-written kernels from polyp_tpu_torch/csrc/ (one nvcc
+   per source, all at once) and prints the build seconds;
+3. holds each kernel against its plain PyTorch version at the shapes each
+   main path gives it (the CFG batch 4 and the distilled batches 16 and
+   32), measured against the plain version in fp32 on the same inputs,
+   and prints both times from CUDA events beside the kernel's bound (the
+   larger of its bytes over the memory rate and its operations over the
+   peak of their type) and, where one PyTorch call computes the same
+   function, that call's time (`library_ms`, timed here only): flash
+   attention, the fused MHA block (also beside the port's unfused path),
+   fused GEGLU and GroupNorm+SiLU in bf16 (tolerance in TOLERANCE); the
+   int8 kernels — the W8A8 dense, the static and the per-token int8 GEGLU —
+   by relative L2 and max error (Q8_REL_L2, Q8_MAX_REL), and GroupNorm's
+   int8 epilogue by the share of codes that differ (at most one code, in
+   at most GN_Q8_SHARE of the elements);
 4. drives the main paths on the full-width SD-v1-4 stack (UNet 859,520,964
    params, VAE decoder, CLIP ViT-L/14 text encoder; bf16, random weights
-   from seed 0) through StableDiffusionSampler (256px, 20 DDIM steps, CFG
-   7.5) and generate_to_dir, with every launch count set to 0 just before
-   each path and read just after it:
-   - bf16: 4 images at batch 2;
-   - w8a8_static with a 5-step bf16 head: calibration (its seconds and
-     layer count printed), then 4 images at batch 2, from the same seeds
-     as the bf16 images, whose relative L2 against them must be ≤
-     INT8_IMAGE_REL_L2;
-   - dynamic w8a8: one batch of 2 images.
+   from seed 0) through generate_to_dir, each twice (first run through
+   for_prompt, counted, with every launch count set to 0 just before it
+   and read just after; second run timed, its sampling loops and decodes
+   timed apart):
+   - StableDiffusionSampler at 256px, 20 DDIM steps, CFG 7.5, batch 2:
+     bf16 (4 images); w8a8_static with a 5-step bf16 head (calibration
+     seconds and layer count printed; 4 images, held within
+     INT8_IMAGE_REL_L2 of the bf16 images of the same seeds); dynamic
+     w8a8 (2 images);
+   - the distilled path, make_student_sampler over the same UNet (folded
+     guidance, trailing DDIM grid): bf16 with fused_mha=True, 8 steps,
+     batch 16, full VAE decode (16 images; exactly 40 fused MHA launches,
+     no flash), the same with fused_mha=False (held within
+     FUSED_IMAGE_REL_L2 of the fused images); bf16, 4 steps, batch 32,
+     tiny decoder (32 images); w8a8_static with no bf16 head, calibrated
+     on the folded trajectory, 4 steps, batch 32, tiny decoder (held
+     within INT8_IMAGE_REL_L2 of the bf16 4-step images);
    Each requires finite images, PNGs of 256×256×3, and a launch count
    above zero for each kernel that path runs; images/s of each path are
-   printed side by side;
-5. holds one bf16 UNet forward and one VAE decode on the card (kernels)
-   against the same weights run on the CPU in fp32 (plain versions), by
-   relative L2 error; and one w8a8_static UNet forward (the calibrated
-   scales) layer by layer: every quantized layer it ran (convs, linears,
-   feed-forwards, GroupNorm int8 epilogues) is re-run on the CPU in fp32
-   from the card's own input to that layer and must agree within
-   LAYER_REL_L2 (codes within GN_Q8_SHARE); the whole int8 forward must
-   stay within INT8_FORWARD_NOISE times the CPU's own int8-vs-fp32
-   distance (see there);
-6. prints the kernel table as one JSON line, the card line, and last the
-   result line {"ok": true, "device": {...}}.
+   printed side by side, beside the UNet-only and decode-only seconds and
+   the decode share; torch.profiler gives the device time of one sampling
+   loop of the fused and the unfused distilled bf16 paths;
+5. holds one tiny-decoder forward on the card against the same weights in
+   fp32 on the CPU, one bf16 UNet forward and one VAE decode on the card
+   (kernels) against the same weights run on the CPU in fp32 (plain
+   versions), by relative L2 error (REL_L2_TOLERANCE); and one
+   w8a8_static UNet forward (the calibrated scales) layer by layer: every
+   quantized layer it ran (convs, linears, feed-forwards, GroupNorm int8
+   epilogues) is re-run on the CPU in fp32 from the card's own input to
+   that layer and must agree within LAYER_REL_L2 (codes within
+   GN_Q8_SHARE); the whole int8 forward must stay within
+   INT8_FORWARD_NOISE times the CPU's own int8-vs-fp32 distance (see
+   there);
+6. prints the kernel table (all eight kernel entries, with launches on
+   the main path that runs each) as one JSON line, the card line, and
+   last the result line {"ok": true, "device": {...}}. Each phase's
+   seconds are printed as it ends ("[time]").
 
 TF32 is off for every comparison. Details of each check go to
 chiprun_out/chip_smoke.json.
@@ -49,6 +68,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -67,7 +87,14 @@ SD14_UNET_PARAMS = 859_520_964
 # and the GEGLU also rounds its hidden activation to bf16 before the second
 # product, as the TPU kernel does. A wrong tile or mask gives O(1) errors.
 TOLERANCE = {"flash_attention": 2e-2, "fused_geglu": 6e-2,
-             "fused_group_norm": 6e-2}
+             "fused_group_norm": 6e-2, "fused_mha": 2e-2}
+# ... except the fused MHA block, whose tolerance is relative to max |y|:
+# its outputs are small here (max |y| about 0.4: attention over 1024
+# near-uniform keys averages V down), and it rounds Q (after the scale),
+# K, V, the probabilities, each head's output and the result to bf16
+# (2^-9 relative each), as the plain bf16 version does. A wrong tile,
+# mask or head column gives O(1) of max |y|.
+RELATIVE_TO_MAX = {"fused_mha"}
 # int8 kernels vs their plain version's fp32 result on the same inputs: the
 # kernels round their output to bf16 (2^-9 relative), and an int8 code of an
 # intermediate (the GEGLU's h) may break a rounding tie the other way. A
@@ -90,8 +117,22 @@ LAYER_REL_L2 = 5e-3
 # the CPU's own int8-vs-fp32 distance; a broken path gives O(1).
 INT8_FORWARD_NOISE = 2.0
 # w8a8_static (+ 5-step bf16 head) images vs the bf16 images of the same
-# seeds; a wrong scale or code path gives O(1)
+# seeds; a wrong scale or code path gives O(1). The distilled w8a8_static
+# images (4 steps, no bf16 head) are held to the same bound against the
+# bf16 4-step images through the same decoder.
 INT8_IMAGE_REL_L2 = 0.15
+# distilled bf16 images through the fused MHA kernel vs the same seeds
+# through the unfused path (projections + flash kernel): the same math with
+# bf16 rounding at other places (Q is scaled before its rounding, the heads'
+# outputs are summed inside one product), carried through 8 steps and the
+# VAE decode. A wrong kernel gives O(1).
+FUSED_IMAGE_REL_L2 = 5e-2
+
+# the card's peak rates (NVIDIA's H100 SXM data sheet, dense): the least
+# time for a kernel's work is the larger of its bytes over the memory rate
+# and its operations over the peak of their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -107,51 +148,82 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of distinct tensors (a tensor passed twice counts once)."""
+    seen = {id(t): t for t in tensors if t is not None}
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
+def bound(ops: float, kind: str, n_bytes: int) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the peak
+    of their type, whichever is longer."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_ops": ops, "bound_bytes": n_bytes}
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float().cpu(), b.float().cpu()
     return ((a - b).norm() / b.norm()).item()
 
 
 def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
-            shape: str) -> dict:
+            shape: str, cost: dict, library_fn=None, **others) -> dict:
+    """A bf16 kernel vs its plain version's fp32 result; times the kernel,
+    the plain version, `library_fn` (one PyTorch call computing the same
+    function, timed only here) and any `others`; `cost` is bound()'s."""
     out = kernel_fn()
     torch.cuda.synchronize()
     err = (out.float() - fp32_ref).abs().max().item()
     plain_err = (plain_fn().float() - fp32_ref).abs().max().item()
+    tol = TOLERANCE[name] * (fp32_ref.abs().max().item()
+                             if name in RELATIVE_TO_MAX else 1.0)
     row = {"name": name, "shape": shape, "max_abs_err": err,
-           "plain_bf16_max_abs_err": plain_err, "tolerance": TOLERANCE[name],
-           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn)}
+           "plain_bf16_max_abs_err": plain_err, "tolerance": tol,
+           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+           "library_ms": time_ms(library_fn) if library_fn else None,
+           **{f"{k}_ms": time_ms(fn) for k, fn in others.items()}, **cost}
+    extra = "".join(f", {k} {row[f'{k}_ms']:.4f} ms"
+                    for k in (["library"] if library_fn else []) + list(others))
     print(f"[check] {name} {shape}: max|err| {err:.3e} (plain bf16 "
-          f"{plain_err:.3e}, tol {TOLERANCE[name]:.0e}); kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms", flush=True)
-    if not err <= TOLERANCE[name]:
+          f"{plain_err:.3e}, tol {tol:.1e}); kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms{extra}, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    if not err <= tol:
         raise AssertionError(f"{name} {shape}: kernel disagrees with its "
-                             f"plain version: {err} > {TOLERANCE[name]}")
+                             f"plain version: {err} > {tol}")
     return row
 
 
 def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
-               shape: str) -> dict:
+               shape: str, cost: dict) -> dict:
     """An int8 kernel (bf16 out) vs its plain version's fp32 result."""
     out = kernel_fn()
     torch.cuda.synchronize()
     err = (out.float() - fp32_ref).abs().max().item()
     rel = rel_l2(out, fp32_ref)
-    bound = Q8_MAX_REL * fp32_ref.abs().max().item()
+    tol = Q8_MAX_REL * fp32_ref.abs().max().item()
     row = {"name": name, "shape": shape, "max_abs_err": err,
-           "max_abs_tolerance": bound, "rel_l2": rel,
+           "max_abs_tolerance": tol, "rel_l2": rel,
            "rel_l2_tolerance": Q8_REL_L2,
-           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn)}
+           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+           "library_ms": None, **cost}
     print(f"[check] {name} {shape}: rel L2 {rel:.3e} (tol {Q8_REL_L2:.0e}), "
-          f"max|err| {err:.3e} (tol {bound:.3e}); kernel {row['ms']:.4f} ms,"
-          f" plain {row['plain_ms']:.4f} ms", flush=True)
-    if not (rel <= Q8_REL_L2 and err <= bound):
+          f"max|err| {err:.3e} (tol {tol:.3e}); kernel {row['ms']:.4f} ms,"
+          f" plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    if not (rel <= Q8_REL_L2 and err <= tol):
         raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                              f"plain version: rel L2 {rel}, max {err}")
     return row
 
 
 def check_kernels(dev: torch.device) -> list[dict]:
+    import torch.nn.functional as F
+
     from polyp_tpu_torch.ops import quant
     from polyp_tpu_torch.ops.fused_dense import (
         fused_w8a8_dense, reference_w8a8_dense)
@@ -162,6 +234,8 @@ def check_kernels(dev: torch.device) -> list[dict]:
         reference_geglu_w8a8, reference_geglu_w8a8_pt)
     from polyp_tpu_torch.ops.fused_gn import (
         fused_group_norm, group_norm, reference_gn_q8)
+    from polyp_tpu_torch.ops.fused_mha import (
+        fused_mha_linear, reference_mha_linear)
 
     g = torch.Generator(dev).manual_seed(0)
 
@@ -172,51 +246,121 @@ def check_kernels(dev: torch.device) -> list[dict]:
     def amax_scale(t):
         return (t.float().abs().amax() * 1.05 / 127).reshape(())
 
-    rows = []
-    # level-0 self-attention at 256px, batch 2 under CFG: [4, 1024, 8, 40]
-    q, k, v = (randn(4, 1024, 8, 40) for _ in range(3))
-    rows.append(compare(
-        "flash_attention", lambda: flash_attention(q, k, v),
-        lambda: reference_attention(q, k, v),
-        reference_attention(q.float(), k.float(), v.float()),
-        "[4,1024,8,40]"))
+    def sdpa(q, k, v):  # BTHD in and out, as the port's attention
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2)).transpose(1, 2)
 
-    # transformer FF per UNet level (tokens = 4 x H x W at 256px) and mid,
-    # in bf16 and in both int8 forms
-    for c, tokens in ((320, 4096), (640, 1024), (1280, 256), (1280, 64)):
-        h = 4 * c
-        x = randn(4, tokens // 4, c)
+    rows = []
+    # level-0 self-attention at 256px: [4, 1024, 8, 40] for batch 2 under
+    # CFG (the headline row), and the distilled batches 16 (unfused) and
+    # 32 (w8a8_static); q, k, v read once and one output of q's size
+    for n in (4, 16, 32):
+        q, k, v = (randn(n, 1024, 8, 40) for _ in range(3))
+        rows.append(compare(
+            "flash_attention", lambda: flash_attention(q, k, v),
+            lambda: reference_attention(q, k, v),
+            reference_attention(q.float(), k.float(), v.float()),
+            f"[{n},1024,8,40]",
+            bound(4 * n * 8 * 1024 * 1024 * 40, "bf16",
+                  nbytes(q, k, v) + nbytes(q)),
+            library_fn=lambda: sdpa(q, k, v)))
+
+    # the fused MHA block, on nn.Linear weights as the UNet calls it: the
+    # distilled batches 16 (its headline row) and 32, the CFG batch, 512px
+    # levels 0 and 1, and the 77-token ragged KV. Beside
+    # the kernel: the port's unfused path (cuBLAS projections + the flash
+    # kernel) and, timed only here, four F.linear + SDPA
+    for b, tq, c, tk, ckv, d in ((16, 1024, 320, None, 320, 40),
+                                 (32, 1024, 320, None, 320, 40),
+                                 (4, 1024, 320, None, 320, 40),
+                                 (2, 4096, 320, None, 320, 40),
+                                 (4, 1024, 640, None, 640, 80),
+                                 (4, 1024, 320, 77, 768, 40)):
+        h, co = 8, c
+        x = randn(b, tq, c)
+        ctx = x if tk is None else randn(b, tk, ckv)
+        tk = ctx.shape[1]
+        w = (randn(h * d, c, scale=c ** -0.5),
+             randn(h * d, ckv, scale=ckv ** -0.5),
+             randn(h * d, ckv, scale=ckv ** -0.5),
+             randn(co, h * d, scale=(h * d) ** -0.5))
+
+        def heads(t):
+            return t.view(t.shape[0], t.shape[1], h, d)
+
+        def unfused(attend):
+            o = attend(heads(F.linear(x, w[0])), heads(F.linear(ctx, w[1])),
+                       heads(F.linear(ctx, w[2])))
+            return F.linear(o.reshape(b, tq, h * d), w[3])
+
+        ops = 2 * b * (tq * c + 2 * tk * ckv + tq * co) * h * d \
+            + 4 * b * h * tq * tk * d
+        rows.append(compare(
+            "fused_mha",
+            lambda: fused_mha_linear(x, ctx, *w, num_heads=h, head_dim=d),
+            lambda: reference_mha_linear(x, ctx, *w, num_heads=h,
+                                         head_dim=d),
+            reference_mha_linear(x.float(), ctx.float(),
+                                 *(t.float() for t in w), num_heads=h,
+                                 head_dim=d),
+            f"x[{b},{tq},{c}] ctx[{b},{tk},{ckv}] {h}x{d}",
+            bound(ops, "bf16", nbytes(x, ctx, *w) + 2 * b * tq * co),
+            library_fn=lambda: unfused(sdpa),
+            unfused=lambda: unfused(flash_attention)))
+
+    # transformer FF per UNet level and mid (1024, 256, 64 and 16 tokens an
+    # image at 256px): bf16 at the CFG batch 4 (the headline rows) and the
+    # distilled batches 16 and 32; the static int8 GEGLU at 4 and 32 (the
+    # w8a8_static paths), the per-token one at 4 (dynamic w8a8 runs only
+    # under CFG)
+    for n, c, per_image in ((n, c, t) for n in (4, 16, 32)
+                            for c, t in ((320, 1024), (640, 256),
+                                         (1280, 64), (1280, 16))):
+        h, tokens = 4 * c, n * per_image
+        x = randn(n, per_image, c)
         w1, b1 = randn(2 * h, c, scale=c ** -0.5), randn(2 * h, scale=0.1)
         w2, b2 = randn(c, h, scale=h ** -0.5), randn(c, scale=0.1)
         args = (x, w1, b1, w2, b2)
         shape = f"[{tokens},{c}]x[{c},{2 * h}]"
+        ops = 6 * tokens * c * h
         rows.append(compare(
             "fused_geglu", lambda: fused_geglu(*args),
             lambda: reference_geglu(*args),
-            reference_geglu(*(t.float() for t in args)), shape))
+            reference_geglu(*(t.float() for t in args)), shape,
+            bound(ops, "bf16", 2 * nbytes(x) + nbytes(w1, b1, w2, b2))))
+        if n == 16:
+            continue
         q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2),
               b2)
         s1 = amax_scale(x)
         a, gate = torch.nn.functional.linear(
             x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
         s2 = amax_scale(a * torch.nn.functional.gelu(gate))
+        q8_cost = bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8, s1, s2))
         rows.append(compare_q8(
             "fused_geglu_w8a8", lambda: fused_geglu_w8a8(x, *q8, s1, s2),
             lambda: reference_geglu_w8a8(x, *q8, s1, s2),
             reference_geglu_w8a8(x, *q8, s1, s2, out_dtype=torch.float32),
-            shape))
+            shape, q8_cost))
+        if n != 4:
+            continue
         rows.append(compare_q8(
             "fused_geglu_w8a8_pt", lambda: fused_geglu_w8a8_pt(x, *q8),
             lambda: reference_geglu_w8a8_pt(x, *q8),
-            reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape))
+            reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape,
+            bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8))))
 
-    # W8A8 dense: to_q at level 0, cross-attention to_k (4 x 77 tokens of
-    # 768), and proj_in at level 1 (bf16 in, and int8 in from the GroupNorm
-    # handoff)
-    for m, c, o, int8_in, what in ((4096, 320, 320, False, "to_q"),
-                                   (308, 768, 320, False, "to_k"),
-                                   (1024, 640, 640, False, "proj_in"),
-                                   (1024, 640, 640, True, "proj_in int8")):
+    # W8A8 dense at the w8a8_static batches 4 (CFG) and 32 (distilled):
+    # to_q at level 0, cross-attention to_k (77 tokens of 768 an image), and
+    # proj_in at level 1 (bf16 in, and int8 in from the GroupNorm handoff)
+    for n, per_image, c, o, int8_in, what in (
+            (n, *case) for n in (4, 32)
+            for case in ((1024, 320, 320, False, "to_q"),
+                         (77, 768, 320, False, "to_k"),
+                         (256, 640, 640, False, "proj_in"),
+                         (256, 640, 640, True, "proj_in int8"))):
+        m = n * per_image
         x = randn(m, c)
         wq, sw = quant.weight_q8_matrix(randn(o, c, scale=c ** -0.5))
         bias = randn(o, scale=0.1)
@@ -230,14 +374,21 @@ def check_kernels(dev: torch.device) -> list[dict]:
             lambda: reference_w8a8_dense(*dense_args,
                                          out_dtype=torch.bfloat16),
             reference_w8a8_dense(*dense_args, out_dtype=torch.float32),
-            f"{what} [{m},{c}]x[{c},{o}]"))
+            f"{what} [{m},{c}]x[{c},{o}]",
+            bound(2 * m * c * o, "int8", nbytes(*dense_args) + 2 * m * o)))
 
-    # GN+SiLU: UNet level widths (incl. the up path's concat widths) and the
-    # VAE decoder's largest tensor; the int8 epilogue at the UNet's widths
-    for n, c, hw, eps in ((4, 320, 32, 1e-5), (4, 960, 32, 1e-5),
-                          (4, 640, 16, 1e-5), (4, 1280, 8, 1e-5),
-                          (4, 2560, 4, 1e-5), (2, 512, 32, 1e-6),
-                          (2, 128, 256, 1e-6)):
+    # GN+SiLU: UNet level widths (incl. the up path's concat widths) at the
+    # batches 4 (CFG), 16 and 32 (distilled), and the VAE decoder's widest
+    # and largest tensors at the VAE's batches 2 (CFG) and 16 (distilled);
+    # the int8 epilogue at the UNet's widths at the w8a8_static batches 4
+    # and 32. About 10 fp32 operations an element (two sums, normalise,
+    # affine, SiLU): bound by bytes by far.
+    unet_gn = ((320, 32), (960, 32), (640, 16), (1280, 8), (2560, 4))
+    vae_gn = ((512, 32), (128, 256))
+    for n, c, hw, eps in ([(n, c, hw, 1e-5) for n in (4, 16, 32)
+                           for c, hw in unet_gn]
+                          + [(n, c, hw, 1e-6) for n in (2, 16)
+                             for c, hw in vae_gn]):
         x = randn(n, c, hw, hw, scale=2.0, shift=0.3)
         gamma = randn(c, scale=0.1, shift=1.0).float()
         beta = randn(c, scale=0.1).float()
@@ -246,9 +397,11 @@ def check_kernels(dev: torch.device) -> list[dict]:
             "fused_group_norm",
             lambda: fused_group_norm(x, gamma, beta, 32, eps, "silu"),
             lambda: group_norm(x, gamma, beta, 32, eps, "silu"),
-            group_norm(x.float(), gamma, beta, 32, eps, "silu"), shape))
-        if n != 4:
-            continue  # the VAE is not quantized
+            group_norm(x.float(), gamma, beta, 32, eps, "silu"), shape,
+            bound(10 * x.numel(), "fp32", 2 * nbytes(x) + nbytes(gamma,
+                                                                   beta))))
+        if eps != 1e-5 or n == 16:
+            continue  # the VAE is not quantized, nor any batch-16 path
         s = amax_scale(group_norm(x.float(), gamma, beta, 32, eps, "silu"))
         got = fused_group_norm(x, gamma, beta, 32, eps, "silu", act_scale=s)
         want = reference_gn_q8(x, gamma, beta, s, 32, eps, "silu")
@@ -260,11 +413,15 @@ def check_kernels(dev: torch.device) -> list[dict]:
                "ms": time_ms(lambda: fused_group_norm(
                    x, gamma, beta, 32, eps, "silu", act_scale=s)),
                "plain_ms": time_ms(lambda: reference_gn_q8(
-                   x, gamma, beta, s, 32, eps, "silu"))}
+                   x, gamma, beta, s, 32, eps, "silu")),
+               "library_ms": None,
+               **bound(12 * x.numel(), "fp32",
+                       nbytes(x, gamma, beta, s) + x.numel())}
         print(f"[check] fused_group_norm_q8 {shape}: codes differing "
               f"{row['codes_differing']:.3e} (tol {GN_Q8_SHARE:.0e}), max "
               f"{row['max_abs_err']} code; kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms", flush=True)
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
         if row["max_abs_err"] > 1 or row["codes_differing"] > GN_Q8_SHARE:
             raise AssertionError(f"GroupNorm int8 epilogue {shape}: {row}")
         rows.append(row)
@@ -385,15 +542,55 @@ def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
     return out
 
 
-def run_path(sampler, out_dir: Path, n_images: int, batch: int
+def check_tiny_decoder(tiny, dev: torch.device) -> float:
+    """One tiny-decoder forward on the card (bf16 convs) vs the same
+    converted weights in fp32 on the CPU, from the same scaled latents."""
+    from polyp_tpu_torch.models.tiny_decoder import load_tiny_decoder
+
+    cpu, _ = load_tiny_decoder(dtype=torch.float32, device="cpu")
+    z = torch.randn(2, 4, 32, 32, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        got, want = tiny(z.to(dev)), cpu(z)
+    rel = rel_l2(got, want)
+    print(f"[check] tiny decoder, card bf16 vs cpu fp32 on [2,4,32,32] "
+          f"latents: rel L2 {rel:.3e} (tol {REL_L2_TOLERANCE:.0e})",
+          flush=True)
+    if not (got.shape == (2, 3, 256, 256) and rel <= REL_L2_TOLERANCE):
+        raise AssertionError(f"tiny decoder {tuple(got.shape)}: rel L2 {rel}")
+    return rel
+
+
+def split_timed(sampler, spent: dict):
+    """The batch function of `sampler.for_prompt(PROMPT)` (the sampling
+    loop, then the decode), with the two timed apart on synchronised host
+    clocks and added to spent["unet_s"] and spent["decode_s"], as
+    bench.py::bench_distilled splits them."""
+    cond = sampler.encode_prompt(PROMPT)
+    uncond = sampler.encode_prompt("")
+
+    def fn(batch_size: int, seed: int) -> torch.Tensor:
+        gen = torch.Generator(sampler.device).manual_seed(seed)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        z = sampler.denoise(cond, uncond, batch_size, gen)
+        torch.cuda.synchronize()
+        mid = time.perf_counter()
+        images = sampler.decode(z)
+        torch.cuda.synchronize()
+        spent["unet_s"] += mid - start
+        spent["decode_s"] += time.perf_counter() - mid
+        return images
+    return fn
+
+
+def run_path(fn, out_dir: Path, n_images: int, batch: int
              ) -> tuple[float, torch.Tensor]:
-    """generate_to_dir of `n_images` from seed 0; checks the images and
-    PNGs, returns (seconds, images)."""
+    """generate_to_dir of `n_images` from seed 0 through the batch function
+    `fn`; checks the images and PNGs, returns (seconds, images)."""
     from PIL import Image
 
     from polyp_tpu_torch.pipeline import generate_to_dir
 
-    fn = sampler.for_prompt(PROMPT)
     kept = []
 
     def checked(batch_size: int, seed: int) -> torch.Tensor:
@@ -434,11 +631,22 @@ def main() -> int:
     from polyp_tpu_torch.ops.fused_geglu import (
         fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt)
     from polyp_tpu_torch.ops.fused_gn import fused_group_norm
+    from polyp_tpu_torch.cli.distill_sd import make_student_sampler
+    from polyp_tpu_torch.models.tiny_decoder import load_tiny_decoder
+    from polyp_tpu_torch.ops.fused_mha import fused_mha
     from polyp_tpu_torch.pipeline import StableDiffusionSampler
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    phases, clock = {}, [time.perf_counter()]
+
+    def phase(name: str) -> None:
+        """Seconds since the last phase ended (host clock)."""
+        now = time.perf_counter()
+        phases[name], clock[0] = now - clock[0], now
+        print(f"[time] {name}: {phases[name]:.1f} s", flush=True)
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -456,6 +664,7 @@ def main() -> int:
     for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
+    phase("card and build")
 
     # each row's launch count: its wrapper's counter, read after the path
     # that runs it; the GN epilogue has a counter of its own
@@ -466,7 +675,8 @@ def main() -> int:
         "fused_w8a8_dense": (fused_w8a8_dense, "launches"),
         "fused_geglu_w8a8": (fused_geglu_w8a8, "launches"),
         "fused_geglu_w8a8_pt": (fused_geglu_w8a8_pt, "launches"),
-        "fused_group_norm_q8": (fused_group_norm, "q8_launches")}
+        "fused_group_norm_q8": (fused_group_norm, "q8_launches"),
+        "fused_mha": (fused_mha, "launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -478,12 +688,17 @@ def main() -> int:
 
     with torch.no_grad():
         rows = check_kernels(dev)
+    phase("kernel checks")
 
-    stack = load_sd_stack(None, dtype=torch.bfloat16, device=dev, seed=0)
+    # as a user calls it: with no device, the stack is built on the card
+    stack = load_sd_stack(None, dtype=torch.bfloat16, seed=0)
+    if next(stack.unet.parameters()).device != dev:
+        raise AssertionError("load_sd_stack did not build on the card")
     n_params = sum(p.numel() for p in stack.unet.parameters())
     if n_params != SD14_UNET_PARAMS:
         raise AssertionError(f"UNet has {n_params} params")
     schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085, 0.012)
+    phase("SD stack on the card")
 
     def sampler_for(**quant_kw):
         return StableDiffusionSampler(
@@ -491,76 +706,169 @@ def main() -> int:
             image_size=256, num_steps=20, guidance_scale=7.5,
             sampler="ddim", **quant_kw)
 
-    paths = {}
+    paths, images = {}, {}
+
+    def drive(name: str, sampler, n_images: int, batch: int, **info):
+        """generate_to_dir twice from seed 0: the first run through
+        for_prompt, counted (every count set to 0 just before it, read just
+        after), the second timed, with its sampling loops and decodes timed
+        apart (split_timed)."""
+        reset_counts()
+        cold_s, _ = run_path(sampler.for_prompt(PROMPT), tmp / f"{name}_cold",
+                             n_images, batch)
+        launches = read_counts()
+        spent = {"unet_s": 0.0, "decode_s": 0.0}
+        warm_s, images[name] = run_path(split_timed(sampler, spent),
+                                        tmp / f"{name}_warm", n_images, batch)
+        forwards = sampler.num_steps * -(-n_images // batch)
+        paths[name] = {
+            "images": n_images, "batch": batch, "steps": sampler.num_steps,
+            "first_run_s": cold_s, "second_run_s": warm_s,
+            "images_per_s": n_images / warm_s, "launches": launches,
+            "launches_per_unet_forward": {
+                k: v / forwards for k, v in launches.items()},
+            **spent, "decode_share": spent["decode_s"] / (
+                spent["unet_s"] + spent["decode_s"]), **info}
+
+    def calibrate(sampler) -> dict:
+        start = time.perf_counter()
+        sampler.for_prompt(PROMPT)  # calibrates
+        torch.cuda.synchronize()
+        info = {"calibration_s": time.perf_counter() - start,
+                "calibrated_layers": len(sampler.quant_scales)}
+        print(f"[calibrate] w8a8_static scales for "
+              f"{info['calibrated_layers']} layers "
+              f"({min(8, sampler.num_steps)}-point "
+              f"{'folded' if sampler.guidance_scale is None else 'CFG'} "
+              f"trajectory) in {info['calibration_s']:.2f} s", flush=True)
+        return info
+
+    def profile_denoise(name: str, sampler, batch: int) -> None:
+        """Device time of one batch's sampling loop from torch.profiler's
+        kernel events, its share of the unprofiled loop's wall time (the
+        timed run's, one batch), and the largest device items."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        cond = sampler.encode_prompt(PROMPT)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sampler.denoise(cond, None, batch,
+                            torch.Generator(dev).manual_seed(0))
+            torch.cuda.synchronize()
+
+        def us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+
+        kernels = sorted((e for e in prof.key_averages()
+                          if getattr(e, "device_type", None)
+                          == DeviceType.CUDA), key=us, reverse=True)
+        device_s = sum(us(e) for e in kernels) / 1e6
+        path = paths[name]
+        path["profile"] = {
+            "device_s": device_s,
+            "busy_share": device_s / path["unet_s"],
+            "top": [[e.key[:60], us(e) / 1e3, e.count] for e in kernels[:8]]}
+        print(f"[profile] {name}: device {device_s:.3f} s of "
+              f"{path['unet_s']:.3f} s UNet-only wall = busy share "
+              f"{device_s / path['unet_s']:.2f}; top (ms, calls): "
+              + "; ".join(f"{k} {ms:.1f} ({n})"
+                          for k, ms, n in path["profile"]["top"][:5]),
+              flush=True)
+
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         # calibration is cached by weight fingerprint: a fresh cache here,
         # so this run calibrates and writes nothing outside the checkout
         os.environ["POLYP_TORCH_QUANT_CACHE"] = str(tmp / "quant_cache")
 
-        # bf16: counted on the first run, timed on the second
-        bf16 = sampler_for()
-        reset_counts()
-        cold_s, _ = run_path(bf16, tmp / "bf16_cold", 4, 2)
-        launches = read_counts()
-        warm_s, bf16_images = run_path(bf16, tmp / "bf16_warm", 4, 2)
-        paths["bf16"] = {"images": 4, "batch": 2, "first_run_s": cold_s,
-                         "second_run_s": warm_s, "images_per_s": 4 / warm_s,
-                         "launches": launches}
-
-        # w8a8_static + 5-step bf16 head: calibrate, count, time
+        # the CFG paths: 20 DDIM steps, batch 2
+        drive("bf16", sampler_for(), 4, 2)
         static = sampler_for(quantize="w8a8_static", quant_fp_head=5)
-        start = time.perf_counter()
-        static.for_prompt(PROMPT)  # calibrates
-        torch.cuda.synchronize()
-        calib_s = time.perf_counter() - start
-        n_layers = len(static.quant_scales)
-        print(f"[calibrate] w8a8_static scales for {n_layers} layers (8-point "
-              f"CFG trajectory) in {calib_s:.2f} s", flush=True)
-        reset_counts()
-        cold_q_s, _ = run_path(static, tmp / "static_cold", 4, 2)
-        launches = read_counts()
-        warm_q_s, static_images = run_path(static, tmp / "static_warm", 4, 2)
-        image_rel = rel_l2(static_images, bf16_images)
-        paths["w8a8_static"] = {
-            "images": 4, "batch": 2, "fp_head": 5, "first_run_s": cold_q_s,
-            "second_run_s": warm_q_s, "images_per_s": 4 / warm_q_s,
-            "calibration_s": calib_s, "calibrated_layers": n_layers,
-            "image_rel_l2_vs_bf16": image_rel, "launches": launches}
+        drive("w8a8_static", static, 4, 2, fp_head=5, **calibrate(static))
+        drive("w8a8", sampler_for(quantize="w8a8"), 2, 2)
+        phase("CFG paths")
 
-        # dynamic w8a8: one batch of 2, counted, then timed
-        dynamic = sampler_for(quantize="w8a8")
-        reset_counts()
-        cold_d_s, _ = run_path(dynamic, tmp / "dynamic_cold", 2, 2)
-        launches = read_counts()
-        warm_d_s, _ = run_path(dynamic, tmp / "dynamic_warm", 2, 2)
-        paths["w8a8"] = {"images": 2, "batch": 2, "first_run_s": cold_d_s,
-                         "second_run_s": warm_d_s,
-                         "images_per_s": 2 / warm_d_s, "launches": launches}
+        # the distilled paths (the full-width UNet stands in for a student:
+        # same program, random weights): folded guidance, trailing grid
+        tiny, meta = load_tiny_decoder(device=dev)
+        student = functools.partial(make_student_sampler, stack, stack.unet)
+        q8 = student(num_steps=4, quantize="w8a8_static", decoder=tiny)
+        distilled = [
+            ("distilled_bf16", student(num_steps=8, fused_mha=True), 16,
+             {"decoder": "vae", "fused_mha": True}),
+            ("distilled_bf16_unfused", student(num_steps=8), 16,
+             {"decoder": "vae", "fused_mha": False}),
+            ("distilled_bf16_tiny", student(num_steps=4, fused_mha=True,
+                                            decoder=tiny), 32,
+             {"decoder": "tiny", "fused_mha": True}),
+            ("distilled_int8_tiny", q8, 32,
+             {"decoder": "tiny", "fp_head": 0, **calibrate(q8)})]
+        for name, sampler, batch, info in distilled:
+            drive(name, sampler, batch, batch, **info)
+            # the pair that decides the fused MHA's opt-in (PERF.md)
+            if name in ("distilled_bf16", "distilled_bf16_unfused"):
+                profile_denoise(name, sampler, batch)
+        phase("distilled paths")
 
     for name, path in paths.items():
-        print(f"[main] {name}: {path['images']} images, 256px, 20 DDIM steps, "
-              f"CFG 7.5, batch 2: first run {path['first_run_s']:.2f} s, "
-              f"second {path['second_run_s']:.2f} s = "
-              f"{path['images_per_s']:.3f} images/s on {card}; launches "
-              f"{path['launches']}", flush=True)
-    print(f"[main] w8a8_static images vs bf16 images, same seeds: rel L2 "
-          f"{image_rel:.4f} (tol {INT8_IMAGE_REL_L2})", flush=True)
+        split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
+                 f"{path['decode_s']:.3f} s, decode share "
+                 f"{path['decode_share']:.3f}")
+        print(f"[main] {name}: {path['images']} images, 256px, "
+              f"{path['steps']} steps, batch {path['batch']}: first run "
+              f"{path['first_run_s']:.2f} s, second "
+              f"{path['second_run_s']:.2f} s = {path['images_per_s']:.3f} "
+              f"images/s{split} on {card}; launches {path['launches']}",
+              flush=True)
+    # (images, the images of the same seeds they are held to, bound)
+    pairs = {"w8a8_static": ("bf16", INT8_IMAGE_REL_L2),
+             "distilled_bf16_unfused": ("distilled_bf16", FUSED_IMAGE_REL_L2),
+             "distilled_int8_tiny": ("distilled_bf16_tiny",
+                                     INT8_IMAGE_REL_L2)}
+    for name, (ref, limit) in pairs.items():
+        rel = rel_l2(images[name], images[ref])
+        paths[name]["image_rel_l2_vs"] = {ref: rel}
+        print(f"[main] {name} images vs {ref} images, same seeds: rel L2 "
+              f"{rel:.4f} (tol {limit})", flush=True)
+        if not rel <= limit:
+            raise AssertionError(f"{name} images differ from {ref} images "
+                                 f"by {rel} > {limit}")
     # each path must have run each of its kernels
     need = {"bf16": ("flash_attention", "fused_geglu", "fused_group_norm"),
             "w8a8_static": ("flash_attention", "fused_w8a8_dense",
                             "fused_geglu_w8a8", "fused_group_norm_q8"),
             "w8a8": ("flash_attention", "fused_w8a8_dense",
-                     "fused_geglu_w8a8_pt")}
+                     "fused_geglu_w8a8_pt"),
+            "distilled_bf16": ("fused_mha", "fused_geglu",
+                               "fused_group_norm"),
+            "distilled_bf16_unfused": ("flash_attention", "fused_geglu"),
+            "distilled_bf16_tiny": ("fused_mha", "fused_geglu"),
+            "distilled_int8_tiny": ("flash_attention", "fused_w8a8_dense",
+                                    "fused_geglu_w8a8",
+                                    "fused_group_norm_q8")}
     for name, kernels in need.items():
         for kernel in kernels:
             if paths[name]["launches"][kernel] <= 0:
                 raise AssertionError(f"{name} path never launched {kernel}")
-    if not image_rel <= INT8_IMAGE_REL_L2:
-        raise AssertionError(f"w8a8_static images differ from bf16 by "
-                             f"{image_rel} > {INT8_IMAGE_REL_L2}")
+    # five level-0 self-attentions per forward at 256px, 8 steps, one batch:
+    # all through the fused kernel when it is enabled, all through flash
+    # when not, and never under int8 (the kernel is bf16-only)
+    exact = {"distilled_bf16": {"fused_mha": 40, "flash_attention": 0},
+             "distilled_bf16_unfused": {"fused_mha": 0,
+                                        "flash_attention": 40},
+             "distilled_int8_tiny": {"fused_mha": 0}}
+    for name, want in exact.items():
+        got = {k: paths[name]["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name} launches {got}, want {want}")
 
+    decoder_rel = check_tiny_decoder(tiny, dev)
     agreement = check_against_cpu(stack, dev, static.quant_scales)
+    agreement["tiny_decoder_rel_l2"] = decoder_rel
+    agreement["tiny_decoder_meta"] = meta
+    phase("checks against the CPU")
 
     sources = {
         "flash_attention": ("bf16", "polyp_tpu_torch/csrc/flash_attention.cu",
@@ -580,19 +888,24 @@ def main() -> int:
                                 "polyp_tpu/ops/fused_geglu.py:398"),
         "fused_group_norm_q8": ("w8a8_static",
                                 "polyp_tpu_torch/csrc/fused_gn.cu",
-                                "polyp_tpu/ops/fused_gn.py:136")}
+                                "polyp_tpu/ops/fused_gn.py:136"),
+        "fused_mha": ("distilled_bf16", "polyp_tpu_torch/csrc/fused_mha.cu",
+                      "polyp_tpu/ops/fused_mha.py:241")}
     table = []
     for name, (path, source, replaces) in sources.items():
         mine = [r for r in rows if r["name"] == name]
+        head = mine[0]  # first row: the main path's headline shape
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces,
                       "launches": paths[path]["launches"][name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
-                      # first row: the main path's headline shape
-                      "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"]})
+                      "ms": head["ms"], "plain_ms": head["plain_ms"],
+                      "bound_ms": head["bound_ms"],
+                      "bound_by": head["bound_by"],
+                      "library_ms": head["library_ms"]})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "checks": rows, "main_paths": paths,
+              "phases_s": phases, "checks": rows, "main_paths": paths,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

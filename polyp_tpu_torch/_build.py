@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-`nvcc` compiles every source under `csrc/` into one shared library with a
-plain C interface for Hopper (`sm_90a`), at first use, into
+`nvcc` compiles every source under `csrc/` for Hopper (`sm_90a`), at first
+use, one process per source, all started together, and links the objects
+into one shared library with a plain C interface in
 `build/polyp_tpu_torch/` at the repository root; `ctypes` loads it. The
 library's file name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and a stale library is never loaded. The compiler's
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "polyp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argument types. Every entry returns a cudaError_t.
@@ -43,6 +44,9 @@ SIGNATURES = {
     "polyp_geglu_w8a8": [_P] * 11 + [_I, _I, _I, _P],
     # x, wq1, sw1, b1, wq2, sw2, b2, workspace, out, t, c, h, block_h, stream
     "polyp_geglu_w8a8_pt": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # x, ctx, wq, wk, wv, wo, k_ws, v_ws, out, b, tq, tk, c, ckv, h, d, co,
+    # scale, stream
+    "polyp_fused_mha": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -77,16 +81,34 @@ def build() -> Path:
     lib = BUILD_DIR / f"libpolyp_tpu_torch_{source_hash()}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f"{lib.stem}.{os.getpid()}.objs"
+    objs.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = [(cu, subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+         str(objs / f"{cu.stem}.o"), str(cu)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cu in sorted(CSRC.glob("*.cu"))]
+    reports = [(cu, proc.communicate()[0], proc.returncode)
+               for cu, proc in procs]
+    failed = [(cu, out, rc) for cu, out, rc in reports if rc != 0]
+    if failed:
+        shutil.rmtree(objs, ignore_errors=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{cu.name} (exit code {rc}):\n{out[-12000:]}"
+            for cu, out, rc in failed))
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp),
+         *(str(objs / f"{cu.stem}.o") for cu, _, _ in reports)],
+        capture_output=True, text=True)
+    shutil.rmtree(objs, ignore_errors=True)
+    if link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr[-12000:]}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError(f"linking the kernels failed with exit code "
+                           f"{link.returncode}:\n{link.stderr[-12000:]}")
+    lib.with_suffix(".log").write_text(
+        "".join(f"== {cu.name}\n{out}" for cu, out, _ in reports))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

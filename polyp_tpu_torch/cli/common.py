@@ -47,11 +47,13 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
 
 def load_sd_stack(pretrained_dir: str | None = None,
                   dtype: torch.dtype = torch.bfloat16, tiny: bool = False,
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = "cuda",
                   seed: int = 0) -> SDStack:
     """SD-v1-4 components (UNet, VAE decoder, CLIP text encoder, tokenizer)
     randomly initialised on `device` from `seed`. `tiny=True` swaps in the
-    miniature stack and a hash tokenizer, as the reference does."""
+    miniature stack and a hash tokenizer, as the reference does. The stack
+    is built on the card unless the caller passes `device="cpu"`; with no
+    card it raises rather than move to the CPU on its own."""
     from polyp_tpu_torch.models import (
         SD14_TEXT_CONFIG, TINY_TEXT_CONFIG, AutoencoderKL, CLIPTextModel,
         HashTokenizer, load_tokenizer, sd14_unet, tiny_condition_unet,
@@ -61,6 +63,10 @@ def load_sd_stack(pretrained_dir: str | None = None,
         raise NotImplementedError(
             "polyp_tpu_torch does not import diffusers checkpoints yet "
             "(ROADMAP.md Queue 1, slice 5); pass pretrained_dir=None")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "load_sd_stack builds on the CUDA card by default and no card "
+            "is present; pass device='cpu' to build the stack on the CPU")
     if tiny:
         unet = tiny_condition_unet(dtype=dtype, device="meta")
         vae = tiny_vae(dtype=dtype, device="meta")

@@ -1,6 +1,7 @@
 """Diffusion samplers: the twin of polyp_tpu/diffusion/samplers.py.
 
-This slice ports DDIM (η = 0) and classifier-free guidance. The steps run
+This package ports DDIM (η = 0) on the leading and trailing grids, and
+classifier-free guidance, batch-doubled or folded. The steps run
 as a Python loop: PyTorch runs eagerly, so the reference's `lax.scan` has
 no counterpart the port needs. Sampling runs under `torch.no_grad()`; that
 is the port's form of the reference's `ops.dispatch.inference()` scope and
@@ -53,10 +54,19 @@ def _step_fns(model_fn: Union[ModelFn, Segments],
 
 def with_cfg(raw_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
                               torch.Tensor],
-             cond: torch.Tensor, uncond: torch.Tensor,
-             guidance_scale: float) -> ModelFn:
+             cond: torch.Tensor, uncond: torch.Tensor | None,
+             guidance_scale: float | None) -> ModelFn:
     """Classifier-free guidance by batch doubling: one forward over
-    (uncond, cond), in that order, as the reference's with_cfg (:102-112)."""
+    (uncond, cond), in that order, as the reference's with_cfg (:102-112).
+    `guidance_scale=None` means guidance is folded into the model (a
+    distilled student): cond-only forwards at 1× batch, `uncond` unused
+    (:94-100)."""
+
+    if guidance_scale is None:
+        def cond_only(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+            return raw_fn(x, t, cond.expand(x.shape[0], *cond.shape[-2:]))
+
+        return cond_only
 
     def model_fn(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
@@ -75,12 +85,15 @@ def ddim_sample(model_fn: Union[ModelFn, Segments],
                 shape: tuple[int, ...],
                 generator: torch.Generator | None = None,
                 num_steps: int = 50,
-                init: torch.Tensor | None = None) -> torch.Tensor:
-    """Deterministic DDIM with SD-v1's scheduler config (reference
-    :221-232): leading spacing with steps_offset=1, and
+                init: torch.Tensor | None = None,
+                spacing: str = "leading",
+                steps_offset: int = 1) -> torch.Tensor:
+    """Deterministic DDIM (η = 0) with SD-v1's scheduler config by default
+    (reference :212-232): leading spacing with steps_offset=1, and
     set_alpha_to_one=False, so the last step lands on ᾱ₀ =
-    alphas_cumprod[0], not 1. The distilled students' trailing grid
-    comes with slice 3."""
+    alphas_cumprod[0], not 1. Progressively distilled students sample on
+    the grid they were distilled onto: spacing="trailing",
+    steps_offset=0 (train/distill.py)."""
     if init is not None:
         x = init.to(torch.float32)
     else:
@@ -91,7 +104,7 @@ def ddim_sample(model_fn: Union[ModelFn, Segments],
     schedule = schedule.to(x.device)
     abar = schedule.alphas_cumprod
     ts = inference_timesteps(schedule.num_train_timesteps, num_steps,
-                             "leading", 1)
+                             spacing, steps_offset)
     fns = _step_fns(model_fn, num_steps)
     for i, (t, fn) in enumerate(zip(ts, fns)):
         abar_prev = abar[ts[i + 1]] if i + 1 < num_steps else abar[0]

@@ -134,3 +134,10 @@ def clip_text_from_jax(params: Any) -> dict[str, torch.Tensor]:
     """polyp_tpu CLIPTextModel params → the port's CLIPTextModel state dict
     (transformers CLIPTextModel keys)."""
     return _convert(_params(params), _CLIP_RULES)
+
+
+def tiny_decoder_from_jax(params: Any) -> dict[str, torch.Tensor]:
+    """polyp_tpu TinyDecoder params → the port's TinyDecoder state dict:
+    the flax module names are kept (`in_block_0/conv1` →
+    `in_block_0.conv1`), conv kernels HWIO → OIHW."""
+    return _convert(_params(params), [])

@@ -10,7 +10,9 @@ Kernels: GroupNorm and FeedForward take the hand-written CUDA kernels
 (ops/fused_gn.py, ops/fused_geglu.py) when autograd is off — the wrappers
 then launch on CUDA tensors and run the plain versions on CPU tensors —
 and the plain versions under autograd; attention goes through
-ops.dot_product_attention's shape policy.
+ops.dot_product_attention's shape policy, or, inside
+ops.attention.fused_mha_region(True) where ops.attention.use_fused_mha
+admits the call, through the fused MHA kernel (ops/fused_mha.py).
 
 Quantization (ops/quant.py modes, set by `quant.override` around a UNet
 call): `QConv2d` and `QLinear` are nn.Conv2d / nn.Linear with the same
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from polyp_tpu_torch.ops import dot_product_attention, group_norm, quant
+from polyp_tpu_torch.ops.attention import use_fused_mha
 from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
 from polyp_tpu_torch.ops.fused_geglu import (
     fused_geglu,
@@ -42,6 +45,7 @@ from polyp_tpu_torch.ops.fused_geglu import (
     reference_geglu,
 )
 from polyp_tpu_torch.ops.fused_gn import fused_group_norm
+from polyp_tpu_torch.ops.fused_mha import fused_mha_linear
 
 
 def sinusoidal_time_embedding(timesteps: torch.Tensor, dim: int,
@@ -241,7 +245,14 @@ class ResnetBlock2D(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention with SD naming (to_q/to_k/to_v/to_out.0) over
-    [N, T, C] tokens; self-attention when `context` is None."""
+    [N, T, C] tokens; self-attention when `context` is None.
+
+    Inside ops.attention.fused_mha_region(True), a call that
+    ops.attention.use_fused_mha admits runs the whole block — projections,
+    attention, output projection — in the fused MHA kernel on the modules'
+    own [out, in] weights, and adds the output bias (the reference's fused
+    branch, unet_blocks.py:297-303); any other call runs the projections
+    and ops.dot_product_attention."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: int | None = None, qkv_bias: bool = False,
@@ -261,6 +272,13 @@ class Attention(nn.Module):
         dtype = self.to_q.weight.dtype
         x = x.to(dtype)
         ctx = x if context is None else context.to(dtype)
+        if use_fused_mha(x, ctx, self.heads, self.head_dim,
+                         self.to_q.bias is not None, is_self=context is None):
+            out = self.to_out[0]
+            return fused_mha_linear(
+                x, ctx, self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                out.weight, num_heads=self.heads,
+                head_dim=self.head_dim) + out.bias.to(dtype)
         n, tq, tk = x.shape[0], x.shape[1], ctx.shape[1]
         q = self.to_q(x).view(n, tq, self.heads, self.head_dim)
         k = self.to_k(ctx).view(n, tk, self.heads, self.head_dim)

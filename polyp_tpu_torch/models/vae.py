@@ -77,6 +77,7 @@ class AutoencoderKL(nn.Module):
                  latent_channels: int = 4,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.latent_channels = latent_channels
         self.decoder = Decoder(block_out_channels, 3, 3, latent_channels,
                                dtype=dtype, device=device)
         self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1,

@@ -3,6 +3,15 @@
 Prompt → CLIP → classifier-free-guided UNet sampling → VAE decode → uint8
 PNGs, with quota-driven batching and idempotent top-up resume.
 
+Distilled students (cli/distill_sd.py::make_student_sampler) run the same
+sampler with folded guidance (`guidance_scale=None`: cond-only forwards at
+1× batch), the trailing DDIM grid (`sampler_kwargs`), and optionally the
+tiny decoder (`decoder=`, models/tiny_decoder.py) in place of the VAE.
+`fused_mha=True` is the explicit form of the reference's POLYP_FUSED_MHA=1:
+each UNet call of the sampler runs inside ops.attention.fused_mha_region,
+where the UNet's attentions may take the fused MHA kernel
+(ops/attention.py::use_fused_mha decides each call).
+
 Determinism contract: batch `i` of a run uses the generator
 `torch.Generator(device).manual_seed(seed + i)`, so a top-up resumes at
 batch `existing // eval_batch` and regenerates identical batches. torch's
@@ -32,6 +41,7 @@ from polyp_tpu_torch.diffusion import DiffusionSchedule, sample, with_cfg
 from polyp_tpu_torch.diffusion.samplers import get_sampler
 from polyp_tpu_torch.models.vae import SD_VAE_SCALING
 from polyp_tpu_torch.ops import quant
+from polyp_tpu_torch.ops.attention import fused_mha_region
 
 # fn(batch_size, seed) -> float images in [-1, 1], NCHW
 BatchSampler = Callable[[int, int], torch.Tensor]
@@ -70,13 +80,20 @@ class StableDiffusionSampler:
     """StableDiffusionPipeline equivalent over the port's modules (which
     carry their weights and device). Only DDIM is ported (ROADMAP.md
     Queue 1), so it is the default sampler here. `quantize` is None,
-    "w8a8_static" or "w8a8" (ops/quant.py)."""
+    "w8a8_static" or "w8a8" (ops/quant.py). `guidance_scale=None` means
+    guidance is folded into the UNet (a distilled student);
+    `sampler_kwargs` go to the sampler (e.g. the trailing grid);
+    `decoder`, a TinyDecoder, replaces the VAE decode and takes the scaled
+    latents as they are (reference :295-299); `fused_mha` opts the UNet's
+    attentions into the fused MHA kernel."""
 
     def __init__(self, unet, vae, text_model, tokenizer,
                  schedule: DiffusionSchedule, image_size: int = 256,
-                 num_steps: int = 25, guidance_scale: float = 7.5,
+                 num_steps: int = 25, guidance_scale: float | None = 7.5,
                  sampler: str = "ddim", quantize: str | None = None,
-                 quant_fp_head: int = 0, quant_fp_tail: int = 0):
+                 quant_fp_head: int = 0, quant_fp_tail: int = 0,
+                 sampler_kwargs: dict | None = None, decoder=None,
+                 fused_mha: bool = False):
         get_sampler(sampler)  # refuse an unported sampler before any work
         if quantize not in (None, "w8a8", "w8a8_static"):
             raise ValueError(f"unknown quantization mode: {quantize!r}")
@@ -93,6 +110,9 @@ class StableDiffusionSampler:
         self.num_steps = num_steps
         self.guidance_scale = guidance_scale
         self.sampler = sampler
+        self.sampler_kwargs = dict(sampler_kwargs or {})
+        self.decoder = decoder
+        self.fused_mha = fused_mha
         self.device = next(unet.parameters()).device
         self._encode_cache: dict[str, torch.Tensor] = {}
 
@@ -104,20 +124,37 @@ class StableDiffusionSampler:
             self._encode_cache[prompt] = self.text_model(ids)
         return self._encode_cache[prompt]
 
+    def register_prompt_embedding(self, prompt: str,
+                                  emb: torch.Tensor) -> None:
+        """Pin `prompt` to a precomputed [1, 77, D] cond embedding, e.g. a
+        distilled student's training-time embedding whose DreamBooth token
+        the base text stack cannot encode (reference :260-264)."""
+        self._encode_cache[prompt] = torch.as_tensor(emb).to(self.device)
+
     @torch.no_grad()
-    def generate(self, cond: torch.Tensor, uncond: torch.Tensor,
+    def generate(self, cond: torch.Tensor, uncond: torch.Tensor | None,
                  batch_size: int, generator: torch.Generator | None = None,
                  init: torch.Tensor | None = None) -> torch.Tensor:
-        """CFG sampling + VAE decode. `init` ([B, 4, s/8, s/8] fp32) replaces
-        the initial noise drawn from `generator`. Returns fp32 NCHW images
-        in about [-1, 1]."""
+        """Sampling + decode. `init` ([B, 4, s/8, s/8] fp32) replaces the
+        initial noise drawn from `generator`. Returns fp32 NCHW images in
+        about [-1, 1]."""
+        return self.decode(self.denoise(cond, uncond, batch_size, generator,
+                                        init))
+
+    @torch.no_grad()
+    def denoise(self, cond: torch.Tensor, uncond: torch.Tensor | None,
+                batch_size: int, generator: torch.Generator | None = None,
+                init: torch.Tensor | None = None) -> torch.Tensor:
+        """The sampling half of `generate`: fp32 scaled latents."""
         latent = self.image_size // 8
         self._ensure_calibrated(cond, uncond)
 
         def unet_in(mode):
             def raw(x, t, emb):
-                # the UNet alone is quantized; the decode below is not
-                with quant.override(mode, scales=self._scale_bank, t=t):
+                # the UNet alone is quantized and opted into the fused MHA;
+                # the decode is not
+                with quant.override(mode, scales=self._scale_bank, t=t), \
+                        fused_mha_region(self.fused_mha):
                     return self.unet(x, t, emb)
             return with_cfg(raw, cond, uncond, self.guidance_scale)
 
@@ -125,28 +162,41 @@ class StableDiffusionSampler:
         if self._split is not None:
             model_fn = _precision_segments(model_fn, unet_in(None),
                                            self.num_steps, self._split)
-        latents = sample(self.sampler, model_fn, self.schedule,
-                         (batch_size, 4, latent, latent), generator,
-                         self.num_steps, init=init)
+        return sample(self.sampler, model_fn, self.schedule,
+                      (batch_size, 4, latent, latent), generator,
+                      self.num_steps, init=init, **self.sampler_kwargs)
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents → fp32 images: the tiny decoder takes them as they
+        are, the VAE after the 1/0.18215 unscaling."""
+        if self.decoder is not None:
+            return self.decoder(latents)
         return self.vae.decode(latents / SD_VAE_SCALING)
 
     def _ensure_calibrated(self, cond: torch.Tensor,
-                           uncond: torch.Tensor) -> None:
-        """w8a8_static's one-time calibration on this stack's own CFG
-        trajectory over min(8, num_steps) points (reference :303-324);
-        reused for every prompt and cached on disk by weight fingerprint."""
+                           uncond: torch.Tensor | None) -> None:
+        """w8a8_static's one-time calibration on this stack's own
+        trajectory over min(8, num_steps) points (reference :303-324): the
+        CFG trajectory, or the folded cond-only one when guidance_scale is
+        None (bench.py:216-229). Reused for every prompt and cached on disk
+        by weight fingerprint; the guidance mode and the point count are in
+        the fingerprint, so a folded sampler never gets the CFG tables of
+        the same weights, nor a 4-point one the 8-point tables."""
         if self.quantize != "w8a8_static" or self._scale_bank is not None:
             return
         from polyp_tpu_torch.diffusion.calibrate import ensure_scales
         latent = self.image_size // 8
+        points = min(8, self.num_steps)
+        folded = self.guidance_scale is None
         self.quant_scales = ensure_scales(
             self.unet, self.schedule, (2, 4, latent, latent), cond[:1],
-            uncond[:1], num_steps=min(8, self.num_steps),
+            None if folded else uncond[:1], num_steps=points,
             guidance_scale=self.guidance_scale,
             fingerprint_extras=(self.image_size,
                                 self.schedule.num_train_timesteps,
                                 self.guidance_scale,
-                                self.schedule.prediction_type))
+                                self.schedule.prediction_type, points))
         self._scale_bank = quant.ScaleBank(self.quant_scales)
 
     def for_prompt(self, prompt: str) -> BatchSampler:

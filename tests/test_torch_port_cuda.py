@@ -1,8 +1,9 @@
 """polyp_tpu_torch's CUDA kernels against their plain PyTorch versions, on
 the card, at shapes the main path does not reach: every head dim, ragged
-token counts, narrow widths, odd spatial sizes, fp32 GroupNorm, and the
-int8 kernels (W8A8 dense, static and per-token GEGLU, the GroupNorm int8
-epilogue) at main-path and ragged shapes.
+token counts, narrow widths, odd spatial sizes, fp32 GroupNorm, the int8
+kernels (W8A8 dense, static and per-token GEGLU, the GroupNorm int8
+epilogue) at main-path and ragged shapes, and the fused MHA block at
+chip_smoke.py's shapes, ragged ones and every head dim it was built for.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. This file
 imports no JAX, so it runs on a machine without it:
@@ -25,6 +26,7 @@ import torch
 from polyp_tpu_torch.ops import fused_dense as fd
 from polyp_tpu_torch.ops import fused_geglu as fg
 from polyp_tpu_torch.ops import fused_gn, quant
+from polyp_tpu_torch.ops import fused_mha as fm
 from polyp_tpu_torch.ops.attention import dot_product_attention
 from polyp_tpu_torch.ops.flash_attention import (
     SUPPORTED_HEAD_DIMS,
@@ -276,3 +278,110 @@ def test_int8_kernels_refuse_what_they_cannot_do(dev):
     with pytest.raises(ValueError, match="M > 16"):
         quant.int_mm(torch.zeros(8, 64, dtype=torch.int8, device=dev),
                      torch.zeros(64, 64, dtype=torch.int8, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# fused MHA block against its plain version in fp32 on the same bf16
+# inputs. The kernel rounds Q (after the scale), K, V, the probabilities,
+# each head's output and the result to bf16 (2^-9 relative each), as the
+# plain bf16 version does at the same places: held to 2e-2 of max |y|. A
+# wrong tile, mask or head column gives O(1) of max |y|.
+# ---------------------------------------------------------------------------
+
+
+def _mha_case(dev, b, tq, c, tk, ckv, h, d, co):
+    x = _randn(dev, b, tq, c, seed=1)
+    ctx = x if tk is None else _randn(dev, b, tk, ckv, seed=2)
+    ckv = c if tk is None else ckv
+    wq = _randn(dev, h * d, c, scale=c ** -0.5, seed=3)
+    wk = _randn(dev, h * d, ckv, scale=ckv ** -0.5, seed=4)
+    wv = _randn(dev, h * d, ckv, scale=ckv ** -0.5, seed=5)
+    wo = _randn(dev, co, h * d, scale=(h * d) ** -0.5, seed=6)
+    return x, ctx, wq, wk, wv, wo
+
+
+# (b, tq, c, tk or None for self-attention, ckv, heads, d, co): the CFG and
+# distilled level-0 shapes, 512px levels 0 and 1, the 77-token ragged KV,
+# d = 64, and ragged Tq / Co that are no multiple of the 64-row tiles
+@pytest.mark.parametrize("b,tq,c,tk,ckv,h,d,co", [
+    (4, 1024, 320, None, 0, 8, 40, 320),
+    (16, 1024, 320, None, 0, 8, 40, 320),
+    (2, 4096, 320, None, 0, 8, 40, 320),
+    (4, 1024, 640, None, 0, 8, 80, 640),
+    (4, 1024, 320, 77, 768, 8, 40, 320),
+    (2, 256, 128, None, 0, 2, 64, 128),
+    (1, 200, 64, 130, 40, 3, 40, 72),
+])
+def test_fused_mha_matches_plain(dev, b, tq, c, tk, ckv, h, d, co):
+    args = _mha_case(dev, b, tq, c, tk, ckv, h, d, co)
+    before = fm.fused_mha.launches
+    with torch.no_grad():
+        got = fm.fused_mha_linear(*args, num_heads=h, head_dim=d)
+    want = fm.reference_mha_linear(*(a.float() for a in args), num_heads=h,
+                                   head_dim=d)
+    assert fm.fused_mha.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, tq, co)
+    assert _max_err(got, want) <= 2e-2 * want.abs().max().item()
+
+
+def test_fused_mha_public_layout_and_repeatability(dev):
+    """The reference's [in, out] layout gives the same bits as the
+    nn.Linear layout, and two runs repeat bit for bit (fixed-order sums, no
+    atomics)."""
+    x, ctx, wq, wk, wv, wo = _mha_case(dev, 2, 1024, 320, None, 0, 8, 40,
+                                       320)
+    with torch.no_grad():
+        a = fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=8,
+                                head_dim=40)
+        b = fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=8,
+                                head_dim=40)
+        c = fm.fused_mha(x, ctx, wq.t(), wk.t(), wv.t(), wo.t(),
+                         num_heads=8, head_dim=40)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_fused_mha_refuses_what_it_cannot_do(dev):
+    x, ctx, wq, wk, wv, wo = _mha_case(dev, 1, 128, 64, None, 0, 2, 32, 64)
+    with pytest.raises(ValueError, match="head dims"):
+        fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=2, head_dim=32)
+    x, ctx, wq, wk, wv, wo = _mha_case(dev, 1, 128, 80, None, 0, 2, 40, 80)
+    with pytest.raises(ValueError, match="bf16"):
+        fm.fused_mha_linear(x.float(), ctx.float(), wq, wk, wv, wo,
+                            num_heads=2, head_dim=40)
+    with pytest.raises(ValueError, match="do not match"):
+        fm.fused_mha_linear(x, ctx, wq[:40], wk, wv, wo, num_heads=2,
+                            head_dim=40)
+    with pytest.raises(ValueError, match="do not match"):
+        fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=1,
+                            head_dim=40)
+
+
+def test_attention_module_takes_the_fused_kernel_where_enabled(dev):
+    from polyp_tpu_torch.models.unet_blocks import Attention
+    from polyp_tpu_torch.ops.attention import fused_mha_region
+
+    attn = Attention(320, 8, 40, dtype=torch.bfloat16, device=dev)
+    x = _randn(dev, 2, 1024, 320, seed=7)
+    ctx = _randn(dev, 2, 77, 320, seed=8)
+    before = fm.fused_mha.launches, flash_attention.launches
+    with torch.no_grad():
+        plain = attn(x)
+        with fused_mha_region(True):
+            fused = attn(x)
+            attn(x, ctx)  # cross-attention stays unfused
+    assert (fm.fused_mha.launches, flash_attention.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _max_err(fused, plain) <= 2e-2 * plain.abs().max().item()
+
+
+def test_entry_points_build_on_the_card_by_default(dev):
+    """load_sd_stack and load_tiny_decoder called with no device build on
+    the card, as a user would call them."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.models.tiny_decoder import load_tiny_decoder
+
+    stack = load_sd_stack(None, dtype=torch.bfloat16, tiny=True, seed=0)
+    with pytest.warns(UserWarning, match="SYNTHETIC"):
+        tiny, _ = load_tiny_decoder()
+    for module in (stack.unet, stack.vae, stack.text, tiny):
+        assert {p.device.type for p in module.parameters()} == {"cuda"}

@@ -225,9 +225,12 @@ def test_top_up_regenerates_identical_batches(tmp_path):
 
 
 def test_load_sd_stack_tiny_is_seeded_and_samples(tmp_path):
-    a = load_sd_stack(None, dtype=torch.float32, tiny=True, seed=0)
-    b = load_sd_stack(None, dtype=torch.float32, tiny=True, seed=0)
-    c = load_sd_stack(None, dtype=torch.float32, tiny=True, seed=1)
+    a = load_sd_stack(None, dtype=torch.float32, tiny=True, device="cpu",
+                      seed=0)
+    b = load_sd_stack(None, dtype=torch.float32, tiny=True, device="cpu",
+                      seed=0)
+    c = load_sd_stack(None, dtype=torch.float32, tiny=True, device="cpu",
+                      seed=1)
     for key, val in a.unet.state_dict().items():
         assert torch.equal(val, b.unet.state_dict()[key]), key
     assert not torch.equal(a.unet.conv_in.weight, c.unet.conv_in.weight)

@@ -168,6 +168,30 @@ def test_port_sources_import_no_jax():
     assert not offenders
 
 
+# the modules of the distilled slice, which the scans above must reach
+SLICE3 = ["polyp_tpu_torch/ops/fused_mha.py", "polyp_tpu_torch/ops/attention.py",
+          "polyp_tpu_torch/train/distill.py",
+          "polyp_tpu_torch/models/tiny_decoder.py",
+          "polyp_tpu_torch/cli/distill_sd.py", "polyp_tpu_torch/pipeline.py",
+          "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SLICE3)
+def test_no_jax_scan_covers_the_distilled_slice(path):
+    """Each module of the distilled slice is in the scanned set, is
+    importable as a module of the package (or is chip_smoke.py), and names
+    no banned package anywhere in its source, imports inside functions
+    included."""
+    assert ROOT / path in _port_sources()
+    tree = ast.parse((ROOT / path).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [n for n in names if n.split(".")[0] in BANNED]
+    assert names, "a module that imports nothing was not parsed"
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
