@@ -8,14 +8,20 @@ caught:
 
 1. a CUDA card is required; prints its name and power limit (nvidia-smi);
 2. builds the hand-written kernels from polyp_tpu_torch/csrc/ (one nvcc
-   per source, all at once) and prints the build seconds;
+   per source, all at once) and prints the build seconds, and the
+   registers, spill bytes and dynamic shared memory a block of the
+   attention kernels (flash at every head dim, the fused MHA, its K/V
+   projection) from the build's -Xptxas -v log; a spill at d <= 80 (every
+   head dim a path runs) fails the run after the main paths;
 3. holds each kernel against its plain PyTorch version at the shapes each
    main path gives it (the CFG batch 4 and the distilled batches 16 and
    32), measured against the plain version in fp32 on the same inputs,
    and prints both times from CUDA events beside the kernel's bound (the
    larger of its bytes over the memory rate and its operations over the
    peak of their type) and, where one PyTorch call computes the same
-   function, that call's time (`library_ms`, timed here only): flash
+   function, that call's time (`library_ms`, timed here only), with the
+   achieved TFLOP/s of the operations the bound counts and the bound's
+   share of the kernel's time: flash
    attention, the fused MHA block (also beside the port's unfused path),
    fused GEGLU and GroupNorm+SiLU in bf16 (tolerance in TOLERANCE); the
    int8 kernels — the W8A8 dense, the static and the per-token int8 GEGLU —
@@ -71,6 +77,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -186,12 +193,18 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
            "library_ms": time_ms(library_fn) if library_fn else None,
            **{f"{k}_ms": time_ms(fn) for k, fn in others.items()}, **cost}
+    # achieved rate of the operations the bound counts, and the bound's
+    # share of the kernel's time
+    row["tflops"] = cost["bound_ops"] / row["ms"] / 1e9
+    row["bound_share"] = cost["bound_ms"] / row["ms"]
     extra = "".join(f", {k} {row[f'{k}_ms']:.4f} ms"
                     for k in (["library"] if library_fn else []) + list(others))
     print(f"[check] {name} {shape}: max|err| {err:.3e} (plain bf16 "
           f"{plain_err:.3e}, tol {tol:.1e}); kernel {row['ms']:.4f} ms, "
           f"plain {row['plain_ms']:.4f} ms{extra}, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
+          f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the "
+          f"bound", flush=True)
     if not err <= tol:
         raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                              f"plain version: {err} > {tol}")
@@ -219,6 +232,34 @@ def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
         raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                              f"plain version: rel L2 {rel}, max {err}")
     return row
+
+
+# the attention kernels whose registers, spills and shared memory a block
+# chip_smoke reports from the build's -Xptxas -v log (mangled names)
+ATTENTION_KERNELS = re.compile(
+    r"(flash_fwd_kernel|fused_mha_kernel|kv_project_kernel)(?:ILi(\d+)E)?")
+
+
+def ptxas_report(log: str) -> dict:
+    """{"flash_fwd_kernel<40>": {"head_dim", "registers", "spill_bytes",
+    "stack_bytes"}} for the attention kernels, from nvcc's -Xptxas -v
+    report."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = ATTENTION_KERNELS.search(line)
+            name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                    if m else None)
+            if name:
+                report[name] = {"head_dim": int(m.group(2) or 0) or None}
+        elif name and "spill stores" in line:
+            stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
+            report[name].update(stack_bytes=stack,
+                                spill_bytes=stores + loads)
+        elif name and "registers" in line:
+            report[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return report
 
 
 def check_kernels(dev: torch.device) -> list[dict]:
@@ -664,6 +705,16 @@ def main() -> int:
     for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line:
             print(f"[ptxas] {line.strip()}")
+    # registers, spills and shared memory a block of the attention kernels
+    lib = _build.library()
+    kernel_resources = ptxas_report(log.read_text())
+    for name, res in kernel_resources.items():
+        d = res["head_dim"]
+        if name.startswith("flash"):
+            res["dynamic_smem_bytes"] = lib.polyp_flash_smem(d)
+        elif name.startswith("fused_mha"):  # the UNet's 8 heads, Co = 8d
+            res["dynamic_smem_bytes"] = lib.polyp_fused_mha_smem(8, d, 8 * d)
+        print(f"[regs] {name}: {res}", flush=True)
     phase("card and build")
 
     # each row's launch count: its wrapper's counter, read after the path
@@ -864,6 +915,14 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"{name} launches {got}, want {want}")
 
+    # the attention kernels keep their state in registers without spilling
+    # at every head dim a path runs (d <= 80)
+    spilled = {name: res for name, res in kernel_resources.items()
+               if res.get("spill_bytes", 1) > 0
+               and (res["head_dim"] or 0) <= 80}
+    if spilled:
+        raise AssertionError(f"attention kernels spill: {spilled}")
+
     decoder_rel = check_tiny_decoder(tiny, dev)
     agreement = check_against_cpu(stack, dev, static.quant_scales)
     agreement["tiny_decoder_rel_l2"] = decoder_rel
@@ -906,6 +965,7 @@ def main() -> int:
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
+              "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

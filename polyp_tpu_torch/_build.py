@@ -130,6 +130,11 @@ def library() -> ctypes.CDLL:
     # workspace
     lib.polyp_geglu_w8a8_workspace.argtypes = [_I, _I, _I, _I]
     lib.polyp_geglu_w8a8_workspace.restype = ctypes.c_longlong
+    # d (flash); h, d, co (fused MHA) -> bytes of dynamic shared memory a block
+    lib.polyp_flash_smem.argtypes = [_I]
+    lib.polyp_flash_smem.restype = ctypes.c_longlong
+    lib.polyp_fused_mha_smem.argtypes = [_I, _I, _I]
+    lib.polyp_fused_mha_smem.restype = ctypes.c_longlong
     return lib
 
 

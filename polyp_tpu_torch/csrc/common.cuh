@@ -29,27 +29,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Copy a [rows x cols] bf16 tile from global to shared memory, 16 bytes a
-// thread. Element (r, c) of the tile is src[r * ld_src + c]; it reads as 0
-// where r >= row_limit or c >= col_limit, which masks ragged edges. `cols`,
-// `ld_src`, `col_limit` and `ld_dst` are multiples of 8 and `src` is 16-byte
-// aligned (the wrappers check this), so every 8-element vector lies wholly
-// inside or wholly outside the valid region.
-__device__ __forceinline__ void load_tile_vec8(bf16* dst, int ld_dst, const bf16* src,
-                                               long long ld_src, int rows, int cols,
-                                               int row_limit, int col_limit) {
-  const int vecs_per_row = cols / 8;
-  for (int i = threadIdx.x; i < rows * vecs_per_row; i += blockDim.x) {
-    const int r = i / vecs_per_row;
-    const int c = (i % vecs_per_row) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < row_limit && c < col_limit) {
-      val = *reinterpret_cast<const uint4*>(src + r * ld_src + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld_dst + c) = val;
-  }
-}
-
 // cp.async (sm_80+): a 16-byte global -> shared copy that bypasses the
 // registers and completes asynchronously; with valid == false it writes 16
 // zero bytes and reads nothing.
@@ -67,9 +46,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// load_tile_vec8 through cp.async: the same tile, masking and alignment
-// contract, but the copy is only issued here; it lands after cp_async_wait
-// and a barrier.
+// Issue cp.async copies of a [rows x cols] bf16 tile from global to shared
+// memory, 16 bytes a thread; it lands after cp_async_wait and a barrier.
+// Element (r, c) of the tile is src[r * ld_src + c]; it reads as 0 where
+// r >= row_limit or c >= col_limit, which masks ragged edges. `cols`,
+// `ld_src`, `col_limit` and `ld_dst` are multiples of 8 and `src` is 16-byte
+// aligned (the wrappers check this), so every 8-element vector lies wholly
+// inside or wholly outside the valid region.
 __device__ __forceinline__ void load_tile_async_vec8(bf16* dst, int ld_dst, const bf16* src,
                                                      long long ld_src, int rows, int cols,
                                                      int row_limit, int col_limit) {

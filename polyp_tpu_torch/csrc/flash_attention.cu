@@ -9,57 +9,59 @@
 //
 // What bounds it on the H100: at the SD level-0 shape (N=4, T=1024, H=8,
 // D=40) the work is 4*N*H*T*T*D = 5.4 GFLOP against 3 MB of Q/K/V, so the
-// kernel is compute-bound; the score tile is recomputed per query block
-// rather than stored. Design: one block of 4 warps per (n*h, 64 query rows);
-// each warp owns 16 query rows end to end, so the softmax needs no block
-// barrier. Q K^T and P V run on the tensor cores through WMMA bf16 fragments
-// (16x16x16, fp32 accumulate). The head dimension is a template parameter
-// (40, 64, 80, 128, 160); shared tiles are padded to the next multiple of 16
-// with zeros that the loads mask in, so no padded copy of Q/K/V is made and
-// the scale uses the true d. Ragged T (not a multiple of 64) is masked.
-// Simple first: tiles are loaded with 16-byte vector loads (no cp.async/TMA
-// pipeline) and the accumulator lives in shared memory, rescaled per tile.
+// bound is the tensor cores' (5.4 us at 989 TFLOP/s). Below that, on
+// mma.sync: the QK^T depth is padded from 40 to 48, the softmax's exp runs
+// on the 16-a-clock MUFU unit beside the mma, each K/V fragment is read
+// from shared memory by ldmatrix, and one warp's S -> softmax -> P V chain
+// is serial, so latency needs several warps (or row tiles) in flight.
+//
+// Design (attention_core.cuh): one block per (n*h, 128 query rows), so
+// N = 4 gives 256 blocks, about two for each of the 132 SMs. At d = 40 a
+// warp takes 32 rows as two row tiles (4 warps, 3 blocks an SM), so every
+// K and V fragment feeds two mma and two independent chains interleave;
+// above, 8 warps of 16 rows. Q is loaded once into mma.sync A fragments;
+// the scores, the probabilities and the output accumulator stay in
+// registers. K/V tiles of 64 keys (32 at d >= 128, where the accumulator
+// takes more registers) are double-buffered with cp.async, so the next tile
+// loads while this one computes, and the core takes them 32 keys a step
+// (no spills at d <= 80). The head dimension is a template parameter (40,
+// 64, 80, 128, 160); shared tiles are padded to the next multiple of 16 with
+// zeros that the masked loads put there, so no padded copy of Q/K/V is made
+// and the scale uses the true d. Ragged Tq and Tk are masked; BTHD strides
+// are read in place. Timed against the card's peak and SDPA in PERF.md.
 
-#include <mma.h>
+#include "attention_core.cuh"
 
-#include "common.cuh"
-
-using namespace nvcuda;
 using polyp::bf16;
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = kBlockQ / 16;
+constexpr int kBlockQ = 128;  // query rows a block
 
 template <int D>
 struct FlashShape {
-  static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded for WMMA
-  static constexpr int LDH = DP + 8;             // bf16 row stride: Q, K, V
-  static constexpr int LDS = kBlockK + 4;        // fp32 row stride: scores
-  static constexpr int LDP = kBlockK + 8;        // bf16 row stride: probs
-  static constexpr int LDO = DP + 4;             // fp32 row stride: output
-  static constexpr size_t kSmem =
-      sizeof(bf16) * ((kBlockQ + 2 * kBlockK) * LDH + kBlockQ * LDP) +
-      sizeof(float) * (kBlockQ * LDS + kBlockQ * LDO + 2 * kBlockQ);
+  using H = polyp::attn::Head<D>;
+  static constexpr int MT = polyp::attn::rows_per_warp<D>();  // row tiles a warp
+  static constexpr int kThreads = 32 * kBlockQ / (16 * MT);
+  // blocks an SM must hold: the register cap is 65536 / (threads x this)
+  static constexpr int kMinBlocks = D <= 40 ? 3 : D <= 80 ? 2 : 1;
+  static constexpr int BK = D <= 80 ? 64 : 32;  // keys a tile
+  static constexpr size_t kSmem = sizeof(bf16) * (kBlockQ + 2 * 2 * BK) * H::LD;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(FlashShape<D>::kThreads, FlashShape<D>::kMinBlocks)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Tq,
-                 int Tk, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Tq, int Tk,
+                 float score_log2) {
   using S = FlashShape<D>;
+  using Hd = typename S::H;
+  constexpr int BK = S::BK;
+  constexpr int LD = Hd::LD;
+  constexpr int MT = S::MT;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kBlockQ * S::LDH;
-  bf16* sV = sK + kBlockK * S::LDH;
-  bf16* sP = sV + kBlockK * S::LDH;
-  float* sS = reinterpret_cast<float*>(sP + kBlockQ * S::LDP);
-  float* sO = sS + kBlockQ * S::LDS;
-  float* sM = sO + kBlockQ * S::LDO;
-  float* sL = sM + kBlockQ;
+  bf16* sKV = sQ + kBlockQ * LD;  // two stages of [K tile; V tile]
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -73,81 +75,53 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (static_cast<long long>(n) * Tk) * row + h * D;
   bf16* ob = o + (static_cast<long long>(n) * Tq) * row + h * D;
 
-  polyp::load_tile_vec8(sQ, S::LDH, qb + q0 * row, row, kBlockQ, S::DP, Tq - q0, D);
-  for (int i = threadIdx.x; i < kBlockQ * S::LDO; i += blockDim.x) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < kBlockQ; i += blockDim.x) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.f;
-  }
+  auto stage = [&](int it) { return sKV + (it & 1) * 2 * BK * LD; };
+  auto issue = [&](int it) {
+    const int k0 = it * BK;
+    bf16* sK = stage(it);
+    polyp::load_tile_async_vec8(sK, LD, kb + k0 * row, row, BK, Hd::DK, Tk - k0, D);
+    polyp::load_tile_async_vec8(sK + BK * LD, LD, vb + k0 * row, row, BK, Hd::DK, Tk - k0, D);
+  };
 
-  const int r0 = warp * 16;  // this warp's query rows
-  for (int k0 = 0; k0 < Tk; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    polyp::load_tile_vec8(sK, S::LDH, kb + k0 * row, row, kBlockK, S::DP, Tk - k0, D);
-    polyp::load_tile_vec8(sV, S::LDH, vb + k0 * row, row, kBlockK, S::DP, Tk - k0, D);
+  polyp::load_tile_async_vec8(sQ, LD, qb + q0 * row, row, kBlockQ, Hd::DK, Tq - q0, D);
+  issue(0);
+  polyp::cp_async_commit();
+
+  polyp::attn::WarpAttention<D, MT> wa;
+  wa.reset();
+  const int r0 = warp * 16 * MT;  // this warp's query rows
+  const int n_k = (Tk + BK - 1) / BK;
+  for (int it = 0; it < n_k; ++it) {
+    if (it + 1 < n_k) {
+      issue(it + 1);  // into the stage every warp left at the last barrier
+      polyp::cp_async_commit();
+      polyp::cp_async_wait<1>();
+    } else {
+      polyp::cp_async_wait<0>();
+    }
     __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows (K tile in shared memory is K^T
-    // stored column-major).
-    for (int j = 0; j < kBlockK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < S::DP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, sQ + r0 * S::LDH + kk * 16, S::LDH);
-        wmma::load_matrix_sync(b, sK + (j * 16) * S::LDH + kk * 16, S::LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sS + r0 * S::LDS + j * 16, acc, S::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax, one row at a time; each lane takes two key columns.
-    const int kvalid = min(kBlockK, Tk - k0);
-    for (int r = r0; r < r0 + 16; ++r) {
-      const float s0 = lane < kvalid ? sS[r * S::LDS + lane] * scale : -INFINITY;
-      const float s1 = lane + 32 < kvalid ? sS[r * S::LDS + lane + 32] * scale : -INFINITY;
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, polyp::warp_max(fmaxf(s0, s1)));
-      const float p0 = __expf(s0 - m_new);
-      const float p1 = __expf(s1 - m_new);
-      const float alpha = __expf(m_old - m_new);
-      const float psum = polyp::warp_sum(p0 + p1);
-      sP[r * S::LDP + lane] = __float2bfloat16(p0);
-      sP[r * S::LDP + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < S::DP; c += 32) sO[r * S::LDO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + psum;
-      }
-    }
-    __syncwarp();
-
-    // O += P V for this warp's rows; the accumulator round-trips through
-    // shared memory so the per-row rescale above can reach it.
-    for (int j = 0; j < S::DP / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + r0 * S::LDO + j * 16, S::LDO, wmma::mem_row_major);
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, sP + r0 * S::LDP + kk * 16, S::LDP);
-        wmma::load_matrix_sync(b, sV + (kk * 16) * S::LDH + j * 16, S::LDH);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(sO + r0 * S::LDO + j * 16, acc, S::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    if (it == 0) wa.load_q(sQ + r0 * LD, LD);
+    const bf16* sK = stage(it);
+    wa.template tile<BK>(sK, sK + BK * LD, LD, Tk - it * BK, score_log2);
+    __syncthreads();  // this stage may be refilled
   }
 
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int t = q0 + r;
-    if (t >= Tq) break;
-    const float inv = 1.f / sL[r];
-    for (int c = lane; c < D; c += 32) {
-      ob[t * row + c] = __float2bfloat16(sO[r * S::LDO + c] * inv);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float inv0, inv1;
+    wa.finish(i, inv0, inv1);
+    const int r = q0 + r0 + 16 * i + g;
+#pragma unroll
+    for (int j = 0; j < Hd::DN; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (r < Tq) {
+        *reinterpret_cast<uint32_t*>(ob + r * row + c) = wa.out_pair(i, j, false, inv0, inv1);
+      }
+      if (r + 8 < Tq) {
+        *reinterpret_cast<uint32_t*>(ob + (r + 8) * row + c) =
+            wa.out_pair(i, j, true, inv0, inv1);
+      }
     }
   }
 }
@@ -161,7 +135,8 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, i
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(N * H, (Tq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(q, k, v, o, H, Tq, Tk, scale);
+  flash_fwd_kernel<D><<<grid, FlashShape<D>::kThreads, smem, stream>>>(
+      q, k, v, o, H, Tq, Tk, scale * polyp::attn::kLog2e);
   return cudaGetLastError();
 }
 
@@ -182,5 +157,18 @@ extern "C" int polyp_flash_attention_fwd(const void* q, const void* k, const voi
     case 128: return launch_flash<128>(qp, kp, vp, op, n, h, tq, tk, scale, s);
     case 160: return launch_flash<160>(qp, kp, vp, op, n, h, tq, tk, scale, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory a flash block takes at head dim d (0 if d is not
+// built): chip_smoke.py reports it beside the registers.
+extern "C" long long polyp_flash_smem(int d) {
+  switch (d) {
+    case 40: return FlashShape<40>::kSmem;
+    case 64: return FlashShape<64>::kSmem;
+    case 80: return FlashShape<80>::kSmem;
+    case 128: return FlashShape<128>::kSmem;
+    case 160: return FlashShape<160>::kSmem;
+    default: return 0;
   }
 }

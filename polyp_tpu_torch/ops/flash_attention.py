@@ -58,7 +58,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor,
     if k.shape != (n, tk, h, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} do not match")
-    if tk < 1 or -(-tq // 64) > 65535:
+    if tk < 1 or -(-tq // 128) > 65535:  # 128 query rows a block
         raise ValueError(f"flash kernel cannot tile tq={tq} tk={tk}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):

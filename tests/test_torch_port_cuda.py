@@ -72,6 +72,35 @@ def test_flash_matches_plain(dev, d, tq, tk):
     assert _max_err(got, want) < 2e-2
 
 
+# token counts that cut the 128-row query tiles and the 64-key tiles
+# raggedly: one token, one past a tile, one short of one, and the
+# cross-attention length 77 (its last key tile holds 13 valid keys)
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk", [(1, 1), (63, 65), (129, 127), (1000, 1024),
+                                   (1024, 77)])
+def test_flash_ragged_tiles(dev, d, tq, tk):
+    q = _randn(dev, 1, tq, 2, d, seed=7)
+    k = _randn(dev, 1, tk, 2, d, seed=8)
+    v = _randn(dev, 1, tk, 2, d, seed=9)
+    with torch.no_grad():
+        got = flash_attention(q, k, v)
+    want = reference_attention(q.float(), k.float(), v.float())
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert _max_err(got, want) < 2e-2
+
+
+def test_flash_distilled_batch_repeats_bit_for_bit(dev):
+    """The unfused distilled shape [16, 1024, 8, 40] against the plain
+    version, and two runs give the same bits (no atomics, fixed order)."""
+    q, k, v = (_randn(dev, 16, 1024, 8, 40, seed=s) for s in (10, 11, 12))
+    with torch.no_grad():
+        a = flash_attention(q, k, v)
+        b = flash_attention(q, k, v)
+    want = reference_attention(q.float(), k.float(), v.float())
+    assert _max_err(a, want) < 2e-2
+    assert torch.equal(a, b)
+
+
 def test_flash_backward_recomputes_plain(dev):
     q, k, v = (_randn(dev, 1, 128, 2, 64, seed=s).requires_grad_()
                for s in (4, 5, 6))
@@ -311,6 +340,12 @@ def _mha_case(dev, b, tq, c, tk, ckv, h, d, co):
     (4, 1024, 320, 77, 768, 8, 40, 320),
     (2, 256, 128, None, 0, 2, 64, 128),
     (1, 200, 64, 130, 40, 3, 40, 72),
+    # more heads than one cluster of 8 blocks: two heads a block, five
+    # blocks; then nine heads (the last block takes one); Co no multiple of
+    # 8 x the cluster, and an odd Co
+    (2, 256, 128, None, 0, 10, 64, 200),
+    (1, 130, 64, 77, 48, 10, 64, 101),
+    (1, 192, 96, None, 0, 9, 40, 90),
 ])
 def test_fused_mha_matches_plain(dev, b, tq, c, tk, ckv, h, d, co):
     args = _mha_case(dev, b, tq, c, tk, ckv, h, d, co)
