@@ -11,23 +11,28 @@ caught:
    per source, all at once) and prints the build seconds, and the
    registers, spill bytes and dynamic shared memory a block of the
    attention kernels (flash at every head dim, the fused MHA, its K/V
-   projection) from the build's -Xptxas -v log; a spill at d <= 80 (every
-   head dim a path runs) fails the run after the main paths;
+   projection) and the GEMM core's instantiations (the GEGLU's two
+   launches, the dense) from the build's -Xptxas -v log; a spill of an
+   attention kernel at d <= 80 (every head dim a path runs) or of any GEMM
+   kernel fails the run after the main paths;
 3. holds each kernel against its plain PyTorch version at the shapes each
    main path gives it (the CFG batch 4 and the distilled batches 16 and
    32), measured against the plain version in fp32 on the same inputs,
-   and prints both times from CUDA events beside the kernel's bound (the
-   larger of its bytes over the memory rate and its operations over the
-   peak of their type) and, where one PyTorch call computes the same
-   function, that call's time (`library_ms`, timed here only), with the
-   achieved TFLOP/s of the operations the bound counts and the bound's
-   share of the kernel's time: flash
-   attention, the fused MHA block (also beside the port's unfused path),
-   fused GEGLU and GroupNorm+SiLU in bf16 (tolerance in TOLERANCE); the
-   int8 kernels — the W8A8 dense, the static and the per-token int8 GEGLU —
-   by relative L2 and max error (Q8_REL_L2, Q8_MAX_REL), and GroupNorm's
-   int8 epilogue by the share of codes that differ (at most one code, in
-   at most GN_Q8_SHARE of the elements);
+   and prints its device time (time_ms: a CUDA graph of 20 calls, so the
+   wrapper's host work is not in it) beside the CUDA-event time of 20
+   eager calls (event_ms, the earlier timer), the plain version's device
+   time, the kernel's bound (the larger of its bytes over the memory rate
+   and its operations over the peak of their type) and, where one PyTorch
+   call computes the same function, that call's time (`library_ms`, timed
+   here only), with the achieved TFLOP/s of the operations the bound
+   counts and the bound's share of the kernel's time: flash attention, the
+   fused MHA block (also beside the port's unfused path), fused GEGLU
+   (beside the products alone and the cuBLAS chain) and GroupNorm+SiLU in
+   bf16 (tolerance in TOLERANCE); the int8 kernels — the W8A8 dense
+   (beside `_int_mm` on the codes), the static and the per-token int8
+   GEGLU — by relative L2 and max error (Q8_REL_L2, Q8_MAX_REL), and
+   GroupNorm's int8 epilogue by the share of codes that differ (at most
+   one code, in at most GN_Q8_SHARE of the elements);
 4. drives the main paths on the full-width SD-v1-4 stack (UNet 859,520,964
    params, VAE decoder, CLIP ViT-L/14 text encoder; bf16, random weights
    from seed 0) through generate_to_dir, each twice (first run through
@@ -51,7 +56,10 @@ caught:
    above zero for each kernel that path runs; images/s of each path are
    printed side by side, beside the UNet-only and decode-only seconds and
    the decode share; torch.profiler gives the device time of one sampling
-   loop of the fused and the unfused distilled bf16 paths;
+   loop, and its kernel families, of the w8a8_static CFG path and of the
+   fused, the unfused and the int8 distilled paths; one bf16 and one
+   w8a8_static UNet forward count the GEGLU's and the dense's launches by
+   shape (the census);
 5. holds one tiny-decoder forward on the card against the same weights in
    fp32 on the CPU, one bf16 UNet forward and one VAE decode on the card
    (kernels) against the same weights run on the CPU in fp32 (plain
@@ -142,7 +150,43 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# graph replays a device time averages over (each of `iters` calls)
+GRAPH_REPLAYS = 5
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`: `iters` calls captured once in a
+    CUDA graph (after warm-up calls on a side stream), the graph replayed
+    GRAPH_REPLAYS times between two CUDA events. The calls' host work
+    (argument checks, allocation, the launch itself) is not in it, so a
+    kernel shorter than its wrapper is timed as the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * GRAPH_REPLAYS)
+    del graph
+    return ms
+
+
+def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """The earlier timer, kept beside time_ms: CUDA events around `iters`
+    eager calls, which holds the wrapper's host time where the kernel is
+    shorter than it."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -190,7 +234,8 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
                              if name in RELATIVE_TO_MAX else 1.0)
     row = {"name": name, "shape": shape, "max_abs_err": err,
            "plain_bf16_max_abs_err": plain_err, "tolerance": tol,
-           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+           "ms": time_ms(kernel_fn), "event_ms": event_ms(kernel_fn),
+           "plain_ms": time_ms(plain_fn),
            "library_ms": time_ms(library_fn) if library_fn else None,
            **{f"{k}_ms": time_ms(fn) for k, fn in others.items()}, **cost}
     # achieved rate of the operations the bound counts, and the bound's
@@ -200,8 +245,9 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
     extra = "".join(f", {k} {row[f'{k}_ms']:.4f} ms"
                     for k in (["library"] if library_fn else []) + list(others))
     print(f"[check] {name} {shape}: max|err| {err:.3e} (plain bf16 "
-          f"{plain_err:.3e}, tol {tol:.1e}); kernel {row['ms']:.4f} ms, "
-          f"plain {row['plain_ms']:.4f} ms{extra}, bound "
+          f"{plain_err:.3e}, tol {tol:.1e}); kernel {row['ms']:.4f} ms "
+          f"(events {row['event_ms']:.4f}), plain {row['plain_ms']:.4f} ms"
+          f"{extra}, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}); "
           f"{row['tflops']:.1f} TFLOP/s, {row['bound_share']:.3f} of the "
           f"bound", flush=True)
@@ -212,8 +258,9 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
 
 
 def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
-               shape: str, cost: dict) -> dict:
-    """An int8 kernel (bf16 out) vs its plain version's fp32 result."""
+               shape: str, cost: dict, **others) -> dict:
+    """An int8 kernel (bf16 out) vs its plain version's fp32 result; times
+    any `others` (yardsticks timed only here) as compare() does."""
     out = kernel_fn()
     torch.cuda.synchronize()
     err = (out.float() - fp32_ref).abs().max().item()
@@ -222,36 +269,50 @@ def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
     row = {"name": name, "shape": shape, "max_abs_err": err,
            "max_abs_tolerance": tol, "rel_l2": rel,
            "rel_l2_tolerance": Q8_REL_L2,
-           "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
-           "library_ms": None, **cost}
+           "ms": time_ms(kernel_fn), "event_ms": event_ms(kernel_fn),
+           "plain_ms": time_ms(plain_fn), "library_ms": None,
+           **{f"{k}_ms": time_ms(fn) for k, fn in others.items()}, **cost}
+    row["bound_share"] = cost["bound_ms"] / row["ms"]
+    extra = "".join(f", {k} {row[f'{k}_ms']:.4f} ms" for k in others)
     print(f"[check] {name} {shape}: rel L2 {rel:.3e} (tol {Q8_REL_L2:.0e}), "
-          f"max|err| {err:.3e} (tol {tol:.3e}); kernel {row['ms']:.4f} ms,"
-          f" plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
+          f"max|err| {err:.3e} (tol {tol:.3e}); kernel {row['ms']:.4f} ms "
+          f"(events {row['event_ms']:.4f}), plain {row['plain_ms']:.4f} ms"
+          f"{extra}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{row['bound_share']:.3f} of it", flush=True)
     if not (rel <= Q8_REL_L2 and err <= tol):
         raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                              f"plain version: rel L2 {rel}, max {err}")
     return row
 
 
-# the attention kernels whose registers, spills and shared memory a block
-# chip_smoke reports from the build's -Xptxas -v log (mangled names)
+# the kernels whose registers, spills and shared memory a block chip_smoke
+# reports from the build's -Xptxas -v log (mangled names): the attention
+# kernels, and the GEMM core's instantiations (gemm_core.cuh) for the GEGLU's
+# two launches and the dense, by width (and, for the dense, quantized x)
 ATTENTION_KERNELS = re.compile(
     r"(flash_fwd_kernel|fused_mha_kernel|kv_project_kernel)(?:ILi(\d+)E)?")
+GEMM_KERNELS = re.compile(
+    r"gemm_kernelI\w*?(GegluUp|GegluDown|Dense)I((?:Li\d+E|Lb[01]E)+)")
 
 
 def ptxas_report(log: str) -> dict:
     """{"flash_fwd_kernel<40>": {"head_dim", "registers", "spill_bytes",
-    "stack_bytes"}} for the attention kernels, from nvcc's -Xptxas -v
-    report."""
+    "stack_bytes"}, "gemm_kernel<Dense<160,1>>": {...}} for the attention
+    and GEMM kernels (every template argument in the name), from nvcc's
+    -Xptxas -v report."""
     report, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = ATTENTION_KERNELS.search(line)
+            gm = GEMM_KERNELS.search(line)
             name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
                     if m else None)
             if name:
                 report[name] = {"head_dim": int(m.group(2) or 0) or None}
+            elif gm:
+                args = ",".join(re.findall(r"L[ib](\d+)E", gm.group(2)))
+                name = f"gemm_kernel<{gm.group(1)}<{args}>>"
+                report[name] = {"head_dim": None}
         elif name and "spill stores" in line:
             stack, stores, loads = map(int, re.findall(r"(\d+) bytes", line))
             report[name].update(stack_bytes=stack,
@@ -262,30 +323,128 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
-def check_kernels(dev: torch.device) -> list[dict]:
+def randn_on(dev: torch.device, seed: int):
+    """randn(*shape, scale=, shift=) -> bf16 on `dev`, from one generator."""
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                + shift).to(torch.bfloat16)
+    return randn
+
+
+def amax_scale(t: torch.Tensor) -> torch.Tensor:
+    return (t.float().abs().amax() * 1.05 / 127).reshape(())
+
+
+# the transformer FF's (C, tokens an image at 256px) at UNet levels 0-2 and
+# the mid block, and its launches per UNet forward at each: SD-v1-4 has two
+# transformers a down block and three an up block at levels 0-2, one mid
+FF_LEVELS = ((320, 1024), (640, 256), (1280, 64), (1280, 16))
+FF_PER_FORWARD = {320: 5, 640: 5, 1280: 5}
+# the W8A8 dense's shapes: (tokens an image, C, O, int8 x, what): to_q at
+# level 0 (also to_k/v/out and proj_out), the cross-attention K/V at levels
+# 0 and 2 (77 tokens of 768), proj_in at level 1 (bf16 in, and int8 in from
+# the GroupNorm handoff), level 2 and the mid block at C = O = 1280
+DENSE_CASES = ((1024, 320, 320, False, "to_q"),
+               (77, 768, 320, False, "to_k"),
+               (77, 768, 1280, False, "to_k level 2"),
+               (256, 640, 640, False, "proj_in"),
+               (256, 640, 640, True, "proj_in int8"),
+               (64, 1280, 1280, False, "level 2"),
+               (16, 1280, 1280, False, "mid"))
+
+
+def geglu_case(randn, n: int, c: int, per_image: int):
+    """x [n, per_image, C] and GEGLU weights w1 [8C, C], b1, w2 [C, 4C], b2
+    (bf16, scaled so the outputs are O(1))."""
+    h = 4 * c
+    x = randn(n, per_image, c)
+    w1, b1 = randn(2 * h, c, scale=c ** -0.5), randn(2 * h, scale=0.1)
+    w2, b2 = randn(c, h, scale=h ** -0.5), randn(c, scale=0.1)
+    return x, w1, b1, w2, b2
+
+
+def gemm_rows(dev: torch.device, geglu_batches=(4, 16, 32),
+              dense_batches=(4, 32)) -> list[dict]:
+    """Rows 2 and 5 of the kernel table, each kernel against its plain
+    version at every main-path shape: the bf16 GEGLU at UNet levels 0-2 and
+    mid at the CFG batch 4 and the distilled batches 16 and 32, beside the
+    products alone (two bf16 F.linear) and the cuBLAS chain (bf16 F.linear,
+    the GELU gate, F.linear); the W8A8 dense at DENSE_CASES at the
+    w8a8_static batches 4 and 32, beside the product alone (`_int_mm` on
+    int8 codes). The yardsticks are timed here only."""
     import torch.nn.functional as F
 
     from polyp_tpu_torch.ops import quant
     from polyp_tpu_torch.ops.fused_dense import (
         fused_w8a8_dense, reference_w8a8_dense)
+    from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
+
+    randn = randn_on(dev, seed=0)
+    rows = []
+    for n, c, per_image in ((n, c, t) for n in geglu_batches
+                            for c, t in FF_LEVELS):
+        h, tokens = 4 * c, n * per_image
+        x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image)
+        hb = randn(n, per_image, h)
+        args = (x, w1, b1, w2, b2)
+
+        def chain():
+            a, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+            return F.linear(a * F.gelu(gate), w2, b2)
+
+        row = compare(
+            "fused_geglu", lambda: fused_geglu(*args),
+            lambda: reference_geglu(*args),
+            reference_geglu(*(t.float() for t in args)),
+            f"[{tokens},{c}]x[{c},{2 * h}]",
+            bound(6 * tokens * c * h, "bf16",
+                  2 * nbytes(x) + nbytes(w1, b1, w2, b2)),
+            products=lambda: (F.linear(x, w1, b1), F.linear(hb, w2, b2)),
+            cublas_chain=chain)
+        row["launches_per_forward"] = 1 if per_image == 16 else \
+            FF_PER_FORWARD[c]
+        rows.append(row)
+    for n, (per_image, c, o, int8_in, what) in ((n, case)
+                                                for n in dense_batches
+                                                for case in DENSE_CASES):
+        m = n * per_image
+        x = randn(m, c)
+        wq, sw = quant.weight_q8_matrix(randn(o, c, scale=c ** -0.5))
+        bias = randn(o, scale=0.1)
+        s = amax_scale(x)
+        codes = quant.quantize_activation(x, s)[0]
+        if int8_in:
+            x = codes
+        dense_args = (x, wq, sw, bias, s)
+        rows.append(compare_q8(
+            "fused_w8a8_dense",
+            lambda: fused_w8a8_dense(*dense_args, out_dtype=torch.bfloat16),
+            lambda: reference_w8a8_dense(*dense_args,
+                                         out_dtype=torch.bfloat16),
+            reference_w8a8_dense(*dense_args, out_dtype=torch.float32),
+            f"{what} [{m},{c}]x[{c},{o}]",
+            bound(2 * m * c * o, "int8", nbytes(*dense_args) + 2 * m * o),
+            products=lambda: quant.int_mm(codes, wq)))
+    return rows
+
+
+def check_kernels(dev: torch.device) -> list[dict]:
+    import torch.nn.functional as F
+
+    from polyp_tpu_torch.ops import quant
     from polyp_tpu_torch.ops.flash_attention import (
         flash_attention, reference_attention)
     from polyp_tpu_torch.ops.fused_geglu import (
-        fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt, reference_geglu,
-        reference_geglu_w8a8, reference_geglu_w8a8_pt)
+        fused_geglu_w8a8, fused_geglu_w8a8_pt, reference_geglu_w8a8,
+        reference_geglu_w8a8_pt)
     from polyp_tpu_torch.ops.fused_gn import (
         fused_group_norm, group_norm, reference_gn_q8)
     from polyp_tpu_torch.ops.fused_mha import (
         fused_mha_linear, reference_mha_linear)
 
-    g = torch.Generator(dev).manual_seed(0)
-
-    def randn(*shape, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale
-                + shift).to(torch.bfloat16)
-
-    def amax_scale(t):
-        return (t.float().abs().amax() * 1.05 / 127).reshape(())
+    randn = randn_on(dev, seed=0)
 
     def sdpa(q, k, v):  # BTHD in and out, as the port's attention
         return F.scaled_dot_product_attention(
@@ -350,28 +509,17 @@ def check_kernels(dev: torch.device) -> list[dict]:
             library_fn=lambda: unfused(sdpa),
             unfused=lambda: unfused(flash_attention)))
 
-    # transformer FF per UNet level and mid (1024, 256, 64 and 16 tokens an
-    # image at 256px): bf16 at the CFG batch 4 (the headline rows) and the
-    # distilled batches 16 and 32; the static int8 GEGLU at 4 and 32 (the
-    # w8a8_static paths), the per-token one at 4 (dynamic w8a8 runs only
-    # under CFG)
-    for n, c, per_image in ((n, c, t) for n in (4, 16, 32)
-                            for c, t in ((320, 1024), (640, 256),
-                                         (1280, 64), (1280, 16))):
+    # rows 2 and 5 (the bf16 GEGLU and the W8A8 dense) at every main-path
+    # shape
+    rows += gemm_rows(dev)
+
+    # the static int8 GEGLU at the w8a8_static batches 4 and 32, the
+    # per-token one at 4 (dynamic w8a8 runs only under CFG), per UNet level
+    for n, c, per_image in ((n, c, t) for n in (4, 32) for c, t in FF_LEVELS):
         h, tokens = 4 * c, n * per_image
-        x = randn(n, per_image, c)
-        w1, b1 = randn(2 * h, c, scale=c ** -0.5), randn(2 * h, scale=0.1)
-        w2, b2 = randn(c, h, scale=h ** -0.5), randn(c, scale=0.1)
-        args = (x, w1, b1, w2, b2)
+        x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image)
         shape = f"[{tokens},{c}]x[{c},{2 * h}]"
         ops = 6 * tokens * c * h
-        rows.append(compare(
-            "fused_geglu", lambda: fused_geglu(*args),
-            lambda: reference_geglu(*args),
-            reference_geglu(*(t.float() for t in args)), shape,
-            bound(ops, "bf16", 2 * nbytes(x) + nbytes(w1, b1, w2, b2))))
-        if n == 16:
-            continue
         q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2),
               b2)
         s1 = amax_scale(x)
@@ -391,32 +539,6 @@ def check_kernels(dev: torch.device) -> list[dict]:
             lambda: reference_geglu_w8a8_pt(x, *q8),
             reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape,
             bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8))))
-
-    # W8A8 dense at the w8a8_static batches 4 (CFG) and 32 (distilled):
-    # to_q at level 0, cross-attention to_k (77 tokens of 768 an image), and
-    # proj_in at level 1 (bf16 in, and int8 in from the GroupNorm handoff)
-    for n, per_image, c, o, int8_in, what in (
-            (n, *case) for n in (4, 32)
-            for case in ((1024, 320, 320, False, "to_q"),
-                         (77, 768, 320, False, "to_k"),
-                         (256, 640, 640, False, "proj_in"),
-                         (256, 640, 640, True, "proj_in int8"))):
-        m = n * per_image
-        x = randn(m, c)
-        wq, sw = quant.weight_q8_matrix(randn(o, c, scale=c ** -0.5))
-        bias = randn(o, scale=0.1)
-        s = amax_scale(x)
-        if int8_in:
-            x = quant.quantize_activation(x, s)[0]
-        dense_args = (x, wq, sw, bias, s)
-        rows.append(compare_q8(
-            "fused_w8a8_dense",
-            lambda: fused_w8a8_dense(*dense_args, out_dtype=torch.bfloat16),
-            lambda: reference_w8a8_dense(*dense_args,
-                                         out_dtype=torch.bfloat16),
-            reference_w8a8_dense(*dense_args, out_dtype=torch.float32),
-            f"{what} [{m},{c}]x[{c},{o}]",
-            bound(2 * m * c * o, "int8", nbytes(*dense_args) + 2 * m * o)))
 
     # GN+SiLU: UNet level widths (incl. the up path's concat widths) at the
     # batches 4 (CFG), 16 and 32 (distilled), and the VAE decoder's widest
@@ -452,6 +574,8 @@ def check_kernels(dev: torch.device) -> list[dict]:
                "codes_differing": (diff > 0).float().mean().item(),
                "share_tolerance": GN_Q8_SHARE,
                "ms": time_ms(lambda: fused_group_norm(
+                   x, gamma, beta, 32, eps, "silu", act_scale=s)),
+               "event_ms": event_ms(lambda: fused_group_norm(
                    x, gamma, beta, 32, eps, "silu", act_scale=s)),
                "plain_ms": time_ms(lambda: reference_gn_q8(
                    x, gamma, beta, s, 32, eps, "silu")),
@@ -601,6 +725,90 @@ def check_tiny_decoder(tiny, dev: torch.device) -> float:
     return rel
 
 
+# kernel families a profile sums by name: this tree's kernels and the
+# earlier ones they replaced (the same names in a parent's profile)
+FAMILIES = {"w8a8_dense": ("Dense<", "dense_q8_kernel"),
+            "bf16_geglu": ("GegluUp<", "GegluDown<", "geglu_partial_kernel",
+                           "geglu_reduce_kernel"),
+            "int8_geglu": ("geglu_q8", "geglu_w8a8"),
+            "group_norm": ("group_norm", "gn_"),
+            "attention": ("flash_fwd", "fused_mha", "kv_project")}
+
+
+def profile_loop(sampler, batch: int) -> dict:
+    """Device time of one batch's sampling loop (`sampler.denoise`, CFG or
+    folded) from torch.profiler's kernel events: the total, the sums of the
+    kernel FAMILIES (ms, calls) and the largest items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = sampler.device
+    cond = sampler.encode_prompt(PROMPT)
+    uncond = (None if sampler.guidance_scale is None
+              else sampler.encode_prompt(""))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sampler.denoise(cond, uncond, batch,
+                        torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+
+    def us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA),
+                     key=us, reverse=True)
+    families = {}
+    for fam, keys in FAMILIES.items():
+        mine = [e for e in kernels if any(k in e.key for k in keys)]
+        families[fam] = [sum(us(e) for e in mine) / 1e3,
+                         sum(e.count for e in mine)]
+    return {"device_s": sum(us(e) for e in kernels) / 1e6,
+            "steps": sampler.num_steps, "families": families,
+            "top": [[e.key[:60], us(e) / 1e3, e.count] for e in kernels[:8]]}
+
+
+def shape_census(unet, dev: torch.device, scales: dict) -> dict:
+    """Launches per UNet forward of the bf16 GEGLU and the W8A8 dense by
+    shape: one bf16 and one w8a8_static forward (CFG batch 4, 32×32
+    latents) with the wrappers that unet_blocks calls counted per shape
+    ([M, C]x[C, N], int8 x marked)."""
+    from collections import Counter
+
+    from polyp_tpu_torch.models import unet_blocks
+    from polyp_tpu_torch.ops import quant
+
+    seen = {"fused_geglu": Counter(), "fused_w8a8_dense": Counter()}
+    originals = {name: getattr(unet_blocks, name) for name in seen}
+
+    def counted(name):
+        def fn(x, w, *args, **kwargs):
+            c = x.shape[-1]
+            n = w.shape[0] // 2 if name == "fused_geglu" else w.shape[0]
+            int8 = " int8" if x.dtype == torch.int8 else ""
+            seen[name][f"[{x.numel() // c},{c}]x[{c},{n}]{int8}"] += 1
+            return originals[name](x, w, *args, **kwargs)
+        return fn
+
+    g = torch.Generator("cpu").manual_seed(3)
+    x = torch.randn(4, 4, 32, 32, generator=g).to(dev, torch.bfloat16)
+    t = torch.full((4,), 500, device=dev)
+    ctx = torch.randn(4, 77, 768, generator=g).to(dev, torch.bfloat16)
+    try:
+        for name in seen:
+            setattr(unet_blocks, name, counted(name))
+        with torch.no_grad():
+            unet(x, t, ctx)
+            with quant.override("w8a8_static", scales=quant.ScaleBank(scales),
+                                t=t):
+                unet(x, t, ctx)
+    finally:
+        for name, fn in originals.items():
+            setattr(unet_blocks, name, fn)
+    return {name: dict(sorted(c.items())) for name, c in seen.items()}
+
+
 def split_timed(sampler, spent: dict):
     """The batch function of `sampler.for_prompt(PROMPT)` (the sampling
     loop, then the decode), with the two timed apart on synchronised host
@@ -703,9 +911,10 @@ def main() -> int:
     print(f"[build] {lib_path.name} in {build_s:.1f} s", flush=True)
     log = lib_path.with_suffix(".log")
     for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("registers", "spill", "warning")):
             print(f"[ptxas] {line.strip()}")
-    # registers, spills and shared memory a block of the attention kernels
+    # registers, spills and shared memory a block of the attention and GEMM
+    # kernels (the GEMM kernels' shared memory depends on the shape)
     lib = _build.library()
     kernel_resources = ptxas_report(log.read_text())
     for name, res in kernel_resources.items():
@@ -795,37 +1004,20 @@ def main() -> int:
         return info
 
     def profile_denoise(name: str, sampler, batch: int) -> None:
-        """Device time of one batch's sampling loop from torch.profiler's
-        kernel events, its share of the unprofiled loop's wall time (the
-        timed run's, one batch), and the largest device items."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        cond = sampler.encode_prompt(PROMPT)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sampler.denoise(cond, None, batch,
-                            torch.Generator(dev).manual_seed(0))
-            torch.cuda.synchronize()
-
-        def us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-
-        kernels = sorted((e for e in prof.key_averages()
-                          if getattr(e, "device_type", None)
-                          == DeviceType.CUDA), key=us, reverse=True)
-        device_s = sum(us(e) for e in kernels) / 1e6
+        """profile_loop() of one batch's sampling loop, with its share of the
+        unprofiled loop's wall time (the timed run's, one batch)."""
         path = paths[name]
-        path["profile"] = {
-            "device_s": device_s,
-            "busy_share": device_s / path["unet_s"],
-            "top": [[e.key[:60], us(e) / 1e3, e.count] for e in kernels[:8]]}
-        print(f"[profile] {name}: device {device_s:.3f} s of "
-              f"{path['unet_s']:.3f} s UNet-only wall = busy share "
-              f"{device_s / path['unet_s']:.2f}; top (ms, calls): "
-              + "; ".join(f"{k} {ms:.1f} ({n})"
-                          for k, ms, n in path["profile"]["top"][:5]),
+        prof = profile_loop(sampler, batch)
+        # the CFG paths' timed run has n_images / batch loops
+        loops = path["images"] // path["batch"]
+        prof["busy_share"] = prof["device_s"] * loops / path["unet_s"]
+        path["profile"] = prof
+        print(f"[profile] {name}: device {prof['device_s']:.4f} s a loop, "
+              f"busy share {prof['busy_share']:.2f}; per family (ms, calls):"
+              f" " + "; ".join(f"{k} {v[0]:.3f} ({v[1]})"
+                               for k, v in prof["families"].items())
+              + "; top: " + "; ".join(f"{k} {ms:.1f} ({n})"
+                                      for k, ms, n in prof["top"][:5]),
               flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -838,7 +1030,12 @@ def main() -> int:
         drive("bf16", sampler_for(), 4, 2)
         static = sampler_for(quantize="w8a8_static", quant_fp_head=5)
         drive("w8a8_static", static, 4, 2, fp_head=5, **calibrate(static))
+        # the int8 loop's device time, and the dense's share of it
+        profile_denoise("w8a8_static", static, 2)
         drive("w8a8", sampler_for(quantize="w8a8"), 2, 2)
+        census = shape_census(stack.unet, dev, static.quant_scales)
+        print(f"[census] launches per CFG UNet forward by shape: {census}",
+              flush=True)
         phase("CFG paths")
 
         # the distilled paths (the full-width UNet stands in for a student:
@@ -858,8 +1055,10 @@ def main() -> int:
              {"decoder": "tiny", "fp_head": 0, **calibrate(q8)})]
         for name, sampler, batch, info in distilled:
             drive(name, sampler, batch, batch, **info)
-            # the pair that decides the fused MHA's opt-in (PERF.md)
-            if name in ("distilled_bf16", "distilled_bf16_unfused"):
+            # the pair that decides the fused MHA's opt-in (PERF.md), and
+            # the int8 loop
+            if name in ("distilled_bf16", "distilled_bf16_unfused",
+                        "distilled_int8_tiny"):
                 profile_denoise(name, sampler, batch)
         phase("distilled paths")
 
@@ -916,12 +1115,15 @@ def main() -> int:
             raise AssertionError(f"{name} launches {got}, want {want}")
 
     # the attention kernels keep their state in registers without spilling
-    # at every head dim a path runs (d <= 80)
+    # at every head dim a path runs (d <= 80), and the GEMM kernels their
+    # accumulators at every width
     spilled = {name: res for name, res in kernel_resources.items()
                if res.get("spill_bytes", 1) > 0
                and (res["head_dim"] or 0) <= 80}
-    if spilled:
-        raise AssertionError(f"attention kernels spill: {spilled}")
+    if spilled or not any(n.startswith("gemm_kernel")
+                          for n in kernel_resources):
+        raise AssertionError(f"kernels spill (or no GEMM kernel in the "
+                             f"log): {spilled}")
 
     decoder_rel = check_tiny_decoder(tiny, dev)
     agreement = check_against_cpu(stack, dev, static.quant_scales)
@@ -965,6 +1167,7 @@ def main() -> int:
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
+              "shape_census": census,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

@@ -123,7 +123,7 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.polyp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.polyp_cuda_error_string.restype = ctypes.c_char_p
-    # t, c, h -> floats of fp32 workspace the GEGLU kernel needs
+    # t, c, h -> bf16 elements of the GEGLU's h workspace [t, h]
     lib.polyp_fused_geglu_workspace.argtypes = [_I, _I, _I]
     lib.polyp_fused_geglu_workspace.restype = ctypes.c_longlong
     # t, c, h, block_h (0: static form) -> 4-byte elements of int8 GEGLU

@@ -10,139 +10,167 @@
 //
 // Replaces the TPU kernel polyp_tpu/ops/fused_dense.py::fused_w8a8_dense
 // (body _dense_q_kernel). Like it, the activation is quantized on its way
-// into the tile and never stored as int8 in device memory, and the
+// into the product and never stored as int8 in device memory, and the
 // dequantize and bias run in the epilogue.
 //
-// What bounds it on the H100: bytes and launch latency. At SD widths and
-// 256px (C, O ≤ 1280; M ≤ 4096 tokens) a call does under 1 GOP against
-// about 5 MB of bf16 in and out: under a microsecond of the card's 1,979
-// TOP/s int8, one or two of its 3.35 TB/s. Design: one block per 64 rows × 128 columns, eight warps of
-// 32 × 32 outputs each on the integer tensor cores (mma.sync m16n8k32,
-// s32 accumulators in registers); K runs in chunks of 64 through a two-
-// stage pipeline: the int8 weight chunk by cp.async, the bf16 activation
-// chunk through registers, quantized as it is stored to shared memory. Any
-// M is masked (the cross-attention K/V at M = N·77 runs here too); C must
-// be a multiple of 16 and O of 8. wgmma and TMA are later work.
+// What bounds it on the H100: bytes, the quantize, and latency. At SD widths
+// a call does at most a few GOP of int8 (a few µs of the card's 1,979
+// TOP/s) against its bf16 activations in and out (to_q at the distilled
+// batch 32: 42 MB, 12.5 µs at 3.35 TB/s), quantizes every activation once
+// for each 160-column tile, and at the CFG batch's small M is a handful of
+// tiles. The earlier mma.sync kernel paid one memory latency for each of
+// its 5-20 K chunks in series. Design: the GEMM core (gemm_core.cuh), 64 rows × 160
+// (O = 320, 640, 1280), 128 or 64 columns a tile, two blocks an SM. TMA
+// brings the bf16 (or int8) activation chunk and the int8 weight chunk
+// into the ring, which streams the chunks behind one latency. The consumer
+// warpgroup builds wgmma's 8-bit A fragment in registers straight from the
+// bf16 tile: each thread reads its own 4-element groups from the swizzled
+// tile, quantizes them with quant_s8_bits (a multiply and adds on the ALU,
+// not the division and the conversion unit; bit-equal to quant_s8 and
+// torch.round, the division itself taken for the rare value near a tie)
+// and packs four codes a register, with no int8 copy of the tile; B (the
+// weight) comes from shared memory by descriptor, as m64nNk32 s8 requires
+// both K-major. An int8 x is an ordinary TMA tile read into the same
+// fragment. K is split over a cluster where the tiles are few. Any M; C a
+// multiple of 16 and O of 8.
 
+#include "gemm_core.cuh"
 #include "int8_mma.cuh"
 
 using polyp::bf16;
+namespace gemm = polyp::gemm;
 
 namespace {
 
-constexpr int kBM = 64;        // rows per block
-constexpr int kBN = 128;       // output columns per block
-constexpr int kBK = 64;        // K chunk
-constexpr int kThreads = 256;  // 8 warps: 2 row halves × 4 column quarters
-constexpr int LDK = kBK + 16;  // int8 stride of a shared tile row (≡ 16 mod 32)
+constexpr int kChunk = gemm::kChunkBytes;  // int8 K chunk (128 elements)
+constexpr int kBox = gemm::kWgRows * gemm::kChunkBytes;  // one [64 rows][128 B] box
+
+// The four bf16 elements 32(s%2) + 16h + 4t .. +3 of row r + 8rr (j = 2h +
+// rr) of a [64 rows][64] bf16 box: one 8-byte load from the swizzled tile.
+__device__ __forceinline__ uint2 raw_of(const unsigned char* box, int r, int s, int j, int t) {
+  return *reinterpret_cast<const uint2*>(
+      box + gemm::swizzle128(r + 8 * (j & 1), (s & 1) * 64 + (j >> 1) * 32 + t * 8));
+}
+
+template <int BN, bool kQuantX>
+struct Dense {
+  static constexpr int kRows = gemm::kWgRows, kBN = BN, kAcc = 1, kInFlight = 0;
+  static constexpr int kBlocksPerSM = 2;
+  using Acc = int;
+  // A: two bf16 boxes of 64 elements (quantized here) or one int8 box
+  static constexpr int kABytes = kQuantX ? 2 * kBox : kBox;
+  static constexpr int kStageBytes = kABytes + BN * gemm::kChunkBytes;
+  struct Params {
+    CUtensorMap x, w;
+    const float* sw;
+    const bf16* bias;  // or null
+    const float* sx;
+    bf16* out;
+    int m, n, n_k;  // M, O, C chunks
+  };
+  __device__ static void load(const Params& p, unsigned char* st, int kc, int m0, int n0,
+                              uint64_t* bar) {
+    gemm::tma_load(st, &p.x, bar, kc * kChunk, m0);
+    if constexpr (kQuantX) gemm::tma_load(st + kBox, &p.x, bar, kc * kChunk + kChunk / 2, m0);
+    gemm::tma_load(st + kABytes, &p.w, bar, kc * kChunk, n0);
+  }
+  __device__ static void mma(const Params& p, unsigned char* st, int (&acc)[1][BN / 2]) {
+    const int lane = threadIdx.x & 31;
+    const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);  // rows r and r + 8
+    const int t = lane & 3;
+    // a[s][2h + rr]: k32 step s, k half h (+16), row r + 8·rr
+    uint32_t a[4][4];
+    if constexpr (kQuantX) {
+      const float sx = *p.sx;
+      const float inv = 1.f / sx;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const unsigned char* box = st + (s >> 1) * kBox;  // elements 0-63, 64-127
+        bool near = false;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // j = 2h + rr
+          const uint2 raw = raw_of(box, r, s, j, t);
+          const bf16* e = reinterpret_cast<const bf16*>(&raw);
+          uint32_t q[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            bool tie;
+            q[i] = polyp::quant_s8_bits(__bfloat162float(e[i]), inv, &tie);
+            near |= tie;
+          }
+          a[s][j] = polyp::pack_low_bytes(q[0], q[1], q[2], q[3]);
+        }
+        if (near) {  // rare: the division itself where the product is too near a tie
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint2 raw = raw_of(box, r, s, j, t);
+            const bf16* e = reinterpret_cast<const bf16*>(&raw);
+            a[s][j] = polyp::pack_s8x4(polyp::quant_s8(__bfloat162float(e[0]), sx),
+                                       polyp::quant_s8(__bfloat162float(e[1]), sx),
+                                       polyp::quant_s8(__bfloat162float(e[2]), sx),
+                                       polyp::quant_s8(__bfloat162float(e[3]), sx));
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            a[s][2 * h + rr] = *reinterpret_cast<const uint32_t*>(
+                st + gemm::swizzle128(r + 8 * rr, s * 32 + h * 16 + t * 4));
+          }
+        }
+      }
+    }
+    gemm::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      gemm::Wgmma<BN>::s8_rs(acc[0], a[s], gemm::smem_desc(st + kABytes + s * 32), 1);
+    }
+    gemm::wgmma_commit();
+  }
+  __device__ static __nv_bfloat162 epilogue(const Params& p, int col, const int (&v)[1][2]) {
+    const float sx = *p.sx;
+    const float2 sw = *reinterpret_cast<const float2*>(p.sw + col);
+    const float2 b = p.bias ? __bfloat1622float2(
+                                  *reinterpret_cast<const __nv_bfloat162*>(p.bias + col))
+                            : make_float2(0.f, 0.f);
+    return __floats2bfloat162_rn(static_cast<float>(v[0][0]) * (sx * sw.x) + b.x,
+                                 static_cast<float>(v[0][1]) * (sx * sw.y) + b.y);
+  }
+};
+
+template <int BN, bool kQuantX>
+cudaError_t launch_dense(const void* x, const void* w, const void* sw, const void* bias,
+                         const void* sx, void* out, int m, int c, int o, cudaStream_t stream) {
+  using P = Dense<BN, kQuantX>;
+  typename P::Params p{};
+  cudaError_t err = gemm::encode_map(&p.x, x, !kQuantX, m, c, gemm::kWgRows);
+  if (err == cudaSuccess) err = gemm::weight_map(&p.w, w, true, o, c, BN);
+  if (err != cudaSuccess) return err;
+  p.sw = static_cast<const float*>(sw);
+  p.bias = static_cast<const bf16*>(bias);
+  p.sx = static_cast<const float*>(sx);
+  p.out = static_cast<bf16*>(out);
+  p.m = m;
+  p.n = o;
+  p.n_k = (c + kChunk - 1) / kChunk;
+  return gemm::launch<P>(p, stream);
+}
 
 template <bool kQuantX>
-__global__ void __launch_bounds__(kThreads)
-dense_q8_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ sw, const bf16* __restrict__ bias,
-                const float* __restrict__ sx_ptr, bf16* __restrict__ out, int M, int C, int O) {
-  __shared__ __align__(16) int8_t sA[2][kBM * LDK];
-  __shared__ __align__(16) int8_t sB[2][kBN * LDK];
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4;  // 32-row half
-  const int wn = warp % 4;  // 32-column quarter
-  const float sx = *sx_ptr;
-  const int n_k = (C + kBK - 1) / kBK;
-
-  // bf16 activations: 64 rows × 8 vectors of 8 per chunk, two per thread,
-  // loaded to registers one chunk ahead and quantized when stored
-  uint4 ra[2];
-  auto load_a_regs = [&](int kc) {
-    for (int j = 0; j < 2; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = m0 + i / 8;
-      const int c = kc * kBK + (i % 8) * 8;
-      ra[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (r < M && c < C) {
-        ra[j] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(x) +
-                                                static_cast<long long>(r) * C + c);
-      }
-    }
-  };
-  auto store_a = [&](int buf) {
-    for (int j = 0; j < 2; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      *reinterpret_cast<uint2*>(&sA[buf][(i / 8) * LDK + (i % 8) * 8]) =
-          polyp::quant_bf16x8(ra[j], sx);
-    }
-  };
-  auto issue = [&](int kc) {
-    const int buf = kc & 1;
-    const int k0 = kc * kBK;
-    polyp::load_tile_async_s8(sB[buf], LDK, w + static_cast<long long>(n0) * C + k0, C, kBN, kBK,
-                              O - n0, C - k0);
-    if constexpr (!kQuantX) {
-      polyp::load_tile_async_s8(sA[buf], LDK,
-                                static_cast<const int8_t*>(x) + static_cast<long long>(m0) * C + k0,
-                                C, kBM, kBK, M - m0, C - k0);
-    }
-  };
-
-  int acc[2][4][4] = {};
-  issue(0);
-  polyp::cp_async_commit();
-  if constexpr (kQuantX) {
-    load_a_regs(0);
-    store_a(0);
-  }
-  for (int kc = 0; kc < n_k; ++kc) {
-    polyp::cp_async_wait<0>();
-    __syncthreads();  // chunk kc is in shared memory; chunk kc - 1 is consumed
-    const bool more = kc + 1 < n_k;
-    if (more) {
-      issue(kc + 1);
-      polyp::cp_async_commit();
-      if constexpr (kQuantX) load_a_regs(kc + 1);
-    }
-    const int buf = kc & 1;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) polyp::load_a_frag(a[mt], sA[buf], LDK, wm * 32 + mt * 16, kk);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) polyp::load_b_frag(b[nt], sB[buf], LDK, wn * 32 + nt * 8, kk);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) polyp::mma_s8_16832(acc[mt][nt], a[mt], b[nt]);
-      }
-    }
-    if constexpr (kQuantX) {
-      if (more) store_a((kc + 1) & 1);
-    }
-  }
-
-  // epilogue: per-channel dequantize + bias, two adjacent columns a store
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = n0 + wn * 32 + nt * 8 + 2 * t;
-    if (c >= O) continue;  // O is even, so c + 1 < O too
-    const float s0 = sx * sw[c];
-    const float s1 = sx * sw[c + 1];
-    const float b0 = bias ? __bfloat162float(bias[c]) : 0.f;
-    const float b1 = bias ? __bfloat162float(bias[c + 1]) : 0.f;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm * 32 + mt * 16 + g + half * 8;
-        if (r >= M) continue;
-        const int* v = acc[mt][nt] + 2 * half;
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(r) * O + c) =
-            __floats2bfloat162_rn(static_cast<float>(v[0]) * s0 + b0,
-                                  static_cast<float>(v[1]) * s1 + b1);
-      }
-    }
+cudaError_t dispatch(const void* x, const void* w, const void* sw, const void* bias,
+                     const void* sx, void* out, int m, int c, int o, cudaStream_t stream) {
+  switch (gemm::pick_width(o)) {
+    case 160:
+      return launch_dense<160, kQuantX>(x, w, sw, bias, sx, out, m, c, o, stream);
+    case 128:
+      return launch_dense<128, kQuantX>(x, w, sw, bias, sx, out, m, c, o, stream);
+    default:
+      return launch_dense<64, kQuantX>(x, w, sw, bias, sx, out, m, c, o, stream);
   }
 }
 
@@ -152,16 +180,6 @@ extern "C" int polyp_w8a8_dense(const void* x, int x_is_int8, const void* w, con
                                 const void* bias, const void* sx, void* out, int m, int c, int o,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((m + kBM - 1) / kBM, (o + kBN - 1) / kBN);
-  const int8_t* wq = static_cast<const int8_t*>(w);
-  const float* swp = static_cast<const float*>(sw);
-  const bf16* bp = static_cast<const bf16*>(bias);
-  const float* sxp = static_cast<const float*>(sx);
-  bf16* op = static_cast<bf16*>(out);
-  if (x_is_int8) {
-    dense_q8_kernel<false><<<grid, kThreads, 0, s>>>(x, wq, swp, bp, sxp, op, m, c, o);
-  } else {
-    dense_q8_kernel<true><<<grid, kThreads, 0, s>>>(x, wq, swp, bp, sxp, op, m, c, o);
-  }
-  return cudaGetLastError();
+  return x_is_int8 ? dispatch<false>(x, w, sw, bias, sx, out, m, c, o, s)
+                   : dispatch<true>(x, w, sw, bias, sx, out, m, c, o, s);
 }

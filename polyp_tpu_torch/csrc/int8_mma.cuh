@@ -1,8 +1,8 @@
-// int8 tensor-core helpers shared by the W8A8 kernels (fused_dense.cu,
-// fused_geglu_w8a8.cu): the s8×s8→s32 mma.sync of Hopper's integer tensor
-// cores, its fragment loads from shared memory, the round-half-to-even
-// quantize every int8 kernel applies, and 16-byte cp.async tile copies of
-// int8 data.
+// int8 helpers of the W8A8 kernels: the round-half-to-even quantize every
+// int8 kernel applies (and its division-free form, which fused_dense.cu
+// uses); and, for fused_geglu_w8a8.cu, the s8×s8→s32 mma.sync of Hopper's
+// integer tensor cores, its fragment loads from shared memory and 16-byte
+// cp.async tile copies of int8 data.
 #pragma once
 
 #include "common.cuh"
@@ -13,6 +13,33 @@ namespace polyp {
 // The division is IEEE (no fast-math flags), so codes equal the host's.
 __device__ __forceinline__ int quant_s8(float v, float s) {
   return static_cast<int>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));
+}
+
+// quant_s8(v, s) from the product y = v * inv, inv = 1/s (IEEE), without
+// the division and without the conversion unit (rint and float-to-int run
+// at an eighth of the ALU's rate): adding 1.5·2^23 rounds a float of
+// magnitude below 2^22 to an integer, half to even, and leaves that integer
+// in the low mantissa bits, so the low byte of the sum of the clamped y is
+// its int8 code in two's complement. y is within |y|·2^-22.9 of v/s (two
+// roundings), so where y is farther than |y|·2^-22 from the nearest
+// half-integer, v/s and its rounded quotient lie strictly on y's side of it
+// and this is the code quant_s8 gives. Nearer (about one value in 10^5 at
+// |y| ~ 30; every value beyond 2^22), `*near` is set and the caller
+// recomputes that value with quant_s8 itself. Returns a word whose low byte
+// is the code.
+__device__ __forceinline__ uint32_t quant_s8_bits(float v, float inv, bool* near) {
+  constexpr float kRound = 12582912.f;  // 1.5 * 2^23
+  const float y = v * inv;
+  const float r = (y + kRound) - kRound;  // rint(y)
+  // the distance to the nearest half-integer is 0.5 - |y - r|
+  *near = fabsf(y - r) >= fmaf(-fabsf(y), 0x1p-22f, 0.5f);
+  return __float_as_uint(fminf(fmaxf(y, -127.f), 127.f) + kRound);
+}
+
+// The low bytes of four words, packed little-endian into one.
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c,
+                                                   uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
 // Four int8 codes packed little-endian into one 32-bit word.

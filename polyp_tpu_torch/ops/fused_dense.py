@@ -1,8 +1,8 @@
 """W8A8 dense: the twin of polyp_tpu/ops/fused_dense.py.
 
-`fused_w8a8_dense` runs the CUDA kernel `csrc/fused_dense.cu` (which
-replaces the Pallas kernel `fused_w8a8_dense`, polyp_tpu/ops/fused_dense.py
-:97) on CUDA tensors, and the plain version `reference_w8a8_dense` on CPU
+`fused_w8a8_dense` runs the CUDA kernel `csrc/fused_dense.cu`, on the
+GEMM core `csrc/gemm_core.cuh` (it replaces the Pallas kernel
+`fused_w8a8_dense`, polyp_tpu/ops/fused_dense.py:97), on CUDA tensors, and the plain version `reference_w8a8_dense` on CPU
 tensors. Weights arrive quantized (`quant.module_weight_q8`: int8 [O, C]
 in torch layout and fp32 [O] scales); the activation is quantized inside
 with `act_scale`, a 0-d fp32 tensor on the activation's device (calibrated
@@ -77,8 +77,10 @@ def fused_w8a8_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     xf = x.reshape(-1, c).contiguous()
     wq, sw = wq.contiguous(), sw.contiguous()
     bias = None if bias is None else bias.contiguous()
-    if any(t.data_ptr() % 16 for t in (xf, wq)):
-        raise ValueError("W8A8 dense kernel needs 16-byte aligned x and wq")
+    if any(t.data_ptr() % 16 for t in (xf, wq, sw)) or (
+            bias is not None and bias.data_ptr() % 16):
+        raise ValueError("W8A8 dense kernel needs 16-byte aligned x, wq, sw "
+                         "and bias")
     m = xf.shape[0]
     out = torch.empty((m, o), dtype=torch.bfloat16, device=x.device)
     if m:

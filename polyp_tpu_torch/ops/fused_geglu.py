@@ -3,9 +3,10 @@
 Three kernels, each launched on CUDA tensors by its wrapper and replaced by
 its plain version on CPU tensors:
 
-* `fused_geglu` — `csrc/fused_geglu.cu`, replacing the Pallas kernel
-  `fused_geglu` (polyp_tpu/ops/fused_geglu.py:139); plain `reference_geglu`.
-  bf16, any token count, C and H multiples of 8.
+* `fused_geglu` — `csrc/fused_geglu.cu` on the GEMM core
+  `csrc/gemm_core.cuh`, replacing the Pallas kernel `fused_geglu`
+  (polyp_tpu/ops/fused_geglu.py:139); plain `reference_geglu`. bf16, any
+  token count, C and H multiples of 8.
 * `fused_geglu_w8a8` — `csrc/fused_geglu_w8a8.cu` (static form), replacing
   `fused_geglu_w8a8` (:256): the static-scale int8 FF; plain
   `reference_geglu_w8a8`.
@@ -57,9 +58,13 @@ def block_h(c: int, hidden: int) -> int:
 
 def reference_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Plain version (identical math, erf-form gelu)."""
-    a, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
-    return F.linear(a * F.gelu(gate), w2, b2)
+    """Plain version, in the kernel's (and the TPU kernel's) order: a and
+    gate in fp32, h = a * gelu_erf(gate) rounded to x's dtype, the second
+    product in fp32, one rounding to x's dtype at the end. For fp32 inputs
+    that is plain fp32 math."""
+    a, gate = F.linear(x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
+    h = (a * F.gelu(gate)).to(x.dtype)
+    return F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
 
 
 def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -87,17 +92,18 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"C={c} H={hidden}")
     xf = x.reshape(-1, c).contiguous()
     w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
-    if any(t.data_ptr() % 16 for t in (xf, w1, w2)):
-        raise ValueError("GEGLU kernel needs 16-byte aligned x, w1 and w2")
+    if any(t.data_ptr() % 16 for t in (xf, w1, b1, w2, b2)):
+        raise ValueError("GEGLU kernel needs 16-byte aligned x, w1, b1, w2 "
+                         "and b2")
     t = xf.shape[0]
     out = torch.empty_like(xf)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        # fp32 partial sums of the hidden splits, which the kernel sizes from
-        # the shapes and the card's SM count
+        # h = bf16(a * gelu(gate)) [T, H], made by the first launch and read
+        # by the second
         workspace = torch.empty(
             lib.polyp_fused_geglu_workspace(t, c, hidden),
-            dtype=torch.float32, device=x.device)
+            dtype=torch.bfloat16, device=x.device)
         err = lib.polyp_fused_geglu(
             xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), workspace.data_ptr(), out.data_ptr(), t, c,

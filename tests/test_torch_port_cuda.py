@@ -135,25 +135,72 @@ def test_dispatch_sends_level0_self_attention_to_the_kernel(dev):
     assert flash_attention.launches == before + 1
 
 
-# the kernel splits the hidden dimension by 256, 128 or 64 by how many token
-# tiles there are: these cases take each split, ragged T and a ragged split
-@pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
-                                   (2000, 320, 1280), (64, 1280, 5120),
-                                   (5, 40, 80)])
-def test_geglu_matches_plain(dev, t, c, h):
+def _geglu_args(dev, t, c, h):
     x = _randn(dev, 1, t, c, seed=1)
     w1 = _randn(dev, 2 * h, c, scale=c ** -0.5, seed=2)
     b1 = _randn(dev, 2 * h, scale=0.1, seed=3)
     w2 = _randn(dev, c, h, scale=h ** -0.5, seed=4)
     b2 = _randn(dev, c, scale=0.1, seed=5)
-    args = (x, w1, b1, w2, b2)
+    return x, w1, b1, w2, b2
+
+
+# The GEMM core's tile plans (gemm_core.cuh::plan, fused_geglu.cu): blocks
+# of 128 rows (two warpgroups) where T has them and the tiles are many (T >=
+# 308 in the first launch; T = 1024 at C = 1280 and T = 4096 in the second),
+# else 64; the first launch takes 128 hidden units a block, or 64 where
+# that leaves SMs idle; the second takes 160, 128 or 64 output columns (C =
+# 320/640/1280, 768, 64/40) and splits H over a cluster of 2, 4 or 8 blocks
+# where the tiles are few (T = 77 at C = 64: 2; T = 308 at C = 640: 4; T =
+# 64 or 16 at C = 1280: 8; T = 1024 at C = 1280: 2 of 128 rows), with rings
+# that wrap (more K chunks than stages) and persistent blocks walking
+# several tiles (T = 4096); T ragged (1, 5, 77, 308, 1000) and aligned.
+@pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
+                                   (2000, 320, 1280), (64, 1280, 5120),
+                                   (5, 40, 80), (1, 320, 1280),
+                                   (308, 640, 2560), (16, 1280, 5120),
+                                   (300, 768, 3072), (4096, 320, 1280),
+                                   (1024, 1280, 5120)])
+def test_geglu_matches_plain(dev, t, c, h):
+    args = _geglu_args(dev, t, c, h)
     before = fg.fused_geglu.launches
     with torch.no_grad():
         got = fg.fused_geglu(*args)
     want = fg.reference_geglu(*(a.float() for a in args))
     assert fg.fused_geglu.launches == before + 1
-    assert got.shape == x.shape
+    assert got.shape == args[0].shape
     assert _max_err(got, want) < 3e-2
+    # against the plain version on the same bf16 inputs, which rounds h to
+    # bf16 where the kernel does: two bf16 ulps of max |y| (sum order, erff,
+    # and a rare h rounded the other way)
+    same = fg.reference_geglu(*args)
+    assert _max_err(got, same) <= 2 ** -7 * same.float().abs().max().item()
+
+
+@pytest.mark.parametrize("t,c,h", [(16384, 320, 1280), (64, 1280, 5120)])
+def test_geglu_repeats_bit_for_bit(dev, t, c, h):
+    """Level 0 at the distilled batch 16 (one block a tile) and the mid
+    block at the CFG batch (K split over a cluster of 8): the sums run in
+    a fixed order, so two runs give the same bits."""
+    args = _geglu_args(dev, t, c, h)
+    with torch.no_grad():
+        a = fg.fused_geglu(*args)
+        b = fg.fused_geglu(*args)
+    assert torch.equal(a, b)
+
+
+def test_geglu_refuses_what_it_cannot_do(dev):
+    x, w1, b1, w2, b2 = _geglu_args(dev, 8, 64, 256)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="bf16"):
+            fg.fused_geglu(x.float(), w1, b1, w2, b2)
+        with pytest.raises(ValueError, match="shapes do not match"):
+            fg.fused_geglu(x, w1[:-8], b1, w2, b2)
+        with pytest.raises(ValueError, match="divisible by 8"):
+            args = _geglu_args(dev, 8, 36, 144)
+            fg.fused_geglu(*args)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flat = torch.empty(8 * 64 + 1, dtype=torch.bfloat16, device=dev)
+            fg.fused_geglu(flat[1:].view(1, 8, 64), w1, b1, w2, b2)
 
 
 def test_geglu_refuses_grad(dev):
@@ -204,9 +251,16 @@ def _amax_scale(x):
     return (x.float().abs().amax() * 1.05 / 127).reshape(())
 
 
+# every width the tile plan picks (160 at O = 320/640/1280, 128 at O = 72,
+# 64 at O = 64), K split over a cluster (M = 64 and 16 at C = 1280: 4; M =
+# 77 at C = 768: 2), rings that wrap (C = 1280 at M = 4096, C = 2560), and
+# ragged M (1, 5, 77, 308, 1000) and C (320 = 2.5 chunks of 128).
 @pytest.mark.parametrize("m,c,o", [(4096, 320, 320), (308, 768, 320),
                                    (1024, 640, 640), (5, 64, 72),
-                                   (130, 1280, 1280)])
+                                   (130, 1280, 1280), (1, 320, 320),
+                                   (77, 768, 1280), (64, 1280, 1280),
+                                   (16, 1280, 1280), (4096, 1280, 1280),
+                                   (1000, 2560, 1280), (300, 64, 64)])
 @pytest.mark.parametrize("int8_in", [False, True])
 def test_w8a8_dense_matches_plain(dev, m, c, o, int8_in):
     x = _randn(dev, m, c, seed=1)
@@ -225,6 +279,23 @@ def test_w8a8_dense_matches_plain(dev, m, c, o, int8_in):
     assert fd.fused_w8a8_dense.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == (m, o)
     _q8_close(got, want)
+
+
+@pytest.mark.parametrize("m,c,o", [(32768, 320, 320), (64, 1280, 1280)])
+@pytest.mark.parametrize("int8_in", [False, True])
+def test_w8a8_dense_repeats_bit_for_bit(dev, m, c, o, int8_in):
+    """to_q at the distilled batch 32 and level 2 at the CFG batch (K split
+    over a cluster): a fixed order of sums, so the same bits twice."""
+    x = _randn(dev, m, c, seed=1)
+    wq, sw = quant.weight_q8_matrix(_randn(dev, o, c, scale=c ** -0.5,
+                                           seed=2))
+    s = _amax_scale(x)
+    if int8_in:
+        x = quant.quantize_activation(x, s)[0]
+    with torch.no_grad():
+        a = fd.fused_w8a8_dense(x, wq, sw, None, s, out_dtype=torch.bfloat16)
+        b = fd.fused_w8a8_dense(x, wq, sw, None, s, out_dtype=torch.bfloat16)
+    assert torch.equal(a, b)
 
 
 def _q8_geglu_case(dev, t, c, h):
@@ -304,6 +375,14 @@ def test_int8_kernels_refuse_what_they_cannot_do(dev):
     with pytest.raises(ValueError, match="fp32 on x's device"):
         fd.fused_w8a8_dense(_randn(dev, 40, 64), *quant.weight_q8_matrix(
             _randn(dev, 64, 64)), None, torch.tensor(0.1))
+    with pytest.raises(ValueError, match="O % 8"):
+        fd.fused_w8a8_dense(_randn(dev, 40, 64), *quant.weight_q8_matrix(
+            _randn(dev, 36, 64)), None, _amax_scale(x))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(40 * 64 + 1, dtype=torch.int8, device=dev)
+        fd.fused_w8a8_dense(flat[1:].view(40, 64), *quant.weight_q8_matrix(
+            _randn(dev, 64, 64)), None, _amax_scale(x),
+            out_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="M > 16"):
         quant.int_mm(torch.zeros(8, 64, dtype=torch.int8, device=dev),
                      torch.zeros(64, 64, dtype=torch.int8, device=dev))

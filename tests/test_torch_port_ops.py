@@ -150,6 +150,36 @@ def test_geglu_matches_pallas_interpret(block_h):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def test_geglu_bf16_rounds_h_as_the_pallas_kernel():
+    """bf16 inputs: the plain version makes a and gate in fp32, rounds h to
+    bf16 before the second product and rounds once at the end, as the TPU
+    kernel (interpret mode) and the CUDA kernel do. Tolerance 2^-9 of max
+    |y|, half a bf16 ulp of the largest outputs: those agree to the bit, and
+    a smaller output may differ by one ulp of its own where the TPU
+    kernel's polynomial erf (|err| ~3e-6) rounds an h to the neighbouring
+    bf16 value. Keeping h in fp32 misses by more than that (0.27% of max
+    |y| at this seed: the second assertion)."""
+    x, w1, b1, w2, b2 = _geglu_case(8, t=256, c=64, h=256)
+    x = x * 4.0  # h of O(1), where its bf16 rounding matters
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (x, w1, b1, w2, b2)]
+    with mock.patch.object(pl, "pallas_call",
+                           functools.partial(pl.pallas_call, interpret=True)):
+        want = np.asarray(jfg.fused_geglu.__wrapped__(
+            *bf, block_t=128, block_h=128).astype(jnp.float32))
+    tx, tw1, tb1, tw2, tb2 = (torch.from_numpy(np.array(
+        a.astype(jnp.float32))).to(torch.bfloat16) for a in bf)
+    with torch.no_grad():
+        got = tfg.fused_geglu(tx, tw1.T, tb1, tw2.T, tb2)
+    assert got.dtype == torch.bfloat16
+    tol = 2 ** -9 * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+    a, gate = torch.nn.functional.linear(
+        tx.float(), tw1.T.float(), tb1.float()).chunk(2, dim=-1)
+    unrounded = torch.nn.functional.linear(
+        a * torch.nn.functional.gelu(gate), tw2.T.float(), tb2.float())
+    assert np.abs(unrounded.numpy() - want).max() > tol
+
+
 def test_reference_geglu_matches_jax_reference():
     """a = first half, gate = second half of W1's outputs, erf gelu."""
     x, w1, b1, w2, b2 = _geglu_case(4, t=77, c=32, h=64)
