@@ -11,8 +11,9 @@ caught:
    per source, all at once) and prints the build seconds, and the
    registers, spill bytes and dynamic shared memory a block of the
    attention kernels (flash at every head dim, the fused MHA, its K/V
-   projection) and the GEMM core's instantiations (the GEGLU's two
-   launches, the dense) from the build's -Xptxas -v log; a spill of an
+   projection) and the GEMM kernels (the GEMM core's instantiations for
+   the bf16 GEGLU's two launches, the dense and the static int8 GEGLU's
+   two launches) from the build's -Xptxas -v log; a spill of an
    attention kernel at d <= 80 (every head dim a path runs) or of any GEMM
    kernel fails the run after the main paths;
 3. holds each kernel against its plain PyTorch version at the shapes each
@@ -28,11 +29,13 @@ caught:
    counts and the bound's share of the kernel's time: flash attention, the
    fused MHA block (also beside the port's unfused path), fused GEGLU
    (beside the products alone and the cuBLAS chain) and GroupNorm+SiLU in
-   bf16 (tolerance in TOLERANCE); the int8 kernels — the W8A8 dense
-   (beside `_int_mm` on the codes), the static and the per-token int8
-   GEGLU — by relative L2 and max error (Q8_REL_L2, Q8_MAX_REL), and
-   GroupNorm's int8 epilogue by the share of codes that differ (at most
-   one code, in at most GN_Q8_SHARE of the elements);
+   bf16 (tolerance in TOLERANCE; at the UNet's shapes and every VAE decode
+   shape at batches 2 and 16); the int8 kernels — the W8A8 dense (beside
+   `_int_mm` on the codes), the static int8 GEGLU (beside `_int_mm` on the
+   codes of x and h, and the bf16 GEGLU at the same shape) and the
+   per-token one — by relative L2 and max error (Q8_REL_L2, Q8_MAX_REL),
+   and GroupNorm's int8 epilogue by the share of codes that differ (at
+   most one code, in at most GN_Q8_SHARE of the elements);
 4. drives the main paths on the full-width SD-v1-4 stack (UNet 859,520,964
    params, VAE decoder, CLIP ViT-L/14 text encoder; bf16, random weights
    from seed 0) through generate_to_dir, each twice (first run through
@@ -43,7 +46,8 @@ caught:
      bf16 (4 images); w8a8_static with a 5-step bf16 head (calibration
      seconds and layer count printed; 4 images, held within
      INT8_IMAGE_REL_L2 of the bf16 images of the same seeds); dynamic
-     w8a8 (2 images);
+     w8a8 (2 images); and bf16 at the sampler's defaults (UniPC, 25 steps,
+     CFG 7.5; 2 images);
    - the distilled path, make_student_sampler over the same UNet (folded
      guidance, trailing DDIM grid): bf16 with fused_mha=True, 8 steps,
      batch 16, full VAE decode (16 images; exactly 40 fused MHA launches,
@@ -59,7 +63,7 @@ caught:
    loop, and its kernel families, of the w8a8_static CFG path and of the
    fused, the unfused and the int8 distilled paths; one bf16 and one
    w8a8_static UNet forward count the GEGLU's and the dense's launches by
-   shape (the census);
+   shape, and one VAE decode GroupNorm's (the census);
 5. holds one tiny-decoder forward on the card against the same weights in
    fp32 on the CPU, one bf16 UNet forward and one VAE decode on the card
    (kernels) against the same weights run on the CPU in fp32 (plain
@@ -287,12 +291,14 @@ def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
 
 # the kernels whose registers, spills and shared memory a block chip_smoke
 # reports from the build's -Xptxas -v log (mangled names): the attention
-# kernels, and the GEMM core's instantiations (gemm_core.cuh) for the GEGLU's
-# two launches and the dense, by width (and, for the dense, quantized x)
+# kernels, and the GEMM core's instantiations (gemm_core.cuh) for the bf16
+# GEGLU's and the static int8 GEGLU's two launches and the dense, by tile
+# (and, for the dense, quantized x)
 ATTENTION_KERNELS = re.compile(
     r"(flash_fwd_kernel|fused_mha_kernel|kv_project_kernel)(?:ILi(\d+)E)?")
 GEMM_KERNELS = re.compile(
-    r"gemm_kernelI\w*?(GegluUp|GegluDown|Dense)I((?:Li\d+E|Lb[01]E)+)")
+    r"gemm_kernelI\w*?(GegluQ8Up|GegluQ8Down|GegluUp|GegluDown|Dense)"
+    r"I((?:Li\d+E|Lb[01]E)+)")
 
 
 def ptxas_report(log: str) -> dict:
@@ -433,14 +439,8 @@ def gemm_rows(dev: torch.device, geglu_batches=(4, 16, 32),
 def check_kernels(dev: torch.device) -> list[dict]:
     import torch.nn.functional as F
 
-    from polyp_tpu_torch.ops import quant
     from polyp_tpu_torch.ops.flash_attention import (
         flash_attention, reference_attention)
-    from polyp_tpu_torch.ops.fused_geglu import (
-        fused_geglu_w8a8, fused_geglu_w8a8_pt, reference_geglu_w8a8,
-        reference_geglu_w8a8_pt)
-    from polyp_tpu_torch.ops.fused_gn import (
-        fused_group_norm, group_norm, reference_gn_q8)
     from polyp_tpu_torch.ops.fused_mha import (
         fused_mha_linear, reference_mha_linear)
 
@@ -513,9 +513,32 @@ def check_kernels(dev: torch.device) -> list[dict]:
     # shape
     rows += gemm_rows(dev)
 
-    # the static int8 GEGLU at the w8a8_static batches 4 and 32, the
-    # per-token one at 4 (dynamic w8a8 runs only under CFG), per UNet level
-    for n, c, per_image in ((n, c, t) for n in (4, 32) for c, t in FF_LEVELS):
+    rows += geglu_q8_rows(dev)
+    rows += gn_rows(dev)
+    return rows
+
+
+# the w8a8_static batches: CFG 4 (2 images) and the distilled 32
+Q8_BATCHES = (4, 32)
+
+
+def geglu_q8_rows(dev: torch.device, per_token: bool = True) -> list[dict]:
+    """Row 4 (the static int8 GEGLU) at the w8a8_static batches 4 and 32 at
+    every UNet level and the mid block, beside two yardsticks timed here
+    only: its two products alone (`_int_mm` on int8 codes of x and of h)
+    and the bf16 GEGLU on the same x and weights; and row 6 (the per-token
+    form) at batch 4 (dynamic w8a8 runs only under CFG)."""
+    import torch.nn.functional as F
+
+    from polyp_tpu_torch.ops import quant
+    from polyp_tpu_torch.ops.fused_geglu import (
+        fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt,
+        reference_geglu_w8a8, reference_geglu_w8a8_pt)
+
+    randn = randn_on(dev, seed=0)
+    rows = []
+    for n, c, per_image in ((n, c, t) for n in Q8_BATCHES
+                            for c, t in FF_LEVELS):
         h, tokens = 4 * c, n * per_image
         x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image)
         shape = f"[{tokens},{c}]x[{c},{2 * h}]"
@@ -523,35 +546,61 @@ def check_kernels(dev: torch.device) -> list[dict]:
         q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2),
               b2)
         s1 = amax_scale(x)
-        a, gate = torch.nn.functional.linear(
-            x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
-        s2 = amax_scale(a * torch.nn.functional.gelu(gate))
+        a, gate = F.linear(x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
+        s2 = amax_scale(a * F.gelu(gate))
+        xq = quant.quantize_activation(x, s1)[0].reshape(tokens, c)
+        hq = quant.quantize_activation(a * F.gelu(gate), s2)[0].reshape(
+            tokens, h)
         q8_cost = bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8, s1, s2))
-        rows.append(compare_q8(
+        row = compare_q8(
             "fused_geglu_w8a8", lambda: fused_geglu_w8a8(x, *q8, s1, s2),
             lambda: reference_geglu_w8a8(x, *q8, s1, s2),
             reference_geglu_w8a8(x, *q8, s1, s2, out_dtype=torch.float32),
-            shape, q8_cost))
-        if n != 4:
+            shape, q8_cost,
+            products=lambda: (quant.int_mm(xq, q8[0]),
+                              quant.int_mm(hq, q8[3])),
+            bf16_geglu=lambda: fused_geglu(x, w1, b1, w2, b2))
+        row["launches_per_forward"] = 1 if per_image == 16 else \
+            FF_PER_FORWARD[c]
+        rows.append(row)
+        if n != 4 or not per_token:
             continue
         rows.append(compare_q8(
             "fused_geglu_w8a8_pt", lambda: fused_geglu_w8a8_pt(x, *q8),
             lambda: reference_geglu_w8a8_pt(x, *q8),
             reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape,
             bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8))))
+    return rows
 
-    # GN+SiLU: UNet level widths (incl. the up path's concat widths) at the
-    # batches 4 (CFG), 16 and 32 (distilled), and the VAE decoder's widest
-    # and largest tensors at the VAE's batches 2 (CFG) and 16 (distilled);
-    # the int8 epilogue at the UNet's widths at the w8a8_static batches 4
-    # and 32. About 10 fp32 operations an element (two sums, normalise,
-    # affine, SiLU): bound by bytes by far.
-    unet_gn = ((320, 32), (960, 32), (640, 16), (1280, 8), (2560, 4))
-    vae_gn = ((512, 32), (128, 256))
-    for n, c, hw, eps in ([(n, c, hw, 1e-5) for n in (4, 16, 32)
-                           for c, hw in unet_gn]
-                          + [(n, c, hw, 1e-6) for n in (2, 16)
-                             for c, hw in vae_gn]):
+
+# GroupNorm+SiLU's shapes: the UNet's level widths (incl. the up path's
+# concat widths) as (C, H = W), and every shape of a VAE decode (the mid
+# block and up block 0 at 32², then 64², 128² and 256², each level's
+# first resnet at the wider input)
+UNET_GN = ((320, 32), (960, 32), (640, 16), (1280, 8), (2560, 4))
+VAE_GN = ((512, 32), (512, 64), (512, 128), (256, 128), (256, 256),
+          (128, 256))
+# the UNet's batches: CFG 4, distilled 16 and 32; the VAE's: CFG 2,
+# distilled 16
+UNET_BATCHES = (4, 16, 32)
+VAE_BATCHES = (2, 16)
+
+
+def gn_rows(dev: torch.device) -> list[dict]:
+    """Row 3: GN+SiLU at the UNet's shapes at the batches 4 (CFG), 16 and
+    32 (distilled) and at every VAE decode shape at the VAE's batches 2
+    (CFG) and 16 (distilled); the int8 epilogue at the UNet's shapes at the
+    w8a8_static batches. About 10 fp32 operations an element (two sums,
+    normalise, affine, SiLU): bound by bytes by far."""
+    from polyp_tpu_torch.ops.fused_gn import (
+        fused_group_norm, group_norm, reference_gn_q8)
+
+    randn = randn_on(dev, seed=0)
+    rows = []
+    for n, c, hw, eps in ([(n, c, hw, 1e-5) for n in UNET_BATCHES
+                           for c, hw in UNET_GN]
+                          + [(n, c, hw, 1e-6) for n in VAE_BATCHES
+                             for c, hw in VAE_GN]):
         x = randn(n, c, hw, hw, scale=2.0, shift=0.3)
         gamma = randn(c, scale=0.1, shift=1.0).float()
         beta = randn(c, scale=0.1).float()
@@ -563,7 +612,7 @@ def check_kernels(dev: torch.device) -> list[dict]:
             group_norm(x.float(), gamma, beta, 32, eps, "silu"), shape,
             bound(10 * x.numel(), "fp32", 2 * nbytes(x) + nbytes(gamma,
                                                                    beta))))
-        if eps != 1e-5 or n == 16:
+        if eps != 1e-5 or n not in Q8_BATCHES:
             continue  # the VAE is not quantized, nor any batch-16 path
         s = amax_scale(group_norm(x.float(), gamma, beta, 32, eps, "silu"))
         got = fused_group_norm(x, gamma, beta, 32, eps, "silu", act_scale=s)
@@ -726,11 +775,13 @@ def check_tiny_decoder(tiny, dev: torch.device) -> float:
 
 
 # kernel families a profile sums by name: this tree's kernels and the
-# earlier ones they replaced (the same names in a parent's profile)
+# earlier ones they replaced (the same names in a parent's profile); the
+# static int8 GEGLU's second launch is the dense's policy under its own
+# name, GegluQ8Down
 FAMILIES = {"w8a8_dense": ("Dense<", "dense_q8_kernel"),
             "bf16_geglu": ("GegluUp<", "GegluDown<", "geglu_partial_kernel",
                            "geglu_reduce_kernel"),
-            "int8_geglu": ("geglu_q8", "geglu_w8a8"),
+            "int8_geglu": ("GegluQ8", "geglu_q8", "geglu_w8a8"),
             "group_norm": ("group_norm", "gn_"),
             "attention": ("flash_fwd", "fused_mha", "kv_project")}
 
@@ -769,25 +820,33 @@ def profile_loop(sampler, batch: int) -> dict:
             "top": [[e.key[:60], us(e) / 1e3, e.count] for e in kernels[:8]]}
 
 
-def shape_census(unet, dev: torch.device, scales: dict) -> dict:
-    """Launches per UNet forward of the bf16 GEGLU and the W8A8 dense by
-    shape: one bf16 and one w8a8_static forward (CFG batch 4, 32×32
-    latents) with the wrappers that unet_blocks calls counted per shape
-    ([M, C]x[C, N], int8 x marked)."""
+def shape_census(stack, dev: torch.device, scales: dict) -> dict:
+    """Launches by shape of the bf16 GEGLU and the W8A8 dense in a UNet
+    forward (one bf16 and one w8a8_static forward, CFG batch 4, 32×32
+    latents; [M, C]x[C, N], int8 x marked), and of GroupNorm+SiLU in one
+    VAE decode at the CFG batch 2 ([N, C, H, W]): the wrappers that
+    unet_blocks calls, counted per shape."""
     from collections import Counter
 
     from polyp_tpu_torch.models import unet_blocks
     from polyp_tpu_torch.ops import quant
 
-    seen = {"fused_geglu": Counter(), "fused_w8a8_dense": Counter()}
+    seen = {"fused_geglu": Counter(), "fused_w8a8_dense": Counter(),
+            "fused_group_norm": Counter()}
     originals = {name: getattr(unet_blocks, name) for name in seen}
+    counting = {"fused_geglu", "fused_w8a8_dense"}  # GN: the decode only
 
     def counted(name):
         def fn(x, w, *args, **kwargs):
-            c = x.shape[-1]
-            n = w.shape[0] // 2 if name == "fused_geglu" else w.shape[0]
-            int8 = " int8" if x.dtype == torch.int8 else ""
-            seen[name][f"[{x.numel() // c},{c}]x[{c},{n}]{int8}"] += 1
+            if name == "fused_group_norm":
+                key = str(list(x.shape))
+            else:
+                c = x.shape[-1]
+                n = w.shape[0] // 2 if name == "fused_geglu" else w.shape[0]
+                int8 = " int8" if x.dtype == torch.int8 else ""
+                key = f"[{x.numel() // c},{c}]x[{c},{n}]{int8}"
+            if name in counting:
+                seen[name][key] += 1
             return originals[name](x, w, *args, **kwargs)
         return fn
 
@@ -795,14 +854,18 @@ def shape_census(unet, dev: torch.device, scales: dict) -> dict:
     x = torch.randn(4, 4, 32, 32, generator=g).to(dev, torch.bfloat16)
     t = torch.full((4,), 500, device=dev)
     ctx = torch.randn(4, 77, 768, generator=g).to(dev, torch.bfloat16)
+    z = torch.randn(2, 4, 32, 32, generator=g).to(dev, torch.bfloat16)
     try:
         for name in seen:
             setattr(unet_blocks, name, counted(name))
         with torch.no_grad():
-            unet(x, t, ctx)
+            stack.unet(x, t, ctx)
             with quant.override("w8a8_static", scales=quant.ScaleBank(scales),
                                 t=t):
-                unet(x, t, ctx)
+                stack.unet(x, t, ctx)
+            counting.clear()
+            counting.add("fused_group_norm")
+            stack.vae.decode(z)
     finally:
         for name, fn in originals.items():
             setattr(unet_blocks, name, fn)
@@ -1033,8 +1096,16 @@ def main() -> int:
         # the int8 loop's device time, and the dense's share of it
         profile_denoise("w8a8_static", static, 2)
         drive("w8a8", sampler_for(quantize="w8a8"), 2, 2)
-        census = shape_census(stack.unet, dev, static.quant_scales)
-        print(f"[census] launches per CFG UNet forward by shape: {census}",
+        # the port's defaults, as a user who names no sampler gets them:
+        # UniPC, 25 steps, CFG 7.5, 256px
+        default = StableDiffusionSampler(stack.unet, stack.vae, stack.text,
+                                         stack.tokenizer, schedule)
+        if default.sampler != "unipc":
+            raise AssertionError(f"default sampler {default.sampler!r}")
+        drive("bf16_unipc", default, 2, 2, sampler_name=default.sampler)
+        census = shape_census(stack, dev, static.quant_scales)
+        print(f"[census] launches per CFG UNet forward by shape (GEGLU, "
+              f"dense) and per VAE decode at batch 2 (GroupNorm): {census}",
               flush=True)
         phase("CFG paths")
 
@@ -1087,6 +1158,8 @@ def main() -> int:
                                  f"by {rel} > {limit}")
     # each path must have run each of its kernels
     need = {"bf16": ("flash_attention", "fused_geglu", "fused_group_norm"),
+            "bf16_unipc": ("flash_attention", "fused_geglu",
+                           "fused_group_norm"),
             "w8a8_static": ("flash_attention", "fused_w8a8_dense",
                             "fused_geglu_w8a8", "fused_group_norm_q8"),
             "w8a8": ("flash_attention", "fused_w8a8_dense",

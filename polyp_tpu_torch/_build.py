@@ -126,8 +126,7 @@ def library() -> ctypes.CDLL:
     # t, c, h -> bf16 elements of the GEGLU's h workspace [t, h]
     lib.polyp_fused_geglu_workspace.argtypes = [_I, _I, _I]
     lib.polyp_fused_geglu_workspace.restype = ctypes.c_longlong
-    # t, c, h, block_h (0: static form) -> 4-byte elements of int8 GEGLU
-    # workspace
+    # t, c, h, block_h (0: static form) -> bytes of int8 GEGLU workspace
     lib.polyp_geglu_w8a8_workspace.argtypes = [_I, _I, _I, _I]
     lib.polyp_geglu_w8a8_workspace.restype = ctypes.c_longlong
     # d (flash); h, d, co (fused MHA) -> bytes of dynamic shared memory a block
@@ -135,6 +134,11 @@ def library() -> ctypes.CDLL:
     lib.polyp_flash_smem.restype = ctypes.c_longlong
     lib.polyp_fused_mha_smem.argtypes = [_I, _I, _I]
     lib.polyp_fused_mha_smem.restype = ctypes.c_longlong
+    # c, hw, groups, is_bf16, out[4] -> GroupNorm's plan: cluster, the
+    # largest slice's vectors, those kept in shared memory, threads a block
+    lib.polyp_group_norm_plan.argtypes = [
+        _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+    lib.polyp_group_norm_plan.restype = None
     return lib
 
 

@@ -56,7 +56,7 @@ __device__ __forceinline__ float gelu_gate(float a, float g) {
 
 // Launch 1: [a | gate] of BN hidden units for BM tokens, then h.
 template <int BM, int BN>
-struct GegluUp {
+struct GegluUp : gemm::Policy {
   static constexpr int kRows = BM, kBN = BN, kAcc = 2, kInFlight = 1;
   static constexpr int kBlocksPerSM = BM == gemm::kWgRows ? 2 : 1;
   using Acc = float;
@@ -97,7 +97,7 @@ struct GegluUp {
 
 // Launch 2: out = h @ W2^T + b2 for BM tokens × BN output columns.
 template <int BM, int BN>
-struct GegluDown {
+struct GegluDown : gemm::Policy {
   static constexpr int kRows = BM, kBN = BN, kAcc = 1, kInFlight = 1;
   static constexpr int kBlocksPerSM = BM == gemm::kWgRows ? 2 : 1;
   using Acc = float;

@@ -1,5 +1,6 @@
 // One GEMM core for Hopper (sm_90a), shared by the bf16 GEGLU
-// (fused_geglu.cu: its two products) and the W8A8 dense (fused_dense.cu):
+// (fused_geglu.cu: its two products), the W8A8 dense (fused_dense.cu) and
+// the static int8 GEGLU (fused_geglu_w8a8.cu: its two products):
 //   D[m, n] = sum_k A[m, k] * B[n, k],
 // A [M, K] row-major activations and B [N, K] torch-layout weights ([out,
 // in], read in place), both K-major, as 8-bit wgmma requires. The sums stay
@@ -30,6 +31,12 @@
 //   tile's epilogue runs. The epilogue turns the sums into bf16 outputs in
 //   registers, stages them in shared memory (in the tile's last ring stage
 //   where it fits) and writes them out in coalesced 16-byte stores.
+// * An A-stationary mode (the int8 GEGLU's first product, whose epilogue
+//   dominates): a block keeps its row panel of A, all of K, in shared
+//   memory, written once by its own threads, and walks that panel's column
+//   tiles with only B streaming; its two consumer warpgroups take alternate
+//   tiles, each from a ring of its own, so one's epilogue overlaps the
+//   other's products.
 // * A tile plan per shape (plan()): where the output tiles cannot fill the
 //   SMs (the CFG batch's level 2 and mid block, the cross-attention K/V at
 //   M = N·77), K is split across a thread-block cluster of up to 8 blocks
@@ -176,12 +183,19 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kThreadsSynced) : "memory");
 }
 
+// a barrier of `threads` threads (a multiple of 32) on barrier `id`
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // wgmma on one 64-row warpgroup tile, N columns: bf16_ss reads A and B
 // through descriptors (fp32 sums); s8_rs takes A as the four 32-bit
 // registers of wgmma's 8-bit A fragment (PTX ISA, "Register fragment for
 // matrix A", k32: with g = lane / 4 and t = lane % 4 of warp w, a0 holds
 // row 16w+g, k 4t..4t+3; a1 row +8; a2 and a3 the same rows at k + 16) and
-// B through a descriptor (s32 sums). The sums D are laid out as the mma.sync
+// B through a descriptor (s32 sums); s8_ss (width 64) reads both through
+// descriptors (integer wgmma takes no scale or transpose
+// immediates). The sums D are laid out as the mma.sync
 // C fragments of warp w, one per 8 columns: d[4j..4j+3] = (row 16w+g, column
 // 8j+2t, +1), (row 16w+g+8, same columns). scale_d = 0 would overwrite D.
 template <int N>
@@ -220,6 +234,21 @@ struct Wgmma<64> {
           "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
           "+r"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+  __device__ static void s8_ss(int (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31} "
+        ", %32, %33, p;\n}\n"
+        :
+          "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+          "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+          "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
   }
 };
 
@@ -333,12 +362,12 @@ struct Wgmma<160> {
 
 // --------------------------------------------------------------- the kernel
 //
-// A problem P (a policy class of the calling .cu) gives:
-//   kRows, kBN       the block's tile: 64 rows (one consumer warpgroup) or
-//                    128 (two, sharing each B tile, which halves B's reads
-//                    from L2), and a width of 64, 128 or 160;
-//   kAcc             accumulators (2: the GEGLU's a and gate of the same
-//                    columns), Acc (float or int);
+// A problem P (a policy class of the calling .cu, deriving from Policy for
+// the defaults of the last three entries) gives:
+//   kRows, kBN       the block's tile: kRows rows and a width of 64, 128 or
+//                    160;
+//   kAcc             accumulators of kBN / 2 sums a thread (2: the GEGLU's
+//                    a and gate of the same columns), Acc (float or int);
 //   kBlocksPerSM     blocks that share an SM (its registers and shared
 //                    memory are sized for that many; more hide one block's
 //                    epilogue behind another's products);
@@ -346,17 +375,71 @@ struct Wgmma<160> {
 //   kInFlight        wgmma groups left running while the next stage is
 //                    awaited: 1 where both operands are in shared memory, 0
 //                    where the caller builds A in registers;
-//   Params           the tensor maps, `bf16* out` [m, n] and m, n, n_k (K
-//                    chunks);
+//   Params           the tensor maps, the output `out` [m, n] and m, n, n_k
+//                    (K chunks);
 //   load(p, stage, kc, m0, n0, bar)   the TMA copies of chunk kc;
 //   mma(p, stage, acc)                fence, wgmma over the chunk for the
-//                                     calling warpgroup's 64 rows, commit;
+//                                     calling warpgroup's rows, commit;
 //   epilogue(p, col, v)               the bf16 outputs of columns col and
-//                                     col + 1 from v[kAcc][2], their sums.
+//                                     col + 1 from v[kAcc][2], their sums;
+//   kRings           1 (Policy): one or two consumer warpgroups share each
+//                    tile, 64 rows each (two halve B's reads from L2), fed
+//                    by one ring. 2: two warpgroups take alternate tiles,
+//                    all kRows rows each, each fed by a ring of its own, so
+//                    that one's epilogue runs while the other's products
+//                    do (on one ring, a warpgroup could wait on a stage
+//                    whose phase is two behind: the parities alias). Such a
+//                    P stores its tiles itself:
+//                    tile_begin(p, scratch, n0)  before the tile's products
+//                                     (kScratchBytes a warpgroup);
+//                    store(p, acc, staged, scratch, m0, n0)  the outputs,
+//                                     staged in the tile's last stage;
+//   kPanelChunkBytes 0 (Policy), or an A-stationary panel: the block keeps
+//                    its kRows rows of A, all of K, in shared memory, where
+//                    panel(p, panel, m0) writes them once (K chunks of
+//                    kPanelChunkBytes, laid out as the wgmma descriptor
+//                    reads them), walks column tiles of that row panel only
+//                    and streams B alone; mma(p, stage, panel_chunk, acc).
+struct Policy {
+  static constexpr int kRings = 1;
+  static constexpr int kPanelChunkBytes = 0;
+  static constexpr int kScratchBytes = 0;
+};
 
-// Consumer threads: 128 a warpgroup of 64 rows.
+// Consumer threads: 128 a warpgroup, 64 rows each where they share a tile.
 template <class P>
-__host__ __device__ constexpr int consumers() { return P::kRows * 2; }
+__host__ __device__ constexpr int consumers() {
+  return P::kRings > 1 ? P::kRings * 128 : P::kRows * 2;
+}
+
+// A barrier of the consumer threads of one tile: all of them where the
+// warpgroups share a tile, else the calling warpgroup's (ids 1, 2, ...).
+template <class P>
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (P::kRings > 1) {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (threadIdx.x >> 7)) : "memory");
+  } else {
+    consumer_sync<consumers<P>()>();
+  }
+}
+
+// A ring of `stages` stages, each with a full and an empty mbarrier, at
+// slots [first, first + stages) of the block's stages and barriers: its
+// i-th chunk takes slot first + i % stages in phase i / stages. The
+// producer's wait for a slot to empty (the phase before) and the consumer's
+// for it to fill take their parities from here only. It holds two integers
+// and no pointers: the kernels' main loops are near their register limits.
+struct Ring {
+  int first, stages;
+
+  __device__ int slot(int i) const { return first + i % stages; }
+  __device__ uint32_t parity(int i) const { return (i / stages) & 1; }
+  // the producer: wait for chunk i - stages to be consumed
+  __device__ void wait_empty(uint64_t* empty, int i) const {
+    if (i >= stages) mbar_wait(&empty[slot(i)], parity(i) ^ 1);
+  }
+  __device__ void wait_full(uint64_t* full, int i) const { mbar_wait(&full[slot(i)], parity(i)); }
+};
 
 // The staged bf16 output tile [kRows][kBN + 8] (the padding puts the eight
 // rows of a fragment on distinct banks). It takes the stage of the tile's
@@ -496,52 +579,76 @@ __device__ __forceinline__ void reduce_store(const typename P::Params& p,
   }
 }
 
+// How a launch divides the work (plan()): a cluster of `cluster` K slices a
+// tile, or persistent blocks; with a panel, `splits` blocks a row panel.
+struct Schedule {
+  int cluster, stages, splits;
+};
+
 // Tiles of kRows rows × kBN columns, column tiles fastest. With cluster == 1
 // the blocks are persistent: block b takes tiles b, b + grid, ..., and the
 // producer runs ahead across tile boundaries, so a tile's first chunks load
 // while the previous tile's epilogue runs. With a cluster of K slices the
-// grid is one cluster a tile, the cluster's blocks consecutive in x.
+// grid is one cluster a tile, the cluster's blocks consecutive in x. With a
+// panel, block b takes the column tiles of share b % splits of row panel
+// b / splits, in order. Dynamic shared memory: the panel, the rings, the
+// warpgroups' scratch (and the output tile where it takes no stage).
 template <class P>
 __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
-    gemm_kernel(const __grid_constant__ typename P::Params p, int cluster, int stages) {
+    gemm_kernel(const __grid_constant__ typename P::Params p, Schedule sched) {
   static_assert(P::kStageBytes % kAlign == 0, "stages keep the swizzle atoms aligned");
+  static_assert(P::kPanelChunkBytes % kAlign == 0, "so do the panel's chunks");
+  constexpr bool kPanel = P::kPanelChunkBytes > 0;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
   unsigned char* smem = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  const int cluster = sched.cluster;
+  const int stages = sched.stages;  // a ring
+  unsigned char* rings = smem + (kPanel ? p.n_k * P::kPanelChunkBytes : 0);
   uint64_t* full = bars;
   uint64_t* empty = bars + kMaxStages;
 
   const int n_tiles = (p.n + P::kBN - 1) / P::kBN;
-  const int tiles = (p.m + P::kRows - 1) / P::kRows * n_tiles;
   const int rank = blockIdx.x % cluster;
-  const int first = blockIdx.x / cluster;
-  const int stride = gridDim.x / cluster;
+  int t_begin, t_end, t_step;
+  if constexpr (kPanel) {
+    const int panel = blockIdx.x / sched.splits, share = blockIdx.x % sched.splits;
+    t_begin = panel * n_tiles + share * n_tiles / sched.splits;
+    t_end = panel * n_tiles + (share + 1) * n_tiles / sched.splits;
+    t_step = 1;
+  } else {
+    t_begin = blockIdx.x / cluster;
+    t_end = (p.m + P::kRows - 1) / P::kRows * n_tiles;
+    t_step = gridDim.x / cluster;
+  }
   const int k_begin = rank * p.n_k / cluster;
   const int n_chunks = (rank + 1) * p.n_k / cluster - k_begin;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
+    for (int s = 0; s < P::kRings * stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], consumers<P>());
+      mbar_init(&empty[s], consumers<P>() / P::kRings);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= consumers<P>()) {
-    // the producer warp: one thread keeps the ring full; i counts chunks
-    // over all of the block's tiles, which sets each stage's phase
+    // the producer warp: one thread keeps the rings full, the block's
+    // tiles in order, tile q into ring q % kRings, of which it is the
+    // (q / kRings)-th tile: that count sets each stage's phase
     if (threadIdx.x == consumers<P>()) {
-      int i = 0;
-      for (int t = first; t < tiles; t += stride) {
+      int q = 0;
+      for (int t = t_begin; t < t_end; t += t_step, ++q) {
         const int m0 = t / n_tiles * P::kRows;
         const int n0 = t % n_tiles * P::kBN;
-        for (int k = 0; k < n_chunks; ++k, ++i) {
-          const int s = i % stages;
-          // the stage's previous chunk (i - stages) must have been consumed
-          if (i >= stages) mbar_wait(&empty[s], ((i / stages) + 1) & 1);
+        const Ring r{q % P::kRings * stages, stages};
+        for (int k = 0; k < n_chunks; ++k) {
+          const int i = q / P::kRings * n_chunks + k;
+          const int s = r.slot(i);
+          r.wait_empty(empty, i);
           mbar_expect_tx(&full[s], P::kStageBytes);
-          P::load(p, smem + s * P::kStageBytes, k_begin + k, m0, n0, &full[s]);
+          P::load(p, rings + s * P::kStageBytes, k_begin + k, m0, n0, &full[s]);
         }
       }
     }
@@ -550,51 +657,70 @@ __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
       cluster_sync();
       cluster_sync();
     }
-  } else {
-    int i = 0;
-    for (int t = first; t < tiles; t += stride) {
-      const int m0 = t / n_tiles * P::kRows;
-      const int n0 = t % n_tiles * P::kBN;
-      typename P::Acc acc[P::kAcc][P::kBN / 2];
+    return;
+  }
+
+  const int wg = P::kRings > 1 ? threadIdx.x >> 7 : 0;
+  const Ring r{wg * stages, stages};
+  if constexpr (kPanel) {
+    P::panel(p, smem, t_begin / n_tiles * P::kRows);
+    // the wgmma reads the panel through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(P::kRings + 1, consumers<P>());
+  }
+  // this warpgroup's scratch, after the rings
+  unsigned char* scratch = rings + (P::kRings * stages * P::kStageBytes + wg * P::kScratchBytes);
+  int i = 0;  // chunks taken from the ring
+  int q = 0;
+  for (int t = t_begin; t < t_end; t += t_step, ++q) {
+    if (q % P::kRings != wg) continue;
+    const int m0 = t / n_tiles * P::kRows;
+    const int n0 = t % n_tiles * P::kBN;
+    if constexpr (P::kRings > 1) P::tile_begin(p, scratch, n0);
+    typename P::Acc acc[P::kAcc][P::kBN / 2];
 #pragma unroll
-      for (int a = 0; a < P::kAcc; ++a) {
+    for (int a = 0; a < P::kAcc; ++a) {
 #pragma unroll
-        for (int e = 0; e < P::kBN / 2; ++e) acc[a][e] = 0;
+      for (int e = 0; e < P::kBN / 2; ++e) acc[a][e] = 0;
+    }
+    for (int k = 0; k < n_chunks; ++k, ++i) {
+      r.wait_full(full, i);
+      unsigned char* st = rings + r.slot(i) * P::kStageBytes;
+      if constexpr (kPanel) {
+        P::mma(p, st, smem + (k_begin + k) * P::kPanelChunkBytes, acc);
+      } else {
+        P::mma(p, st, acc);
       }
-      for (int k = 0; k < n_chunks; ++k, ++i) {
-        const int s = i % stages;
-        mbar_wait(&full[s], (i / stages) & 1);
-        P::mma(p, smem + s * P::kStageBytes, acc);
-        wgmma_wait<P::kInFlight>();
-        // release the chunk before this one (or this one, with nothing in
-        // flight), but never the tile's last: the epilogue may use its stage
-        const int done = k - P::kInFlight;
-        if (done >= 0 && done < n_chunks - 1) {
-          mbar_arrive(&empty[(i - P::kInFlight) % stages]);
-        }
-      }
-      wgmma_wait<0>();
+      wgmma_wait<P::kInFlight>();
+      // release the chunk before this one (or this one, with nothing in
+      // flight), but never the tile's last: the epilogue may use its stage
+      const int done = k - P::kInFlight;
+      if (done >= 0 && done < n_chunks - 1) mbar_arrive(&empty[r.slot(i - P::kInFlight)]);
+    }
+    wgmma_wait<0>();
 #pragma unroll
-      for (int a = 0; a < P::kAcc; ++a) fence_regs(acc[a]);
-      const int last = (i - 1) % stages;
-      if (cluster == 1) {
-        unsigned char* out = out_in_stage<P>() ? smem + last * P::kStageBytes
-                                               : smem + stages * P::kStageBytes;
-        store_tile<P>(p, acc, reinterpret_cast<bf16*>(out), m0, n0);
-        // the stage goes back to the producer, whose TMA (the async proxy)
-        // may overwrite it: order this thread's reads and writes of it first
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_arrive(&empty[last]);
+    for (int a = 0; a < P::kAcc; ++a) fence_regs(acc[a]);
+    const int last = r.slot(i - 1);
+    if constexpr (P::kRings == 1) {
+      if (cluster > 1) {
+        // one tile a cluster: the stash may take the ring's memory
+        consumer_sync<consumers<P>()>();  // every wgmma of the block has read its stages
+        typename P::Acc* red = reinterpret_cast<typename P::Acc*>(smem);
+        stash<P>(red, acc);
+        cluster_sync();  // every block's stash is written
+        reduce_store<P>(p, red, cluster, rank, m0, n0);
+        cluster_sync();  // no block leaves while another reads its stash
         continue;
       }
-      // one tile a cluster: the stash may take the ring's memory
-      consumer_sync<consumers<P>()>();  // every wgmma of the block has read its stages
-      typename P::Acc* red = reinterpret_cast<typename P::Acc*>(smem);
-      stash<P>(red, acc);
-      cluster_sync();  // every block's stash is written
-      reduce_store<P>(p, red, cluster, rank, m0, n0);
-      cluster_sync();  // no block leaves while another reads its stash
+      unsigned char* out = out_in_stage<P>() ? rings + last * P::kStageBytes : scratch;
+      store_tile<P>(p, acc, reinterpret_cast<bf16*>(out), m0, n0);
+    } else {
+      P::store(p, acc, rings + last * P::kStageBytes, scratch, m0, n0);
     }
+    // the stage goes back to the producer, whose TMA (the async proxy) may
+    // overwrite it: order this thread's reads and writes of it first
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&empty[last]);
   }
 }
 
@@ -683,7 +809,8 @@ inline int sm_count() {
 }
 
 struct Plan {
-  int blocks, cluster, stages;
+  int blocks;
+  Schedule sched;
   size_t smem;
 };
 
@@ -691,7 +818,10 @@ struct Plan {
 template <class P>
 __host__ __device__ constexpr int stash_bytes() { return P::kAcc * P::kRows * (P::kBN + 4) * 4; }
 
-// The tile plan of P's [m, n] output with n_k K chunks. K is split over a
+// The tile plan of P's [m, n] output with n_k K chunks (stages < 2: P
+// cannot take it). With a panel: each row panel's column tiles split over as
+// many blocks as fill the SMs once (at least one tile each), and rings as
+// deep as fit beside the panel and the scratch. Otherwise K is split over a
 // cluster (doubling up to 8) while the tiles, so multiplied, still fit the
 // SMs and every block keeps at least two chunks; then a cluster takes one
 // tile and its ring holds every chunk of its slice where it fits. Otherwise
@@ -701,18 +831,30 @@ __host__ __device__ constexpr int stash_bytes() { return P::kAcc * P::kRows * (P
 template <class P>
 Plan plan(int m, int n, int n_k) {
   Plan pl;
-  const long long tiles =
-      static_cast<long long>((m + P::kRows - 1) / P::kRows) * ((n + P::kBN - 1) / P::kBN);
+  const int n_tiles = (n + P::kBN - 1) / P::kBN;
+  const long long tiles = static_cast<long long>((m + P::kRows - 1) / P::kRows) * n_tiles;
   const int sms = sm_count();
-  pl.cluster = 1;
-  while (pl.cluster < kMaxCluster && tiles * pl.cluster * 2 <= sms && n_k >= 4 * pl.cluster) {
-    pl.cluster *= 2;
+  pl.sched = {1, 0, 1};
+  if constexpr (P::kPanelChunkBytes > 0) {
+    const int panels = (m + P::kRows - 1) / P::kRows;
+    const int fill = panels > 0 ? sms / panels : 1;
+    pl.sched.splits = fill < 1 ? 1 : (fill < n_tiles ? fill : n_tiles);
+    pl.blocks = panels * pl.sched.splits;
+    const int fixed = kAlign + n_k * P::kPanelChunkBytes + P::kRings * P::kScratchBytes;
+    pl.sched.stages = (kSmemLimit - fixed) / (P::kRings * P::kStageBytes);
+    if (pl.sched.stages > kMaxStages / P::kRings) pl.sched.stages = kMaxStages / P::kRings;
+    pl.smem = fixed + P::kRings * pl.sched.stages * P::kStageBytes;
+    return pl;
+  }
+  while (pl.sched.cluster < kMaxCluster && tiles * pl.sched.cluster * 2 <= sms &&
+         n_k >= 4 * pl.sched.cluster) {
+    pl.sched.cluster *= 2;
   }
   int chunks;
   int budget = kSmemLimit;
-  if (pl.cluster > 1) {
-    pl.blocks = static_cast<int>(tiles) * pl.cluster;
-    chunks = (n_k + pl.cluster - 1) / pl.cluster;
+  if (pl.sched.cluster > 1) {
+    pl.blocks = static_cast<int>(tiles) * pl.sched.cluster;
+    chunks = (n_k + pl.sched.cluster - 1) / pl.sched.cluster;
   } else {
     const long long slots = static_cast<long long>(sms) * P::kBlocksPerSM;
     pl.blocks = static_cast<int>(tiles < slots ? tiles : slots);
@@ -721,12 +863,12 @@ Plan plan(int m, int n, int n_k) {
   }
   // a cluster's stash overlays the ring; otherwise the output tile takes a
   // stage or follows the ring
-  const int out = pl.cluster > 1 || out_in_stage<P>() ? 0 : out_tile_bytes<P>();
+  const int out = pl.sched.cluster > 1 || out_in_stage<P>() ? 0 : out_tile_bytes<P>();
   int fit = (budget - kAlign - out) / P::kStageBytes;
   if (fit < 2) fit = (kSmemLimit - kAlign - out) / P::kStageBytes;
-  pl.stages = chunks < fit ? chunks : fit;
-  if (pl.stages > kMaxStages) pl.stages = kMaxStages;
-  const int used = pl.stages * P::kStageBytes + out;
+  pl.sched.stages = chunks < fit ? chunks : fit;
+  if (pl.sched.stages > kMaxStages) pl.sched.stages = kMaxStages;
+  const int used = pl.sched.stages * P::kStageBytes + out;
   pl.smem = kAlign + (used > stash_bytes<P>() ? used : stash_bytes<P>());
   return pl;
 }
@@ -735,6 +877,7 @@ template <class P>
 cudaError_t launch(const typename P::Params& p, cudaStream_t stream) {
   const Plan pl = plan<P>(p.m, p.n, p.n_k);
   if (pl.blocks == 0) return cudaSuccess;
+  if (pl.sched.stages < 2 && P::kPanelChunkBytes > 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gemm_kernel<P>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(pl.smem));
@@ -746,12 +889,12 @@ cudaError_t launch(const typename P::Params& p, cudaStream_t stream) {
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.x = pl.sched.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = pl.cluster > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, gemm_kernel<P>, p, pl.cluster, pl.stages);
+  cfg.numAttrs = pl.sched.cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, gemm_kernel<P>, p, pl.sched);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // int8 helpers of the W8A8 kernels: the round-half-to-even quantize every
-// int8 kernel applies (and its division-free form, which fused_dense.cu
-// uses); and, for fused_geglu_w8a8.cu, the s8×s8→s32 mma.sync of Hopper's
-// integer tensor cores, its fragment loads from shared memory and 16-byte
-// cp.async tile copies of int8 data.
+// int8 kernel applies (and its division-free form, which fused_dense.cu and
+// the static int8 GEGLU use); and, for the per-token int8 GEGLU, the
+// s8×s8→s32 mma.sync of Hopper's integer tensor cores, its fragment loads
+// from shared memory and 16-byte cp.async tile copies of int8 data.
 #pragma once
 
 #include "common.cuh"
@@ -113,6 +113,23 @@ __device__ __forceinline__ uint2 quant_bf16x8(uint4 v, float s) {
   out.y = pack_s8x4(quant_s8(__bfloat162float(e[4]), s), quant_s8(__bfloat162float(e[5]), s),
                     quant_s8(__bfloat162float(e[6]), s), quant_s8(__bfloat162float(e[7]), s));
   return out;
+}
+
+// quant_bf16x8's codes from quant_s8_bits (inv = 1/s, IEEE), the division
+// taken only where one of the eight products is too near a tie: the same
+// codes at a fraction of the cost.
+__device__ __forceinline__ uint2 quant_bf16x8_bits(uint4 v, float s, float inv) {
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
+  uint32_t q[8];
+  bool near = false;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    bool tie;
+    q[i] = quant_s8_bits(__bfloat162float(e[i]), inv, &tie);
+    near |= tie;
+  }
+  if (near) return quant_bf16x8(v, s);
+  return make_uint2(pack_low_bytes(q[0], q[1], q[2], q[3]), pack_low_bytes(q[4], q[5], q[6], q[7]));
 }
 
 __device__ __forceinline__ float absmax_bf16x8(uint4 v) {

@@ -5,5 +5,7 @@ from polyp_tpu_torch.diffusion.schedule import (  # noqa: F401
 from polyp_tpu_torch.diffusion.samplers import (  # noqa: F401
     ddim_sample,
     sample,
+    sampler_timesteps,
+    unipc_sample,
     with_cfg,
 )

@@ -1,7 +1,8 @@
 """Diffusion samplers: the twin of polyp_tpu/diffusion/samplers.py.
 
-This package ports DDIM (η = 0) on the leading and trailing grids, and
-classifier-free guidance, batch-doubled or folded. The steps run
+This package ports DDIM (η = 0) on the leading and trailing grids, UniPC
+(order 2, "bh2", data prediction; the reference's default and the port's),
+and classifier-free guidance, batch-doubled or folded. The steps run
 as a Python loop: PyTorch runs eagerly, so the reference's `lax.scan` has
 no counterpart the port needs. Sampling runs under `torch.no_grad()`; that
 is the port's form of the reference's `ops.dispatch.inference()` scope and
@@ -29,6 +30,25 @@ from polyp_tpu_torch.diffusion.schedule import (
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 Segments = Sequence[tuple[int, ModelFn]]
+
+# (spacing, steps_offset) each sampler of the reference uses (reference
+# :54-59): which timesteps a trajectory visits, without re-deriving each
+# sampler's conventions
+SAMPLER_SPACING: dict[str, tuple[str, int]] = {
+    "ddpm": ("leading", 0),
+    "ddim": ("leading", 1),
+    "dpmpp_2m": ("linspace", 0),
+    "unipc": ("linspace", 0),
+}
+
+
+def sampler_timesteps(name: str, num_train_timesteps: int,
+                      num_steps: int) -> list[int]:
+    """The descending timesteps `sample(name, ...)` visits at the sampler's
+    default spacing (reference :62-68)."""
+    spacing, offset = SAMPLER_SPACING[name]
+    return inference_timesteps(num_train_timesteps, num_steps, spacing,
+                               offset)
 
 
 def _as_segments(model_fn: Union[ModelFn, Segments],
@@ -79,6 +99,17 @@ def with_cfg(raw_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
     return model_fn
 
 
+def _start(init: torch.Tensor | None, shape: tuple[int, ...],
+           generator: torch.Generator | None, name: str) -> torch.Tensor:
+    """The fp32 starting latents: `init`, or noise from `generator`."""
+    if init is not None:
+        return init.to(torch.float32)
+    if generator is None:
+        raise ValueError(f"{name} needs a generator or init latents")
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=torch.float32)
+
+
 @torch.no_grad()
 def ddim_sample(model_fn: Union[ModelFn, Segments],
                 schedule: DiffusionSchedule,
@@ -115,7 +146,104 @@ def ddim_sample(model_fn: Union[ModelFn, Segments],
     return x
 
 
-SAMPLERS = {"ddim": ddim_sample}
+def _lambda_tables(schedule: DiffusionSchedule, ts: list[int]):
+    """(α, σ, λ) at each inference timestep, fp32 on the CPU (reference
+    :272-278)."""
+    abar = schedule.alphas_cumprod.cpu()[ts]
+    alpha = torch.sqrt(abar)
+    sigma = torch.sqrt(1.0 - abar)
+    return alpha, sigma, torch.log(alpha) - torch.log(sigma)
+
+
+def _phis(h: torch.Tensor):
+    """φ₁ = expm1(−h), B(h) = φ₁ ("bh2"), φ₂ = φ₁/(−h) − 1, φ₃ = φ₂/(−h) − ½
+    (reference :363-369)."""
+    hh = -h
+    phi1 = torch.expm1(hh)
+    phi2 = phi1 / hh - 1.0
+    return phi1, phi1, phi2, phi2 / hh - 0.5
+
+
+def _nonzero(b: torch.Tensor) -> torch.Tensor:
+    """The divisor of the reference's safe_div (:371-372): b, or 1 where
+    |b| <= 1e-10."""
+    return b if abs(b.item()) > 1e-10 else torch.ones_like(b)
+
+
+@torch.no_grad()
+def unipc_sample(model_fn: Union[ModelFn, Segments],
+                 schedule: DiffusionSchedule,
+                 shape: tuple[int, ...],
+                 generator: torch.Generator | None = None,
+                 num_steps: int = 25, use_corrector: bool = True,
+                 init: torch.Tensor | None = None) -> torch.Tensor:
+    """UniPC (Zhao et al. 2023) order 2, B(h) = expm1(−h) ("bh2"), data
+    prediction: the reference's unipc_sample (:331-419), with
+    UniPCMultistepScheduler's step structure on the linspace grid.
+
+    * step 0: UniP order 1 (no history);
+    * step i ≥ 1: UniC corrects the previous transition with the fresh x̂₀,
+      order 1 at i = 1 (ρ = ½) and order 2 after (the 2×2 solve over the
+      history node r₁ = (λ_{i−2} − λ_{i−1})/h and the new node 1); then UniP
+      order 2 predicts the next sample;
+    * `lower_order_final`: the last step returns its x̂₀.
+
+    The reference computes every branch and masks with `jnp.where` (reading
+    λ[i−1], λ[i−2] with wrap-around at i = 0, 1); here each step takes its
+    branch. The step coefficients are fp32 scalars on the CPU, as the
+    reference's tables are fp32; the latents stay fp32."""
+    x = _start(init, shape, generator, "unipc_sample")
+    schedule = schedule.to(x.device)
+    ts = sampler_timesteps("unipc", schedule.num_train_timesteps, num_steps)
+    alpha, sigma, lam = _lambda_tables(schedule, ts)
+    one = torch.ones(1)
+    alpha_next = torch.cat([alpha[1:], one])
+    sigma_next = torch.cat([sigma[1:], one])  # the last entry is never used
+    lam_next = torch.log(alpha_next) - torch.log(sigma_next)
+    fns = _step_fns(model_fn, num_steps)
+    x_corr_prev = m_prev = m_prev2 = None
+    for i, (t, fn) in enumerate(zip(ts, fns)):
+        out = fn(x, torch.full((x.shape[0],), t, device=x.device))
+        m = schedule.to_x0_eps(out, x, t)[0]  # x̂₀ at ts[i], uncorrected x
+        if i == num_steps - 1:
+            return m  # lower_order_final: σ = 0 exactly
+
+        # UniC: correct the i-1 -> i transition
+        x_corr = x
+        if use_corrector and i >= 1:
+            h_c = lam[i] - lam[i - 1]
+            phi1c, bhc, phi2c, phi3c = _phis(h_c)
+            d1_new = m - m_prev
+            if i == 1:
+                d = (phi1c.item() * m_prev
+                     + (bhc * 0.5).item() * d1_new)
+            else:
+                r1c = (lam[i - 2] - lam[i - 1]) / _nonzero(h_c)
+                d1_hist = (m_prev2 - m_prev) / _nonzero(r1c).item()
+                b1 = phi2c / bhc
+                b2 = 2.0 * phi3c / bhc
+                rho1 = (b1 - b2) / _nonzero(1.0 - r1c)
+                rho2 = b1 - rho1
+                d = phi1c.item() * m_prev + bhc.item() * (
+                    rho1.item() * d1_hist + rho2.item() * d1_new)
+            x_corr = (sigma[i] / sigma[i - 1]).item() * x_corr_prev \
+                - alpha[i].item() * d
+
+        # UniP: predict the i -> i+1 sample
+        h_p = lam_next[i] - lam[i]
+        phi1p, bhp, phi2p, _ = _phis(h_p)
+        x_next = (sigma_next[i] / sigma[i]).item() * x_corr \
+            - (alpha_next[i] * phi1p).item() * m
+        if i >= 1:
+            r1p = (lam[i - 1] - lam[i]) / _nonzero(h_p)
+            d1p = (m_prev - m) / _nonzero(r1p).item()
+            rho_p = phi2p / bhp
+            x_next = x_next - (alpha_next[i] * bhp * rho_p).item() * d1p
+        x, x_corr_prev, m_prev2, m_prev = x_next, x_corr, m_prev, m
+    return x
+
+
+SAMPLERS = {"ddim": ddim_sample, "unipc": unipc_sample}
 
 
 def get_sampler(name: str) -> Callable[..., torch.Tensor]:

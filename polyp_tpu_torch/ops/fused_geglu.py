@@ -7,9 +7,12 @@ its plain version on CPU tensors:
   `csrc/gemm_core.cuh`, replacing the Pallas kernel `fused_geglu`
   (polyp_tpu/ops/fused_geglu.py:139); plain `reference_geglu`. bf16, any
   token count, C and H multiples of 8.
-* `fused_geglu_w8a8` — `csrc/fused_geglu_w8a8.cu` (static form), replacing
-  `fused_geglu_w8a8` (:256): the static-scale int8 FF; plain
-  `reference_geglu_w8a8`.
+* `fused_geglu_w8a8` — `csrc/fused_geglu_w8a8.cu` (static form) on the
+  GEMM core, replacing `fused_geglu_w8a8` (:256): the static-scale int8 FF
+  in two launches, h's int8 codes [T, H] (plain `reference_geglu_w8a8_codes`)
+  and then the W8A8 dense's int8-input path over them; plain
+  `reference_geglu_w8a8`. C up to what its panel of quantized x in shared
+  memory allows (the kernel refuses wider, with an error).
 * `fused_geglu_w8a8_pt` — the same file's per-token form, replacing
   `fused_geglu_w8a8_pt` (:398): the per-token dynamic int8 FF, whose h is
   quantized per (row, group of `block_h(C, H)` hidden units), the
@@ -126,13 +129,23 @@ def reference_geglu_w8a8(x: torch.Tensor, wq1: torch.Tensor,
     (_geglu_q_kernel): a, gate and h in fp32, h quantized with act_scale2,
     the int32 second product dequantized once, rounded once to `out_dtype`
     (default x's dtype)."""
+    hq = reference_geglu_w8a8_codes(x, wq1, sw1, b1, act_scale1, act_scale2)
+    out = quant.int_mm(hq, wq2).float() * (act_scale2 * sw2) + b2.float()
+    return out.to(out_dtype or x.dtype).reshape(x.shape)
+
+
+def reference_geglu_w8a8_codes(x: torch.Tensor, wq1: torch.Tensor,
+                               sw1: torch.Tensor, b1: torch.Tensor,
+                               act_scale1: torch.Tensor,
+                               act_scale2: torch.Tensor) -> torch.Tensor:
+    """The static form's first half, the plain version of its first launch:
+    [a | gate] = q(x) · wq1ᵀ in int32, · (act_scale1 · sw1) + b1 in fp32,
+    h = a · gelu_erf(gate), and h's int8 codes with act_scale2: [T, H]."""
     c = x.shape[-1]
     xq = quant.quantize_activation(x, act_scale1)[0].reshape(-1, c)
     h1 = quant.int_mm(xq, wq1).float() * (act_scale1 * sw1) + b1.float()
     a, gate = h1.chunk(2, dim=-1)
-    hq = quant.quantize_activation(a * F.gelu(gate), act_scale2)[0]
-    out = quant.int_mm(hq, wq2).float() * (act_scale2 * sw2) + b2.float()
-    return out.to(out_dtype or x.dtype).reshape(x.shape)
+    return quant.quantize_activation(a * F.gelu(gate), act_scale2)[0]
 
 
 def reference_geglu_w8a8_pt(x: torch.Tensor, wq1: torch.Tensor,
@@ -186,22 +199,23 @@ def _check_q8_geglu(name: str, x, wq1, sw1, b1, wq2, sw2, b2) -> None:
 def _q8_geglu_launch(name: str, entry: str, x: torch.Tensor, weights,
                      scales, group: int) -> torch.Tensor:
     """Launch either int8 GEGLU form: contiguity and alignment, the
-    workspace of 4-byte partials that the C side sizes (`group` = 0 for the
-    static form, else block_h), the error check."""
+    workspace that the C side sizes in bytes (`group` = 0 for the static
+    form's h codes, else block_h for the per-token form's fp32 partials),
+    the error check."""
     wq1, sw1, b1, wq2, sw2, b2 = (t.contiguous() for t in weights)
     c = x.shape[-1]
     hidden = wq2.shape[1]
     xf = x.reshape(-1, c).contiguous()
-    if any(t.data_ptr() % 16 for t in (xf, wq1, wq2)):
-        raise ValueError(f"the {name} kernel needs 16-byte aligned x, wq1, "
-                         "wq2")
+    if any(t.data_ptr() % 16 for t in (xf, wq1, sw1, b1, wq2, sw2, b2)):
+        raise ValueError(f"the {name} kernel needs 16-byte aligned x, "
+                         "weights, scales and biases")
     t = xf.shape[0]
     out = torch.empty_like(xf)
     lib = _build.library()
     with torch.cuda.device(x.device):
         workspace = torch.empty(
             lib.polyp_geglu_w8a8_workspace(t, c, hidden, group),
-            dtype=torch.int32, device=x.device)
+            dtype=torch.uint8, device=x.device)
         ptrs = [p.data_ptr() for p in (xf, wq1, sw1, b1, wq2, sw2, b2,
                                        *scales)]
         sizes = (t, c, hidden, group) if group else (t, c, hidden)

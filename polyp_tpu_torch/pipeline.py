@@ -78,8 +78,9 @@ def to_uint8(images: torch.Tensor) -> np.ndarray:
 
 class StableDiffusionSampler:
     """StableDiffusionPipeline equivalent over the port's modules (which
-    carry their weights and device). Only DDIM is ported (ROADMAP.md
-    Queue 1), so it is the default sampler here. `quantize` is None,
+    carry their weights and device). The default sampler is UniPC, as the
+    reference's (and the scheduler `polyp-lora-per-class` runs); "ddim" is
+    the other one ported (ROADMAP.md Queue 1). `quantize` is None,
     "w8a8_static" or "w8a8" (ops/quant.py). `guidance_scale=None` means
     guidance is folded into the UNet (a distilled student);
     `sampler_kwargs` go to the sampler (e.g. the trailing grid);
@@ -90,7 +91,7 @@ class StableDiffusionSampler:
     def __init__(self, unet, vae, text_model, tokenizer,
                  schedule: DiffusionSchedule, image_size: int = 256,
                  num_steps: int = 25, guidance_scale: float | None = 7.5,
-                 sampler: str = "ddim", quantize: str | None = None,
+                 sampler: str = "unipc", quantize: str | None = None,
                  quant_fp_head: int = 0, quant_fp_tail: int = 0,
                  sampler_kwargs: dict | None = None, decoder=None,
                  fused_mha: bool = False):

@@ -20,9 +20,12 @@ ulps) in bf16, 1e-5 in fp32 (summation order only). TF32 is off.
 
 from __future__ import annotations
 
+import ctypes
+
 import pytest
 import torch
 
+from polyp_tpu_torch import _build
 from polyp_tpu_torch.ops import fused_dense as fd
 from polyp_tpu_torch.ops import fused_geglu as fg
 from polyp_tpu_torch.ops import fused_gn, quant
@@ -308,12 +311,20 @@ def _q8_geglu_case(dev, t, c, h):
     return x, (*q1, b1, *q2, b2), (w1, b1, w2, b2)
 
 
-# the static form halves its split of 256 hidden units down to 64 when T
-# is small; the per-token form takes one reference group (block_h) per
-# block: 640 at C=320, 512 at 640/1280, the whole hidden at C=64
+# the static form: 128-token panels at C <= 640 and T >= 128 (ragged last
+# panels at T = 130, 300, 1000), 64 at C > 640 or small T (1, 16, 64, 77);
+# hidden tiles split over 1 block (T = 32768) up to 40 (the mid block) a
+# panel; the widest C whose panel fits (2560); the second launch is the
+# dense with K = H, split over a cluster where its tiles are few; every
+# main-path shape of batches 4 and 32
 @pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
                                    (4096, 320, 1280), (64, 1280, 5120),
-                                   (300, 640, 2560)])
+                                   (300, 640, 2560), (1, 320, 1280),
+                                   (130, 320, 1280), (1024, 640, 2560),
+                                   (256, 1280, 5120), (16, 1280, 5120),
+                                   (300, 768, 3072), (32768, 320, 1280),
+                                   (8192, 640, 2560), (2048, 1280, 5120),
+                                   (512, 1280, 5120), (8, 2560, 64)])
 def test_geglu_w8a8_matches_plain(dev, t, c, h):
     x, weights, (w1, b1, w2, b2) = _q8_geglu_case(dev, t, c, h)
     s1 = _amax_scale(x)
@@ -328,6 +339,41 @@ def test_geglu_w8a8_matches_plain(dev, t, c, h):
     assert fg.fused_geglu_w8a8.launches == before + 1
     assert got.shape == x.shape
     _q8_close(got, want)
+
+
+@pytest.mark.parametrize("t,c,h", [(32768, 320, 1280), (64, 1280, 5120)])
+def test_geglu_w8a8_repeats_bit_for_bit(dev, t, c, h):
+    """Level 0 at the distilled batch 32 and the mid block at the CFG batch
+    (hidden tiles split over 40 blocks, the second product's K over a
+    cluster): sums in a fixed order, so the same bits twice."""
+    x, weights, (w1, b1, w2, b2) = _q8_geglu_case(dev, t, c, h)
+    s1 = _amax_scale(x)
+    s2 = torch.tensor(0.02, device=dev)
+    with torch.no_grad():
+        a = fg.fused_geglu_w8a8(x, *weights, s1, s2)
+        b = fg.fused_geglu_w8a8(x, *weights, s1, s2)
+    assert torch.equal(a, b)
+
+
+def test_geglu_w8a8_refuses_what_it_cannot_do(dev):
+    """A CUDA tensor the static kernel cannot take raises; nothing falls
+    back to the plain version."""
+    # C = 2688: a 64-row panel of 21 chunks leaves no room for two rings of
+    # two stages (C = 2560 is the widest that fits)
+    x, weights, _ = _q8_geglu_case(dev, 8, 2688, 64)
+    s = torch.tensor(0.02, device=dev)
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="static W8A8 GEGLU kernel"):
+            fg.fused_geglu_w8a8(x, *weights, s, s)
+        x, weights, _ = _q8_geglu_case(dev, 8, 64, 256)
+        with pytest.raises(ValueError, match="0-d fp32 on x's device"):
+            fg.fused_geglu_w8a8(x, *weights, s.cpu(), s)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flat = torch.zeros(8 * 64 + 1, dtype=torch.bfloat16, device=dev)
+            fg.fused_geglu_w8a8(flat[1:].view(1, 8, 64), *weights, s, s)
+        with pytest.raises(ValueError, match="divisible by 16"):
+            x, weights, _ = _q8_geglu_case(dev, 8, 72, 288)
+            fg.fused_geglu_w8a8(x, *weights, s, s)
 
 
 @pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
@@ -363,6 +409,81 @@ def test_group_norm_q8_matches_plain(dev, dtype, n, c, h, w, act):
     diff = (got.int() - want.int()).abs()
     assert diff.max().item() <= 1
     assert (diff > 0).float().mean().item() <= 2e-3
+
+
+# GroupNorm's plan by group size (bf16 unless marked): one block a group up
+# to 64 KB (every UNet shape); a cluster of 2 (128 KB groups), 4 (256 KB) or
+# 8 (512 KB: the VAE's 128² and 256² levels, slices of 64 KB, kept whole;
+# 1 MB: slices of 128 KB, half kept); fp32 groups of 2 MB (a quarter of
+# each 256 KB slice kept, the rest read again); H·W no multiple of the
+# vector (one element a thread) with a cluster
+@pytest.mark.parametrize("n,c,h,w,dtype,cluster,kept", [
+    (2, 320, 32, 32, torch.bfloat16, 1, 1.0),
+    (1, 32, 256, 256, torch.bfloat16, 2, 1.0),
+    (1, 32, 256, 512, torch.bfloat16, 4, 1.0),
+    (2, 128, 256, 256, torch.bfloat16, 8, 1.0),
+    (1, 256, 256, 256, torch.bfloat16, 8, 0.5),
+    (1, 256, 256, 256, torch.float32, 8, 0.25),
+    (1, 32, 256, 256, torch.float32, 4, 1.0),
+    (1, 32, 255, 257, torch.bfloat16, 2, 1.0),
+    (2, 512, 64, 64, torch.bfloat16, 2, 1.0),
+    (2, 512, 128, 128, torch.bfloat16, 8, 1.0),
+    (2, 256, 128, 128, torch.bfloat16, 4, 1.0)])
+def test_group_norm_cluster_plans_match_plain(dev, n, c, h, w, dtype,
+                                              cluster, kept):
+    x = _randn(dev, n, c, h, w, scale=2.0, shift=0.3, dtype=dtype)
+    gamma = _randn(dev, c, scale=0.5, shift=1.0, dtype=torch.float32)
+    beta = _randn(dev, c, scale=0.2, dtype=torch.float32)
+    k, vecs, kept_vecs, _ = _gn_plan(c, h * w, dtype)
+    assert (k, kept_vecs / vecs) == (cluster, kept)
+    with torch.no_grad():
+        got = fused_gn.fused_group_norm(x, gamma, beta, 32, 1e-6, "silu")
+        again = fused_gn.fused_group_norm(x, gamma, beta, 32, 1e-6, "silu")
+    want = fused_gn.group_norm(x.float(), gamma, beta, 32, 1e-6, "silu")
+    rel = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert _max_err(got, want) <= rel * want.abs().max().item()
+    assert torch.equal(got, again)  # the cluster's sums in a fixed order
+
+
+def _gn_plan(c, hw, dtype):
+    """csrc/fused_gn.cu's plan for 32 groups: (cluster, the largest slice's
+    vectors, those kept in shared memory, threads a block)."""
+    out = (ctypes.c_longlong * 4)()
+    _build.library().polyp_group_norm_plan(c, hw, 32,
+                                           int(dtype == torch.bfloat16), out)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("n,c,h,w", [(2, 128, 256, 256), (4, 320, 32, 32)])
+def test_group_norm_q8_cluster_codes(dev, n, c, h, w):
+    x = _randn(dev, n, c, h, w, scale=2.0, shift=0.3)
+    gamma = _randn(dev, c, scale=0.5, shift=1.0, dtype=torch.float32)
+    beta = _randn(dev, c, scale=0.2, dtype=torch.float32)
+    s = _amax_scale(fused_gn.group_norm(x.float(), gamma, beta, 32, 1e-5,
+                                        "silu"))
+    with torch.no_grad():
+        got = fused_gn.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu",
+                                        act_scale=s)
+        again = fused_gn.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu",
+                                          act_scale=s)
+    want = fused_gn.reference_gn_q8(x, gamma, beta, s, 32, 1e-5, "silu")
+    diff = (got.int() - want.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 2e-3
+    assert torch.equal(got, again)
+
+
+def test_group_norm_refuses_what_it_cannot_do(dev):
+    x = _randn(dev, 2, 64, 8, 8)
+    gamma = torch.ones(64, device=dev)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="fp32 or bf16 NCHW"):
+            fused_gn.fused_group_norm(x.half(), gamma, gamma, 32)
+        with pytest.raises(ValueError, match="0-d fp32"):
+            fused_gn.fused_group_norm(x, gamma, gamma, 32,
+                                      act_scale=torch.tensor(0.1))
+    with pytest.raises(RuntimeError, match="inference-only"):
+        fused_gn.fused_group_norm(x, gamma.requires_grad_(), gamma, 32)
 
 
 def test_int8_kernels_refuse_what_they_cannot_do(dev):

@@ -170,11 +170,130 @@ def test_whole_slice_matches_jax(tiny_stacks):
 def test_unported_samplers_refuse_naming_the_roadmap():
     sched = tsched.DiffusionSchedule.create(**SD_SCHEDULE)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsamp.sample("unipc", lambda x, t: x, sched, (1, 4, 2, 2),
+        tsamp.sample("dpmpp_2m", lambda x, t: x, sched, (1, 4, 2, 2),
                      torch.Generator().manual_seed(0), 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tpipe.StableDiffusionSampler(tiny_condition_unet(), tiny_vae(), None,
                                      None, sched, sampler="dpmpp_2m")
+
+
+# ---------------------------------------------------------------------------
+# UniPC, the reference's and the port's default sampler
+# ---------------------------------------------------------------------------
+
+def _toy_eps(seed):
+    """A numpy-seeded elementwise ε-model, written once for each framework:
+    eps = a·tanh(b·x + c·t/1000) + d·x with per-channel a, b, c, d. It is
+    elementwise, so the same arrays are NCHW for the port and anything for
+    JAX."""
+    rng = np.random.default_rng(seed)
+    a, b, c, d = (rng.uniform(0.2, 1.0, (1, 4, 1, 1)).astype(np.float32)
+                  for _ in range(4))
+
+    def j_fn(x, t):
+        tt = t.astype(jnp.float32).reshape(-1, 1, 1, 1) / 1000.0
+        return jnp.asarray(a) * jnp.tanh(jnp.asarray(b) * x
+                                         + jnp.asarray(c) * tt) \
+            + jnp.asarray(d) * x
+
+    def t_fn(x, t):
+        tt = t.float().reshape(-1, 1, 1, 1) / 1000.0
+        return torch.from_numpy(a) * torch.tanh(torch.from_numpy(b) * x
+                                                + torch.from_numpy(c) * tt) \
+            + torch.from_numpy(d) * x
+
+    return j_fn, t_fn
+
+
+def _unipc_pair(steps, segments, **kw):
+    """The same start through polyp_tpu's unipc_sample and the port's:
+    `segments` None for one model, else a list of (steps, toy seed)."""
+    init = np.random.default_rng(7).standard_normal((2, 4, 8, 8)
+                                                    ).astype(np.float32)
+    if segments is None:
+        j_fn, t_fn = _toy_eps(0)
+    else:
+        pairs = [(n, _toy_eps(seed)) for n, seed in segments]
+        j_fn = [(n, f[0]) for n, f in pairs]
+        t_fn = [(n, f[1]) for n, f in pairs]
+    want = jsamp.sample("unipc", j_fn,
+                        jsched.DiffusionSchedule.create(**SD_SCHEDULE),
+                        init.shape, jax.random.PRNGKey(0), steps,
+                        init=jnp.asarray(init), **kw)
+    got = tsamp.sample("unipc", t_fn,
+                       tsched.DiffusionSchedule.create(**SD_SCHEDULE),
+                       init.shape, None, steps, init=torch.from_numpy(init),
+                       **kw)
+    return got, np.asarray(want)
+
+
+# The same operations in fp32 on both sides, in another order (the
+# reference evaluates every branch under jnp.where and XLA fuses the
+# elementwise chain; the port takes its branch and computes the step
+# coefficients as scalars): max |Δ| <= 1e-5 · max |x|. A wrong coefficient,
+# order or branch gives O(1e-2) or more.
+@pytest.mark.parametrize("steps", [1, 2, 3, 25])
+@pytest.mark.parametrize("use_corrector", [True, False])
+def test_unipc_matches_jax(steps, use_corrector):
+    got, want = _unipc_pair(steps, None, use_corrector=use_corrector)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_unipc_segments_match_jax():
+    """A two-segment list (a different model for the last 3 of 7 steps),
+    the step index continuing across the segments as in the reference."""
+    got, want = _unipc_pair(7, [(4, 0), (3, 1)])
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    one, _ = _unipc_pair(7, [(4, 0), (3, 0)])
+    alone, _ = _unipc_pair(7, None)
+    assert torch.equal(one, alone)  # segments of one fn == one loop
+
+
+def test_unipc_visits_the_reference_timesteps():
+    seen = []
+
+    def spy(x, t):
+        seen.append(int(t[0]))
+        return torch.zeros_like(x)
+
+    tsamp.unipc_sample(spy, tsched.DiffusionSchedule.create(**SD_SCHEDULE),
+                       (1, 4, 2, 2), torch.Generator().manual_seed(0),
+                       num_steps=5)
+    want = jsamp.sampler_timesteps("unipc", 1000, 5)
+    assert seen == [int(t) for t in np.asarray(want)] == \
+        tsamp.sampler_timesteps("unipc", 1000, 5)
+    with pytest.raises(ValueError, match="generator or init"):
+        tsamp.unipc_sample(spy, tsched.DiffusionSchedule.create(
+            **SD_SCHEDULE), (1, 4, 2, 2), None, num_steps=2)
+
+
+def test_default_sampler_matches_jax_defaults(tiny_stacks):
+    """Both StableDiffusionSamplers at their defaults (UniPC, 25 steps, CFG
+    7.5, 256px) over the same carried weights and the same numpy latents:
+    the reference's _generate_impl vs the port's generate. Tolerance 5e-3
+    on images in [-1, 1], as the DDIM slice (CFG amplifies fp32 rounding,
+    then the VAE decodes)."""
+    unet, up, vae, vp, text, tp, tok = tiny_stacks["jax"]
+    t_unet, t_vae, t_text, t_tok = tiny_stacks["torch"]
+    prompt = "a colonoscopy image of an adenomatous polyp"
+    j = JSampler(unet, up, vae, vp, text, tp, tok,
+                 jsched.DiffusionSchedule.create(**SD_SCHEDULE))
+    t = tpipe.StableDiffusionSampler(
+        t_unet, t_vae, t_text, t_tok,
+        tsched.DiffusionSchedule.create(**SD_SCHEDULE))
+    assert t.sampler == j.sampler == "unipc"
+    assert (t.num_steps, t.guidance_scale, t.image_size) == \
+        (j.num_steps, j.guidance_scale, j.image_size)
+    init = _init_latents(4, 1, 32)
+    want = j._generate_impl(up, vp, j.encode_prompt(prompt),
+                            j.encode_prompt(""), jax.random.PRNGKey(0), 1,
+                            init=jnp.asarray(init))
+    got = t.generate(t.encode_prompt(prompt), t.encode_prompt(""), 1,
+                     init=torch.from_numpy(init.transpose(0, 3, 1, 2).copy()))
+    assert got.shape == (1, 3, 256, 256)
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(want), rtol=5e-3, atol=5e-3)
 
 
 # ---------------------------------------------------------------------------

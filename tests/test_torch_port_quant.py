@@ -303,6 +303,34 @@ def test_geglu_w8a8_plain_matches_pallas_interpret(block_h):
     assert close.mean() >= 0.95
 
 
+@pytest.mark.parametrize("c,tokens,out_dtype", [
+    (64, 256, torch.float32), (320, 77, torch.float32),
+    (64, 130, torch.bfloat16)])
+def test_static_geglu_split_is_the_dense_over_h_codes(c, tokens, out_dtype):
+    """The static int8 GEGLU's CUDA path is two launches: h's int8 codes
+    (plain version reference_geglu_w8a8_codes), then the W8A8 dense's
+    int8-input path with act_scale = sh. Their plain versions composed equal
+    the whole FF's plain version bit for bit: the same int32 products, the
+    same dequantize order, one rounding."""
+    h = 4 * c
+    x = _normal(17, (2, tokens, c))
+    w1, b1, w2, b2 = _geglu_weights(c, h, 18)
+    wq1, sw1, tb1, wq2, sw2, tb2 = _port_q8(w1, b1, w2, b2)
+    a, g = np.split(x @ w1 + b1, 2, axis=-1)
+    s1 = torch.tensor(_scale(x))
+    s2 = torch.tensor(_scale(np.asarray(a * jax.nn.gelu(g,
+                                                        approximate=False))))
+    x = _t(x)
+    b1, b2 = tb1, tb2
+    codes = tfg.reference_geglu_w8a8_codes(x, wq1, sw1, b1, s1, s2)
+    assert codes.dtype == torch.int8 and codes.shape == (2 * tokens, h)
+    split = tfd.reference_w8a8_dense(codes, wq2, sw2, b2, s2,
+                                     out_dtype=out_dtype)
+    whole = tfg.reference_geglu_w8a8(x, wq1, sw1, b1, wq2, sw2, b2, s1, s2,
+                                     out_dtype=out_dtype)
+    assert torch.equal(split.reshape(whole.shape), whole)
+
+
 @pytest.mark.parametrize("c,tokens", [(64, 256), (320, 128)])
 def test_geglu_w8a8_pt_plain_matches_pallas_interpret(c, tokens):
     """Kernel 6 with the reference's block_h (C=320: hidden 1280 in two
@@ -666,6 +694,37 @@ def test_head_over_every_step_drops_the_mode(quant_unets):
     with pytest.raises(ValueError, match="quantization mode"):
         tpipe.StableDiffusionSampler(t_unet, tiny_vae(), None, None, sched,
                                      quantize="int4")
+
+
+def test_static_calibration_is_sampler_agnostic(quant_unets, tmp_path,
+                                               monkeypatch):
+    """w8a8_static calibrates on its own DDIM trajectory and ScaleBank
+    interpolates the tables over all 1000 timesteps, so a UniPC sampler (the
+    default) gets the same tables as a DDIM one, and a finite positive scale
+    at every timestep its linspace grid visits (999 first), each within the
+    calibrated points' range."""
+    _, _, t_unet = quant_unets
+    sched = tsched.DiffusionSchedule.create(**SD_SCHEDULE)
+    cond, uncond = _t(_normal(20, (1, 8, 64))), _t(_normal(21, (1, 8, 64)))
+    tables = {}
+    for name in ("unipc", "ddim"):
+        # a cache of its own each, so each sampler calibrates afresh
+        monkeypatch.setenv("POLYP_TORCH_QUANT_CACHE", str(tmp_path / name))
+        s = tpipe.StableDiffusionSampler(t_unet, tiny_vae(), None, None,
+                                         sched, image_size=64, num_steps=4,
+                                         sampler=name,
+                                         quantize="w8a8_static")
+        s._ensure_calibrated(cond, uncond)
+        tables[name] = s.quant_scales
+    assert tables["unipc"] == tables["ddim"]
+    bank = tq.ScaleBank(tables["unipc"])
+    values = bank.values.numpy()
+    assert values.shape == (len(tables["unipc"]), 1000)
+    for t in tsamp.sampler_timesteps("unipc", 1000, 25):
+        got = bank.at(torch.tensor([t]), torch.device("cpu")).numpy()
+        assert np.isfinite(got).all() and (got > 0).all()
+        assert (got <= values.max(axis=1) + 1e-12).all()
+        assert (got >= values.min(axis=1) - 1e-12).all()
 
 
 def test_int8_slice_matches_jax(quant_unets, jax_scales, monkeypatch):

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Rows 2 and 5 of PERF.md's kernel table (the bf16 GEGLU and the W8A8
-dense) and the sampling loops' device time, for the polyp_tpu_torch of any
-checkout, so that two commits are compared on one card in one call.
+"""Rows 2-5 of PERF.md's kernel table (the bf16 GEGLU, GroupNorm, the
+static int8 GEGLU and the W8A8 dense) and the sampling loops' device time,
+for the polyp_tpu_torch of any checkout, so that two commits are compared
+on one card in one call.
 
-    python3 tools/gemm_rows.py --root DIR --tag NAME [--rows geglu|dense|none]
+    python3 tools/gemm_rows.py --root DIR --tag NAME
+                               [--rows geglu,dense,geglu_q8,gn | all | none]
                                [--no-profiles]
 
 Needs a CUDA card. It builds the kernels of DIR/polyp_tpu_torch and runs
-chip_smoke.py's `gemm_rows` (this checkout's: device time from a CUDA graph
-of 20 calls, the CUDA-event time of the same calls, the plain version, the
-yardsticks, the bound) on that package at every main-path shape; then, on
+chip_smoke.py's `gemm_rows`, `geglu_q8_rows` and `gn_rows` (this
+checkout's: device time from a CUDA graph of 20 calls, the CUDA-event time
+of the same calls, the plain version, the yardsticks, the bound) on that
+package at every main-path shape; then, on
 the full-width SD-v1-4 stack (random weights, seed 0) at 256px,
 `profile_loop` over one batch of three loops: w8a8_static under CFG (20
 DDIM steps, 5-step bf16 head, batch 2), distilled bf16 (8 steps, batch 16,
@@ -33,6 +36,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+ROWS = ("geglu", "dense", "geglu_q8", "gn")
 
 
 def main() -> int:
@@ -40,8 +44,9 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE,
                     help="checkout whose polyp_tpu_torch is measured")
     ap.add_argument("--tag", default="this")
-    ap.add_argument("--rows", choices=("all", "geglu", "dense", "none"),
-                    default="all", help="which kernel's rows to time")
+    ap.add_argument("--rows", default="all",
+                    help="comma-separated kernels whose rows to time: "
+                         f"{', '.join(ROWS)}; or all, or none")
     ap.add_argument("--no-profiles", action="store_true")
     args = ap.parse_args()
 
@@ -69,11 +74,18 @@ def main() -> int:
     out = {"root": str(args.root), "tag": args.tag, "card": card,
            "build_s": time.perf_counter() - start}
     dev = torch.device("cuda", 0)
+    rows = {"all": ROWS, "none": ()}.get(args.rows, args.rows.split(","))
+    unknown = set(rows) - set(ROWS)
+    if unknown:
+        raise SystemExit(f"gemm_rows: unknown rows {sorted(unknown)}")
     with torch.no_grad():
         out["rows"] = smoke.gemm_rows(
-            dev, geglu_batches=(4, 16, 32) if args.rows in ("all", "geglu")
-            else (), dense_batches=(4, 32) if args.rows in ("all", "dense")
-            else ())
+            dev, geglu_batches=(4, 16, 32) if "geglu" in rows else (),
+            dense_batches=(4, 32) if "dense" in rows else ())
+        if "geglu_q8" in rows:
+            out["rows"] += smoke.geglu_q8_rows(dev, per_token=False)
+        if "gn" in rows:
+            out["rows"] += smoke.gn_rows(dev)
     if not args.no_profiles:
         out["loops"] = profiles(smoke, dev)
     dest = HERE / "chiprun_out"
