@@ -12,7 +12,7 @@ caught:
    registers, spill bytes and dynamic shared memory a block of the
    attention kernels (flash at every head dim, the fused MHA, its K/V
    projection) and the GEMM kernels (the GEMM core's instantiations for
-   the bf16 GEGLU's two launches, the dense and the static int8 GEGLU's
+   the bf16 GEGLU's two launches, the dense and both int8 GEGLU forms'
    two launches) from the build's -Xptxas -v log; a spill of an
    attention kernel at d <= 80 (every head dim a path runs) or of any GEMM
    kernel fails the run after the main paths;
@@ -33,7 +33,9 @@ caught:
    shape at batches 2 and 16); the int8 kernels — the W8A8 dense (beside
    `_int_mm` on the codes), the static int8 GEGLU (beside `_int_mm` on the
    codes of x and h, and the bf16 GEGLU at the same shape) and the
-   per-token one — by relative L2 and max error (Q8_REL_L2, Q8_MAX_REL),
+   per-token one (at every level of batch 4, beside the same `_int_mm`
+   pair and the static form) — by relative L2 and max error (Q8_REL_L2,
+   Q8_MAX_REL),
    and GroupNorm's int8 epilogue by the share of codes that differ (at
    most one code, in at most GN_Q8_SHARE of the elements);
 4. drives the main paths on the full-width SD-v1-4 stack (UNet 859,520,964
@@ -60,10 +62,10 @@ caught:
    above zero for each kernel that path runs; images/s of each path are
    printed side by side, beside the UNet-only and decode-only seconds and
    the decode share; torch.profiler gives the device time of one sampling
-   loop, and its kernel families, of the w8a8_static CFG path and of the
-   fused, the unfused and the int8 distilled paths; one bf16 and one
-   w8a8_static UNet forward count the GEGLU's and the dense's launches by
-   shape, and one VAE decode GroupNorm's (the census);
+   loop, and its kernel families, of the w8a8_static and the dynamic w8a8
+   CFG paths and of the fused, the unfused and the int8 distilled paths;
+   one bf16 and one w8a8_static UNet forward count the GEGLU's and the
+   dense's launches by shape, and one VAE decode GroupNorm's (the census);
 5. holds one tiny-decoder forward on the card against the same weights in
    fp32 on the CPU, one bf16 UNet forward and one VAE decode on the card
    (kernels) against the same weights run on the CPU in fp32 (plain
@@ -291,13 +293,14 @@ def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
 
 # the kernels whose registers, spills and shared memory a block chip_smoke
 # reports from the build's -Xptxas -v log (mangled names): the attention
-# kernels, and the GEMM core's instantiations (gemm_core.cuh) for the bf16
-# GEGLU's and the static int8 GEGLU's two launches and the dense, by tile
-# (and, for the dense, quantized x)
+# kernels, and the GEMM core's instantiations (gemm_core.cuh) for the two
+# launches of the bf16 GEGLU and of both int8 GEGLU forms and the dense, by
+# tile (and, for the dense, quantized x)
 ATTENTION_KERNELS = re.compile(
     r"(flash_fwd_kernel|fused_mha_kernel|kv_project_kernel)(?:ILi(\d+)E)?")
 GEMM_KERNELS = re.compile(
-    r"gemm_kernelI\w*?(GegluQ8Up|GegluQ8Down|GegluUp|GegluDown|Dense)"
+    r"gemm_kernelI\w*?(GegluQ8PtUp|GegluQ8PtDown|GegluQ8Up|GegluQ8Down|GegluUp"
+    r"|GegluDown|Dense)"
     r"I((?:Li\d+E|Lb[01]E)+)")
 
 
@@ -522,12 +525,15 @@ def check_kernels(dev: torch.device) -> list[dict]:
 Q8_BATCHES = (4, 32)
 
 
-def geglu_q8_rows(dev: torch.device, per_token: bool = True) -> list[dict]:
+def geglu_q8_rows(dev: torch.device, static: bool = True,
+                  per_token: bool = True) -> list[dict]:
     """Row 4 (the static int8 GEGLU) at the w8a8_static batches 4 and 32 at
     every UNet level and the mid block, beside two yardsticks timed here
     only: its two products alone (`_int_mm` on int8 codes of x and of h)
     and the bf16 GEGLU on the same x and weights; and row 6 (the per-token
-    form) at batch 4 (dynamic w8a8 runs only under CFG)."""
+    form) at batch 4 (dynamic w8a8 runs only under CFG) at every level,
+    beside the same products alone and the static form on the same x and
+    weights."""
     import torch.nn.functional as F
 
     from polyp_tpu_torch.ops import quant
@@ -551,25 +557,30 @@ def geglu_q8_rows(dev: torch.device, per_token: bool = True) -> list[dict]:
         xq = quant.quantize_activation(x, s1)[0].reshape(tokens, c)
         hq = quant.quantize_activation(a * F.gelu(gate), s2)[0].reshape(
             tokens, h)
-        q8_cost = bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8, s1, s2))
-        row = compare_q8(
-            "fused_geglu_w8a8", lambda: fused_geglu_w8a8(x, *q8, s1, s2),
-            lambda: reference_geglu_w8a8(x, *q8, s1, s2),
-            reference_geglu_w8a8(x, *q8, s1, s2, out_dtype=torch.float32),
-            shape, q8_cost,
-            products=lambda: (quant.int_mm(xq, q8[0]),
-                              quant.int_mm(hq, q8[3])),
-            bf16_geglu=lambda: fused_geglu(x, w1, b1, w2, b2))
-        row["launches_per_forward"] = 1 if per_image == 16 else \
-            FF_PER_FORWARD[c]
-        rows.append(row)
+        per_forward = 1 if per_image == 16 else FF_PER_FORWARD[c]
+
+        def products():
+            return quant.int_mm(xq, q8[0]), quant.int_mm(hq, q8[3])
+
+        if static:
+            row = compare_q8(
+                "fused_geglu_w8a8", lambda: fused_geglu_w8a8(x, *q8, s1, s2),
+                lambda: reference_geglu_w8a8(x, *q8, s1, s2),
+                reference_geglu_w8a8(x, *q8, s1, s2, out_dtype=torch.float32),
+                shape, bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8, s1, s2)),
+                products=products,
+                bf16_geglu=lambda: fused_geglu(x, w1, b1, w2, b2))
+            rows.append({**row, "launches_per_forward": per_forward})
         if n != 4 or not per_token:
             continue
-        rows.append(compare_q8(
+        row = compare_q8(
             "fused_geglu_w8a8_pt", lambda: fused_geglu_w8a8_pt(x, *q8),
             lambda: reference_geglu_w8a8_pt(x, *q8),
             reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape,
-            bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8))))
+            bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8)),
+            products=products,
+            static=lambda: fused_geglu_w8a8(x, *q8, s1, s2))
+        rows.append({**row, "launches_per_forward": per_forward})
     return rows
 
 
@@ -774,13 +785,16 @@ def check_tiny_decoder(tiny, dev: torch.device) -> float:
     return rel
 
 
-# kernel families a profile sums by name: this tree's kernels and the
-# earlier ones they replaced (the same names in a parent's profile); the
-# static int8 GEGLU's second launch is the dense's policy under its own
-# name, GegluQ8Down
+# kernel families a profile sums by name, each kernel into the first family
+# it matches: this tree's kernels and the earlier ones they replaced (the
+# same names in a parent's profile); the int8 GEGLUs' second launches run
+# the dense's policies under names of their own, GegluQ8Down (static) and
+# GegluQ8PtDown (per-token, whose earlier kernels were geglu_q8_pt_partial
+# and geglu_q8_pt_reduce)
 FAMILIES = {"w8a8_dense": ("Dense<", "dense_q8_kernel"),
             "bf16_geglu": ("GegluUp<", "GegluDown<", "geglu_partial_kernel",
                            "geglu_reduce_kernel"),
+            "int8_geglu_pt": ("GegluQ8Pt", "geglu_q8_pt"),
             "int8_geglu": ("GegluQ8", "geglu_q8", "geglu_w8a8"),
             "group_norm": ("group_norm", "gn_"),
             "attention": ("flash_fwd", "fused_mha", "kv_project")}
@@ -810,11 +824,13 @@ def profile_loop(sampler, batch: int) -> dict:
     kernels = sorted((e for e in prof.key_averages()
                       if getattr(e, "device_type", None) == DeviceType.CUDA),
                      key=us, reverse=True)
-    families = {}
-    for fam, keys in FAMILIES.items():
-        mine = [e for e in kernels if any(k in e.key for k in keys)]
-        families[fam] = [sum(us(e) for e in mine) / 1e3,
-                         sum(e.count for e in mine)]
+    families = {fam: [0.0, 0] for fam in FAMILIES}
+    for e in kernels:
+        fam = next((f for f, keys in FAMILIES.items()
+                    if any(k in e.key for k in keys)), None)
+        if fam:
+            families[fam][0] += us(e) / 1e3
+            families[fam][1] += e.count
     return {"device_s": sum(us(e) for e in kernels) / 1e6,
             "steps": sampler.num_steps, "families": families,
             "top": [[e.key[:60], us(e) / 1e3, e.count] for e in kernels[:8]]}
@@ -1095,7 +1111,10 @@ def main() -> int:
         drive("w8a8_static", static, 4, 2, fp_head=5, **calibrate(static))
         # the int8 loop's device time, and the dense's share of it
         profile_denoise("w8a8_static", static, 2)
-        drive("w8a8", sampler_for(quantize="w8a8"), 2, 2)
+        dynamic = sampler_for(quantize="w8a8")
+        drive("w8a8", dynamic, 2, 2)
+        # the dynamic int8 loop, and the per-token GEGLU's share of it
+        profile_denoise("w8a8", dynamic, 2)
         # the port's defaults, as a user who names no sampler gets them:
         # UniPC, 25 steps, CFG 7.5, 256px
         default = StableDiffusionSampler(stack.unet, stack.vae, stack.text,

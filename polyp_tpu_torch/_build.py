@@ -44,6 +44,9 @@ SIGNATURES = {
     "polyp_geglu_w8a8": [_P] * 11 + [_I, _I, _I, _P],
     # x, wq1, sw1, b1, wq2, sw2, b2, workspace, out, t, c, h, block_h, stream
     "polyp_geglu_w8a8_pt": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # x, wq1, sw1, b1, workspace, t, c, h, block_h, stream: the per-token
+    # form's first launch alone (codes, then sh, in the workspace)
+    "polyp_geglu_w8a8_pt_up": [_P] * 5 + [_I, _I, _I, _I, _P],
     # x, ctx, wq, wk, wv, wo, k_ws, v_ws, out, b, tq, tk, c, ckv, h, d, co,
     # scale, stream
     "polyp_fused_mha": [_P] * 9 + [_I] * 8 + [_F, _P],

@@ -115,17 +115,7 @@ struct Dense : gemm::Policy {
         }
       }
     } else {
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            a[s][2 * h + rr] = *reinterpret_cast<const uint32_t*>(
-                st + gemm::swizzle128(r + 8 * rr, s * 32 + h * 16 + t * 4));
-          }
-        }
-      }
+      codes_of(st, r, t, a);
     }
     gemm::wgmma_fence();
 #pragma unroll
@@ -133,6 +123,21 @@ struct Dense : gemm::Policy {
       gemm::Wgmma<BN>::s8_rs(acc[0], a[s], gemm::smem_desc(st + kABytes + s * 32), 1);
     }
     gemm::wgmma_commit();
+  }
+  // wgmma's 8-bit A fragments of rows r and r + 8 of an int8 box, all four
+  // k32 steps: a[s][2h + rr] holds row r + 8·rr, k 32s + 16h + 4t .. +3
+  __device__ static void codes_of(const unsigned char* box, int r, int t, uint32_t (&a)[4][4]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          a[s][2 * h + rr] = *reinterpret_cast<const uint32_t*>(
+              box + gemm::swizzle128(r + 8 * rr, s * 32 + h * 16 + t * 4));
+        }
+      }
+    }
   }
   __device__ static __nv_bfloat162 epilogue(const Params& p, int col, const int (&v)[1][2]) {
     const float sx = *p.sx;
@@ -149,6 +154,98 @@ struct Dense : gemm::Policy {
 // name of its own, so that a profile tells its launches from the dense's.
 template <int BN>
 struct GegluQ8Down : Dense<BN, false> {};
+
+// The per-token int8 GEGLU's second product, out = Σ_g float(codes_g ·
+// W2q_gᵀ) · (sh[t, g] · sw2[n]) + b2 over the hidden groups g of
+// `group_chunks` K chunks (block_h / 128: every group boundary is a chunk
+// boundary, or there is one group): the int8-input dense's loads and
+// products, whose int32 sums (acc[0]) cover one group only. At each group's
+// last chunk, chunk_done folds them into fp32 sums (acc[1], kept as float
+// bits in the core's int accumulators) in the plain version's order and
+// roundings — the scale product, the product, the add, no FMA — and
+// restarts them; K stays whole (kGroupedK), so the groups add in order g = 0,
+// 1, ... and, given the same codes and scales, the output equals the plain
+// version's bit for bit. The epilogue adds b2 and rounds once to bf16.
+template <int BN>
+struct GegluQ8PtDown : Dense<BN, false> {
+  using Base = Dense<BN, false>;
+  static constexpr int kAcc = 2;
+  static constexpr bool kGroupedK = true;
+  struct Params : Base::Params {
+    const float* sh;  // [m, groups]
+    int groups, group_chunks;
+  };
+  __device__ static void mma(const Params& p, unsigned char* st, int (&acc)[2][BN / 2]) {
+    const int lane = threadIdx.x & 31;
+    uint32_t a[4][4];
+    Base::codes_of(st, (threadIdx.x >> 5) * 16 + (lane >> 2), lane & 3, a);
+    gemm::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      gemm::Wgmma<BN>::s8_rs(acc[0], a[s], gemm::smem_desc(st + Base::kABytes + s * 32), 1);
+    }
+    gemm::wgmma_commit();
+  }
+  __device__ static void chunk_done(const Params& p, int kc, int m0, int n0,
+                                    int (&acc)[2][BN / 2]) {
+    if ((kc + 1) % p.group_chunks != 0 && kc + 1 != p.n_k) return;
+    gemm::fence_regs(acc[0]);  // the group's products have completed
+    const int g = kc / p.group_chunks;
+    const int lane = threadIdx.x & 31;
+    const int r = m0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+    const int c = (lane & 3) * 2;
+    float sh[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r + 8 * half;
+      sh[half] = row < p.m ? p.sh[static_cast<long long>(row) * p.groups + g] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + c;
+      const float2 sw = col < p.n ? *reinterpret_cast<const float2*>(p.sw + col)
+                                  : make_float2(0.f, 0.f);
+      const float swe[2] = {sw.x, sw.y};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * half + e;
+          const float part =
+              __fmul_rn(static_cast<float>(acc[0][idx]), __fmul_rn(sh[half], swe[e]));
+          acc[1][idx] = __float_as_int(__fadd_rn(__int_as_float(acc[1][idx]), part));
+          acc[0][idx] = 0;
+        }
+      }
+    }
+  }
+  __device__ static __nv_bfloat162 epilogue(const Params& p, int col, const int (&v)[2][2]) {
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.bias + col));
+    return __floats2bfloat162_rn(__fadd_rn(__int_as_float(v[1][0]), b.x),
+                                 __fadd_rn(__int_as_float(v[1][1]), b.y));
+  }
+};
+
+template <int BN>
+cudaError_t launch_pt_down(const void* codes, const void* sh, const void* w, const void* sw,
+                           const void* bias, void* out, int m, int h, int o, int block_h,
+                           cudaStream_t stream) {
+  using P = GegluQ8PtDown<BN>;
+  typename P::Params p{};
+  cudaError_t err = gemm::encode_map(&p.x, codes, true, m, h, gemm::kWgRows);
+  if (err == cudaSuccess) err = gemm::weight_map(&p.w, w, true, o, h, BN);
+  if (err != cudaSuccess) return err;
+  p.sw = static_cast<const float*>(sw);
+  p.bias = static_cast<const bf16*>(bias);
+  p.out = static_cast<bf16*>(out);
+  p.m = m;
+  p.n = o;
+  p.n_k = (h + kChunk - 1) / kChunk;
+  p.sh = static_cast<const float*>(sh);
+  p.groups = h / block_h;
+  p.group_chunks = (block_h + kChunk - 1) / kChunk;
+  return gemm::launch<P>(p, stream);
+}
 
 template <int BN>
 using DenseBf16 = Dense<BN, true>;
@@ -191,6 +288,14 @@ cudaError_t polyp::geglu_q8_down(const void* x, const void* w, const void* sw, c
                                  const void* sx, void* out, int m, int c, int o,
                                  cudaStream_t stream) {
   return dispatch<GegluQ8Down>(x, w, sw, bias, sx, out, m, c, o, stream);
+}
+
+cudaError_t polyp::geglu_q8_pt_down(const void* codes, const void* sh, const void* w,
+                                    const void* sw, const void* bias, void* out, int m, int h,
+                                    int o, int block_h, cudaStream_t stream) {
+  // 64 columns a tile: with K whole, the tiles alone fill the SMs, and at
+  // 128 the fp32 sums beside the int32 ones spill at the register cap
+  return launch_pt_down<64>(codes, sh, w, sw, bias, out, m, h, o, block_h, stream);
 }
 
 extern "C" int polyp_w8a8_dense(const void* x, int x_is_int8, const void* w, const void* sw,

@@ -6,63 +6,75 @@
 //    hidden dimension (exact: ≤ 127²·H ≈ 8e7 ≪ 2³¹) and is dequantized
 //    once: out = bf16(acc * (sh * sw2[c]) + b2).
 //  * per-token: replaces fused_geglu_w8a8_pt (body _geglu_q_pt_kernel).
-//    Each token row of x takes its own scale from its amax, and h is
-//    quantized per (row, group of block_h hidden units) with that group's
-//    row amax; each group's product is dequantized with its own row scales
-//    and the groups add in fp32, in order.
+//    Each token row t of x takes its own scale sx[t] = max(|x[t, :]|, 1e-12)
+//    / 127, and h is quantized per (row, group g of block_h hidden units)
+//    with sh[t, g] = max(|h[t, group g]|, 1e-12) / 127; each group's int32
+//    product (≤ 127²·block_h < 2²⁴: exact in fp32) is dequantized with
+//    sh[t, g]·sw2 and the groups add in fp32, in order g = 0, 1, ..., then
+//    + b2, rounded once to bf16. block_h is the reference's tile (640 at
+//    C = 320, 512 at 640 and 1280; ops/fused_geglu.py::block_h), whatever
+//    this kernel's own tiling.
 //
 // Both: [a | gate] = dequant(q(x) · W1q) + b1 with per-channel weight scales
 // sw1, kept in fp32 (not rounded to bf16), h = a * gelu_erf(gate) in fp32,
 // then quantized to int8 for the second s8×s8→s32 product with W2q. Weights
 // are in torch layout and quantized once outside (W1q [2H, C], a = rows
-// 0..H-1; W2q [C, H]); scales sx, sh are read from device memory.
+// 0..H-1; W2q [C, H]).
 //
 // What bounds it on the H100: the integer tensor cores (6·T·C·H operations:
 // 80 GOP at level 0 of the distilled batch 32, 41 µs at 1,979 TOP/s) and the
 // epilogue of the first product, an erf GELU and a quantize for each of the
 // T·H hidden activations; its bytes in device memory are tens of MB.
 //
-// The static form runs in two launches of the GEMM core (gemm_core.cuh):
-// * Launch 1, h codes [T, H] int8 (policy GegluQ8Up): a block owns a panel
-//   of 128 tokens (64 where C > 640 or the 128-token panels would cover
-//   under a quarter of the SMs) and a share of its hidden tiles of 64
-//   units. It quantizes its panel of x once, with quant_s8_bits, into
-//   shared memory in the 128-byte-swizzled K-major layout that the wgmma
-//   descriptor reads (the core's A-stationary panel), so both s8 operands
-//   come from shared memory (wgmma m64n64k32, s8_ss) and x is quantized
-//   once per block, not once per hidden tile. Only W1q streams: the
-//   producer warp brings each C chunk of rows h0.. and H+h0.. by TMA. The
-//   two consumer warpgroups take alternate tiles, each from a ring of its
-//   own, so that one's epilogue (the erf GELU of every hidden activation:
-//   the launch's largest cost) runs while the other's products do; two s32
-//   accumulators a row block hold a and gate of the same (token, unit). The
-//   epilogue dequantizes both with the tile's sw1 and b1 (fetched by
-//   cp.async while the products run), applies the erf GELU in fp32,
-//   quantizes h with sh (no branch an element: the division only for a
-//   column pair too near a tie) and stages the codes in the tile's last
-//   stage for coalesced 16-byte stores of int8: half the bytes of the bf16
-//   kernel's h, and the [T, 2H] intermediate never reaches device memory.
-//   Where the panels are fewer than the SMs, a panel's hidden tiles are
-//   split over several blocks, each quantizing the panel once.
-// * Launch 2, out = codes · W2qᵀ dequantized with sh · sw2, + b2: the W8A8
-//   dense's int8-input path under its own name (fused_dense.cuh,
-//   GegluQ8Down) with act_scale = sh, K split over a cluster where its
-//   tiles are few.
+// Each form runs in two launches of the GEMM core (gemm_core.cuh):
+// * Launch 1, h codes [T, H] int8: a block owns a panel of tokens (static:
+//   128, or 64 where C > 640 or the 128-token panels would cover under a
+//   quarter of the SMs; per-token: 64) and a share of its hidden tiles of 64
+//   units. It quantizes its panel of x once, with quant_s8_bits, into shared
+//   memory in the 128-byte-swizzled K-major layout that the wgmma descriptor
+//   reads (the core's A-stationary panel), so both s8 operands come from
+//   shared memory (wgmma m64n64k32, s8_ss) and x is quantized once per
+//   block, not once per hidden tile. Only W1q streams: the producer warp
+//   brings each C chunk of rows h0.. and H+h0.. by TMA. The two consumer
+//   warpgroups take alternate tiles, each from a ring of its own, so that
+//   one's epilogue (the erf GELU of every hidden activation: the launch's
+//   largest cost) runs while the other's products do; two s32 accumulators
+//   a row block hold a and gate of the same (token, unit). The epilogue
+//   dequantizes both with the tile's sw1 and b1 (fetched by cp.async while
+//   the products run) and applies the erf GELU in fp32. Where the panels are
+//   fewer than the SMs, a panel's hidden tiles are split over several
+//   blocks, each quantizing the panel once.
+//   - static (GegluQ8Up): the epilogue quantizes h with sh (no branch an
+//     element: the division only for a column pair too near a tie) and
+//     stages the codes in the tile's last stage for coalesced 16-byte
+//     stores of int8.
+//   - per-token (GegluQ8PtUp): the panel first takes each row's amax and
+//     keeps sx[t] in the panel's extra room, then quantizes each row with
+//     its own scale; both passes read x with eight loads in flight a
+//     thread (one at a time, the panel took over a quarter of the launch
+//     at C = 1280).
+//     A group's amax spans 8-10 hidden tiles, which the two warpgroups take
+//     in turns, and its fp32 h does not fit in shared memory beside the
+//     panel and the rings (128-160 KB at 64 rows), so a block owns whole
+//     groups (a panel splits over blocks by groups, the core's tile units)
+//     and each block has a slot of its own in an fp32 workspace, 64 ×
+//     block_h (21 MB at CFG level 0): each tile's epilogue writes its h
+//     there and raises the rows' running |h| max in shared memory
+//     (atomicMax on the float bits); after the group's last tile both
+//     warpgroups meet (unit_end), take sh, read the slot back and quantize
+//     it with quant_s8_bits (the division near a tie), storing the codes 16
+//     a store and sh[t, g]. The dequantize rounds the scale product, the
+//     product and the bias add apart, as the plain version does.
+// * Launch 2, out from the codes: the W8A8 dense's int8-input path
+//   (fused_dense.cuh). Static: GegluQ8Down, out = codes · W2qᵀ dequantized
+//   with sh · sw2, + b2, K split over a cluster where its tiles are few.
+//   Per-token: GegluQ8PtDown, int32 sums over one group's K chunks at a
+//   time, folded into fp32 sums with sh[t, g] · sw2 at each group's end; K
+//   stays whole, so the groups add in the plain version's order.
 // Sums run in a fixed order, so runs repeat bit for bit. Any T; C and H
-// multiples of 16, C at most 2,560 (the panel beside two rings of two
-// stages: the core refuses wider).
-
-// The per-token form (on mma.sync) needs each quantization group's row
-// amax before it can quantize h, and the groups are exactly the TPU
-// kernel's hidden tiles (block_h = 640 at C=320, 512 at 640 and 1280: the
-// reference's _BLOCKS through _tile), whatever this kernel's own tiling: a
-// block (32 tokens × one group) quantizes its tokens once into shared
-// memory, makes its group of h there in fp32 (phase 1: W1 chunks of a and
-// gate through a two-stage cp.async pipeline on mma.sync m16n8k32), takes
-// the row amax and quantizes it, then multiplies it into every output
-// column tile (phase 2: W2 slices through the same pipeline) and stores
-// fp32 partials to a workspace; a second kernel adds the groups in a fixed
-// order and applies b2. Any T; C and H multiples of 16.
+// multiples of 16; C at most 2,560 (static) or 2,432 (per-token: the panel
+// and its row statistics beside two rings of two stages; the core refuses
+// wider).
 
 #include "fused_dense.cuh"
 #include "gemm_core.cuh"
@@ -73,20 +85,18 @@ namespace gemm = polyp::gemm;
 
 namespace {
 
-// ---------------------------------------------------------------- static
-
 // a * gelu(gate) in fp32, gelu in its exact erf form
 __device__ __forceinline__ float gelu_gate(float a, float g) {
   return a * (0.5f * g * (1.f + erff(g * 0.70710678118654752f)));
 }
 
-// Launch 1 of the static form, a GEMM core policy: the codes of h for BM
-// tokens × 64 hidden units, an A-stationary panel of quantized x, the two
-// consumer warpgroups on alternate tiles (each all BM rows, in BM / 64
-// wgmma row blocks) with a ring each. acc[2b] and acc[2b + 1] hold a and
-// gate of row block b.
+// Launch 1's products, shared by both forms (a GEMM core policy without its
+// panel and store): BM tokens × 64 hidden units from an A-stationary panel
+// of quantized x, the two consumer warpgroups on alternate tiles (each all
+// BM rows, in BM / 64 wgmma row blocks) with a ring each. acc[2b] and
+// acc[2b + 1] hold a and gate of row block b.
 template <int BM>
-struct GegluQ8Up : gemm::Policy {
+struct Q8Up : gemm::Policy {
   static constexpr int kRows = BM, kBN = 64, kRings = 2, kInFlight = 1, kBlocksPerSM = 1;
   static constexpr int kRowBlocks = BM / gemm::kWgRows;
   static constexpr int kAcc = 2 * kRowBlocks;
@@ -96,43 +106,13 @@ struct GegluQ8Up : gemm::Policy {
   static constexpr int kPanelChunkBytes = BM * gemm::kChunkBytes;
   // a tile's columns of sw1 (a, gate: fp32) and b1 (a, gate: bf16)
   static constexpr int kScratchBytes = 2 * kBN * 4 + 2 * kBN * 2;
-  static constexpr int kLd = kBN + 16;  // a staged code row
-  static_assert(BM * kLd <= kStageBytes, "the staged codes take the tile's last stage");
-  struct Params {
-    CUtensorMap w1;  // W1q [2H, C] int8, boxes of [64 rows][128 B]
-    const bf16* x;   // [T, C]
-    const float* sw1;
-    const bf16* b1;
-    const float* sx;
-    const float* sh;
-    int8_t* out;    // codes [T, H]
-    int m, n, n_k;  // T, H, C chunks
-    int c;
-  };
+  template <class Params>
   __device__ static void load(const Params& p, unsigned char* st, int kc, int, int n0,
                               uint64_t* bar) {
     gemm::tma_load(st, &p.w1, bar, kc * gemm::kChunkBytes, n0);
     gemm::tma_load(st + kWBytes, &p.w1, bar, kc * gemm::kChunkBytes, p.n + n0);
   }
-  // the panel, quantized once by both warpgroups: 8 codes a thread a step
-  // from one 16-byte load of x; zeros past T and past C up to whole chunks
-  __device__ static void panel(const Params& p, unsigned char* dst, int m0) {
-    const float sx = *p.sx;
-    const float inv_x = 1.f / sx;
-    const int vecs = p.n_k * (gemm::kChunkBytes / 8);  // 8-code vectors a row
-    for (int v = threadIdx.x; v < BM * vecs; v += gemm::consumers<GegluQ8Up>()) {
-      const int r = v / vecs;
-      const int col = (v % vecs) * 8;
-      uint2 codes = make_uint2(0u, 0u);
-      if (m0 + r < p.m && col < p.c) {
-        codes = polyp::quant_bf16x8_bits(
-            *reinterpret_cast<const uint4*>(p.x + static_cast<long long>(m0 + r) * p.c + col), sx,
-            inv_x);
-      }
-      *reinterpret_cast<uint2*>(dst + (col / gemm::kChunkBytes) * kPanelChunkBytes +
-                                gemm::swizzle128(r, col % gemm::kChunkBytes)) = codes;
-    }
-  }
+  template <class Params>
   __device__ static void mma(const Params&, unsigned char* st, const unsigned char* x,
                              int (&acc)[kAcc][kBN / 2]) {
     gemm::wgmma_fence();
@@ -152,6 +132,7 @@ struct GegluQ8Up : gemm::Policy {
   // the epilogue's scales and biases, in flight while the products run:
   // 16-byte copies (zeros past H, a multiple of 16), sw1 a and gate, then
   // b1 a and gate
+  template <class Params>
   __device__ static void tile_begin(const Params& p, unsigned char* scratch, int n0) {
     const int tid = threadIdx.x & 127;
     if (tid < 48) {
@@ -168,14 +149,58 @@ struct GegluQ8Up : gemm::Policy {
     }
     polyp::cp_async_commit();
   }
+};
+
+// Launch 1 of the static form, a GEMM core policy: the codes of h for BM
+// tokens × 64 hidden units.
+template <int BM>
+struct GegluQ8Up : Q8Up<BM> {
+  using Base = Q8Up<BM>;
+  using Base::kBN;
+  using Base::kPanelChunkBytes;
+  using Base::kRowBlocks;
+  using Base::kStageBytes;
+  static constexpr int kLd = kBN + 16;  // a staged code row
+  static_assert(BM * kLd <= kStageBytes, "the staged codes take the tile's last stage");
+  struct Params {
+    CUtensorMap w1;  // W1q [2H, C] int8, boxes of [64 rows][128 B]
+    const bf16* x;   // [T, C]
+    const float* sw1;
+    const bf16* b1;
+    const float* sx;
+    const float* sh;
+    int8_t* out;    // codes [T, H]
+    int m, n, n_k;  // T, H, C chunks
+    int c;
+  };
+  // the panel, quantized once by both warpgroups: 8 codes a thread a step
+  // from one 16-byte load of x; zeros past T and past C up to whole chunks
+  __device__ static void panel(const Params& p, unsigned char* dst, int m0) {
+    const float sx = *p.sx;
+    const float inv_x = 1.f / sx;
+    const int vecs = p.n_k * (gemm::kChunkBytes / 8);  // 8-code vectors a row
+    for (int v = threadIdx.x; v < BM * vecs; v += gemm::consumers<GegluQ8Up>()) {
+      const int r = v / vecs;
+      const int col = (v % vecs) * 8;
+      uint2 codes = make_uint2(0u, 0u);
+      if (m0 + r < p.m && col < p.c) {
+        codes = polyp::quant_bf16x8_bits(
+            *reinterpret_cast<const uint4*>(p.x + static_cast<long long>(m0 + r) * p.c + col), sx,
+            inv_x);
+      }
+      *reinterpret_cast<uint2*>(dst + (col / gemm::kChunkBytes) * kPanelChunkBytes +
+                                gemm::swizzle128(r, col % gemm::kChunkBytes)) = codes;
+    }
+  }
   // h codes of columns n0 + 8jj + c, +1 (0 past H) at rows 64b + r, +8,
   // staged, then copied out 16 codes a store (rows past T and columns past
   // H, a multiple of 16, left out). Codes come from
   // quant_s8_bits, with no branch an element; where one of a column pair's
   // values lies too near a tie (rare), the pair's codes are made again
   // through the division
-  __device__ static void store(const Params& p, int (&acc)[kAcc][kBN / 2], unsigned char* staged,
-                               const unsigned char* scratch, int m0, int n0) {
+  __device__ static void store(const Params& p, int (&acc)[Base::kAcc][kBN / 2],
+                               unsigned char* staged, const unsigned char* scratch,
+                               unsigned char*, int m0, int n0) {
     const float* p_sa = reinterpret_cast<const float*>(scratch);
     const float* p_sg = p_sa + kBN;
     const bf16* p_ba = reinterpret_cast<const bf16*>(p_sg + kBN);
@@ -277,313 +302,259 @@ cudaError_t launch_up(const void* x, const void* w1, const void* sw1, const void
   return gemm::launch<P>(p, stream);
 }
 
-// -------------------------------------------------------------- per-token
-
-constexpr int kThreads = 256;          // 8 warps
-constexpr int kT = 32;                 // token rows a block
-constexpr int kHT = 64;                // hidden units per phase-1 tile
-constexpr int kC = 64;                 // C chunk of phase 1
-constexpr int kN = 128;                // output columns per phase-2 tile
-constexpr int LDK = 80;                // int8 stride of a streamed weight row (64 + 16)
-constexpr int kStage = 2 * kHT * LDK;  // one stage: Wa + Wg chunks, or one W2 slice
-constexpr int kMaxSmem = 227 * 1024;
-static_assert(kN * LDK <= kStage, "a W2 slice fits a stage");
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-// Dynamic shared memory of one block, in bytes: two weight stages, the
-// quantized tokens sX, the int8 h group sHq, the fp32 h group sHf and three
-// per-row arrays (x scales, h scales, h amax).
-struct Layout {
-  int ldx, ldh, ldhf;
-  int off_x, off_hq, off_hf, off_stats, bytes;
+// Launch 1 of the per-token form, a GEMM core policy: the codes of h and
+// the group scales sh for BM tokens, a block's hidden tiles in whole groups
+// (the core's units). The panel's extra room holds three rows of BM values:
+// sx, the running |h| max of the group (float bits) and the group's sh.
+template <int BM>
+struct GegluQ8PtUp : Q8Up<BM> {
+  using Base = Q8Up<BM>;
+  using Base::kBN;
+  using Base::kPanelChunkBytes;
+  using Base::kRowBlocks;
+  static constexpr bool kUnits = true;
+  static constexpr int kPanelExtraBytes = 3 * BM * 4;
+  static constexpr int kThreads = gemm::consumers<Base>();
+  // a barrier of both consumer warpgroups (the id of the core's panel one)
+  static constexpr int kBarrier = Base::kRings + 1;
+  struct Params {
+    CUtensorMap w1;  // W1q [2H, C] int8, boxes of [64 rows][128 B]
+    const bf16* x;   // [T, C]
+    const float* sw1;
+    const bf16* b1;
+    int8_t* out;    // codes [T, H]
+    float* sh;      // [T, groups]
+    float* slots;   // a block's fp32 h of one group: [blocks][BM][block_h]
+    int m, n, n_k;  // T, H, C chunks
+    int c, block_h, groups;
+  };
+  // a group's hidden tiles (block_h is a multiple of 128, or H itself)
+  __host__ __device__ static int tile_unit(const Params& p) { return (p.block_h + kBN - 1) / kBN; }
+  __device__ static float* row_scales(unsigned char* extra) {
+    return reinterpret_cast<float*>(extra);
+  }
+  __device__ static unsigned* row_max(unsigned char* extra) {
+    return reinterpret_cast<unsigned*>(extra + BM * 4);
+  }
+  __device__ static float* group_scales(unsigned char* extra) {
+    return reinterpret_cast<float*>(extra + 2 * BM * 4);
+  }
+  __device__ static float* slot(const Params& p) {
+    return p.slots + static_cast<long long>(blockIdx.x) * BM * p.block_h;
+  }
+  // the row scales, then the panel quantized with them. Each pass is
+  // latency-bound (x is read from L2, 16 bytes a load), so every thread
+  // issues kBatch independent loads before it uses any: four threads a row
+  // for the amax (rows past T take 1e-12 / 127), then the codes 8 a vector
+  // (zeros past T and past C up to whole chunks)
+  __device__ static void panel(const Params& p, unsigned char* dst, int m0) {
+    constexpr int kBatch = 8;
+    static_assert(kThreads == 4 * BM, "four threads a row");
+    unsigned char* extra = dst + p.n_k * kPanelChunkBytes;
+    float* sx = row_scales(extra);
+    unsigned* amax = row_max(extra);
+    const int x_vecs = p.c / 8;  // 8-element vectors a row of x
+    {
+      const int r = threadIdx.x / 4, part = threadIdx.x % 4;
+      const bf16* row = p.x + static_cast<long long>(m0 + r) * p.c;
+      const bool live = m0 + r < p.m;
+      float m = 0.f;
+      for (int v0 = part; v0 < x_vecs; v0 += 4 * kBatch) {
+        uint4 raw[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int v = v0 + 4 * u;
+          raw[u] = live && v < x_vecs ? *reinterpret_cast<const uint4*>(row + v * 8)
+                                      : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) m = fmaxf(m, polyp::absmax_bf16x8(raw[u]));
+      }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (part == 0) {
+        sx[r] = fmaxf(m, 1e-12f) / 127.f;
+        amax[r] = 0u;
+      }
+    }
+    gemm::named_sync(kBarrier, kThreads);
+    const int vecs = p.n_k * (gemm::kChunkBytes / 8);  // 8-code vectors a panel row
+    for (int v0 = threadIdx.x; v0 < BM * vecs; v0 += kBatch * kThreads) {
+      uint4 raw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int v = v0 + u * kThreads;
+        const int r = v / vecs, col = (v % vecs) * 8;
+        const bf16* src = p.x + static_cast<long long>(m0 + r) * p.c + col;
+        raw[u] = v < BM * vecs && m0 + r < p.m && col < p.c
+                     ? *reinterpret_cast<const uint4*>(src)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int v = v0 + u * kThreads;
+        if (v >= BM * vecs) break;
+        const int r = v / vecs, col = (v % vecs) * 8;
+        const float s = sx[r];
+        *reinterpret_cast<uint2*>(dst + (col / gemm::kChunkBytes) * kPanelChunkBytes +
+                                  gemm::swizzle128(r, col % gemm::kChunkBytes)) =
+            col < p.c ? polyp::quant_bf16x8_bits(raw[u], s, 1.f / s) : make_uint2(0u, 0u);
+      }
+    }
+  }
+  // h of columns n0 + 8jj + c, +1 at rows 64b + r, +8 into the block's slot
+  // (columns past H left out, a multiple of 16), and the rows' |h| max
+  // raised in shared memory
+  __device__ static void store(const Params& p, int (&acc)[Base::kAcc][kBN / 2], unsigned char*,
+                               const unsigned char* scratch, unsigned char* extra, int,
+                               int n0) {
+    const float* p_sa = reinterpret_cast<const float*>(scratch);
+    const float* p_sg = p_sa + kBN;
+    const bf16* p_ba = reinterpret_cast<const bf16*>(p_sg + kBN);
+    const bf16* p_bg = p_ba + kBN;
+    const float* sx = row_scales(extra);
+    const int tid = threadIdx.x & 127;
+    const int lane = tid & 31;
+    const int r = (tid >> 5) * 16 + (lane >> 2);
+    const int c = (lane & 3) * 2;
+    float* h = slot(p) + (n0 - n0 / p.block_h * p.block_h);  // the tile's first column
+    // the scratch has landed for every thread of the warpgroup
+    polyp::cp_async_wait<0>();
+    gemm::tile_sync<GegluQ8PtUp>();
+    float rmax[kRowBlocks][2] = {};
+#pragma unroll
+    for (int jj = 0; jj < kBN / 8; ++jj) {
+      const int lc = 8 * jj + c;  // the tile's column
+      if (n0 + lc >= p.n) continue;
+      const float2 sa = *reinterpret_cast<const float2*>(p_sa + lc);
+      const float2 sg = *reinterpret_cast<const float2*>(p_sg + lc);
+      const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_ba + lc));
+      const float2 bg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_bg + lc));
+      const float wa[2] = {sa.x, sa.y}, wg[2] = {sg.x, sg.y};
+      const float ab[2] = {ba.x, ba.y}, gb[2] = {bg.x, bg.y};
+#pragma unroll
+      for (int b = 0; b < kRowBlocks; ++b) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 64 * b + r + 8 * half;
+          const float s = sx[row];
+          float hv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * jj + 2 * half + e;
+            const float a = __fadd_rn(
+                __fmul_rn(static_cast<float>(acc[2 * b][idx]), __fmul_rn(s, wa[e])), ab[e]);
+            const float g = __fadd_rn(
+                __fmul_rn(static_cast<float>(acc[2 * b + 1][idx]), __fmul_rn(s, wg[e])), gb[e]);
+            hv[e] = gelu_gate(a, g);
+          }
+          *reinterpret_cast<float2*>(h + static_cast<long long>(row) * p.block_h + lc) =
+              make_float2(hv[0], hv[1]);
+          rmax[b][half] = fmaxf(rmax[b][half], fmaxf(fabsf(hv[0]), fabsf(hv[1])));
+        }
+      }
+    }
+    unsigned* amax = row_max(extra);
+#pragma unroll
+    for (int b = 0; b < kRowBlocks; ++b) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float m = rmax[b][half];
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        if ((lane & 3) == 0) atomicMax(&amax[64 * b + r + 8 * half], __float_as_uint(m));
+      }
+    }
+  }
+  // after group g's last tile, both warpgroups: sh from the rows' max, then
+  // the slot read back and quantized, 16 codes a thread a step
+  __device__ static void unit_end(const Params& p, unsigned char* extra, int m0, int g) {
+    unsigned* amax = row_max(extra);
+    float* sh = group_scales(extra);
+    __threadfence_block();
+    gemm::named_sync(kBarrier, kThreads);  // the group's h and maxima are complete
+    if (threadIdx.x < BM) {
+      const int r = threadIdx.x;
+      const float s = fmaxf(__uint_as_float(amax[r]), 1e-12f) / 127.f;
+      sh[r] = s;
+      amax[r] = 0u;
+      if (m0 + r < p.m) p.sh[static_cast<long long>(m0 + r) * p.groups + g] = s;
+    }
+    gemm::named_sync(kBarrier, kThreads);  // sh is set, the maxima restart
+    const float* h = slot(p);
+    const int vecs = p.block_h / 16;
+    for (int v = threadIdx.x; v < BM * vecs; v += kThreads) {
+      const int r = v / vecs;
+      const int col = (v % vecs) * 16;
+      if (m0 + r >= p.m) continue;
+      const float s = sh[r];
+      const float inv = 1.f / s;
+      const float4* src =
+          reinterpret_cast<const float4*>(h + static_cast<long long>(r) * p.block_h + col);
+      float e[16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 f = src[i];
+        e[4 * i] = f.x;
+        e[4 * i + 1] = f.y;
+        e[4 * i + 2] = f.z;
+        e[4 * i + 3] = f.w;
+      }
+      uint32_t q[16];
+      bool near = false;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        bool tie;
+        q[i] = polyp::quant_s8_bits(e[i], inv, &tie);
+        near |= tie;
+      }
+      if (near) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) q[i] = static_cast<uint32_t>(polyp::quant_s8(e[i], s));
+      }
+      *reinterpret_cast<uint4*>(p.out + static_cast<long long>(m0 + r) * p.n + g * p.block_h +
+                                col) =
+          make_uint4(polyp::pack_low_bytes(q[0], q[1], q[2], q[3]),
+                     polyp::pack_low_bytes(q[4], q[5], q[6], q[7]),
+                     polyp::pack_low_bytes(q[8], q[9], q[10], q[11]),
+                     polyp::pack_low_bytes(q[12], q[13], q[14], q[15]));
+    }
+    gemm::named_sync(kBarrier, kThreads);  // the slot is read before the next group's h
+  }
 };
 
-Layout layout_of(int c, int split) {
-  Layout L;
-  L.ldx = round_up(c, kC) + 16;
-  L.ldh = round_up(split, kHT) + 16;
-  L.ldhf = round_up(split, kHT) + 4;
-  L.off_x = 2 * kStage;
-  L.off_hq = L.off_x + kT * L.ldx;
-  L.off_hf = L.off_hq + kT * L.ldh;
-  L.off_stats = L.off_hf + kT * L.ldhf * 4;
-  L.bytes = L.off_stats + 3 * kT * 4;
-  return L;
-}
+using PtUp = GegluQ8PtUp<64>;
 
-struct Plan {
-  int split, splits, t_pad, c_pad;
-  long long elems() const { return static_cast<long long>(splits) * t_pad * c_pad; }
+// The per-token form's workspace, in bytes: the codes [T, H] int8, sh
+// [T, H / block_h] fp32 and launch 1's slots, one a block (each offset a
+// multiple of 16).
+struct PtWorkspace {
+  long long sh, slots, bytes;
 };
 
-// one block_h group per block, 32 rows
-Plan plan_of(int t, int c, int h, int block_h) {
-  return {block_h, (h + block_h - 1) / block_h, (t + kT - 1) / kT * kT, round_up(c, kN)};
+PtWorkspace pt_workspace(int t, int c, int h, int block_h) {
+  const int n_k = (c + gemm::kChunkBytes - 1) / gemm::kChunkBytes;
+  const int unit = (block_h + PtUp::kBN - 1) / PtUp::kBN;
+  const gemm::Plan pl = gemm::plan<PtUp>(t, h, n_k, unit);
+  PtWorkspace w;
+  w.sh = (static_cast<long long>(t) * h + 15) / 16 * 16;
+  w.slots = w.sh + (static_cast<long long>(t) * (h / block_h) * 4 + 15) / 16 * 16;
+  w.bytes = w.slots + static_cast<long long>(pl.blocks) * PtUp::kRows * block_h * 4;
+  return w;
 }
 
-__global__ void __launch_bounds__(kThreads)
-geglu_q8_pt_partial_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1,
-                           const float* __restrict__ sw1, const bf16* __restrict__ b1,
-                           const int8_t* __restrict__ w2, const float* __restrict__ sw2,
-                           float* __restrict__ ws, int T, int C, int H, int split, int c_pad,
-                           long long split_stride, Layout L) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* stages = reinterpret_cast<int8_t*>(smem);
-  int8_t* sX = reinterpret_cast<int8_t*>(smem + L.off_x);
-  int8_t* sHq = reinterpret_cast<int8_t*>(smem + L.off_hq);
-  float* sHf = reinterpret_cast<float*>(smem + L.off_hf);
-  float* sXs = reinterpret_cast<float*>(smem + L.off_stats);
-  float* sHs = sXs + kT;
-  unsigned* sAmax = reinterpret_cast<unsigned*>(sHs + kT);  // |h| max as float bits
-
-  const int t0 = blockIdx.x * kT;
-  const int hs0 = blockIdx.y * split;
-  const int nh = min(split, H - hs0);  // hidden units of this block
-  const int n_ht = (nh + kHT - 1) / kHT;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int cp = round_up(C, kC);
-
-  // ---- phase 0: the row scales, then the block's tokens quantized once
-  // into sX (zero past T and past C up to whole chunks)
-  for (int r = warp; r < kT; r += kThreads / 32) {
-    float m = 0.f;
-    if (t0 + r < T) {
-      const bf16* row = x + static_cast<long long>(t0 + r) * C;
-      for (int v = lane; v < C / 8; v += 32) {
-        m = fmaxf(m, polyp::absmax_bf16x8(*reinterpret_cast<const uint4*>(row + v * 8)));
-      }
-    }
-    m = polyp::warp_max(m);
-    if (lane == 0) {
-      sXs[r] = fmaxf(m, 1e-12f) / 127.f;
-      sAmax[r] = 0u;
-    }
-  }
-  __syncthreads();
-  const int vpr = cp / 8;
-  for (int i = threadIdx.x; i < kT * vpr; i += kThreads) {
-    const int r = i / vpr;
-    const int c = (i % vpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (t0 + r < T && c < C) {
-      v = *reinterpret_cast<const uint4*>(x + static_cast<long long>(t0 + r) * C + c);
-    }
-    *reinterpret_cast<uint2*>(sX + r * L.ldx + c) = polyp::quant_bf16x8(v, sXs[r]);
-  }
-
-  // ---- phase 1: h for hidden tile ht (64 units) of this block's group.
-  // Step s covers tile s / n_c and C chunk s % n_c; its Wa and Wg chunks go
-  // into stage s % 2 while step s - 1 computes. Warps: 2 row blocks of 16 ×
-  // 4 column blocks.
-  constexpr int WM1 = kT / 16;
-  constexpr int WN1 = 8 / WM1;
-  constexpr int COLS1 = kHT / WN1;
-  constexpr int NT1 = COLS1 / 8;
-  const int wr = warp % WM1;
-  const int wc = warp / WM1;
-  const int n_c = cp / kC;
-  const int n_steps = n_ht * n_c;
-  auto issue1 = [&](int step) {
-    const int h0 = hs0 + (step / n_c) * kHT;
-    const int c0 = (step % n_c) * kC;
-    int8_t* sWa = stages + (step & 1) * kStage;
-    polyp::load_tile_async_s8(sWa, LDK, w1 + static_cast<long long>(h0) * C + c0, C, kHT, kC,
-                              H - h0, C - c0);
-    polyp::load_tile_async_s8(sWa + kHT * LDK, LDK, w1 + static_cast<long long>(H + h0) * C + c0,
-                              C, kHT, kC, H - h0, C - c0);
-  };
-
-  float rmax[2] = {0.f, 0.f};  // |h| max of rows g and g + 8
-  int acc_a[NT1][4], acc_g[NT1][4];
-  issue1(0);
-  polyp::cp_async_commit();
-  for (int step = 0; step < n_steps; ++step) {
-    const int ht = step / n_c;
-    const int ci = step % n_c;
-    if (ci == 0) {
-#pragma unroll
-      for (int nt = 0; nt < NT1; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc_a[nt][i] = acc_g[nt][i] = 0;
-      }
-    }
-    if (step + 1 < n_steps) {
-      issue1(step + 1);
-      polyp::cp_async_commit();
-      polyp::cp_async_wait<1>();  // all but the step just issued have landed
-    } else {
-      polyp::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const int8_t* sWa = stages + (step & 1) * kStage;
-    const int8_t* sWg = sWa + kHT * LDK;
-#pragma unroll
-    for (int kk = 0; kk < kC; kk += 32) {
-      uint32_t a[4];
-      polyp::load_a_frag(a, sX, L.ldx, wr * 16, ci * kC + kk);
-#pragma unroll
-      for (int nt = 0; nt < NT1; ++nt) {
-        uint32_t b[2];
-        polyp::load_b_frag(b, sWa, LDK, wc * COLS1 + nt * 8, kk);
-        polyp::mma_s8_16832(acc_a[nt], a, b);
-        polyp::load_b_frag(b, sWg, LDK, wc * COLS1 + nt * 8, kk);
-        polyp::mma_s8_16832(acc_g[nt], a, b);
-      }
-    }
-
-    if (ci == n_c - 1) {
-      // h = (a·sx·sa + b1a) * gelu(gate·sx·sg + b1g), straight from the
-      // accumulators; 0 past this block's hidden units
-#pragma unroll
-      for (int nt = 0; nt < NT1; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = wr * 16 + g + (i >> 1) * 8;
-          const int hl = ht * kHT + wc * COLS1 + nt * 8 + 2 * tq + (i & 1);
-          float hv = 0.f;
-          if (hl < nh) {
-            const int hh = hs0 + hl;
-            const float s = sXs[r];
-            const float av = static_cast<float>(acc_a[nt][i]) * (s * sw1[hh]) +
-                             __bfloat162float(b1[hh]);
-            const float gv = static_cast<float>(acc_g[nt][i]) * (s * sw1[H + hh]) +
-                             __bfloat162float(b1[H + hh]);
-            hv = gelu_gate(av, gv);
-          }
-          sHf[r * L.ldhf + hl] = hv;
-          rmax[i >> 1] = fmaxf(rmax[i >> 1], fabsf(hv));
-        }
-      }
-    }
-    __syncthreads();  // this stage may be refilled
-  }
-
-  // row amax of the group → row scales → quantize the fp32 group
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    float m = rmax[j];
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    if (tq == 0) atomicMax(&sAmax[wr * 16 + g + j * 8], __float_as_uint(m));
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < kT; r += kThreads) {
-    sHs[r] = fmaxf(__uint_as_float(sAmax[r]), 1e-12f) / 127.f;
-  }
-  __syncthreads();
-  const int hp = n_ht * kHT;
-  for (int i = threadIdx.x; i < kT * hp; i += kThreads) {
-    const int r = i / hp;
-    const int c = i % hp;
-    sHq[r * L.ldh + c] = static_cast<int8_t>(polyp::quant_s8(sHf[r * L.ldhf + c], sHs[r]));
-  }
-  __syncthreads();
-
-  // ---- phase 2: ws[group, t0 + r, n0 + c] = sHq @ W2q[n0.., hs0..]ᵀ ·
-  // (row scale · sw2) for every output column tile n0. Step s covers column
-  // tile s / n_ht and hidden tile s % n_ht. Warps: 2 row halves × 4 column
-  // quarters.
-  constexpr int ROWS2 = kT / 2;
-  constexpr int MT2 = ROWS2 / 16;
-  const int wm2 = warp / 4;
-  const int wn2 = warp % 4;
-  const int n_steps2 = ((C + kN - 1) / kN) * n_ht;
-  auto issue2 = [&](int step) {
-    const int n0 = (step / n_ht) * kN;
-    const int h0 = hs0 + (step % n_ht) * kHT;
-    polyp::load_tile_async_s8(stages + (step & 1) * kStage, LDK,
-                              w2 + static_cast<long long>(n0) * H + h0, H, kN, kHT, C - n0, H - h0);
-  };
-
-  int acc[MT2][4][4];
-  issue2(0);
-  polyp::cp_async_commit();
-  for (int step = 0; step < n_steps2; ++step) {
-    const int n0 = (step / n_ht) * kN;
-    const int kt = step % n_ht;
-    if (kt == 0) {
-#pragma unroll
-      for (int mt = 0; mt < MT2; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-        }
-      }
-    }
-    if (step + 1 < n_steps2) {
-      issue2(step + 1);
-      polyp::cp_async_commit();
-      polyp::cp_async_wait<1>();
-    } else {
-      polyp::cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const int8_t* sW2 = stages + (step & 1) * kStage;
-#pragma unroll
-    for (int kk = 0; kk < kHT; kk += 32) {
-      uint32_t a[MT2][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < MT2; ++mt) {
-        polyp::load_a_frag(a[mt], sHq, L.ldh, wm2 * ROWS2 + mt * 16, kt * kHT + kk);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) polyp::load_b_frag(b[nt], sW2, LDK, wn2 * 32 + nt * 8, kk);
-#pragma unroll
-      for (int mt = 0; mt < MT2; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) polyp::mma_s8_16832(acc[mt][nt], a[mt], b[nt]);
-      }
-    }
-    if (kt == n_ht - 1) {
-      // padded rows and columns of the workspace take the masked tile edges
-#pragma unroll
-      for (int mt = 0; mt < MT2; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = wm2 * ROWS2 + mt * 16 + g + (i >> 1) * 8;
-            const int c = n0 + wn2 * 32 + nt * 8 + 2 * tq + (i & 1);
-            const long long off = blockIdx.y * split_stride +
-                                  static_cast<long long>(t0 + r) * c_pad + c;
-            ws[off] = c < C ? static_cast<float>(acc[mt][nt][i]) * (sHs[r] * sw2[c]) : 0.f;
-          }
-        }
-      }
-    }
-    __syncthreads();  // this stage may be refilled
-  }
-}
-
-// out[t, c]: the groups' fp32 partials added in order, then b2.
-__global__ void geglu_q8_pt_reduce_kernel(const float* __restrict__ ws,
-                                          const bf16* __restrict__ b2, bf16* __restrict__ out,
-                                          int T, int C, int splits, int c_pad,
-                                          long long split_stride) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<long long>(T) * C) return;
-  const int t = static_cast<int>(i / C);
-  const int c = static_cast<int>(i % C);
-  const long long base = static_cast<long long>(t) * c_pad + c;
-  float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += ws[base + s * split_stride];
-  out[i] = __float2bfloat16(v + __bfloat162float(b2[c]));
+bool pt_shape_ok(int h, int block_h) {
+  return block_h > 0 && block_h % 16 == 0 && h % block_h == 0;
 }
 
 }  // namespace
 
 // Bytes of workspace the int8 GEGLU needs: the static form's h codes [T, H]
-// (block_h == 0), or the per-token form's fp32 partials.
+// (block_h == 0), or the per-token form's codes, group scales and slots
+// (0 for a block_h it cannot take).
 extern "C" long long polyp_geglu_w8a8_workspace(int t, int c, int h, int block_h) {
   if (block_h == 0) return static_cast<long long>(t) * h;
-  return plan_of(t, c, h, block_h).elems() * 4;
+  return pt_shape_ok(h, block_h) ? pt_workspace(t, c, h, block_h).bytes : 0;
 }
 
 extern "C" int polyp_geglu_w8a8(const void* x, const void* w1, const void* sw1, const void* b1,
@@ -603,27 +574,41 @@ extern "C" int polyp_geglu_w8a8(const void* x, const void* w1, const void* sw1, 
   return polyp::geglu_q8_down(codes, w2, sw2, b2, sh, out, t, h, c, s);
 }
 
+// Launch 1 of the per-token form alone: the codes at the workspace's start
+// ([T, H] int8) and sh after them ([T, H / block_h] fp32, at the first
+// multiple of 16 bytes past T·H).
+extern "C" int polyp_geglu_w8a8_pt_up(const void* x, const void* w1, const void* sw1,
+                                      const void* b1, void* ws, int t, int c, int h, int block_h,
+                                      void* stream) {
+  if (!pt_shape_ok(h, block_h)) return cudaErrorInvalidValue;
+  if (t == 0) return cudaSuccess;
+  const PtWorkspace w = pt_workspace(t, c, h, block_h);
+  PtUp::Params p{};
+  const cudaError_t err = gemm::weight_map(&p.w1, w1, true, 2LL * h, c, PtUp::kBN);
+  if (err != cudaSuccess) return err;
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  p.x = static_cast<const bf16*>(x);
+  p.sw1 = static_cast<const float*>(sw1);
+  p.b1 = static_cast<const bf16*>(b1);
+  p.out = static_cast<int8_t*>(ws);
+  p.sh = reinterpret_cast<float*>(base + w.sh);
+  p.slots = reinterpret_cast<float*>(base + w.slots);
+  p.m = t;
+  p.n = h;
+  p.n_k = (c + gemm::kChunkBytes - 1) / gemm::kChunkBytes;
+  p.c = c;
+  p.block_h = block_h;
+  p.groups = h / block_h;
+  return gemm::launch<PtUp>(p, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int polyp_geglu_w8a8_pt(const void* x, const void* w1, const void* sw1, const void* b1,
                                    const void* w2, const void* sw2, const void* b2, void* ws,
                                    void* out, int t, int c, int h, int block_h, void* stream) {
-  const Plan p = plan_of(t, c, h, block_h);
-  const Layout L = layout_of(c, p.split);
-  if (L.bytes > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(geglu_q8_pt_partial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
-  if (err != cudaSuccess) return err;
-  const long long split_stride = static_cast<long long>(p.t_pad) * p.c_pad;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* partials = static_cast<float*>(ws);
-  geglu_q8_pt_partial_kernel<<<dim3(p.t_pad / kT, p.splits), kThreads, L.bytes, s>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w1), static_cast<const float*>(sw1),
-      static_cast<const bf16*>(b1), static_cast<const int8_t*>(w2), static_cast<const float*>(sw2),
-      partials, t, c, h, p.split, p.c_pad, split_stride, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long n = static_cast<long long>(t) * c;
-  geglu_q8_pt_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      partials, static_cast<const bf16*>(b2), static_cast<bf16*>(out), t, c, p.splits, p.c_pad,
-      split_stride);
-  return cudaGetLastError();
+  const cudaError_t err = static_cast<cudaError_t>(
+      polyp_geglu_w8a8_pt_up(x, w1, sw1, b1, ws, t, c, h, block_h, stream));
+  if (err != cudaSuccess || t == 0) return err;
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  return polyp::geglu_q8_pt_down(base, base + pt_workspace(t, c, h, block_h).sh, w2, sw2, b2, out,
+                                 t, h, c, block_h, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,6 @@
 // One GEMM core for Hopper (sm_90a), shared by the bf16 GEGLU
 // (fused_geglu.cu: its two products), the W8A8 dense (fused_dense.cu) and
-// the static int8 GEGLU (fused_geglu_w8a8.cu: its two products):
+// both int8 GEGLU forms (fused_geglu_w8a8.cu: two products each):
 //   D[m, n] = sum_k A[m, k] * B[n, k],
 // A [M, K] row-major activations and B [N, K] torch-layout weights ([out,
 // in], read in place), both K-major, as 8-bit wgmma requires. The sums stay
@@ -36,7 +36,11 @@
 //   memory, written once by its own threads, and walks that panel's column
 //   tiles with only B streaming; its two consumer warpgroups take alternate
 //   tiles, each from a ring of its own, so one's epilogue overlaps the
-//   other's products.
+//   other's products. The per-token form also keeps row statistics beside
+//   the panel and takes its tiles in units (its quantization groups), which
+//   a panel's split over blocks keeps whole and whose end every consumer
+//   thread marks; its second product folds each group's int32 sums into
+//   fp32 ones after the group's last K chunk, with K never split.
 // * A tile plan per shape (plan()): where the output tiles cannot fill the
 //   SMs (the CFG batch's level 2 and mid block, the cross-attention K/V at
 //   M = N·77), K is split across a thread-block cluster of up to 8 blocks
@@ -392,19 +396,48 @@ struct Wgmma<160> {
 //                    P stores its tiles itself:
 //                    tile_begin(p, scratch, n0)  before the tile's products
 //                                     (kScratchBytes a warpgroup);
-//                    store(p, acc, staged, scratch, m0, n0)  the outputs,
-//                                     staged in the tile's last stage;
+//                    store(p, acc, staged, scratch, extra, m0, n0)  the
+//                                     outputs, staged in the tile's last
+//                                     stage (extra: the panel's, below);
 //   kPanelChunkBytes 0 (Policy), or an A-stationary panel: the block keeps
 //                    its kRows rows of A, all of K, in shared memory, where
 //                    panel(p, panel, m0) writes them once (K chunks of
 //                    kPanelChunkBytes, laid out as the wgmma descriptor
 //                    reads them), walks column tiles of that row panel only
 //                    and streams B alone; mma(p, stage, panel_chunk, acc).
+//                    kPanelExtraBytes of block-wide room follow the chunks
+//                    (row statistics: the per-token GEGLU's row scales and
+//                    running maxima); store() gets them as `extra`;
+//   kUnits           false (Policy), or a panel's column tiles come in units
+//                    of tile_unit(p) tiles (the per-token GEGLU's h
+//                    quantization groups): the panel splits over blocks by
+//                    whole units, and after a unit's last tile every
+//                    consumer thread, whichever warpgroup took the tile,
+//                    calls unit_end(p, extra, m0, u), u the unit's index in
+//                    the panel;
+//   kGroupedK        false (Policy), or after each K chunk's products have
+//                    completed (kInFlight 0) the consumers call
+//                    chunk_done(p, kc, m0, n0, acc) (the per-token GEGLU's
+//                    second product folds each group's int32 sums into
+//                    fp32 ones there), and K is never split over a
+//                    cluster, so the folds keep their order.
 struct Policy {
   static constexpr int kRings = 1;
   static constexpr int kPanelChunkBytes = 0;
+  static constexpr int kPanelExtraBytes = 0;
   static constexpr int kScratchBytes = 0;
+  static constexpr bool kUnits = false;
+  static constexpr bool kGroupedK = false;
+  template <class Params>
+  __host__ __device__ static int tile_unit(const Params&) { return 1; }
 };
+
+// The panel's chunks and its extra room, rounded up so that the rings after
+// them keep the swizzle atoms aligned.
+template <class P>
+__host__ __device__ constexpr int panel_bytes(int n_k) {
+  return (n_k * P::kPanelChunkBytes + P::kPanelExtraBytes + kAlign - 1) / kAlign * kAlign;
+}
 
 // Consumer threads: 128 a warpgroup, 64 rows each where they share a tile.
 template <class P>
@@ -585,6 +618,18 @@ struct Schedule {
   int cluster, stages, splits;
 };
 
+// After tile t of a panel: where t is its unit's last tile, the policy's
+// unit_end, called by every consumer thread.
+template <class P>
+__device__ __forceinline__ void end_unit(const typename P::Params& p, unsigned char* extra, int t,
+                                         int n_tiles) {
+  const int tp = t % n_tiles;
+  const int unit = P::tile_unit(p);
+  if ((tp + 1) % unit == 0 || tp + 1 == n_tiles) {
+    P::unit_end(p, extra, t / n_tiles * P::kRows, tp / unit);
+  }
+}
+
 // Tiles of kRows rows × kBN columns, column tiles fastest. With cluster == 1
 // the blocks are persistent: block b takes tiles b, b + grid, ..., and the
 // producer runs ahead across tile boundaries, so a tile's first chunks load
@@ -604,7 +649,7 @@ __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
   unsigned char* smem = smem_raw + ((kAlign - (smem_addr(smem_raw) & (kAlign - 1))) & (kAlign - 1));
   const int cluster = sched.cluster;
   const int stages = sched.stages;  // a ring
-  unsigned char* rings = smem + (kPanel ? p.n_k * P::kPanelChunkBytes : 0);
+  unsigned char* rings = smem + (kPanel ? panel_bytes<P>(p.n_k) : 0);
   uint64_t* full = bars;
   uint64_t* empty = bars + kMaxStages;
 
@@ -612,9 +657,12 @@ __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
   const int rank = blockIdx.x % cluster;
   int t_begin, t_end, t_step;
   if constexpr (kPanel) {
+    // share s of a panel: units [s·units/splits, (s+1)·units/splits)
     const int panel = blockIdx.x / sched.splits, share = blockIdx.x % sched.splits;
-    t_begin = panel * n_tiles + share * n_tiles / sched.splits;
-    t_end = panel * n_tiles + (share + 1) * n_tiles / sched.splits;
+    const int unit = P::tile_unit(p);
+    const int units = (n_tiles + unit - 1) / unit;
+    t_begin = panel * n_tiles + min(share * units / sched.splits * unit, n_tiles);
+    t_end = panel * n_tiles + min((share + 1) * units / sched.splits * unit, n_tiles);
     t_step = 1;
   } else {
     t_begin = blockIdx.x / cluster;
@@ -670,10 +718,15 @@ __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
   }
   // this warpgroup's scratch, after the rings
   unsigned char* scratch = rings + (P::kRings * stages * P::kStageBytes + wg * P::kScratchBytes);
+  // the panel's extra room
+  unsigned char* extra = smem + p.n_k * P::kPanelChunkBytes;
   int i = 0;  // chunks taken from the ring
   int q = 0;
   for (int t = t_begin; t < t_end; t += t_step, ++q) {
-    if (q % P::kRings != wg) continue;
+    if (q % P::kRings != wg) {
+      if constexpr (P::kUnits) end_unit<P>(p, extra, t, n_tiles);
+      continue;
+    }
     const int m0 = t / n_tiles * P::kRows;
     const int n0 = t % n_tiles * P::kBN;
     if constexpr (P::kRings > 1) P::tile_begin(p, scratch, n0);
@@ -692,6 +745,7 @@ __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
         P::mma(p, st, acc);
       }
       wgmma_wait<P::kInFlight>();
+      if constexpr (P::kGroupedK) P::chunk_done(p, k_begin + k, m0, n0, acc);
       // release the chunk before this one (or this one, with nothing in
       // flight), but never the tile's last: the epilogue may use its stage
       const int done = k - P::kInFlight;
@@ -715,12 +769,13 @@ __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
       unsigned char* out = out_in_stage<P>() ? rings + last * P::kStageBytes : scratch;
       store_tile<P>(p, acc, reinterpret_cast<bf16*>(out), m0, n0);
     } else {
-      P::store(p, acc, rings + last * P::kStageBytes, scratch, m0, n0);
+      P::store(p, acc, rings + last * P::kStageBytes, scratch, extra, m0, n0);
     }
     // the stage goes back to the producer, whose TMA (the async proxy) may
     // overwrite it: order this thread's reads and writes of it first
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(&empty[last]);
+    if constexpr (P::kUnits) end_unit<P>(p, extra, t, n_tiles);
   }
 }
 
@@ -819,8 +874,9 @@ template <class P>
 __host__ __device__ constexpr int stash_bytes() { return P::kAcc * P::kRows * (P::kBN + 4) * 4; }
 
 // The tile plan of P's [m, n] output with n_k K chunks (stages < 2: P
-// cannot take it). With a panel: each row panel's column tiles split over as
-// many blocks as fill the SMs once (at least one tile each), and rings as
+// cannot take it). With a panel: each row panel's column tiles split, by
+// whole units of `unit` tiles, over as many blocks as fill the SMs once (at
+// least one unit each), and rings as
 // deep as fit beside the panel and the scratch. Otherwise K is split over a
 // cluster (doubling up to 8) while the tiles, so multiplied, still fit the
 // SMs and every block keeps at least two chunks; then a cluster takes one
@@ -829,7 +885,7 @@ __host__ __device__ constexpr int stash_bytes() { return P::kAcc * P::kRows * (P
 // deepest ring that lets them share the SM: the producer streams on across
 // tiles, so the ring is not cut to one tile's chunks.
 template <class P>
-Plan plan(int m, int n, int n_k) {
+Plan plan(int m, int n, int n_k, int unit = 1) {
   Plan pl;
   const int n_tiles = (n + P::kBN - 1) / P::kBN;
   const long long tiles = static_cast<long long>((m + P::kRows - 1) / P::kRows) * n_tiles;
@@ -837,16 +893,17 @@ Plan plan(int m, int n, int n_k) {
   pl.sched = {1, 0, 1};
   if constexpr (P::kPanelChunkBytes > 0) {
     const int panels = (m + P::kRows - 1) / P::kRows;
+    const int units = (n_tiles + unit - 1) / unit;
     const int fill = panels > 0 ? sms / panels : 1;
-    pl.sched.splits = fill < 1 ? 1 : (fill < n_tiles ? fill : n_tiles);
+    pl.sched.splits = fill < 1 ? 1 : (fill < units ? fill : units);
     pl.blocks = panels * pl.sched.splits;
-    const int fixed = kAlign + n_k * P::kPanelChunkBytes + P::kRings * P::kScratchBytes;
+    const int fixed = kAlign + panel_bytes<P>(n_k) + P::kRings * P::kScratchBytes;
     pl.sched.stages = (kSmemLimit - fixed) / (P::kRings * P::kStageBytes);
     if (pl.sched.stages > kMaxStages / P::kRings) pl.sched.stages = kMaxStages / P::kRings;
     pl.smem = fixed + P::kRings * pl.sched.stages * P::kStageBytes;
     return pl;
   }
-  while (pl.sched.cluster < kMaxCluster && tiles * pl.sched.cluster * 2 <= sms &&
+  while (!P::kGroupedK && pl.sched.cluster < kMaxCluster && tiles * pl.sched.cluster * 2 <= sms &&
          n_k >= 4 * pl.sched.cluster) {
     pl.sched.cluster *= 2;
   }
@@ -875,7 +932,7 @@ Plan plan(int m, int n, int n_k) {
 
 template <class P>
 cudaError_t launch(const typename P::Params& p, cudaStream_t stream) {
-  const Plan pl = plan<P>(p.m, p.n, p.n_k);
+  const Plan pl = plan<P>(p.m, p.n, p.n_k, P::tile_unit(p));
   if (pl.blocks == 0) return cudaSuccess;
   if (pl.sched.stages < 2 && P::kPanelChunkBytes > 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gemm_kernel<P>,

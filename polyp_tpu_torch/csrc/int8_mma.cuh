@@ -1,8 +1,7 @@
 // int8 helpers of the W8A8 kernels: the round-half-to-even quantize every
-// int8 kernel applies (and its division-free form, which fused_dense.cu and
-// the static int8 GEGLU use); and, for the per-token int8 GEGLU, the
-// s8×s8→s32 mma.sync of Hopper's integer tensor cores, its fragment loads
-// from shared memory and 16-byte cp.async tile copies of int8 data.
+// int8 kernel applies, its division-free form (the dense and both int8
+// GEGLU forms), the packing of codes into words and the amax of eight bf16
+// values.
 #pragma once
 
 #include "common.cuh"
@@ -46,61 +45,6 @@ __device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint3
 __device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
   return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |
          ((static_cast<uint32_t>(c) & 0xffu) << 16) | (static_cast<uint32_t>(d) << 24);
-}
-
-// d += a × b over one m16n8k32 tile: a is 16×32 (row), b is 32×8 (col).
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragment layouts of m16n8k32 (PTX ISA, "Matrix Fragments for mma.m16n8k32"),
-// with g = lane / 4 and t = lane % 4:
-//   A: a0 = A[g][4t..4t+3], a1 = A[g+8][4t..], a2 = A[g][16+4t..], a3 = A[g+8][16+4t..]
-//   B: b0 = B[4t..4t+3][g], b1 = B[16+4t..][g]
-//   C: c0 = C[g][2t], c1 = C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1]
-// A tiles live row-major in shared memory (row stride `ld` bytes); B tiles
-// live as [n][k] rows, which is the torch Linear layout [out, in] of the
-// weights, so B's four k-consecutive codes are one aligned 32-bit word too.
-// A stride ld ≡ 16 (mod 32) bytes keeps the eight rows of a fragment in
-// distinct banks.
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const int8_t* s, int ld, int r0,
-                                            int k0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int8_t* p = s + (r0 + g) * ld + k0 + 4 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 16);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 16);
-}
-
-__device__ __forceinline__ void load_b_frag(uint32_t (&b)[2], const int8_t* s, int ld, int n0,
-                                            int k0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const int8_t* p = s + (n0 + g) * ld + k0 + 4 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 16);
-}
-
-// Issue cp.async copies of a [rows × cols] int8 tile: element (r, c) is
-// src[r * ld_src + c] and lands at dst[r * ld_dst + c]; it reads as 0 where
-// r >= row_limit or c >= col_limit. `cols`, `ld_src`, `ld_dst` and
-// `col_limit` are multiples of 16 and src is 16-byte aligned (the wrappers
-// check), so each 16-byte vector lies wholly inside or outside.
-__device__ __forceinline__ void load_tile_async_s8(int8_t* dst, int ld_dst, const int8_t* src,
-                                                   long long ld_src, int rows, int cols,
-                                                   int row_limit, int col_limit) {
-  const int vecs_per_row = cols / 16;
-  for (int i = threadIdx.x; i < rows * vecs_per_row; i += blockDim.x) {
-    const int r = i / vecs_per_row;
-    const int c = (i % vecs_per_row) * 16;
-    const bool valid = r < row_limit && c < col_limit;
-    cp_async16(dst + r * ld_dst + c, valid ? src + r * ld_src + c : src, valid);
-  }
 }
 
 // Eight bf16 values (one 16-byte vector) quantized with scale s into eight

@@ -13,10 +13,14 @@ its plain version on CPU tensors:
   and then the W8A8 dense's int8-input path over them; plain
   `reference_geglu_w8a8`. C up to what its panel of quantized x in shared
   memory allows (the kernel refuses wider, with an error).
-* `fused_geglu_w8a8_pt` — the same file's per-token form, replacing
-  `fused_geglu_w8a8_pt` (:398): the per-token dynamic int8 FF, whose h is
-  quantized per (row, group of `block_h(C, H)` hidden units), the
-  reference's tiles; plain `reference_geglu_w8a8_pt`.
+* `fused_geglu_w8a8_pt` — the same file's per-token form on the GEMM
+  core, replacing `fused_geglu_w8a8_pt` (:398): the per-token dynamic int8
+  FF, whose h is quantized per (row, group of `block_h(C, H)` hidden
+  units), the reference's tiles, in two launches: h's int8 codes [T, H]
+  and group scales [T, H / block_h] (plain `reference_geglu_w8a8_pt_codes`),
+  then the groups' products added in fp32 in order (plain
+  `reference_geglu_w8a8_pt_down`); plain `reference_geglu_w8a8_pt`. C up to
+  what its panel allows (2,432; the kernel refuses wider, with an error).
 
 Weights are in torch's Linear layout: w1 [2H, C] with a = rows :H and gate
 = rows H: (diffusers' `chunk(2)`), w2 [C, H]; the int8 kernels take them
@@ -148,6 +152,52 @@ def reference_geglu_w8a8_codes(x: torch.Tensor, wq1: torch.Tensor,
     return quant.quantize_activation(a * F.gelu(gate), act_scale2)[0]
 
 
+def reference_geglu_w8a8_pt_codes(x: torch.Tensor, wq1: torch.Tensor,
+                                  sw1: torch.Tensor, b1: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-token form's first half, the plain version of its first
+    launch: row scales sx = max(|x[t, :]|, 1e-12) / 127, [a | gate] =
+    q(x) · wq1ᵀ in int32, · (sx · sw1) + b1 in fp32, h = a · gelu_erf(gate),
+    and h's int8 codes per (row, group of `block_h` hidden units) with the
+    group's row scales. Returns (codes [T, H] int8, sh [T, H / block_h]
+    fp32)."""
+    c = x.shape[-1]
+    hidden = wq1.shape[0] // 2
+    bh = block_h(c, hidden)
+    x32 = x.reshape(-1, c).float()
+    sxr = x32.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
+    xq = torch.clamp(torch.round(x32 / sxr), -127, 127).to(torch.int8)
+    h1 = quant.int_mm(xq, wq1).float() * (sxr * sw1) + b1.float()
+    a, gate = h1.chunk(2, dim=-1)
+    h = a * F.gelu(gate)
+    codes, scales = [], []
+    for j0 in range(0, hidden, bh):
+        ht = h[:, j0:j0 + bh]
+        shr = ht.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
+        codes.append(torch.clamp(torch.round(ht / shr), -127, 127
+                                 ).to(torch.int8))
+        scales.append(shr)
+    return torch.cat(codes, dim=1), torch.cat(scales, dim=1)
+
+
+def reference_geglu_w8a8_pt_down(hq: torch.Tensor, sh: torch.Tensor,
+                                 wq2: torch.Tensor, sw2: torch.Tensor,
+                                 b2: torch.Tensor, out_dtype: torch.dtype
+                                 ) -> torch.Tensor:
+    """The per-token form's second half, the plain version of its second
+    launch: out = Σ_g float(hq_g · wq2_gᵀ) · (sh[:, g] · sw2) over the
+    groups of H / G hidden units, added in fp32 in order g = 0, 1, ...,
+    then + b2, rounded once to `out_dtype`. hq [T, H] int8, sh [T, G]."""
+    hidden = hq.shape[1]
+    bh = hidden // sh.shape[1]
+    out = torch.zeros(hq.shape[0], wq2.shape[0], dtype=torch.float32,
+                      device=hq.device)
+    for g, j0 in enumerate(range(0, hidden, bh)):
+        out = out + (quant.int_mm(hq[:, j0:j0 + bh], wq2[:, j0:j0 + bh])
+                     .float() * (sh[:, g:g + 1] * sw2))
+    return (out + b2.float()).to(out_dtype)
+
+
 def reference_geglu_w8a8_pt(x: torch.Tensor, wq1: torch.Tensor,
                             sw1: torch.Tensor, b1: torch.Tensor,
                             wq2: torch.Tensor, sw2: torch.Tensor,
@@ -158,24 +208,12 @@ def reference_geglu_w8a8_pt(x: torch.Tensor, wq1: torch.Tensor,
     (_geglu_q_pt_kernel; its oracle reference_geglu_w8a8_pt): row scales
     for x, h quantized per (row, block_h group), each group's product
     dequantized with its row scales and the groups added in fp32, in
-    order."""
-    c = x.shape[-1]
-    hidden = wq2.shape[1]
-    bh = block_h(c, hidden)
-    x32 = x.reshape(-1, c).float()
-    sxr = x32.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
-    xq = torch.clamp(torch.round(x32 / sxr), -127, 127).to(torch.int8)
-    h1 = quant.int_mm(xq, wq1).float() * (sxr * sw1) + b1.float()
-    a, gate = h1.chunk(2, dim=-1)
-    h = a * F.gelu(gate)
-    out = torch.zeros(x32.shape[0], c, dtype=torch.float32, device=x.device)
-    for j0 in range(0, hidden, bh):
-        ht = h[:, j0:j0 + bh]
-        shr = ht.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
-        hq = torch.clamp(torch.round(ht / shr), -127, 127).to(torch.int8)
-        out = out + (quant.int_mm(hq, wq2[:, j0:j0 + bh]).float()
-                     * (shr * sw2))
-    return (out + b2.float()).to(out_dtype or x.dtype).reshape(x.shape)
+    order — the codes (reference_geglu_w8a8_pt_codes), then the grouped
+    product (reference_geglu_w8a8_pt_down), as the kernel's two launches."""
+    hq, sh = reference_geglu_w8a8_pt_codes(x, wq1, sw1, b1)
+    out = reference_geglu_w8a8_pt_down(hq, sh, wq2, sw2, b2,
+                                       out_dtype or x.dtype)
+    return out.reshape(x.shape)
 
 
 def _check_q8_geglu(name: str, x, wq1, sw1, b1, wq2, sw2, b2) -> None:
@@ -200,8 +238,8 @@ def _q8_geglu_launch(name: str, entry: str, x: torch.Tensor, weights,
                      scales, group: int) -> torch.Tensor:
     """Launch either int8 GEGLU form: contiguity and alignment, the
     workspace that the C side sizes in bytes (`group` = 0 for the static
-    form's h codes, else block_h for the per-token form's fp32 partials),
-    the error check."""
+    form's h codes, else block_h for the per-token form's codes, group
+    scales and first-launch slots), the error check."""
     wq1, sw1, b1, wq2, sw2, b2 = (t.contiguous() for t in weights)
     c = x.shape[-1]
     hidden = wq2.shape[1]

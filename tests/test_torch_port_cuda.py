@@ -376,8 +376,19 @@ def test_geglu_w8a8_refuses_what_it_cannot_do(dev):
             fg.fused_geglu_w8a8(x, *weights, s, s)
 
 
+# the per-token form: 64-token panels whose hidden tiles a block takes in
+# whole groups of block_h (640 at C = 320, 512 at 640 and 1280, H itself
+# where no multiple of 128 divides H); the four CFG batch-4 shapes (a panel's
+# groups split over 2, 5, 10 and 10 blocks), ragged T (77, 130, 300, 1000:
+# the last panel part full), H = 272 (one group whose last tile ends inside
+# it), H = 64 (one tile: one warpgroup has none), a panel split over 5
+# blocks (T = 200 at C = 640), and the widest C whose panel fits (2432)
 @pytest.mark.parametrize("t,c,h", [(77, 64, 256), (1000, 320, 1280),
-                                   (64, 1280, 5120), (300, 640, 2560)])
+                                   (64, 1280, 5120), (300, 640, 2560),
+                                   (4096, 320, 1280), (1024, 640, 2560),
+                                   (256, 1280, 5120), (130, 64, 272),
+                                   (200, 640, 2560), (40, 128, 64),
+                                   (8, 2432, 64)])
 def test_geglu_w8a8_pt_matches_plain(dev, t, c, h):
     x, weights, _ = _q8_geglu_case(dev, t, c, h)
     before = fg.fused_geglu_w8a8_pt.launches
@@ -386,7 +397,82 @@ def test_geglu_w8a8_pt_matches_plain(dev, t, c, h):
     want = fg.reference_geglu_w8a8_pt(*(w.cpu() for w in (x, *weights)),
                                       out_dtype=torch.float32)
     assert fg.fused_geglu_w8a8_pt.launches == before + 1
+    assert got.shape == x.shape
     _q8_close(got, want)
+
+
+def _pt_codes_on_card(x, wq1, sw1, b1):
+    """The per-token form's first launch alone (polyp_geglu_w8a8_pt_up):
+    h's codes [T, H] and group scales [T, G] from its workspace."""
+    lib = _build.library()
+    t, c = x.numel() // x.shape[-1], x.shape[-1]
+    h = wq1.shape[0] // 2
+    bh = fg.block_h(c, h)
+    ws = torch.empty(lib.polyp_geglu_w8a8_workspace(t, c, h, bh),
+                     dtype=torch.uint8, device=x.device)
+    err = lib.polyp_geglu_w8a8_pt_up(x.data_ptr(), wq1.data_ptr(),
+                                     sw1.data_ptr(), b1.data_ptr(),
+                                     ws.data_ptr(), t, c, h, bh,
+                                     _build.stream_of(x))
+    _build.check(err, "per-token W8A8 GEGLU launch 1")
+    sh_at = (t * h + 15) // 16 * 16
+    codes = ws[:t * h].view(torch.int8).view(t, h)
+    sh = ws[sh_at:sh_at + t * (h // bh) * 4].view(torch.float32)
+    return codes, sh.view(t, h // bh)
+
+
+@pytest.mark.parametrize("t,c,h", [(4096, 320, 1280), (64, 1280, 5120),
+                                   (130, 64, 272), (1000, 320, 1280)])
+def test_geglu_w8a8_pt_launches_match_their_plain_versions(dev, t, c, h):
+    """Launch 1 against reference_geglu_w8a8_pt_codes (on the CPU from the
+    same inputs): the group scales agree to 1e-6 relative (h's last bits
+    follow the two erf implementations) and the codes agree but at ties
+    (at most one apart, in at most 0.1% of them). Launch 2 against
+    reference_geglu_w8a8_pt_down on the card's own codes and scales: the
+    same products, scale products and adds in the same order and roundings,
+    so the same bf16 bits."""
+    x, (wq1, sw1, b1, wq2, sw2, b2), _ = _q8_geglu_case(dev, t, c, h)
+    with torch.no_grad():
+        codes, sh = _pt_codes_on_card(x, wq1, sw1, b1)
+        out = fg.fused_geglu_w8a8_pt(x, wq1, sw1, b1, wq2, sw2, b2)
+    torch.cuda.synchronize()
+    want_q, want_s = fg.reference_geglu_w8a8_pt_codes(
+        *(w.cpu() for w in (x, wq1, sw1, b1)))
+    torch.testing.assert_close(sh.cpu(), want_s, rtol=1e-6, atol=0)
+    diff = (codes.cpu().int() - want_q.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+    down = fg.reference_geglu_w8a8_pt_down(
+        codes.cpu(), sh.cpu(), *(w.cpu() for w in (wq2, sw2, b2)),
+        torch.bfloat16)
+    assert torch.equal(out.reshape(t, c).cpu(), down)
+
+
+@pytest.mark.parametrize("t,c,h", [(4096, 320, 1280), (64, 1280, 5120)])
+def test_geglu_w8a8_pt_repeats_bit_for_bit(dev, t, c, h):
+    """CFG level 0 and the mid block (one group a block, ten blocks a
+    panel): every sum in a fixed order, so the same bits twice."""
+    x, weights, _ = _q8_geglu_case(dev, t, c, h)
+    with torch.no_grad():
+        a = fg.fused_geglu_w8a8_pt(x, *weights)
+        b = fg.fused_geglu_w8a8_pt(x, *weights)
+    assert torch.equal(a, b)
+
+
+def test_geglu_w8a8_pt_refuses_what_it_cannot_do(dev):
+    """A shape the per-token kernel cannot take raises with the C side's
+    error; nothing falls back to the plain version."""
+    # C = 2560: a 64-row panel of 20 chunks and its row statistics leave no
+    # room for two rings of two stages (C = 2432 is the widest that fits)
+    x, weights, _ = _q8_geglu_case(dev, 8, 2560, 64)
+    before = fg.fused_geglu_w8a8_pt.launches
+    with torch.no_grad():
+        with pytest.raises(RuntimeError, match="per-token W8A8 GEGLU kernel"):
+            fg.fused_geglu_w8a8_pt(x, *weights)
+        with pytest.raises(ValueError, match="divisible by 16"):
+            x, weights, _ = _q8_geglu_case(dev, 8, 72, 288)
+            fg.fused_geglu_w8a8_pt(x, *weights)
+    assert fg.fused_geglu_w8a8_pt.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -352,6 +352,103 @@ def test_geglu_w8a8_pt_plain_matches_pallas_interpret(c, tokens):
     assert _rel(got.numpy(), oracle) <= 2e-3
 
 
+@pytest.mark.parametrize("c,tokens,out_dtype", [
+    (64, 256, torch.float32), (320, 77, torch.float32),
+    (64, 130, torch.bfloat16)])
+def test_pt_geglu_split_is_the_codes_then_grouped_product(c, tokens,
+                                                          out_dtype):
+    """The per-token int8 GEGLU's CUDA path is two launches: h's int8 codes
+    and group scales (plain version reference_geglu_w8a8_pt_codes), then
+    the groups' products added in fp32 in order (reference_geglu_w8a8_pt_
+    down). Composed, they are reference_geglu_w8a8_pt, and equal bit for
+    bit the whole FF written out in one piece, group by group."""
+    h = 4 * c
+    x = _t(_normal(19, (2, tokens, c)))
+    wq1, sw1, b1, wq2, sw2, b2 = _port_q8(*_geglu_weights(c, h, 20))
+    codes, sh = tfg.reference_geglu_w8a8_pt_codes(x, wq1, sw1, b1)
+    bh = tfg.block_h(c, h)
+    assert codes.dtype == torch.int8 and codes.shape == (2 * tokens, h)
+    assert sh.dtype == torch.float32 and sh.shape == (2 * tokens, h // bh)
+    split = tfg.reference_geglu_w8a8_pt_down(codes, sh, wq2, sw2, b2,
+                                             out_dtype)
+    whole = tfg.reference_geglu_w8a8_pt(x, wq1, sw1, b1, wq2, sw2, b2,
+                                        out_dtype=out_dtype)
+    assert torch.equal(split.reshape(whole.shape), whole)
+    # the FF in one piece: quantize each group of h and add its product
+    x32 = x.reshape(-1, c)
+    sxr = x32.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
+    xq = torch.clamp(torch.round(x32 / sxr), -127, 127).to(torch.int8)
+    a, gate = (tq.int_mm(xq, wq1).float() * (sxr * sw1) + b1).chunk(2, -1)
+    hf = a * torch.nn.functional.gelu(gate)
+    out = torch.zeros(2 * tokens, c)
+    for j0 in range(0, h, bh):
+        ht = hf[:, j0:j0 + bh]
+        shr = ht.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
+        hq = torch.clamp(torch.round(ht / shr), -127, 127).to(torch.int8)
+        out = out + tq.int_mm(hq, wq2[:, j0:j0 + bh]).float() * (shr * sw2)
+    assert torch.equal(whole.reshape(out.shape), (out + b2).to(out_dtype))
+
+
+def _jax_pt_codes(x, w1, b1, c, h):
+    """h's int8 codes and group scales as the JAX oracle
+    (reference_geglu_w8a8_pt) makes them, step by step, with its grouped
+    product on top (which must equal the oracle's output)."""
+    bh = jfg._tile(h, jfg._BLOCKS.get(c, (0, jfg.DEFAULT_BLOCK_H))[1], 128)
+    wq1, sw1 = jq.quantize_weight(jnp.asarray(w1), (0,))
+    x32 = jnp.asarray(x).reshape(-1, c)
+    sxr = jnp.maximum(jnp.max(jnp.abs(x32), axis=1, keepdims=True),
+                      1e-12) / 127.0
+    xq = jnp.clip(jnp.round(x32 / sxr), -127, 127).astype(jnp.int8)
+    h1 = jax.lax.dot_general(xq, wq1, (((1,), (0,)), ((), ())),
+                             preferred_element_type=jnp.int32)
+    h1 = h1.astype(jnp.float32) * (sxr * sw1) + jnp.asarray(b1)
+    a, gate = jnp.split(h1, 2, axis=-1)
+    hf = a * jax.nn.gelu(gate, approximate=False)
+    codes, scales = [], []
+    for j0 in range(0, h, bh):
+        ht = hf[:, j0:j0 + bh]
+        shr = jnp.maximum(jnp.max(jnp.abs(ht), axis=1, keepdims=True),
+                          1e-12) / 127.0
+        codes.append(jnp.clip(jnp.round(ht / shr), -127, 127
+                              ).astype(jnp.int8))
+        scales.append(shr)
+    return (np.asarray(jnp.concatenate(codes, axis=1)),
+            np.asarray(jnp.concatenate(scales, axis=1)), bh)
+
+
+@pytest.mark.parametrize("c,tokens", [(64, 256), (320, 128)])
+def test_pt_geglu_codes_match_the_jax_oracle(c, tokens):
+    """Launch 1's plain version against the codes the JAX oracle implies, on
+    the same numpy inputs. The int32 products are exact on both sides; h
+    differs in its last bits only where the two frameworks' erf do, so the
+    group scales agree to 1e-6 relative and a code flips only at a tie (at
+    most one apart, in at most 0.1% of them). With JAX's codes and scales
+    forced into launch 2's plain version (as ForcedCodes does for a whole
+    network), the output is the JAX oracle's to fp32 rounding (1e-6)."""
+    h = 4 * c
+    x = _normal(21, (1, tokens, c))
+    w1, b1, w2, b2 = _geglu_weights(c, h, 22)
+    want_q, want_s, bh = _jax_pt_codes(x, w1, b1, c, h)
+    wq2, sw2 = jq.quantize_weight(jnp.asarray(w2), (0,))
+    oracle = np.asarray(jfg.reference_geglu_w8a8_pt(
+        *map(jnp.asarray, (x, w1, b1, w2, b2)))).reshape(tokens, c)
+    down = sum(np.asarray(jax.lax.dot_general(
+        jnp.asarray(want_q[:, j0:j0 + bh]), wq2[j0:j0 + bh],
+        (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32),
+        np.float32) * (want_s[:, g:g + 1] * np.asarray(sw2))
+        for g, j0 in enumerate(range(0, h, bh)))
+    np.testing.assert_allclose(down + b2, oracle, rtol=1e-6, atol=1e-6)
+
+    wq1, sw1, tb1, twq2, tsw2, tb2 = _port_q8(w1, b1, w2, b2)
+    codes, sh = tfg.reference_geglu_w8a8_pt_codes(_t(x), wq1, sw1, tb1)
+    np.testing.assert_allclose(sh.numpy(), want_s, rtol=1e-6, atol=0)
+    diff = np.abs(codes.numpy().astype(np.int32) - want_q.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    forced = tfg.reference_geglu_w8a8_pt_down(
+        _t(want_q), _t(want_s), twq2, tsw2, tb2, torch.float32)
+    np.testing.assert_allclose(forced.numpy(), oracle, rtol=1e-6, atol=1e-6)
+
+
 def test_block_h_is_the_reference_tile():
     for c in (320, 640, 1280, 64, 128):
         h = 4 * c

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Rows 2-5 of PERF.md's kernel table (the bf16 GEGLU, GroupNorm, the
-static int8 GEGLU and the W8A8 dense) and the sampling loops' device time,
+"""Rows 2-6 of PERF.md's kernel table (the bf16 GEGLU, GroupNorm, the
+static int8 GEGLU, the W8A8 dense and the per-token int8 GEGLU) and the
+sampling loops' device time,
 for the polyp_tpu_torch of any checkout, so that two commits are compared
 on one card in one call.
 
     python3 tools/gemm_rows.py --root DIR --tag NAME
-                               [--rows geglu,dense,geglu_q8,gn | all | none]
+                               [--rows geglu,dense,geglu_q8,geglu_q8_pt,gn
+                                       | all | none]
                                [--no-profiles]
 
 Needs a CUDA card. It builds the kernels of DIR/polyp_tpu_torch and runs
@@ -14,10 +16,11 @@ checkout's: device time from a CUDA graph of 20 calls, the CUDA-event time
 of the same calls, the plain version, the yardsticks, the bound) on that
 package at every main-path shape; then, on
 the full-width SD-v1-4 stack (random weights, seed 0) at 256px,
-`profile_loop` over one batch of three loops: w8a8_static under CFG (20
-DDIM steps, 5-step bf16 head, batch 2), distilled bf16 (8 steps, batch 16,
-fused MHA) and distilled w8a8_static (4 steps, batch 32), each with its
-device time by kernel family. Everything goes to
+`profile_loop` over one batch of four loops: w8a8_static under CFG (20
+DDIM steps, 5-step bf16 head, batch 2), dynamic w8a8 under CFG (the same
+steps and batch, no head), distilled bf16 (8 steps, batch 16, fused MHA)
+and distilled w8a8_static (4 steps, batch 32), each with its device time
+by kernel family. Everything goes to
 chiprun_out/gemm_rows_NAME.json; one line a row is printed.
 
 To compare a parent commit, unpack `git archive <commit>` into a directory
@@ -36,7 +39,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-ROWS = ("geglu", "dense", "geglu_q8", "gn")
+ROWS = ("geglu", "dense", "geglu_q8", "geglu_q8_pt", "gn")
 
 
 def main() -> int:
@@ -82,8 +85,10 @@ def main() -> int:
         out["rows"] = smoke.gemm_rows(
             dev, geglu_batches=(4, 16, 32) if "geglu" in rows else (),
             dense_batches=(4, 32) if "dense" in rows else ())
-        if "geglu_q8" in rows:
-            out["rows"] += smoke.geglu_q8_rows(dev, per_token=False)
+        if "geglu_q8" in rows or "geglu_q8_pt" in rows:
+            out["rows"] += smoke.geglu_q8_rows(
+                dev, static="geglu_q8" in rows,
+                per_token="geglu_q8_pt" in rows)
         if "gn" in rows:
             out["rows"] += smoke.gn_rows(dev)
     if not args.no_profiles:
@@ -118,6 +123,10 @@ def profiles(smoke, dev) -> dict:
                 stack.unet, stack.vae, stack.text, stack.tokenizer, schedule,
                 image_size=256, num_steps=20, guidance_scale=7.5,
                 sampler="ddim", quantize="w8a8_static", quant_fp_head=5), 2),
+            "w8a8": (StableDiffusionSampler(
+                stack.unet, stack.vae, stack.text, stack.tokenizer, schedule,
+                image_size=256, num_steps=20, guidance_scale=7.5,
+                sampler="ddim", quantize="w8a8"), 2),
             "distilled_bf16": (make_student_sampler(
                 stack, stack.unet, num_steps=8, fused_mha=True), 16),
             "distilled_int8_tiny": (make_student_sampler(
