@@ -77,7 +77,20 @@ caught:
    GN_Q8_SHARE); the whole int8 forward must stay within
    INT8_FORWARD_NOISE times the CPU's own int8-vs-fp32 distance (see
    there);
-6. prints the kernel table (all eight kernel entries, with launches on
+6. serves (serving_phase, about a minute): GenerationService over
+   make_sampler's bf16 stack at the service defaults (UniPC, 25 steps,
+   CFG 7.5, max_batch 8) behind the HTTP server on a loopback port —
+   /healthz, 8 concurrent requests in at most 2 launches, a solo request
+   whose PNG equals its coalesced twin's pixel for pixel; the w8a8_static
+   and w8a8 services and a 4-step student (tiny decoder, fused MHA): each
+   kernel's launches a request, and the student's solo twin pixel-equal;
+   two models behind one service, each request reaching its own; 429s
+   under a burst at max_pending 1; the load generator on the student at 8
+   clients, coalesced vs solo; and generate_to_dir on distilled_bf16_tiny,
+   the host seconds an image beyond the sampling, serial vs overlapped,
+   with the PNG encoder that ran (`make -C native libpolyp_png.so` is
+   tried first; a failure is printed and PIL encodes);
+7. prints the kernel table (all eight kernel entries, with launches on
    the main path that runs each) as one JSON line, the card line, and
    last the result line {"ok": true, "device": {...}}. Each phase's
    seconds are printed as it ends ("[time]").
@@ -945,6 +958,394 @@ def run_path(fn, out_dir: Path, n_images: int, batch: int
     return seconds, torch.cat(kept)
 
 
+# the serving phase's prompts: the first two for the base model and the
+# last two for the student (routing); the load generator cycles all four
+SERVE_PROMPTS = ("a realistic photo of colon polyp",
+                 "a realistic photo of adenomatous colon polyp",
+                 "a realistic photo of hyperplastic colon polyp",
+                 "a realistic photo of sessile serrated colon polyp")
+# the services' launch size (serve.py's default max_batch), and the closed
+# loop's clients and seconds for each of the coalesced and solo services
+SERVE_BATCH = 8
+LOAD_CLIENTS, LOAD_SECONDS = 8, 10.0
+
+
+def http_json(url: str, payload: dict | None = None):
+    """GET (payload None) or POST a JSON body: (status, body, headers),
+    HTTP errors included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data,
+                                 {"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def in_threads(calls: list) -> list:
+    """Each zero-argument call on a thread of its own, all started at
+    once; their results in order. A call that raised fails the run."""
+    import threading
+
+    results, errors = [None] * len(calls), []
+
+    def run(i, fn):
+        try:
+            results[i] = fn()
+        except Exception as e:  # raised again below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"request threads failed: {errors}")
+    return results
+
+
+def png_pixels(data: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im)
+
+
+def serving_phase(stack, tiny, card: str, reset_counts, read_counts,
+                  tmp: Path) -> dict:
+    """The serving slice at full width. Services over make_sampler's bf16
+    stack at the service defaults (UniPC, 25 steps, CFG 7.5, max_batch 8)
+    and over a 4-step student (tiny decoder, fused MHA), behind the HTTP
+    server on a loopback port: health, 8 concurrent requests coalesced into
+    at most 2 launches, a solo request's PNG pixel-equal to its coalesced
+    twin, routing across two models, shedding with 429, the kernels' launches
+    per request of every service (the int8 ones too), the load generator
+    coalesced vs solo, and generate_to_dir's host seconds an image before
+    and after its overlap. Every count is set to 0 just before each run and
+    read just after."""
+    import base64
+
+    import numpy as np
+
+    from polyp_tpu_torch.cli.distill_sd import make_student_sampler
+    from polyp_tpu_torch.cli.sd_common import make_sampler
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.data.native import encode_png, png_encoder
+    from polyp_tpu_torch.pipeline import generate_to_dir, to_uint8
+    from polyp_tpu_torch.serve import GenerationService, serve
+    from polyp_tpu_torch.tools.bench_serve import run_load
+
+    out: dict = {"card": card}
+
+    def launched(sampler, pad):
+        return lambda prompts, ids: sampler.generate_batch(prompts, ids,
+                                                           pad_to=pad)
+
+    def per_request(counts):
+        return {k: v / SERVE_BATCH for k, v in counts.items()}
+
+    def need(what, counts, kernels):
+        for kernel in kernels:
+            if counts[kernel] <= 0:
+                raise AssertionError(f"{what} never launched {kernel}")
+
+    base = make_sampler(stack, DiffusionConfig(image_size=256))
+    if (base.sampler, base.num_steps, base.guidance_scale) != (
+            "unipc", 25, 7.5):
+        raise AssertionError("make_sampler does not give the service "
+                             "defaults")
+    student = make_student_sampler(stack, stack.unet, num_steps=4,
+                                   decoder=tiny, fused_mha=True)
+
+    # the base service behind HTTP: health, 8 concurrent 1-image requests,
+    # then one of them again alone
+    service = GenerationService(launched(base, SERVE_BATCH), SERVE_BATCH,
+                                warm_prompt=PROMPT)
+    server = serve(service, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, health, _ = http_json(url + "/healthz")
+        if status != 200 or not health["warm"]:
+            raise AssertionError(f"/healthz {status}: {health}")
+        asks = [{"prompt": SERVE_PROMPTS[i % 2], "num_images": 1,
+                 "seed": 100 + i} for i in range(SERVE_BATCH)]
+        before = service.snapshot()["launches"]
+        reset_counts()
+        start = time.perf_counter()
+        answers = in_threads([functools.partial(
+            http_json, url + "/generate", a) for a in asks])
+        coalesced_s = time.perf_counter() - start
+        counts = read_counts()
+        launches = service.snapshot()["launches"] - before
+        if any(s != 200 for s, _, _ in answers) or launches > 2:
+            raise AssertionError(f"8 requests: {launches} launches, "
+                                 f"answers {[b for _, b, _ in answers]}")
+        reset_counts()
+        status, solo, _ = http_json(url + "/generate", asks[3])
+        solo_counts = read_counts()
+        if status != 200 or solo["batched_samples"] != 1:
+            raise AssertionError(f"solo request {status}: {solo}")
+    finally:
+        server.shutdown()
+        service.close()
+    a = png_pixels(base64.b64decode(solo["images"][0]))
+    b = png_pixels(base64.b64decode(answers[3][1]["images"][0]))
+    differ = int((a != b).any(axis=-1).sum())
+    out["base"] = {
+        "healthz": health, "requests": SERVE_BATCH, "launches": launches,
+        "seconds": coalesced_s,
+        "batched_samples": sorted({r["batched_samples"]
+                                   for _, r, _ in answers}),
+        "kernel_launches": counts, "launches_per_request": per_request(counts),
+        "solo_kernel_launches": solo_counts, "image_shape": list(a.shape),
+        "solo_vs_coalesced_pixels_differing": differ,
+        "solo_vs_coalesced_max_abs": int(np.abs(a.astype(int)
+                                                - b.astype(int)).max())}
+    print(f"[serving] base service (UniPC, 25 steps, CFG 7.5, max_batch 8): "
+          f"8 concurrent requests in {launches} launch(es), "
+          f"{coalesced_s:.2f} s; a solo request vs its coalesced twin: "
+          f"{differ} pixels differ; kernel launches {counts}", flush=True)
+    if differ or a.shape != (256, 256, 3):
+        raise AssertionError(f"a sample differs solo and coalesced: "
+                             f"{out['base']}")
+    need("the base service", counts,
+         ("flash_attention", "fused_geglu", "fused_group_norm"))
+
+    # what the slot-invariant convolutions cost: one base launch (8 rows,
+    # 25 steps) inside and outside ops.conv.slot_invariant_region, in
+    # turns (outside, inside, inside, outside), each synchronised
+    from polyp_tpu_torch.ops import conv
+    pairs = [(p, (7, i)) for i, p in enumerate(SERVE_PROMPTS * 2)]
+    cond = torch.cat([base.encode_prompt(p) for p, _ in pairs])
+    latents, _ = base.draw_latents([ids for _, ids in pairs])
+    region_s = {"inside": [], "outside": []}
+    for where in ("outside", "inside", "inside", "outside"):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with conv.slot_invariant_region(where == "inside"), torch.no_grad():
+            base.generate(cond, base.encode_prompt(""), SERVE_BATCH,
+                          init=latents)
+        torch.cuda.synchronize()
+        region_s[where].append(time.perf_counter() - start)
+    out["base"]["launch_s_by_conv_region"] = region_s
+    print(f"[serving] one base launch (8 rows, 25 steps), convs inside the "
+          f"slot-invariant region {region_s['inside']} s, outside "
+          f"{region_s['outside']} s on {card}", flush=True)
+
+    # the int8 services and the student alone: each kernel's launches for 8
+    # coalesced requests (after a warm launch)
+    services = {"w8a8_static": (make_sampler(stack, DiffusionConfig(
+                    image_size=256, quantize="w8a8_static",
+                    quant_fp_head=5)), ("fused_w8a8_dense",
+                                        "fused_geglu_w8a8",
+                                        "fused_group_norm_q8")),
+                "w8a8": (make_sampler(stack, DiffusionConfig(
+                    image_size=256, quantize="w8a8")),
+                    ("fused_w8a8_dense", "fused_geglu_w8a8_pt")),
+                "student": (student, ("fused_mha", "fused_geglu"))}
+    for name, (sampler, kernels) in services.items():
+        service = GenerationService(launched(sampler, SERVE_BATCH),
+                                    SERVE_BATCH, warm_prompt=PROMPT)
+        try:
+            before = service.snapshot()["launches"]
+            reset_counts()
+            answers = in_threads([functools.partial(
+                service.generate, p, 1, seed=i)
+                for i, p in enumerate(SERVE_PROMPTS * 2)])
+            counts = read_counts()
+            launches = service.snapshot()["launches"] - before
+            solo = service.generate(SERVE_PROMPTS[3], 1, seed=3)
+        finally:
+            service.close()
+        a = png_pixels(base64.b64decode(solo["images"][0]))
+        b = png_pixels(base64.b64decode(answers[3]["images"][0]))
+        differ = int((a != b).any(axis=-1).sum())
+        out[name] = {"requests": SERVE_BATCH, "launches": launches,
+                     "kernel_launches": counts,
+                     "launches_per_request": per_request(counts),
+                     "solo_vs_coalesced_pixels_differing": differ}
+        print(f"[serving] {name} service: 8 requests in {launches} "
+              f"launch(es); a solo request vs its coalesced twin: {differ} "
+              f"pixels differ; kernel launches {counts}", flush=True)
+        need(f"the {name} service", counts, kernels)
+        # the contract holds for bf16; dynamic w8a8 scales each activation
+        # by the whole launch's amax, and w8a8_static is measured here
+        if name == "student" and differ:
+            raise AssertionError(f"a student sample differs solo and "
+                                 f"coalesced: {out[name]}")
+
+    # two models behind one service: each request reaches its own
+    routed = {"base": set(), "student": set()}
+
+    def recording(name, sampler):
+        fn = launched(sampler, SERVE_BATCH)
+
+        def call(prompts, ids):
+            routed[name].update(prompts)
+            return fn(prompts, ids)
+        return call
+
+    service = GenerationService({"base": recording("base", base),
+                                 "student": recording("student", student)},
+                                SERVE_BATCH)
+    try:
+        reset_counts()
+        answers = in_threads([functools.partial(
+            service.generate, SERVE_PROMPTS[i % 4], 1, seed=i,
+            model="base" if i % 4 < 2 else "student")
+            for i in range(2 * SERVE_BATCH)])
+        counts = read_counts()
+        stats = service.snapshot()
+    finally:
+        service.close()
+    out["routing"] = {"launches_by_model": stats["launches_by_model"],
+                      "prompts_by_model": {k: sorted(v)
+                                           for k, v in routed.items()},
+                      "kernel_launches": counts}
+    print(f"[serving] routing: launches by model "
+          f"{stats['launches_by_model']}, prompts by model "
+          f"{out['routing']['prompts_by_model']}; kernel launches {counts}",
+          flush=True)
+    if (any(r["model"] != ("base" if r["prompt"] in SERVE_PROMPTS[:2]
+                           else "student") for r in answers)
+            or routed["base"] != set(SERVE_PROMPTS[:2])
+            or routed["student"] != set(SERVE_PROMPTS[2:])
+            or min(stats["launches_by_model"].values()) < 1):
+        raise AssertionError(f"routing: {out['routing']}")
+    need("the student model", counts, ("fused_mha",))
+
+    # shedding: max_pending 1 under a burst of 8
+    service = GenerationService(launched(student, SERVE_BATCH), SERVE_BATCH,
+                                max_pending=1)
+    server = serve(service, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        burst = in_threads([functools.partial(
+            http_json, url + "/generate",
+            {"prompt": SERVE_PROMPTS[2], "num_images": 1, "seed": i})
+            for i in range(SERVE_BATCH)])
+        _, health, _ = http_json(url + "/healthz")
+    finally:
+        server.shutdown()
+        service.close()
+    codes = sorted(s for s, _, _ in burst)
+    out["shedding"] = {"status_codes": codes, "stats": health["stats"],
+                       "retry_after": sorted({h.get("Retry-After")
+                                              for s, _, h in burst
+                                              if s == 429})}
+    print(f"[serving] max_pending 1, a burst of 8: status {codes}, stats "
+          f"{health['stats']}", flush=True)
+    if (429 not in codes or 200 not in codes or set(codes) - {200, 429}
+            or health["stats"]["shed"] != codes.count(429)
+            or out["shedding"]["retry_after"] != ["1"]):
+        raise AssertionError(f"shedding: {out['shedding']}")
+
+    # the load generator on the student, coalesced vs solo
+    out["load"] = {}
+    for mode, max_batch in (("coalesced", SERVE_BATCH), ("solo", 1)):
+        service = GenerationService(launched(student, max_batch), max_batch,
+                                    warm_prompt=PROMPT)
+        try:
+            for p in SERVE_PROMPTS:
+                service.generate(p, 1, seed=0)
+            stats = run_load(service, LOAD_CLIENTS, LOAD_SECONDS,
+                             prompts=list(SERVE_PROMPTS))
+        finally:
+            service.close()
+        out["load"][mode] = {**stats, "max_batch": max_batch}
+        print(f"[serving] load, student (4 steps, tiny decoder, fused MHA), "
+              f"{mode} (max_batch {max_batch}), {LOAD_CLIENTS} clients, "
+              f"{stats['duration_s']:.1f} s: "
+              f"{stats['throughput_samples_per_s']:.2f} samples/s, p50 "
+              f"{stats['p50_s']:.3f} s, p95 {stats['p95_s']:.3f} s, mean "
+              f"occupancy {stats['mean_batch_occupancy']:.2f} on {card}",
+              flush=True)
+    out["load"]["coalescing_speedup"] = (
+        out["load"]["coalesced"]["throughput_samples_per_s"]
+        / out["load"]["solo"]["throughput_samples_per_s"])
+
+    # generate_to_dir on distilled_bf16_tiny: the host seconds an image
+    # beyond the sampling alone, serial (a yardstick kept here only: sample,
+    # fetch, encode, then the next batch) and overlapped (pipeline.py), in
+    # turns; the native encoder where `make` builds it here, else PIL
+    make = subprocess.run(["make", "-C", str(ROOT / "native"),
+                           "libpolyp_png.so"], capture_output=True, text=True)
+    if make.returncode != 0:
+        print(f"[serving] `make -C native libpolyp_png.so` failed, so PIL "
+              f"encodes: {make.stdout[-400:]} {make.stderr[-800:]}",
+              flush=True)
+    encoder = png_encoder()
+    n_images, batch = 96, 32
+    fn = make_student_sampler(stack, stack.unet, num_steps=4, decoder=tiny,
+                              fused_mha=True).for_prompt(PROMPT)
+
+    def sampling_only(_: Path) -> None:
+        for b in range(n_images // batch):
+            fn(batch, b)
+
+    def serial(out_dir: Path) -> None:
+        out_dir.mkdir()
+        for b in range(n_images // batch):
+            for i, img in enumerate(to_uint8(fn(batch, b))):
+                (out_dir / f"{b * batch + i + 1}.png").write_bytes(
+                    encode_png(img, level=4))
+
+    def overlapped(out_dir: Path) -> None:
+        generate_to_dir(fn, n_images, out_dir, eval_batch_size=batch)
+
+    forms = {"sampling": sampling_only, "serial": serial,
+             "overlapped": overlapped}
+    runs = {k: [] for k in forms}
+    dirs = []
+    sampling_only(tmp)  # warm
+    for turn, kind in enumerate(("serial", "overlapped", "overlapped",
+                                 "serial")):
+        for name in ("sampling", kind):
+            out_dir = tmp / f"to_dir_{turn}_{name}"
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            forms[name](out_dir)
+            torch.cuda.synchronize()
+            runs[name].append(time.perf_counter() - start)
+        dirs.append(tmp / f"to_dir_{turn}_{kind}")
+    for out_dir in dirs[1:]:
+        for i in range(1, n_images + 1):
+            if not np.array_equal(
+                    png_pixels((dirs[0] / f"{i}.png").read_bytes()),
+                    png_pixels((out_dir / f"{i}.png").read_bytes())):
+                raise AssertionError(f"{out_dir.name}/{i}.png differs from "
+                                     f"{dirs[0].name}")
+    sampling_s = sum(runs["sampling"]) / len(runs["sampling"])
+    host = {k: [(w - sampling_s) / n_images for w in runs[k]]
+            for k in ("serial", "overlapped")}
+    out["conv_plans"] = {
+        f"x{list(key[2])} w{list(key[3])} stride {key[4][0]}": plan
+        for key, plan in conv._PLANS.items()}
+    print(f"[serving] conv shapes probed for slot invariance: "
+          f"{len(conv._PLANS)}, run as unfold + GEMM: "
+          f"{sorted(k for k, v in out['conv_plans'].items() if v == 'unfold')}",
+          flush=True)
+    out["generate_to_dir"] = {
+        "path": "distilled_bf16_tiny", "images": n_images, "batch": batch,
+        "png_encoder": encoder, "make_returncode": make.returncode,
+        "runs_s": runs, "sampling_s": sampling_s, "host_s_per_image": host}
+    print(f"[serving] generate_to_dir, distilled_bf16_tiny ({n_images} "
+          f"images, batch {batch}, PNG encoder: {encoder}): sampling alone "
+          f"{sampling_s:.3f} s; host seconds an image beyond it, serial "
+          f"{host['serial']}, overlapped {host['overlapped']} on {card}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1152,6 +1553,10 @@ def main() -> int:
                 profile_denoise(name, sampler, batch)
         phase("distilled paths")
 
+        serving = serving_phase(stack, tiny, card, reset_counts,
+                                read_counts, tmp)
+        phase("serving")
+
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
                  f"{path['decode_s']:.3f} s, decode share "
@@ -1259,7 +1664,7 @@ def main() -> int:
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
-              "shape_census": census,
+              "shape_census": census, "serving": serving,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

@@ -4,6 +4,8 @@ from polyp_tpu_torch.diffusion.schedule import (  # noqa: F401
 )
 from polyp_tpu_torch.diffusion.samplers import (  # noqa: F401
     ddim_sample,
+    ddpm_sample,
+    dpmpp_2m_sample,
     sample,
     sampler_timesteps,
     unipc_sample,

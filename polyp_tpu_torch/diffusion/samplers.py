@@ -1,8 +1,9 @@
 """Diffusion samplers: the twin of polyp_tpu/diffusion/samplers.py.
 
-This package ports DDIM (η = 0) on the leading and trailing grids, UniPC
-(order 2, "bh2", data prediction; the reference's default and the port's),
-and classifier-free guidance, batch-doubled or folded. The steps run
+The reference's four samplers: DDPM (ancestral, the scratch path), DDIM
+(η ∈ [0, 1], on the leading and trailing grids), DPM-Solver++(2M) and
+UniPC (order 2, "bh2", data prediction; the reference's default and the
+port's), and classifier-free guidance, batch-doubled or folded. The steps run
 as a Python loop: PyTorch runs eagerly, so the reference's `lax.scan` has
 no counterpart the port needs. Sampling runs under `torch.no_grad()`; that
 is the port's form of the reference's `ops.dispatch.inference()` scope and
@@ -15,6 +16,13 @@ with the step index continuing, which is the same loop as one fn when every
 fn is the same. `init` supplies the starting latents x_T instead of drawing
 them from the generator (the per-sample noise hook). Latents are fp32
 throughout.
+
+The stochastic samplers (DDPM, DDIM with η > 0) draw their per-step noise
+from the same generator, after the initial latents, and so need one even
+when `init` is given. Their noise is one draw of the whole batch's shape a
+step, so a row's trajectory depends on what it is batched with: the
+coalescing contract of serve.py holds for the deterministic samplers only
+(ddim η = 0, dpmpp_2m, unipc), as the reference says (its serve.py:43-47).
 """
 
 from __future__ import annotations
@@ -99,15 +107,74 @@ def with_cfg(raw_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
     return model_fn
 
 
+def _gaussian(shape: tuple[int, ...], generator: torch.Generator | None,
+              name: str) -> torch.Tensor:
+    """Standard normal fp32 noise of `shape` from `generator`, on its
+    device: the initial latents, and the stochastic samplers' per-step
+    noise."""
+    if generator is None:
+        raise ValueError(f"{name} needs a generator or init latents")
+    return torch.randn(shape, generator=generator, device=generator.device,
+                       dtype=torch.float32)
+
+
 def _start(init: torch.Tensor | None, shape: tuple[int, ...],
            generator: torch.Generator | None, name: str) -> torch.Tensor:
     """The fp32 starting latents: `init`, or noise from `generator`."""
     if init is not None:
         return init.to(torch.float32)
+    return _gaussian(shape, generator, name)
+
+
+def _step_noise(x: torch.Tensor, generator: torch.Generator | None,
+                name: str) -> torch.Tensor:
+    """One step's noise for a stochastic sampler, on x's device."""
     if generator is None:
-        raise ValueError(f"{name} needs a generator or init latents")
-    return torch.randn(shape, generator=generator, device=generator.device,
-                       dtype=torch.float32)
+        raise ValueError(f"{name} draws noise at every step and needs a "
+                         "generator, also when init latents are given")
+    return _gaussian(tuple(x.shape), generator, name).to(x.device)
+
+
+@torch.no_grad()
+def ddpm_sample(model_fn: Union[ModelFn, Segments],
+                schedule: DiffusionSchedule,
+                shape: tuple[int, ...],
+                generator: torch.Generator | None = None,
+                num_steps: int | None = None,
+                clip_sample: bool = True,
+                init: torch.Tensor | None = None) -> torch.Tensor:
+    """Ancestral DDPM with the fixed-small posterior variance and optional
+    x̂₀ clipping (DDPMScheduler parity; the reference's ddpm_sample,
+    :160-209), on the "ddpm" grid, every train timestep by default.
+    ᾱ_prev is exactly 1 past the last step, the variance is clipped at
+    1e-20, and noise is added only where t > 0."""
+    x = _start(init, shape, generator, "ddpm_sample")
+    schedule = schedule.to(x.device)
+    T = schedule.num_train_timesteps
+    num_steps = T if num_steps is None else num_steps
+    ts = sampler_timesteps("ddpm", T, num_steps)
+    abar = schedule.alphas_cumprod
+    one = torch.ones((), device=x.device)
+    fns = _step_fns(model_fn, num_steps)
+    for i, (t, fn) in enumerate(zip(ts, fns)):
+        abar_t = abar[t]
+        abar_prev = abar[ts[i + 1]] if i + 1 < num_steps else one
+        alpha_t = abar_t / abar_prev
+        beta_t = 1.0 - alpha_t
+        out = fn(x, torch.full((x.shape[0],), t, device=x.device))
+        x0, _ = schedule.to_x0_eps(out, x, t)
+        if clip_sample:
+            x0 = x0.clamp(-1.0, 1.0)
+        # the posterior mean of q(x_{t-1} | x_t, x0)
+        coef_x0 = torch.sqrt(abar_prev) * beta_t / (1.0 - abar_t)
+        coef_xt = torch.sqrt(alpha_t) * (1.0 - abar_prev) / (1.0 - abar_t)
+        x = coef_x0 * x0 + coef_xt * x
+        if t > 0:
+            var = torch.clamp(beta_t * (1.0 - abar_prev) / (1.0 - abar_t),
+                              min=1e-20)
+            x = x + torch.sqrt(var) * _step_noise(x, generator,
+                                                  "ddpm_sample")
+    return x
 
 
 @torch.no_grad()
@@ -118,31 +185,45 @@ def ddim_sample(model_fn: Union[ModelFn, Segments],
                 num_steps: int = 50,
                 init: torch.Tensor | None = None,
                 spacing: str = "leading",
-                steps_offset: int = 1) -> torch.Tensor:
-    """Deterministic DDIM (η = 0) with SD-v1's scheduler config by default
-    (reference :212-232): leading spacing with steps_offset=1, and
-    set_alpha_to_one=False, so the last step lands on ᾱ₀ =
-    alphas_cumprod[0], not 1. Progressively distilled students sample on
-    the grid they were distilled onto: spacing="trailing",
-    steps_offset=0 (train/distill.py)."""
-    if init is not None:
-        x = init.to(torch.float32)
-    else:
-        if generator is None:
-            raise ValueError("ddim_sample needs a generator or init latents")
-        x = torch.randn(shape, generator=generator, device=generator.device,
-                        dtype=torch.float32)
+                steps_offset: int = 1,
+                eta: float = 0.0,
+                clip_sample: bool = False,
+                final_alpha_to_one: bool = False) -> torch.Tensor:
+    """DDIM (reference :212-269) with SD-v1's scheduler config by default:
+    leading spacing with steps_offset=1, and set_alpha_to_one=False, so the
+    last step lands on ᾱ₀ = alphas_cumprod[0], not 1
+    (`final_alpha_to_one=True` for diffusers' plain DDIMScheduler()).
+    Progressively distilled students sample on the grid they were
+    distilled onto: spacing="trailing", steps_offset=0 (train/distill.py).
+    `clip_sample` clips x̂₀ to [-1, 1] and recomputes ε̂ from it; η > 0
+    adds σ-scaled noise from `generator` at every step (η = 1 is DDPM's
+    variance on the DDIM grid); η = 0 is deterministic and draws none."""
+    x = _start(init, shape, generator, "ddim_sample")
     schedule = schedule.to(x.device)
     abar = schedule.alphas_cumprod
+    final_abar = (torch.ones((), device=x.device) if final_alpha_to_one
+                  else abar[0])
     ts = inference_timesteps(schedule.num_train_timesteps, num_steps,
                              spacing, steps_offset)
     fns = _step_fns(model_fn, num_steps)
     for i, (t, fn) in enumerate(zip(ts, fns)):
-        abar_prev = abar[ts[i + 1]] if i + 1 < num_steps else abar[0]
+        abar_t = abar[t]
+        abar_prev = abar[ts[i + 1]] if i + 1 < num_steps else final_abar
         out = fn(x, torch.full((x.shape[0],), t, device=x.device))
         x0, eps = schedule.to_x0_eps(out, x, t)
-        dir_xt = torch.sqrt(torch.clamp(1.0 - abar_prev, min=0.0)) * eps
-        x = torch.sqrt(abar_prev) * x0 + dir_xt
+        if clip_sample:
+            x0 = x0.clamp(-1.0, 1.0)
+            eps = (x - torch.sqrt(abar_t) * x0) / torch.sqrt(1.0 - abar_t)
+        if eta == 0:
+            dir_xt = torch.sqrt(torch.clamp(1.0 - abar_prev, min=0.0)) * eps
+            x = torch.sqrt(abar_prev) * x0 + dir_xt
+            continue
+        sigma = eta * torch.sqrt((1.0 - abar_prev) / (1.0 - abar_t)) \
+            * torch.sqrt(1.0 - abar_t / abar_prev)
+        dir_xt = torch.sqrt(torch.clamp(1.0 - abar_prev - sigma ** 2,
+                                        min=0.0)) * eps
+        x = torch.sqrt(abar_prev) * x0 + dir_xt \
+            + sigma * _step_noise(x, generator, "ddim_sample")
     return x
 
 
@@ -168,6 +249,51 @@ def _nonzero(b: torch.Tensor) -> torch.Tensor:
     """The divisor of the reference's safe_div (:371-372): b, or 1 where
     |b| <= 1e-10."""
     return b if abs(b.item()) > 1e-10 else torch.ones_like(b)
+
+
+@torch.no_grad()
+def dpmpp_2m_sample(model_fn: Union[ModelFn, Segments],
+                    schedule: DiffusionSchedule,
+                    shape: tuple[int, ...],
+                    generator: torch.Generator | None = None,
+                    num_steps: int = 25,
+                    init: torch.Tensor | None = None) -> torch.Tensor:
+    """DPM-Solver++(2M) (Lu et al. 2022, Algorithm 2; data prediction,
+    midpoint) with DPMSolverMultistepScheduler's conventions, the
+    reference's dpmpp_2m_sample (:282-328): the linspace grid, order 1 at
+    the first step (no history), order 2 after (r = h_last / h, h guarded
+    where |h| <= 1e-8), and `lower_order_final`: the last step integrates
+    to σ = 0 at order 1, so the result is its x̂₀. Each step takes its
+    branch where the reference masks with `jnp.where`; the coefficients are
+    fp32 scalars on the CPU, as the reference's tables are fp32."""
+    x = _start(init, shape, generator, "dpmpp_2m_sample")
+    schedule = schedule.to(x.device)
+    ts = sampler_timesteps("dpmpp_2m", schedule.num_train_timesteps,
+                           num_steps)
+    alpha, sigma, lam = _lambda_tables(schedule, ts)
+    one = torch.ones(1)
+    alpha_next = torch.cat([alpha[1:], one])
+    sigma_next = torch.cat([sigma[1:], one])  # the last entry is never used
+    lam_next = torch.log(alpha_next) - torch.log(sigma_next)
+    fns = _step_fns(model_fn, num_steps)
+    x0_prev = None
+    for i, (t, fn) in enumerate(zip(ts, fns)):
+        out = fn(x, torch.full((x.shape[0],), t, device=x.device))
+        x0 = schedule.to_x0_eps(out, x, t)[0]
+        if i == num_steps - 1:
+            return x0  # lower_order_final: σ = 0 exactly
+        h = lam_next[i] - lam[i]
+        denoised = x0
+        if i > 0:
+            r = (lam[i] - lam[i - 1]) / (h if abs(h.item()) > 1e-8
+                                         else torch.ones_like(h))
+            half_inv_r = 1.0 / (2.0 * r)
+            denoised = (1.0 + half_inv_r).item() * x0 \
+                - half_inv_r.item() * x0_prev
+        x = (sigma_next[i] / sigma[i]).item() * x \
+            - (alpha_next[i] * torch.expm1(-h)).item() * denoised
+        x0_prev = x0
+    return x
 
 
 @torch.no_grad()
@@ -243,15 +369,14 @@ def unipc_sample(model_fn: Union[ModelFn, Segments],
     return x
 
 
-SAMPLERS = {"ddim": ddim_sample, "unipc": unipc_sample}
+SAMPLERS = {"ddpm": ddpm_sample, "ddim": ddim_sample,
+            "dpmpp_2m": dpmpp_2m_sample, "unipc": unipc_sample}
 
 
 def get_sampler(name: str) -> Callable[..., torch.Tensor]:
     if name not in SAMPLERS:
-        raise NotImplementedError(
-            f"sampler {name!r} is not ported yet: polyp_tpu_torch runs "
-            f"{sorted(SAMPLERS)}; ROADMAP.md Queue 1 lists when the others "
-            "land")
+        raise ValueError(f"unknown sampler {name!r}: the samplers are "
+                         f"{sorted(SAMPLERS)}")
     return SAMPLERS[name]
 
 

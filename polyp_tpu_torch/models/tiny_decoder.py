@@ -35,11 +35,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from polyp_tpu_torch.models.unet_blocks import Conv2d
+
 DEFAULT_DIR = Path(__file__).resolve().parents[1] / "weights" / "tiny_decoder"
 
 
-def _conv(cin: int, cout: int, dtype, device) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1, dtype=dtype, device=device)
+def _conv(cin: int, cout: int, dtype, device) -> Conv2d:
+    return Conv2d(cin, cout, 3, padding=1, dtype=dtype, device=device)
 
 
 class _ResBlock(nn.Module):

@@ -37,6 +37,7 @@ from torch import nn
 
 from polyp_tpu_torch.ops import dot_product_attention, group_norm, quant
 from polyp_tpu_torch.ops.attention import use_fused_mha
+from polyp_tpu_torch.ops.conv import conv2d
 from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
 from polyp_tpu_torch.ops.fused_geglu import (
     fused_geglu,
@@ -143,7 +144,20 @@ class QLinear(nn.Linear):
         return super().forward(x)
 
 
-class QConv2d(nn.Conv2d):
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d through ops.conv.conv2d: the same parameters and math,
+    with every row's bits independent of its batch slot inside
+    ops.conv.slot_invariant_region (the serving contract)."""
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor | None) -> torch.Tensor:
+        if self.padding_mode != "zeros":
+            return super()._conv_forward(x, weight, bias)
+        return conv2d(x, weight, bias, self.stride, self.padding,
+                      self.dilation, self.groups)
+
+
+class QConv2d(Conv2d):
     """nn.Conv2d that honours the quantization mode (the reference's QConv).
     An int8 input is a producer-side pre-quantized activation, quantized
     with this layer's calibrated scale."""
@@ -185,7 +199,7 @@ class QConv2d(nn.Conv2d):
 
 
 def conv3x3(cin: int, cout: int, dtype, device, stride: int = 1,
-            cls: type[nn.Conv2d] = nn.Conv2d) -> nn.Conv2d:
+            cls: type[nn.Conv2d] = Conv2d) -> nn.Conv2d:
     return cls(cin, cout, 3, stride=stride, padding=1, dtype=dtype,
                device=device)
 

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from polyp_tpu_torch.models.unet_blocks import (
+    Conv2d,
     GroupNorm,
     ResnetBlock2D,
     SpatialSelfAttention,
@@ -80,8 +81,8 @@ class AutoencoderKL(nn.Module):
         self.latent_channels = latent_channels
         self.decoder = Decoder(block_out_channels, 3, 3, latent_channels,
                                dtype=dtype, device=device)
-        self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1,
-                                         dtype=torch.float32, device=device)
+        self.post_quant_conv = Conv2d(latent_channels, latent_channels, 1,
+                                      dtype=torch.float32, device=device)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Unscaled latents [N, 4, h, w] → fp32 images [N, 3, 8h, 8w] in

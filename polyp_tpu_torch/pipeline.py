@@ -12,13 +12,19 @@ each UNet call of the sampler runs inside ops.attention.fused_mha_region,
 where the UNet's attentions may take the fused MHA kernel
 (ops/attention.py::use_fused_mha decides each call).
 
-Determinism contract: batch `i` of a run uses the generator
-`torch.Generator(device).manual_seed(seed + i)`, so a top-up resumes at
-batch `existing // eval_batch` and regenerates identical batches. torch's
-Philox and JAX's threefry draw different noise from the same seed, so the
-two packages' samples are not identical for one seed; given the same
-initial latents (`init`) they agree to rounding
-(tests/test_torch_port_pipeline.py).
+Determinism contracts (utils/rng.py): batch `i` of a quota run uses the
+generator `torch.Generator(device).manual_seed(seed + i)`, so a top-up
+resumes at batch `existing // eval_batch` and regenerates identical
+batches; sample `j` of a served request uses
+`request_generator(seed, j)` (`generate_batch`). torch's Philox and JAX's
+threefry draw different noise from the same seed, so the two packages'
+samples are not identical for one seed; given the same initial latents
+(`init`) they agree to rounding (tests/test_torch_port_pipeline.py,
+tests/test_torch_port_serve.py).
+
+`generate_to_dir` is a one-batch pipeline: batch i+1's sampler is called
+before batch i is fetched, and batch i is encoded and written on a worker
+thread while batch i+1 samples.
 
 int8 sampling (`quantize="w8a8_static"` or `"w8a8"`) quantizes the UNet
 only; the VAE decode stays in the stack's dtype. `quant_fp_head` /
@@ -30,18 +36,21 @@ its scales once per sampler on this stack's own CFG trajectory
 
 from __future__ import annotations
 
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
-from PIL import Image
 
+from polyp_tpu_torch.data.native import encode_png
 from polyp_tpu_torch.diffusion import DiffusionSchedule, sample, with_cfg
 from polyp_tpu_torch.diffusion.samplers import get_sampler
 from polyp_tpu_torch.models.vae import SD_VAE_SCALING
 from polyp_tpu_torch.ops import quant
 from polyp_tpu_torch.ops.attention import fused_mha_region
+from polyp_tpu_torch.ops.conv import slot_invariant_region
+from polyp_tpu_torch.utils.rng import batch_seed, request_generator
 
 # fn(batch_size, seed) -> float images in [-1, 1], NCHW
 BatchSampler = Callable[[int, int], torch.Tensor]
@@ -69,18 +78,47 @@ def _precision_segments(q_fn, fp_fn, num_steps: int,
     return [(head, fp_fn), (num_steps - head - tail, q_fn), (tail, fp_fn)]
 
 
+def images_uint8(images: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float NCHW → uint8 NHWC on the images' device (diffusers
+    numpy_to_pil parity): (x/2 + 0.5) clamped to [0, 1], times 255,
+    rounded half to even in fp32."""
+    arr = (images.float() / 2 + 0.5).clamp(0.0, 1.0) * 255
+    return arr.round().to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+
+
 def to_uint8(images: torch.Tensor) -> np.ndarray:
-    """[-1, 1] float NCHW → uint8 NHWC (diffusers numpy_to_pil parity)."""
-    arr = (images.float() / 2 + 0.5).clamp(0.0, 1.0)
-    arr = arr.permute(0, 2, 3, 1).cpu().numpy()
-    return (arr * 255).round().astype(np.uint8)
+    """`images_uint8` on the host, as numpy."""
+    return images_uint8(images).cpu().numpy()
+
+
+def fetch_uint8(images: torch.Tensor) -> Callable[[], np.ndarray]:
+    """Start `to_uint8(images)` and return a function that waits for it.
+
+    On the card the conversion and the copy into pinned host memory are
+    queued on the current stream right after the kernels that made
+    `images`, and an event after them: the caller can queue the next batch
+    at once, and the returned function (callable from any thread) waits for
+    this batch's copy alone. On the CPU the array is made at once."""
+    u8 = images_uint8(images)
+    if u8.device.type != "cuda":
+        arr = u8.numpy()
+        return lambda: arr
+    host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(u8, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def wait() -> np.ndarray:
+        copied.synchronize()
+        return host.numpy()
+    return wait
 
 
 class StableDiffusionSampler:
     """StableDiffusionPipeline equivalent over the port's modules (which
     carry their weights and device). The default sampler is UniPC, as the
-    reference's (and the scheduler `polyp-lora-per-class` runs); "ddim" is
-    the other one ported (ROADMAP.md Queue 1). `quantize` is None,
+    reference's (and the scheduler `polyp-lora-per-class` runs); "ddim",
+    "dpmpp_2m" and "ddpm" are the others. `quantize` is None,
     "w8a8_static" or "w8a8" (ops/quant.py). `guidance_scale=None` means
     guidance is folded into the UNet (a distilled student);
     `sampler_kwargs` go to the sampler (e.g. the trailing grid);
@@ -95,7 +133,7 @@ class StableDiffusionSampler:
                  quant_fp_head: int = 0, quant_fp_tail: int = 0,
                  sampler_kwargs: dict | None = None, decoder=None,
                  fused_mha: bool = False):
-        get_sampler(sampler)  # refuse an unported sampler before any work
+        get_sampler(sampler)  # refuse an unknown sampler before any work
         if quantize not in (None, "w8a8", "w8a8_static"):
             raise ValueError(f"unknown quantization mode: {quantize!r}")
         self.quantize, self._split = _precision_split(
@@ -200,6 +238,69 @@ class StableDiffusionSampler:
                                 self.schedule.prediction_type, points))
         self._scale_bank = quant.ScaleBank(self.quant_scales)
 
+    def draw_latents(self, sample_ids: Sequence[tuple[int, int]]
+                     ) -> tuple[torch.Tensor, torch.Generator]:
+        """Each sample's initial latents [4, s/8, s/8] (fp32, on the
+        sampler's device) from `request_generator(seed, index)` of its
+        (seed, index) pair, stacked [n, 4, s/8, s/8]; and the first pair's
+        generator after its draw, the stream of a stochastic sampler's
+        per-step noise."""
+        latent = self.image_size // 8
+        rows, stream = [], None
+        for seed, index in sample_ids:
+            gen = request_generator(seed, index, self.device)
+            rows.append(torch.randn((4, latent, latent), generator=gen,
+                                    device=self.device, dtype=torch.float32))
+            stream = stream or gen
+        return torch.stack(rows), stream
+
+    @torch.no_grad()
+    def generate_rows(self, cond: torch.Tensor, latents: torch.Tensor,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+        """One launch over rows that each carry their own cond embedding
+        (`cond` [n, 77, D]) and initial latents (`latents` [n, 4, s/8,
+        s/8]): fp32 NCHW images [n, 3, s, s]. `generator` feeds a
+        stochastic sampler's per-step noise (ddpm, ddim with η > 0). The
+        convolutions run inside ops.conv.slot_invariant_region, so a row's
+        bits do not depend on its slot in the launch."""
+        uncond = self.encode_prompt("")
+        self._ensure_calibrated(cond, uncond)
+        with slot_invariant_region():
+            return self.generate(cond, uncond, cond.shape[0], generator,
+                                 init=latents)
+
+    @torch.no_grad()
+    def generate_batch(self, prompts: Sequence[str],
+                       sample_ids: Sequence[tuple[int, int]],
+                       pad_to: int | None = None) -> torch.Tensor:
+        """One launch for len(prompts) samples, each with its own prompt
+        and its own (seed, index) pair (reference :349-405), the
+        micro-batching primitive behind serve.py's coalescing. Sample j's
+        initial latents come from `request_generator(*sample_ids[j])`.
+        Padding to `pad_to` repeats the last row's cond and latents; the
+        pad rows are sliced away. Under the deterministic samplers (ddim
+        η = 0, dpmpp_2m, unipc) a sample is a function of its own (prompt,
+        pair) at a fixed `pad_to`, whatever it is batched with. The
+        stochastic ones (ddpm, ddim η > 0) draw one per-step noise for the
+        whole launch from the first pair's stream, so the coalescing
+        contract excludes them, as in the reference (:357-361). Returns
+        fp32 NCHW images in about [-1, 1], len(prompts) rows."""
+        n = len(prompts)
+        if n == 0:
+            raise ValueError("generate_batch needs at least one prompt")
+        if len(sample_ids) != n:
+            raise ValueError(f"{n} prompts but {len(sample_ids)} sample ids")
+        cond = torch.cat([self.encode_prompt(p) for p in prompts])
+        latents, stream = self.draw_latents(sample_ids)
+        pad = max(pad_to or n, n)
+        if pad > n:
+            cond = torch.cat([cond, cond[-1:].expand(pad - n,
+                                                     *cond.shape[1:])])
+            latents = torch.cat([latents, latents[-1:].expand(
+                pad - n, *latents.shape[1:])])
+        return self.generate_rows(cond, latents, stream)[:n]
+
     def for_prompt(self, prompt: str) -> BatchSampler:
         cond = self.encode_prompt(prompt)
         uncond = self.encode_prompt("")
@@ -212,27 +313,59 @@ class StableDiffusionSampler:
         return sampler_fn
 
 
+def _write_batch(images: Callable[[], np.ndarray], out_dir: Path,
+                 first: int) -> int:
+    """Encode and write one fetched batch as `first + 1`, `first + 2`, ...
+    .png; returns the number of the last file."""
+    arr = images()
+    for i, img in enumerate(arr):
+        (out_dir / f"{first + i + 1}.png").write_bytes(
+            encode_png(img, level=4))
+    return first + len(arr)
+
+
 def generate_to_dir(sampler_fn: BatchSampler, num_images: int,
                     out_dir: str | Path, eval_batch_size: int = 20,
                     seed: int = 0, start_index: int = 0, start_batch: int = 0,
                     progress: Callable[[int, int], None] | None = None) -> int:
     """Quota loop: batch `i` is drawn with seed + i and written as 1-based
-    PNG files. Returns images written."""
+    PNG files. Returns images written.
+
+    The reference's one-batch pipeline (:420-443): batch i+1's sampler is
+    called before batch i is fetched and encoded. PyTorch's host thread
+    issues every kernel of a batch, so batch i is fetched, encoded and
+    written by one worker thread (in order) while the host issues batch
+    i+1; the native encoder's ctypes call and PIL's zlib release the GIL.
+    `progress(done, num_images)` follows each written batch."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     total = 0
     batch_id = start_batch
-    while total < num_images:
-        bs = min(eval_batch_size, num_images - total)
-        images = to_uint8(sampler_fn(bs, seed + batch_id))
-        for i, img in enumerate(images):
-            Image.fromarray(img).save(
-                out_dir / f"{start_index + total + i + 1}.png",
-                compress_level=4)
-        total += bs
-        batch_id += 1
+    pending = None            # the batch sampled last, not yet handed over
+    writing: Future | None = None
+
+    def finish(job: Future) -> None:
+        done = job.result()
         if progress:
-            progress(total, num_images)
+            progress(done - start_index, num_images)
+
+    with ThreadPoolExecutor(max_workers=1) as worker:
+        while total < num_images or pending is not None:
+            nxt = None
+            if total < num_images:
+                bs = min(eval_batch_size, num_images - total)
+                images = sampler_fn(bs, batch_seed(seed, batch_id))
+                nxt = (fetch_uint8(images), start_index + total)
+                total += bs
+                batch_id += 1
+            if pending is not None:
+                if writing is not None:
+                    finish(writing)
+                writing = worker.submit(_write_batch, pending[0], out_dir,
+                                        pending[1])
+            pending = nxt
+        if writing is not None:
+            finish(writing)
     return total
 
 

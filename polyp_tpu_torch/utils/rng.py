@@ -1,0 +1,54 @@
+"""Seeding contracts: the port's form of polyp_tpu/utils/rng.py.
+
+Two contracts, kept apart:
+
+* generation batch `i` of a quota run is drawn from the generator seeded
+  `seed + i` (`batch_generator`), the reference CLI's
+  `torch.Generator('cpu').manual_seed(config.seed + batch_id)`, so a top-up
+  resumes at batch `existing // eval_batch` and regenerates identical
+  batches (pipeline.py::top_up_samples);
+* sample `index` of a served request with seed `seed` is drawn from the
+  generator seeded `request_seed(seed, index)` (`request_generator`), a
+  pure function of the pair, so a response does not depend on what it was
+  coalesced with or on how its images were split over requests
+  (serve.py).
+
+torch's Philox and JAX's threefry draw different numbers from the same
+seed, and a torch seed cannot reproduce a folded JAX key: the port's
+samples for a given seed are not the JAX package's. Given the same initial
+latents the two agree to rounding (tests/test_torch_port_serve.py).
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import torch
+
+
+def batch_seed(seed: int, batch_id: int) -> int:
+    """The seed of generation batch `batch_id`: `seed + batch_id`."""
+    return seed + batch_id
+
+
+def batch_generator(seed: int, batch_id: int,
+                    device: torch.device | str) -> torch.Generator:
+    """A generator on `device` seeded `batch_seed(seed, batch_id)`."""
+    return torch.Generator(device).manual_seed(batch_seed(seed, batch_id))
+
+
+def request_seed(seed: int, index: int) -> int:
+    """The seed of sample `index` of a request seeded `seed`: the first 8
+    bytes of SHA-256("polyp-request/{seed}/{index}") as a little-endian
+    integer with its top bit cleared (a 63-bit seed). Hashing keeps
+    distinct (seed, index) pairs apart from each other and from the
+    batch seeds `seed + i` at any grid a caller uses (a collision needs a
+    63-bit hash collision)."""
+    digest = hashlib.sha256(f"polyp-request/{seed}/{index}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") & (2 ** 63 - 1)
+
+
+def request_generator(seed: int, index: int,
+                      device: torch.device | str) -> torch.Generator:
+    """A generator on `device` seeded `request_seed(seed, index)`."""
+    return torch.Generator(device).manual_seed(request_seed(seed, index))

@@ -168,13 +168,17 @@ def test_whole_slice_matches_jax(tiny_stacks):
 
 
 def test_unported_samplers_refuse_naming_the_roadmap():
+    """All four of the reference's samplers are ported, so what is refused
+    now is a name neither package knows, in `sample` and in
+    StableDiffusionSampler before any work; the message lists the four."""
     sched = tsched.DiffusionSchedule.create(**SD_SCHEDULE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsamp.sample("dpmpp_2m", lambda x, t: x, sched, (1, 4, 2, 2),
+    assert "euler" not in jsamp.SAMPLERS
+    with pytest.raises(ValueError, match="unknown sampler 'euler'.*dpmpp_2m"):
+        tsamp.sample("euler", lambda x, t: x, sched, (1, 4, 2, 2),
                      torch.Generator().manual_seed(0), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="unknown sampler 'euler'"):
         tpipe.StableDiffusionSampler(tiny_condition_unet(), tiny_vae(), None,
-                                     None, sched, sampler="dpmpp_2m")
+                                     None, sched, sampler="euler")
 
 
 # ---------------------------------------------------------------------------
