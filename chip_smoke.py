@@ -30,7 +30,9 @@ caught:
    fused MHA block (also beside the port's unfused path), fused GEGLU
    (beside the products alone and the cuBLAS chain) and GroupNorm+SiLU in
    bf16 (tolerance in TOLERANCE; at the UNet's shapes and every VAE decode
-   shape at batches 2 and 16); the int8 kernels — the W8A8 dense (beside
+   shape at batches 2 and 16, every VAE encode shape at the train batch
+   8; flash also at the train batch [8,1024,8,40]); the int8 kernels —
+   the W8A8 dense (beside
    `_int_mm` on the codes), the static int8 GEGLU (beside `_int_mm` on the
    codes of x and h, and the bf16 GEGLU at the same shape) and the
    per-token one (at every level of batch 4, beside the same `_int_mm`
@@ -90,10 +92,31 @@ caught:
    the host seconds an image beyond the sampling, serial vs overlapped,
    with the PNG encoder that ran (`make -C native libpolyp_png.so` is
    tried first; a failure is printed and PIL encodes);
-7. prints the kernel table (all eight kernel entries, with launches on
-   the main path that runs each) as one JSON line, the card line, and
-   last the result line {"ok": true, "device": {...}}. Each phase's
-   seconds are printed as it ends ("[time]").
+7. trains (training_phase, "LoRA training"): SD LoRA at full width
+   through train_sd_lora over a Loader of 48 synthetic 256px images
+   (batch 8, rank 8, α 8, dropout 0, the `attention` preset, lr 1e-4,
+   with_schedule(6): 6 steps), every count set to 0 just before it and
+   read just after and after each step: every loss finite, lora_B 0 after
+   step 1 (lr 0) and not after step 2, exactly STEP_FLASH flash launches,
+   ENCODE_GN GroupNorm launches (one VAE encode under no_grad) and no
+   GEGLU launch a step; the seconds a step (steps 2-6), train images/s
+   and torch.cuda.max_memory_allocated beside the card's name and power
+   limit, and one more step under torch.profiler (device time, busy
+   share, kernel families). Then every flag on (text LoRA, DreamBooth
+   `sks`, visual influence, unfrozen attention projections, dropout 0.3,
+   accumulation 2) for two updates (four micro-steps): finite losses,
+   every trainable leaf moved by the second update (the first at lr > 0);
+   one step at batch 1 on the card against the same step in fp32 on the
+   CPU with the same draws (loss within REL_L2_TOLERANCE, LoRA gradients
+   within LORA_GRAD_REL_L2 relative L2); the default run's bundle saved,
+   reloaded, merged (merged_stack) and sampled through
+   StableDiffusionSampler (2 PNGs of 256×256×3). Every parameter of the
+   stack is bit-equal before the phase and after each run and the
+   sampling;
+8. prints the kernel table (all eight kernel entries, with launches on
+   the main path that runs each and launches a train step) as one JSON
+   line, the card line, and last the result line {"ok": true, "device":
+   {...}}. Each phase's seconds are printed as it ends ("[time]").
 
 TF32 is off for every comparison. Details of each check go to
 chiprun_out/chip_smoke.json.
@@ -161,6 +184,29 @@ INT8_IMAGE_REL_L2 = 0.15
 # outputs are summed inside one product), carried through 8 steps and the
 # VAE decode. A wrong kernel gives O(1).
 FUSED_IMAGE_REL_L2 = 5e-2
+
+# the LoRA training phase: bench.py::bench_sd_lora_train's configuration
+# (256px, batch 8, rank 8, α 8, the `attention` preset) on 48 synthetic
+# images, 6 steps (one epoch); the all-flags run's micro-batch
+TRAIN_IMAGES, TRAIN_BATCH, TRAIN_PX = 48, 8, 256
+# the card's step (bf16 weights and activations, the kernels) against the
+# same step in fp32 on the CPU (plain versions), at batch 1 with the same
+# draws. The loss: the UNet output's bf16 error (a bf16 forward is 0.014
+# rel L2 from fp32 on the H100, check_against_cpu) enters the MSE against
+# ε only through pred − ε, so it is held
+# to REL_L2_TOLERANCE. The LoRA gradients pass bf16 rounding through the
+# UNet twice, its forward activations (saved in bf16) and the backward's
+# own bf16 products, so they are held to twice that: a gradient of B is a
+# product of a forward activation and a backward signal, each about as far
+# from fp32 as a forward output. A wrong layer, transpose, mask or backward
+# gives O(1).
+LORA_GRAD_REL_L2 = 2 * REL_L2_TOLERANCE
+# a VAE encode's GroupNorms: 2 a resnet (8 down, 2 mid), the mid
+# attention's, conv_norm_out (polyp_tpu/models/vae.py:48-76)
+ENCODE_GN = 22
+# flash launches a train step: the five level-0 self-attentions of one
+# UNet forward (the backward recomputes through the plain version)
+STEP_FLASH = 5
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet, dense): the least
 # time for a kernel's work is the larger of its bytes over the memory rate
@@ -469,9 +515,10 @@ def check_kernels(dev: torch.device) -> list[dict]:
 
     rows = []
     # level-0 self-attention at 256px: [4, 1024, 8, 40] for batch 2 under
-    # CFG (the headline row), and the distilled batches 16 (unfused) and
-    # 32 (w8a8_static); q, k, v read once and one output of q's size
-    for n in (4, 16, 32):
+    # CFG (the headline row), the LoRA train step's batch 8, and the
+    # distilled batches 16 (unfused) and 32 (w8a8_static); q, k, v read
+    # once and one output of q's size
+    for n in (4, 8, 16, 32):
         q, k, v = (randn(n, 1024, 8, 40) for _ in range(3))
         rows.append(compare(
             "flash_attention", lambda: flash_attention(q, k, v),
@@ -604,6 +651,10 @@ def geglu_q8_rows(dev: torch.device, static: bool = True,
 UNET_GN = ((320, 32), (960, 32), (640, 16), (1280, 8), (2560, 4))
 VAE_GN = ((512, 32), (512, 64), (512, 128), (256, 128), (256, 256),
           (128, 256))
+# every shape of a VAE encode at 256px (the LoRA train step's, batch 8):
+# 128 channels at 256² and 128², 256 at 128² and 64², 512 at 64² and 32²
+ENCODER_GN = ((128, 256), (128, 128), (256, 128), (256, 64), (512, 64),
+              (512, 32))
 # the UNet's batches: CFG 4, distilled 16 and 32; the VAE's: CFG 2,
 # distilled 16
 UNET_BATCHES = (4, 16, 32)
@@ -612,8 +663,9 @@ VAE_BATCHES = (2, 16)
 
 def gn_rows(dev: torch.device) -> list[dict]:
     """Row 3: GN+SiLU at the UNet's shapes at the batches 4 (CFG), 16 and
-    32 (distilled) and at every VAE decode shape at the VAE's batches 2
-    (CFG) and 16 (distilled); the int8 epilogue at the UNet's shapes at the
+    32 (distilled), at every VAE decode shape at the VAE's batches 2
+    (CFG) and 16 (distilled), and at every VAE encode shape at the train
+    batch 8; the int8 epilogue at the UNet's shapes at the
     w8a8_static batches. About 10 fp32 operations an element (two sums,
     normalise, affine, SiLU): bound by bytes by far."""
     from polyp_tpu_torch.ops.fused_gn import (
@@ -624,7 +676,9 @@ def gn_rows(dev: torch.device) -> list[dict]:
     for n, c, hw, eps in ([(n, c, hw, 1e-5) for n in UNET_BATCHES
                            for c, hw in UNET_GN]
                           + [(n, c, hw, 1e-6) for n in VAE_BATCHES
-                             for c, hw in VAE_GN]):
+                             for c, hw in VAE_GN]
+                          + [(TRAIN_BATCH, c, hw, 1e-6)
+                             for c, hw in ENCODER_GN]):
         x = randn(n, c, hw, hw, scale=2.0, shift=0.3)
         gamma = randn(c, scale=0.1, shift=1.0).float()
         beta = randn(c, scale=0.1).float()
@@ -817,17 +871,25 @@ def profile_loop(sampler, batch: int) -> dict:
     """Device time of one batch's sampling loop (`sampler.denoise`, CFG or
     folded) from torch.profiler's kernel events: the total, the sums of the
     kernel FAMILIES (ms, calls) and the largest items."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = sampler.device
     cond = sampler.encode_prompt(PROMPT)
     uncond = (None if sampler.guidance_scale is None
               else sampler.encode_prompt(""))
+    out = profile_device(lambda: sampler.denoise(
+        cond, uncond, batch, torch.Generator(dev).manual_seed(0)))
+    return {**out, "steps": sampler.num_steps}
+
+
+def profile_device(fn) -> dict:
+    """torch.profiler's kernel events of one call of `fn`: the device
+    time, the sums of the kernel FAMILIES (ms, calls) and the largest
+    items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sampler.denoise(cond, uncond, batch,
-                        torch.Generator(dev).manual_seed(0))
+        fn()
         torch.cuda.synchronize()
 
     def us(e):
@@ -845,7 +907,7 @@ def profile_loop(sampler, batch: int) -> dict:
             families[fam][0] += us(e) / 1e3
             families[fam][1] += e.count
     return {"device_s": sum(us(e) for e in kernels) / 1e6,
-            "steps": sampler.num_steps, "families": families,
+            "families": families,
             "top": [[e.key[:60], us(e) / 1e3, e.count] for e in kernels[:8]]}
 
 
@@ -1346,6 +1408,347 @@ def serving_phase(stack, tiny, card: str, reset_counts, read_counts,
     return out
 
 
+class FixedDraws:
+    """A train step's draws, fixed on the host and copied to where the
+    step runs, so the card and the CPU compute the same step."""
+
+    def __init__(self, n: int, latent_shape, keep_masks=None, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        self.values = {
+            "flip": torch.rand(n, generator=g) < 0.5,
+            "posterior": torch.randn(latent_shape, generator=g),
+            "noise": torch.randn(latent_shape, generator=g),
+            "timesteps": torch.randint(0, 1000, (n,), generator=g)}
+        self.device = "cpu"
+
+    def to(self, device):
+        self.device = device
+        return self
+
+    def flip(self, n):
+        return self.values["flip"].to(self.device)
+
+    def normal(self, what, shape):
+        return self.values[what].to(self.device)
+
+    def timesteps(self, n, high):
+        return self.values["timesteps"].to(self.device)
+
+    def keep_mask(self, stream, name, rows, keep):
+        raise AssertionError("the comparison runs without dropout")
+
+
+def base_weights(stack) -> dict:
+    """Copies of every parameter and buffer of the stack's modules."""
+    return {(m, k): v.detach().clone()
+            for m in ("unet", "vae", "text")
+            for k, v in getattr(stack, m).state_dict().items()}
+
+
+def check_base_unchanged(stack, before: dict, when: str) -> None:
+    for (m, k), v in before.items():
+        if not torch.equal(getattr(stack, m).state_dict()[k], v):
+            raise AssertionError(f"{when}: the stack's {m}.{k} changed")
+
+
+def train_vs_cpu(stack, dev: torch.device) -> dict:
+    """One step's loss and LoRA gradients at batch 1 on the card (bf16,
+    kernels) and on the CPU (fp32 copies of the same weights, plain
+    versions), with the same draws and an adapter whose B is not 0 (so
+    every factor has a gradient)."""
+    import numpy as np
+
+    from polyp_tpu_torch.cli.sd_common import make_components
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.lora import LoRAConfig, init_lora
+    from polyp_tpu_torch.cli.common import build_modules
+    from polyp_tpu_torch.train import sd_finetune as sf
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves, tree_map
+
+    cfg = DiffusionConfig(learning_rate=1e-4, num_epochs=1, lora_rank=8,
+                          lora_alpha=8, lora_dropout=0.0).with_schedule(1)
+    lcfg = LoRAConfig(8, 8, 0.0, cfg.modules_lora)
+    g = torch.Generator(dev).manual_seed(3)
+    adapter = init_lora(stack.unet, lcfg, g)
+    for f in adapter.values():
+        f["lora_B"] = torch.randn(f["lora_B"].shape, generator=g,
+                                  device=dev) * 1e-3
+    bundle = sf.init_trainable(adapter)
+    frozen = make_components(stack, bundle)
+    images = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (1, TRAIN_PX, TRAIN_PX, 3), dtype=np.uint8))
+    ids = torch.as_tensor(stack.tokenizer([PROMPT]))
+    lat = (1, 4, TRAIN_PX // 8, TRAIN_PX // 8)
+    schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
+                                        0.012)
+
+    def run(frozen, state, device):
+        return sf.sd_lora_loss_and_grads(
+            state, frozen, schedule, images.to(device), ids.to(device), None,
+            FixedDraws(1, lat).to(device), lcfg)
+
+    card_loss, card_grads = run(frozen, sf.create_sd_train_state(cfg, bundle),
+                                dev)
+    unet, vae, text = (m.to_empty(device="cpu") for m in build_modules(
+        stack.tiny, torch.float32, "meta"))
+    for cpu, card in ((unet, stack.unet), (vae, stack.vae),
+                      (text, stack.text)):
+        cpu.load_state_dict(card.state_dict())
+        cpu.eval()
+    cpu_frozen = sf.SDComponents(
+        unet, vae, text, tree_map(lambda t: t.cpu(), frozen.unet_params))
+    cpu_bundle = tree_map(lambda t: t.cpu(), bundle)
+    cpu_loss, cpu_grads = run(cpu_frozen,
+                              sf.create_sd_train_state(cfg, cpu_bundle),
+                              "cpu")
+    flat = [torch.cat([t.float().cpu().reshape(-1)
+                       for t in tree_leaves(tree)])
+            for tree in (card_grads, cpu_grads)]
+    out = {"loss_card": card_loss.item(), "loss_cpu": cpu_loss.item(),
+           "loss_rel": abs(card_loss.item() - cpu_loss.item())
+           / abs(cpu_loss.item()),
+           "grad_rel_l2": rel_l2(flat[0], flat[1]),
+           "grad_values": flat[1].numel(),
+           "loss_tolerance": REL_L2_TOLERANCE,
+           "grad_tolerance": LORA_GRAD_REL_L2}
+    print(f"[train] one step at batch 1, card bf16 vs cpu fp32, same "
+          f"draws: loss {out['loss_card']:.6f} vs {out['loss_cpu']:.6f} "
+          f"(rel {out['loss_rel']:.3e}, tol {REL_L2_TOLERANCE:.0e}); LoRA "
+          f"gradients ({out['grad_values']} values) rel L2 "
+          f"{out['grad_rel_l2']:.3e} (tol {LORA_GRAD_REL_L2:.0e})",
+          flush=True)
+    if not (out["loss_rel"] <= REL_L2_TOLERANCE
+            and out["grad_rel_l2"] <= LORA_GRAD_REL_L2):
+        raise AssertionError(f"train step, card vs cpu: {out}")
+    return out
+
+
+def training_phase(stack, dev: torch.device, card: str, reset_counts,
+                   read_counts, tmp: Path) -> dict:
+    """SD LoRA training at full SD-v1-4 width through train_sd_lora:
+    the default run (48 images, batch 8, 256px, rank 8, α 8, dropout 0,
+    the `attention` preset, lr 1e-4, 6 steps), every count set to 0 just
+    before it and read just after, and per step; a run with every flag on
+    (text LoRA, DreamBooth `sks`, visual influence, unfrozen attention
+    projections, dropout 0.3, accumulation 2) over two updates; one step
+    on the card against the CPU; the bundle saved, reloaded, merged and
+    sampled. The stack's weights are held bit-equal throughout."""
+    import numpy as np
+
+    from PIL import Image
+
+    from polyp_tpu_torch.cli.sd_common import (
+        make_components, make_sampler, merged_stack)
+    from polyp_tpu_torch.configs import LORA_MODULE_PRESETS, DiffusionConfig
+    from polyp_tpu_torch.data.pipeline import Loader
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.lora import (
+        LoRAConfig, init_lora, load_lora, save_lora)
+    from polyp_tpu_torch.models.unet_blocks import GroupNorm
+    from polyp_tpu_torch.pipeline import generate_to_dir
+    from polyp_tpu_torch.train import dreambooth as db
+    from polyp_tpu_torch.train import sd_finetune as sf
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves, tree_map
+
+    before = base_weights(stack)
+    schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
+                                        0.012)
+    encode_gn = sum(isinstance(m, GroupNorm)
+                    for m in stack.vae.encoder.modules())
+    if encode_gn != ENCODE_GN:
+        raise AssertionError(f"the encoder has {encode_gn} GroupNorms")
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (TRAIN_IMAGES, TRAIN_PX, TRAIN_PX, 3),
+                          dtype=np.uint8)
+    labels = np.zeros(TRAIN_IMAGES, np.int64)
+    ids = np.asarray(stack.tokenizer([PROMPT]))
+    out: dict = {"card": card}
+
+    # the default run
+    loader = Loader(images, labels, TRAIN_BATCH, seed=0, device=dev)
+    cfg = DiffusionConfig(image_size=TRAIN_PX, train_batch_size=TRAIN_BATCH,
+                          num_epochs=1, learning_rate=1e-4, lora_rank=8,
+                          lora_alpha=8, lora_dropout=0.0,
+                          lora_preset="attention").with_schedule(len(loader))
+    lcfg = LoRAConfig(cfg.lora_rank, cfg.lora_alpha, cfg.lora_dropout,
+                      cfg.modules_lora)
+    bundle = sf.init_trainable(init_lora(stack.unet, lcfg,
+                                         torch.Generator(dev).manual_seed(0)))
+    frozen = make_components(stack, bundle)
+    state = sf.create_sd_train_state(cfg, bundle)
+    steps: list[dict] = []
+    last = {"t": 0.0, "counts": None}
+
+    def per_step(epoch, step, state, loss):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), read_counts()
+        prev = last["counts"]
+        steps.append({
+            "loss": loss.item(), "seconds": now - last["t"],
+            "launches": {k: v - (prev[k] if prev else 0)
+                         for k, v in counts.items()},
+            "lora_B_abs_sum": sum(f["lora_B"].abs().sum().item()
+                                  for f in state.trainable[
+                                      "unet_lora"].values())})
+        last["t"], last["counts"] = time.perf_counter(), counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    last["t"] = time.perf_counter()
+    state, result = sf.train_sd_lora(cfg, state, frozen, schedule, loader,
+                                     ids, lcfg, step_callback=per_step)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    timed = [s["seconds"] for s in steps[1:]]
+    out["default"] = {
+        "images": TRAIN_IMAGES, "batch": TRAIN_BATCH, "px": TRAIN_PX,
+        "rank": 8, "alpha": 8, "preset": "attention", "steps": len(steps),
+        "per_step": steps, "loss_hist": result.loss_hist,
+        "launches": launches,
+        "launches_per_step": {k: v / len(steps) for k, v in launches.items()},
+        "step_s": sum(timed) / len(timed), "first_step_s": steps[0]["seconds"],
+        "images_per_s": TRAIN_BATCH * len(timed) / sum(timed),
+        "max_memory_allocated": peak,
+        "lora_params": sum(f["lora_A"].numel() + f["lora_B"].numel()
+                           for f in bundle["unet_lora"].values()),
+        "fp32_base_params": sum(t.numel()
+                                for t in frozen.unet_params.values())}
+    d = out["default"]
+    print(f"[train] default: {d['steps']} steps of batch {TRAIN_BATCH} at "
+          f"{TRAIN_PX}px, rank 8, α 8, `attention` ({d['lora_params']} "
+          f"LoRA params over {d['fp32_base_params']} fp32 base weights): "
+          f"losses {[round(s['loss'], 4) for s in steps]}; "
+          f"{d['step_s']:.4f} s a step (steps 2-{len(steps)}; step 1 "
+          f"{d['first_step_s']:.2f} s), {d['images_per_s']:.2f} train "
+          f"images/s, max_memory_allocated {peak / 2 ** 30:.2f} GiB, on "
+          f"{card}; launches a step {d['launches_per_step']}", flush=True)
+    if len(steps) != TRAIN_IMAGES // TRAIN_BATCH:
+        raise AssertionError(f"{len(steps)} steps")
+    if not all(np.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"non-finite losses: {steps}")
+    if not (steps[0]["lora_B_abs_sum"] == 0.0
+            and steps[1]["lora_B_abs_sum"] > 0.0):
+        raise AssertionError("lora_B must stay 0 after step 1 (lr 0) and "
+                             "move at step 2")
+    for s in steps:
+        got = s["launches"]
+        if (got["flash_attention"] != STEP_FLASH
+                or got["fused_group_norm"] != ENCODE_GN
+                or got["fused_geglu"] != 0):
+            raise AssertionError(f"launches a train step {got}: want "
+                                 f"{STEP_FLASH} flash, {ENCODE_GN} "
+                                 "GroupNorm (one VAE encode), 0 GEGLU")
+    check_base_unchanged(stack, before, "default training run")
+
+    # where a step's device time goes: one more step under the profiler
+    batch = torch.from_numpy(images[:TRAIN_BATCH]).to(dev)
+    prof = profile_device(lambda: sf.sd_lora_train_step(
+        state, frozen, schedule, batch, torch.as_tensor(ids, device=dev),
+        None, sf.step_draws(cfg.seed, 1, 0, dev), lcfg))
+    prof["busy_share"] = prof["device_s"] / d["step_s"]
+    d["profile"] = prof
+    print(f"[train] profiled step: device {prof['device_s']:.4f} s of a "
+          f"{d['step_s']:.4f} s step (busy share {prof['busy_share']:.2f}); "
+          "per family (ms, calls): " + "; ".join(
+              f"{k} {v[0]:.3f} ({v[1]})" for k, v in prof["families"].items())
+          + "; top: " + "; ".join(f"{k} {ms:.1f} ({n})"
+                                  for k, ms, n in prof["top"][:6]),
+          flush=True)
+
+    # every flag on: two updates of two micro-steps each
+    acc_cfg = DiffusionConfig(image_size=TRAIN_PX, num_epochs=1,
+                              learning_rate=1e-4, lora_dropout=0.3,
+                              accumulation_steps=2).with_schedule(4)
+    acc_lcfg = LoRAConfig(8, 8, 0.3, acc_cfg.modules_lora)
+    tcfg = LoRAConfig(8, 8, 0.3, LORA_MODULE_PRESETS["text_encoder"])
+    g = torch.Generator(dev).manual_seed(1)
+    stack.tokenizer.add_tokens(["sks"])
+    sid = stack.tokenizer.convert_tokens_to_ids("sks")
+    table = db.resize_token_embeddings(
+        stack.text.get_parameter(sf.TOKEN_TABLE), len(stack.tokenizer), g)
+    row = db.dreambooth_token_init(table, stack.tokenizer, "AD")
+    unfrozen = stack.fp32_params("unet", [
+        n for n, _ in stack.unet.named_parameters()
+        if any(s in n for s in ("to_q", "to_k", "to_v", "to_out"))])
+    flags_bundle = sf.init_trainable(
+        init_lora(stack.unet, acc_lcfg, g), init_lora(stack.text, tcfg, g),
+        sf.init_proj_params(g, 4, stack.text.config.width), row[None],
+        unfrozen)
+    flags_frozen = make_components(stack, flags_bundle, token_table=table)
+    flags_state = sf.create_sd_train_state(acc_cfg, flags_bundle)
+    start = tree_leaves(tree_map(torch.detach, flags_state.trainable))
+    start = [t.clone() for t in start]
+    prompt_ids = torch.as_tensor(stack.tokenizer([db.dreambooth_prompt(
+        "AD", False, False, True)]), device=dev)
+    flag_losses = []
+    for micro in range(4):
+        batch = torch.from_numpy(images[micro * TRAIN_BATCH:
+                                        (micro + 1) * TRAIN_BATCH]).to(dev)
+        flags_state, loss = sf.sd_lora_train_step(
+            flags_state, flags_frozen, schedule, batch, prompt_ids,
+            torch.tensor([sid], device=dev), sf.step_draws(0, 0, micro, dev),
+            acc_lcfg, tcfg, acc_cfg.weight_img, acc_cfg.weight_text)
+        flag_losses.append(loss.item())
+    names = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{path}/{k}" if path else k)
+        else:
+            names.append(path)
+
+    walk(flags_state.trainable, "")
+    unmoved = [n for n, a, b in zip(names, start,
+                                    tree_leaves(flags_state.trainable))
+               if torch.equal(a, b.detach())]
+    out["all_flags"] = {"losses": flag_losses, "leaves": len(names),
+                        "unmoved_leaves": unmoved,
+                        "updates": flags_state.opt_state["count"]}
+    print(f"[train] every flag on (text LoRA, DreamBooth 'sks', visual "
+          f"influence, unfrozen attention projections, dropout 0.3, "
+          f"accumulation 2): losses {[round(x, 4) for x in flag_losses]}; "
+          f"{len(names) - len(unmoved)} of {len(names)} trainable leaves "
+          f"moved after the 2nd update (the first real one, lr > 0)",
+          flush=True)
+    if not np.isfinite(flag_losses).all() or unmoved or \
+            flags_state.opt_state["count"] != 2:
+        raise AssertionError(f"all-flags run: {out['all_flags']}")
+    del flags_state, flags_frozen, flags_bundle, unfrozen
+    check_base_unchanged(stack, before, "all-flags run")
+
+    out["card_vs_cpu"] = train_vs_cpu(stack, dev)
+
+    # the default run's bundle saved, reloaded, merged and sampled
+    path = tmp / "lora_AD.pt"
+    save_lora(path, state.trainable)
+    reloaded = load_lora(path, tree_map(torch.detach, state.trainable))
+    for a, b in zip(tree_leaves(reloaded), tree_leaves(state.trainable)):
+        if not torch.equal(a, b.detach()):
+            raise AssertionError("the reloaded bundle differs")
+    merged = merged_stack(stack, frozen, reloaded, lcfg)
+    sampler = make_sampler(merged, DiffusionConfig(image_size=TRAIN_PX))
+    sample_dir = tmp / "lora_samples"
+    generate_to_dir(sampler.for_prompt(PROMPT), 2, sample_dir,
+                    eval_batch_size=2, seed=0)
+    pngs = sorted(sample_dir.glob("*.png"))
+    arrays = [np.asarray(Image.open(p)) for p in pngs]
+    if len(arrays) != 2 or any(a.shape != (TRAIN_PX, TRAIN_PX, 3)
+                               for a in arrays):
+        raise AssertionError(f"samples {[a.shape for a in arrays]}")
+    out["samples"] = {"pngs": len(pngs), "shape": list(arrays[0].shape),
+                      "sampler": sampler.sampler, "steps": sampler.num_steps}
+    print(f"[train] saved ({path.stat().st_size} bytes), reloaded and "
+          f"merged the bundle; {len(pngs)} PNGs of {arrays[0].shape} "
+          f"through StableDiffusionSampler ({sampler.sampler}, "
+          f"{sampler.num_steps} steps)", flush=True)
+    check_base_unchanged(stack, before, "merged sampling")
+    out["base_weights_bit_equal"] = len(before)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1557,6 +1960,10 @@ def main() -> int:
                                 read_counts, tmp)
         phase("serving")
 
+        training = training_phase(stack, dev, card, reset_counts,
+                                  read_counts, tmp)
+        phase("LoRA training")
+
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
                  f"{path['decode_s']:.3f} s, decode share "
@@ -1650,6 +2057,7 @@ def main() -> int:
         "fused_mha": ("distilled_bf16", "polyp_tpu_torch/csrc/fused_mha.cu",
                       "polyp_tpu/ops/fused_mha.py:241")}
     table = []
+    per_train_step = training["default"]["launches_per_step"]
     for name, (path, source, replaces) in sources.items():
         mine = [r for r in rows if r["name"] == name]
         head = mine[0]  # first row: the main path's headline shape
@@ -1660,11 +2068,13 @@ def main() -> int:
                       "ms": head["ms"], "plain_ms": head["plain_ms"],
                       "bound_ms": head["bound_ms"],
                       "bound_by": head["bound_by"],
-                      "library_ms": head["library_ms"]})
+                      "library_ms": head["library_ms"],
+                      "launches_per_train_step": per_train_step[name]})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
               "shape_census": census, "serving": serving,
+              "training": training,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

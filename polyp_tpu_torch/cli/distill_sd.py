@@ -7,8 +7,8 @@ guidance folded (cond-only UNet forwards at 1× batch), and optionally the
 tiny decoder in place of the VAE decode. The quant mode is explicit: the
 port never reads polyp_tpu/ops/quant_gate.json, whose promoted verdict
 (w8a8_static, no bf16 head, for distilled students) was measured on a TPU.
-`load_student_sampler`, which reads a student's orbax checkpoint, waits for
-the port's checkpoint format (ROADMAP.md Queue 1, slice 5).
+`load_student_sampler`, which reads a student's checkpoint, comes with the
+CLIs that write them (ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations

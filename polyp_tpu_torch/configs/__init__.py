@@ -1,1 +1,4 @@
-from polyp_tpu_torch.configs.base import DiffusionConfig  # noqa: F401
+from polyp_tpu_torch.configs.base import (  # noqa: F401
+    LORA_MODULE_PRESETS,
+    DiffusionConfig,
+)

@@ -55,6 +55,27 @@ class DiffusionSchedule:
                                  self.num_train_timesteps,
                                  self.prediction_type)
 
+    def _coefficients(self, x0: torch.Tensor, timesteps: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """√ᾱ_t and √(1−ᾱ_t) per sample, shaped to broadcast over x0."""
+        abar = self.alphas_cumprod.to(x0.device)[timesteps]
+        shape = (-1,) + (1,) * (x0.ndim - 1)
+        return (torch.sqrt(abar).reshape(shape).to(x0.dtype),
+                torch.sqrt(1.0 - abar).reshape(shape).to(x0.dtype))
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) = √ᾱ_t·x₀ + √(1−ᾱ_t)·ε with per-sample integer
+        timesteps (DDPMScheduler.add_noise)."""
+        sqrt_abar, sqrt_1m = self._coefficients(x0, timesteps)
+        return sqrt_abar * x0 + sqrt_1m * noise
+
+    def velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                 timesteps: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target √ᾱ·ε − √(1−ᾱ)·x₀."""
+        sqrt_abar, sqrt_1m = self._coefficients(x0, timesteps)
+        return sqrt_abar * noise - sqrt_1m * x0
+
     def to_x0_eps(self, model_out: torch.Tensor, x_t: torch.Tensor,
                   t: int) -> tuple[torch.Tensor, torch.Tensor]:
         """Convert a model output at the scalar timestep `t` under

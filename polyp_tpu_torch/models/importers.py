@@ -8,18 +8,32 @@ torch layouts (conv HWIO → OIHW, dense [in, out] → [out, in], norm
 `scale` → `weight`). A checkpoint imported into polyp_tpu thus comes back
 key for key and bit for bit, and both packages can run the same weights.
 
-Each function takes the parameter tree as nested dicts of numpy arrays
-(`params` of `model.init`, or an imported tree) and returns a state dict of
-fp32 tensors for `load_state_dict(..., strict=True)`.
+Each `*_from_jax` function takes the parameter tree as nested dicts of
+numpy arrays (`params` of `model.init`, or an imported tree) and returns a
+state dict of fp32 tensors for `load_state_dict(..., strict=True)`;
+`lora_from_jax` and `trainable_from_jax` carry LoRA adapters and the
+trainer's whole bundle (lora/surgery.py, train/sd_finetune.py).
+`jax_module_path` is the inverse for module names: the port's module
+`down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.0` is the
+reference's `down_0_attn_0/transformer_blocks_0/attn1/to_out`, whose last
+component is the name the reference's LoRA targets match.
+
+`load_sd_checkpoint` reads a local diffusers SD-v1-4 directory (the twin
+of the reference's, importers.py:315-330): the port's keys are diffusers'
+keys, so the state dicts load as they are, from `.safetensors` (read by
+utils/checkpoint.py, without the safetensors package) or torch `.bin`.
 """
 
 from __future__ import annotations
 
 import re
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
+
+from polyp_tpu_torch.utils.checkpoint import read_safetensors
 
 # (pattern, replacement) applied in order to each '/'-joined flax path
 Rule = tuple[str, str]
@@ -110,6 +124,20 @@ def vae_decoder_from_jax(params: Any) -> dict[str, torch.Tensor]:
     return _convert(keep, _BLOCK_RULES)
 
 
+def vae_from_jax(params: Any) -> dict[str, torch.Tensor]:
+    """polyp_tpu AutoencoderKL params → the port's AutoencoderKL state dict
+    (encoder, quant_conv, decoder, post_quant_conv)."""
+    return _convert(_params(params), _BLOCK_RULES)
+
+
+def _module_name(path: str, rules: list[Rule]) -> str:
+    """A reference module path ('/'-joined) → the port's module name."""
+    path += "/"
+    for pat, repl in rules:
+        path = re.sub(pat, repl, path)
+    return path.rstrip("/").replace("/", ".")
+
+
 def scales_from_jax(scales: dict[str, Any]) -> dict[str, Any]:
     """polyp_tpu calibrated quantization scales ({flax layer path: float or
     per-timestep table}, e.g. `down_0_attn_0/transformer_blocks_0/ff/
@@ -117,13 +145,9 @@ def scales_from_jax(scales: dict[str, Any]) -> dict[str, Any]:
     `down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj`), by
     the same rules as the weights, so both packages can run with one set of
     scales."""
-    compiled = [(re.compile(p), r) for p, r in _BLOCK_RULES]
     out: dict[str, Any] = {}
     for path, val in scales.items():
-        path += "/"
-        for pat, repl in compiled:
-            path = pat.sub(repl, path)
-        key = path.rstrip("/").replace("/", ".")
+        key = _module_name(path, _BLOCK_RULES)
         if key in out:
             raise KeyError(f"two scales map to {key}")
         out[key] = val
@@ -141,3 +165,117 @@ def tiny_decoder_from_jax(params: Any) -> dict[str, torch.Tensor]:
     the flax module names are kept (`in_block_0/conv1` →
     `in_block_0.conv1`), conv kernels HWIO → OIHW."""
     return _convert(_params(params), [])
+
+
+# port module name → the reference's module path, the inverse of
+# _BLOCK_RULES and _CLIP_RULES on module names ('.'-joined, then '/')
+_INVERSE_BLOCK_RULES: list[Rule] = [
+    (r"(^|\.)(down|up)_blocks\.(\d+)\.resnets\.(\d+)(?=\.|$)",
+     r"\1\2_\3_res_\4"),
+    (r"(^|\.)(down|up)_blocks\.(\d+)\.attentions\.(\d+)(?=\.|$)",
+     r"\1\2_\3_attn_\4"),
+    (r"(^|\.)down_blocks\.(\d+)\.downsamplers\.0(?=\.|$)",
+     r"\1down_\2_downsample"),
+    (r"(^|\.)up_blocks\.(\d+)\.upsamplers\.0(?=\.|$)",
+     r"\1up_\2_upsample"),
+    (r"(^|\.)mid_block\.resnets\.(\d+)(?=\.|$)", r"\1mid_res_\2"),
+    (r"(^|\.)mid_block\.attentions\.0(?=\.|$)", r"\1mid_attn"),
+    (r"(^|\.)transformer_blocks\.(\d+)(?=\.|$)",
+     r"\1transformer_blocks_\2"),
+    (r"(^|\.)ff\.net\.0\.proj(?=\.|$)", r"\1ff.ff_net_0_proj"),
+    (r"(^|\.)ff\.net\.2(?=\.|$)", r"\1ff.ff_net_2"),
+    (r"(^|\.)to_out\.0(?=\.|$)", r"\1to_out"),
+]
+
+_INVERSE_CLIP_RULES: list[Rule] = [
+    (r"^text_model\.encoder\.layers\.(\d+)\.mlp\.", r"layer_\1."),
+    (r"^text_model\.encoder\.layers\.(\d+)(?=\.|$)", r"layer_\1"),
+    (r"^text_model\.final_layer_norm", r"final_layer_norm"),
+]
+
+
+def jax_module_path(name: str) -> str:
+    """The reference's '/'-joined path of the port's module `name` (of the
+    UNet or of CLIPTextModel: each rule set leaves the other's names as
+    they are)."""
+    for pat, repl in _INVERSE_CLIP_RULES + _INVERSE_BLOCK_RULES:
+        name = re.sub(pat, repl, name)
+    return name.replace(".", "/")
+
+
+def lora_from_jax(adapter: Any) -> dict:
+    """A polyp_tpu LoRA adapter tree of the UNet or CLIP ({..., module:
+    {"lora_A": [in, r], "lora_B": [r, out]}}) → the port's adapter
+    {module name: {"lora_A", "lora_B"}}, factors as they are (fp32
+    copies)."""
+    rules = _CLIP_RULES + _BLOCK_RULES
+    out: dict[str, dict[str, torch.Tensor]] = {}
+    for path, val in _flatten(adapter).items():
+        module, leaf = path.rsplit("/", 1)
+        name = _module_name(module, rules)
+        out.setdefault(name, {})[leaf] = torch.from_numpy(
+            np.array(val, np.float32))
+    return out
+
+
+def trainable_from_jax(bundle: Any) -> dict:
+    """polyp_tpu's trainable bundle (train/sd_finetune.py::init_trainable:
+    `unet_lora`, `text_lora`, `proj`, `special_rows`, `unfrozen`) → the
+    port's: adapters by `lora_from_jax`, `unfrozen` as UNet state-dict
+    entries (kernels in torch layouts), `proj` ({"kernel": [4, 768],
+    "bias"}) and `special_rows` as they are."""
+    out: dict[str, Any] = {}
+    for key, val in bundle.items():
+        if key in ("unet_lora", "text_lora"):
+            out[key] = lora_from_jax(val)
+        elif key == "unfrozen":
+            out[key] = unet_from_jax(val)
+        elif key == "proj":
+            out[key] = {k: torch.from_numpy(np.array(v, np.float32))
+                        for k, v in val.items()}
+        elif key == "special_rows":
+            out[key] = torch.from_numpy(np.array(val, np.float32))
+        else:
+            raise KeyError(f"unknown trainable entry {key!r}")
+    return out
+
+
+# keys some transformers checkpoints carry beside the model's parameters
+_DROPPED_TEXT_KEYS = ("text_model.embeddings.position_ids",
+                      "text_projection.weight")
+
+
+def load_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
+    """A `.safetensors` or torch `.bin` state dict, as CPU tensors."""
+    path = Path(path)
+    if path.suffix == ".safetensors":
+        return read_safetensors(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def find_weights(model_dir: str | Path, stem: str) -> Path:
+    """`{stem}.safetensors` or `{stem}.bin` in a checkpoint directory."""
+    model_dir = Path(model_dir)
+    for suffix in (".safetensors", ".bin"):
+        path = model_dir / f"{stem}{suffix}"
+        if path.exists():
+            return path
+    raise FileNotFoundError(f"no {stem}.(safetensors|bin) in {model_dir}")
+
+
+SD_WEIGHT_FILES = {"unet": ("unet", "diffusion_pytorch_model"),
+                   "vae": ("vae", "diffusion_pytorch_model"),
+                   "text": ("text_encoder", "model")}
+
+
+def load_sd_checkpoint(model_dir: str | Path) -> dict[str, dict]:
+    """{"unet", "vae", "text"} state dicts from a local diffusers SD-v1-4
+    layout (`unet/diffusion_pytorch_model.*`, `vae/...`,
+    `text_encoder/model.*`)."""
+    out = {}
+    for part, (sub, stem) in SD_WEIGHT_FILES.items():
+        sd = load_state_dict(find_weights(Path(model_dir) / sub, stem))
+        if part == "text":
+            sd = {k: v for k, v in sd.items() if k not in _DROPPED_TEXT_KEYS}
+        out[part] = sd
+    return out

@@ -421,16 +421,23 @@ class Transformer2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3×3 conv with symmetric padding (the UNet's convention; the
-    VAE encoder's (0,1,0,1) variant comes with the encoder)."""
+    """Stride-2 3×3 conv. The UNet pads symmetrically; the VAE encoder
+    (`asymmetric=True`) pads (0, 1, 0, 1) and convolves VALID, as diffusers'
+    Encoder does. The two are not value-equivalent: the window phase
+    differs (the reference's :487-505)."""
 
     def __init__(self, channels: int, out_channels: int,
+                 asymmetric: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.conv = conv3x3(channels, out_channels, dtype, device, stride=2,
-                            cls=QConv2d)
+        self.asymmetric = asymmetric
+        self.conv = QConv2d(channels, out_channels, 3, stride=2,
+                            padding=0 if asymmetric else 1, dtype=dtype,
+                            device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.asymmetric:
+            x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
 

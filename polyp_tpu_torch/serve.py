@@ -396,11 +396,8 @@ def serve(service: GenerationService, host: str = "127.0.0.1",
 
 # what `main` cannot serve yet, and where the roadmap has it
 REFUSED = {
-    "pretrained_dir": "--pretrained-dir: polyp_tpu_torch does not import "
-                      "diffusers checkpoints yet (ROADMAP.md Queue 1 item "
-                      "9)",
-    "distilled_dir": "--distilled-dir: load_student_sampler waits for the "
-                     "port's checkpoint format (ROADMAP.md Queue 1 item 9)",
+    "distilled_dir": "--distilled-dir: load_student_sampler comes with the "
+                     "distillation CLIs (ROADMAP.md Queue 1 item 10)",
     "promoted": "--quantize promoted: the port does not read the TPU's "
                 "quant_gate.json; pass w8a8 or w8a8_static (ROADMAP.md "
                 "Queue 1 item 2)",
@@ -409,15 +406,17 @@ REFUSED = {
 
 def sampler_from_args(args):
     """The base stack's StableDiffusionSampler from `main`'s arguments
-    (device, tiny, image_size, steps, quantize, quant_fp_head / _tail,
-    vae_decoder, tiny_decoder_dir); random weights from seed 0."""
+    (pretrained_dir, device, tiny, image_size, steps, quantize,
+    quant_fp_head / _tail, vae_decoder, tiny_decoder_dir): the weights of
+    a local diffusers checkpoint, or random weights from seed 0."""
     from polyp_tpu_torch.cli.common import load_sd_stack
     from polyp_tpu_torch.cli.sd_common import make_sampler
     from polyp_tpu_torch.configs import DiffusionConfig
     from polyp_tpu_torch.models.tiny_decoder import (
         DEFAULT_DIR, load_tiny_decoder)
 
-    stack = load_sd_stack(None, tiny=args.tiny, device=args.device)
+    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                          device=args.device)
     config = DiffusionConfig(image_size=args.image_size,
                              num_inference_steps=args.steps,
                              quantize=args.quantize,
@@ -437,13 +436,15 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(
         description="Serve SD-v1-4 text-to-image over HTTP on the card "
-                    "(random weights until checkpoints are imported)")
+                    "(a local diffusers checkpoint, or random weights)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8787)
     parser.add_argument("--device", default="cuda",
                         help="where the stack runs (default: the card)")
     parser.add_argument("--pretrained-dir", default=None,
-                        help="refused: " + REFUSED["pretrained_dir"])
+                        help="a local diffusers SD-v1-4 directory (unet/, "
+                             "vae/, text_encoder/, tokenizer/); default: "
+                             "random weights")
     parser.add_argument("--tiny", action="store_true",
                         help="the miniature stack (smoke runs)")
     parser.add_argument("--image_size", type=int, default=256)
@@ -483,8 +484,7 @@ def main(argv=None):
                         help="a converted tiny decoder (params.npz + "
                              "meta.json); default: the committed one")
     args = parser.parse_args(argv)
-    for key, given in (("pretrained_dir", args.pretrained_dir),
-                       ("distilled_dir", args.distilled_dir),
+    for key, given in (("distilled_dir", args.distilled_dir),
                        ("promoted", args.quantize == "promoted")):
         if given:
             parser.error(REFUSED[key])

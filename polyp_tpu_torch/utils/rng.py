@@ -1,6 +1,6 @@
 """Seeding contracts: the port's form of polyp_tpu/utils/rng.py.
 
-Two contracts, kept apart:
+Three contracts, kept apart:
 
 * generation batch `i` of a quota run is drawn from the generator seeded
   `seed + i` (`batch_generator`), the reference CLI's
@@ -11,7 +11,12 @@ Two contracts, kept apart:
   generator seeded `request_seed(seed, index)` (`request_generator`), a
   pure function of the pair, so a response does not depend on what it was
   coalesced with or on how its images were split over requests
-  (serve.py).
+  (serve.py);
+* every random draw of a training step comes from the generator seeded
+  `stream_seed(seed, *streams)` (`stream_generator`), e.g. `(seed,
+  "sd_lora", epoch, step)`: a pure function of the path, as the
+  reference's `key_for(seed, "sd_lora", epoch, step)` is, so a resumed run
+  draws what an uninterrupted one would.
 
 torch's Philox and JAX's threefry draw different numbers from the same
 seed, and a torch seed cannot reproduce a folded JAX key: the port's
@@ -52,3 +57,21 @@ def request_generator(seed: int, index: int,
                       device: torch.device | str) -> torch.Generator:
     """A generator on `device` seeded `request_seed(seed, index)`."""
     return torch.Generator(device).manual_seed(request_seed(seed, index))
+
+
+def stream_seed(seed: int, *streams: str | int) -> int:
+    """The seed of the stream path `streams` under `seed`: the first 8
+    bytes of SHA-256("polyp-stream/{seed}/{s1}/{s2}/...") as a
+    little-endian integer with its top bit cleared. Strings and integers
+    are written apart (`s:name`, `i:7`), so a name cannot alias an
+    index."""
+    path = "/".join(f"s:{s}" if isinstance(s, str) else f"i:{int(s)}"
+                    for s in streams)
+    digest = hashlib.sha256(f"polyp-stream/{seed}/{path}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") & (2 ** 63 - 1)
+
+
+def stream_generator(seed: int, *streams: str | int,
+                     device: torch.device | str = "cpu") -> torch.Generator:
+    """A generator on `device` seeded `stream_seed(seed, *streams)`."""
+    return torch.Generator(device).manual_seed(stream_seed(seed, *streams))

@@ -117,6 +117,28 @@ def test_flash_backward_recomputes_plain(dev):
         assert _max_err(a, b) < 2e-2 * b.float().abs().max().item()
 
 
+def test_flash_at_the_train_batch_forward_and_backward(dev):
+    """The LoRA train step's level-0 self-attention, [8, 1024, 8, 40]: the
+    forward kernel against the plain version in fp32, and its backward
+    (the plain version recomputed) against the plain version's own
+    backward on the same bf16 inputs."""
+    q, k, v = (_randn(dev, 8, 1024, 8, 40, seed=s).requires_grad_()
+               for s in (7, 8, 9))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    want = reference_attention(q.float(), k.float(), v.float())
+    assert _max_err(out, want) < 2e-2
+    grad = _randn(dev, 8, 1024, 8, 40, seed=10)
+    got = torch.autograd.grad(out, (q, k, v), grad)
+    plain = torch.autograd.grad(reference_attention(q, k, v), (q, k, v),
+                                grad)
+    assert flash_attention.launches == before + 1  # no kernel backward
+    for a, b in zip(got, plain):
+        assert torch.isfinite(a).all()
+        assert _max_err(a, b) < 2e-2 * b.float().abs().max().item()
+
+
 def test_flash_refuses_what_it_cannot_do(dev):
     q = _randn(dev, 1, 1024, 2, 64)
     with pytest.raises(NotImplementedError):
@@ -229,6 +251,56 @@ def test_group_norm_matches_plain(dev, dtype, rel, n, c, h, w, act):
     assert fused_gn.fused_group_norm.launches == before + 1
     assert got.dtype == dtype
     assert _max_err(got, want) <= rel * want.abs().max().item()
+
+
+# every GroupNorm shape of a VAE encode at 256px, at the train batch 8
+@pytest.mark.parametrize("c,hw", [(128, 256), (128, 128), (256, 128),
+                                  (256, 64), (512, 64), (512, 32)])
+def test_group_norm_at_the_encoder_shapes(dev, c, hw):
+    x = _randn(dev, 8, c, hw, hw, scale=2.0, shift=0.3)
+    gamma = _randn(dev, c, scale=0.5, shift=1.0, dtype=torch.float32)
+    beta = _randn(dev, c, scale=0.2, dtype=torch.float32)
+    with torch.no_grad():
+        got = fused_gn.fused_group_norm(x, gamma, beta, 32, 1e-6, "silu")
+    want = fused_gn.group_norm(x.float(), gamma, beta, 32, 1e-6, "silu")
+    assert _max_err(got, want) <= 2 ** -7 * want.abs().max().item()
+
+
+def test_lora_train_step_runs_its_kernels(dev):
+    """A tiny bf16 stack on the card, one LoRA train step: the frozen VAE
+    encode launches the GroupNorm kernel once a GroupNorm of its encoder,
+    the differentiated UNet no GEGLU kernel; the loss is finite and the
+    stack's weights are bit-equal after."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.cli.sd_common import make_components
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.lora import LoRAConfig, init_lora
+    from polyp_tpu_torch.models.unet_blocks import GroupNorm
+    from polyp_tpu_torch.train import sd_finetune as sf
+
+    stack = load_sd_stack(None, dtype=torch.bfloat16, tiny=True, seed=0)
+    before = {k: v.clone() for k, v in stack.unet.state_dict().items()}
+    cfg = DiffusionConfig(num_epochs=1, lora_dropout=0.3).with_schedule(2)
+    lcfg = LoRAConfig(4, None, 0.3, cfg.modules_lora)
+    bundle = sf.init_trainable(init_lora(
+        stack.unet, lcfg, torch.Generator(dev).manual_seed(0)))
+    state = sf.create_sd_train_state(cfg, bundle)
+    images = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8,
+                           device=dev)
+    gn, geglu = fused_gn.fused_group_norm.launches, fg.fused_geglu.launches
+    state, loss = sf.sd_lora_train_step(
+        state, make_components(stack, bundle),
+        DiffusionSchedule.create(1000, "scaled_linear", 0.00085, 0.012),
+        images, torch.as_tensor(stack.tokenizer(["a polyp"]), device=dev),
+        None, sf.step_draws(0, 0, 0, dev), lcfg)
+    encoder_gn = sum(isinstance(m, GroupNorm)
+                     for m in stack.vae.encoder.modules())
+    assert fused_gn.fused_group_norm.launches - gn == encoder_gn
+    assert fg.fused_geglu.launches == geglu
+    assert torch.isfinite(loss)
+    for k, v in stack.unet.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 # ---------------------------------------------------------------------------

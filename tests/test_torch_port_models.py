@@ -194,7 +194,7 @@ def test_tiny_vae_decode():
     p = _perturbed(variables["params"])
     want = jm.apply({"params": p}, jnp.asarray(z), method=jm.decode)
     tm = tiny_vae()
-    tm.load_state_dict(timp.vae_decoder_from_jax(p), strict=True)
+    tm.load_state_dict(timp.vae_from_jax(p), strict=True)
     with torch.no_grad():
         got = tm.decode(_nchw(z))
     assert got.shape == (2, 3, 32, 32)

@@ -98,7 +98,7 @@ def tiny_stacks():
     t_unet = tiny_condition_unet()
     t_unet.load_state_dict(timp.unet_from_jax(up), strict=True)
     t_vae = tiny_vae()
-    t_vae.load_state_dict(timp.vae_decoder_from_jax(vp), strict=True)
+    t_vae.load_state_dict(timp.vae_from_jax(vp), strict=True)
     t_text = CLIPTextModel(TINY_TEXT_CONFIG)
     t_text.load_state_dict(timp.clip_text_from_jax(tp), strict=True)
     return {"jax": (unet, up, vae, vp, text, tp, tok),
@@ -366,5 +366,5 @@ def test_load_sd_stack_tiny_is_seeded_and_samples(tmp_path):
     assert first.shape == (2, 3, 16, 16) and torch.isfinite(first).all()
     assert torch.equal(first, again)  # batch i uses seed + i: reproducible
     assert not torch.equal(first, fn(2, 8))
-    with pytest.raises(NotImplementedError):
-        load_sd_stack(str(tmp_path), tiny=True)
+    with pytest.raises(FileNotFoundError):  # a directory with no weights
+        load_sd_stack(str(tmp_path), tiny=True, device="cpu")

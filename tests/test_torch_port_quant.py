@@ -839,7 +839,7 @@ def test_int8_slice_matches_jax(quant_unets, jax_scales, monkeypatch):
     k = jax.random.PRNGKey(1)
     vp = vae.init(k, jnp.zeros((1, 32, 32, 3)), k)
     t_vae = tiny_vae()
-    t_vae.load_state_dict(timp.vae_decoder_from_jax(vp), strict=True)
+    t_vae.load_state_dict(timp.vae_from_jax(vp), strict=True)
     kw = dict(image_size=64, num_steps=3, guidance_scale=7.5,
               sampler="ddim", quantize="w8a8_static", quant_fp_head=1)
     j = JSampler(unet, params, vae, vp, None, None, None,

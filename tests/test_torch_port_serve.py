@@ -1141,7 +1141,6 @@ def test_service_over_generate_batch_is_coalescing_invariant(port_sampler):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--pretrained-dir", "weights/sd"],
     ["--distilled-dir", "runs/distill"],
     ["--quantize", "promoted"]])
 def test_main_refuses_what_the_port_cannot_serve(argv, capsys):

@@ -7,7 +7,8 @@ port weight carrier, and the package's independence from JAX.
   it natively with strict=True.
 * The full-size SD-v1-4 modules, built on the meta device, must have
   exactly the manifests' keys and shapes (tests/fixtures/manifests).
-* polyp_tpu_torch imports no jax, flax, optax, orbax or polyp_tpu: by an
+* polyp_tpu_torch imports no jax, flax, optax, orbax, polyp_tpu or
+  safetensors (it reads `.safetensors` itself): by an
   AST scan of its sources and by importing every module in a fresh
   interpreter.
 """
@@ -43,8 +44,11 @@ from test_torch_block_goldens import (
 
 ROOT = Path(__file__).resolve().parents[1]
 MANIFESTS = ROOT / "tests" / "fixtures" / "manifests"
-BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "polyp_tpu"}
+# the card's machine has no JAX and no safetensors package
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "polyp_tpu",
+          "safetensors"}
 DECODER_KEYS = ("decoder.", "post_quant_conv.")
+ENCODER_KEYS = ("encoder.", "quant_conv.")
 
 
 def _manifest(name: str) -> dict[str, list[int]]:
@@ -97,7 +101,19 @@ def test_vae_decoder_round_trip_through_jax_importer(tmp_path):
     tree = jimp.import_vae(_save(sd, tmp_path / "vae.bin"))
     want = {k: v for k, v in sd.items() if k.startswith(DECODER_KEYS)}
     _assert_same(timp.vae_decoder_from_jax(tree), want)
-    tiny_vae().load_state_dict(_tensors(want), strict=True)
+    # the decoder's keys are the VAE's less its encoder side
+    missing, unexpected = tiny_vae().load_state_dict(_tensors(want),
+                                                     strict=False)
+    assert not unexpected
+    assert missing and all(k.startswith(ENCODER_KEYS) for k in missing)
+
+
+def test_vae_round_trip_through_jax_importer(tmp_path):
+    """The whole VAE (encoder, quant_conv, decoder, post_quant_conv)."""
+    sd = fabricate_tiny_vae_sd()
+    tree = jimp.import_vae(_save(sd, tmp_path / "vae.bin"))
+    _assert_same(timp.vae_from_jax(tree), sd)
+    tiny_vae().load_state_dict(_tensors(sd), strict=True)
 
 
 def test_clip_round_trip_through_jax_importer(tmp_path):
@@ -116,6 +132,7 @@ def _placeholders(manifest: dict[str, list[int]]) -> dict[str, np.ndarray]:
     ("sd14_unet", "unet_condition_rules", "unet_from_jax", None),
     ("sd14_vae", "vae_rules", "vae_decoder_from_jax", DECODER_KEYS),
     ("sd14_text_encoder", "clip_text_rules", "clip_text_from_jax", None),
+    ("sd14_vae", "vae_rules", "vae_from_jax", None),
 ])
 def test_full_size_keys_round_trip(name, rules, back, prefixes):
     """Every full-size checkpoint key survives diffusers → flax → port."""
@@ -140,7 +157,15 @@ def test_sd14_unet_matches_manifest_and_param_count():
 def test_sd14_vae_decoder_matches_manifest():
     want = {k: v for k, v in _manifest("sd14_vae").items()
             if k.startswith(DECODER_KEYS)}
-    assert _shapes(AutoencoderKL(device="meta")) == want
+    got = _shapes(AutoencoderKL(device="meta"))
+    assert {k: v for k, v in got.items() if k.startswith(DECODER_KEYS)} \
+        == want
+
+
+def test_sd14_vae_matches_manifest():
+    """Encoder and decoder: every key and shape of diffusers'
+    AutoencoderKL."""
+    assert _shapes(AutoencoderKL(device="meta")) == _manifest("sd14_vae")
 
 
 def test_sd14_text_encoder_matches_manifest():
@@ -176,12 +201,32 @@ SLICE3 = ["polyp_tpu_torch/ops/fused_mha.py", "polyp_tpu_torch/ops/attention.py"
           "chip_smoke.py"]
 
 
-@pytest.mark.parametrize("path", SLICE3)
+# the modules of the LoRA-training slice
+SLICE5 = ["polyp_tpu_torch/models/vae.py",
+          "polyp_tpu_torch/models/importers.py",
+          "polyp_tpu_torch/diffusion/losses.py",
+          "polyp_tpu_torch/diffusion/schedule.py",
+          "polyp_tpu_torch/data/transforms.py",
+          "polyp_tpu_torch/data/pipeline.py",
+          "polyp_tpu_torch/configs/base.py",
+          "polyp_tpu_torch/utils/checkpoint.py",
+          "polyp_tpu_torch/utils/rng.py",
+          "polyp_tpu_torch/lora/surgery.py",
+          "polyp_tpu_torch/lora/partition.py",
+          "polyp_tpu_torch/train/scratch_ddpm.py",
+          "polyp_tpu_torch/train/dreambooth.py",
+          "polyp_tpu_torch/train/sd_finetune.py",
+          "polyp_tpu_torch/train/resume.py",
+          "polyp_tpu_torch/cli/common.py",
+          "polyp_tpu_torch/cli/sd_common.py"]
+
+
+@pytest.mark.parametrize("path", SLICE3 + SLICE5)
 def test_no_jax_scan_covers_the_distilled_slice(path):
-    """Each module of the distilled slice is in the scanned set, is
-    importable as a module of the package (or is chip_smoke.py), and names
-    no banned package anywhere in its source, imports inside functions
-    included."""
+    """Each module of the distilled and the LoRA-training slices is in the
+    scanned set, is importable as a module of the package (or is
+    chip_smoke.py), and names no banned package anywhere in its source,
+    imports inside functions included."""
     assert ROOT / path in _port_sources()
     tree = ast.parse((ROOT / path).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
