@@ -113,12 +113,32 @@ caught:
    StableDiffusionSampler (2 PNGs of 256×256×3). Every parameter of the
    stack is bit-equal before the phase and after each run and the
    sampling;
-8. prints the kernel table (all eight kernel entries, with launches on
-   the main path that runs each and launches a train step) as one JSON
-   line, the card line, and last the result line {"ok": true, "device":
-   {...}}. Each phase's seconds are printed as it ends ("[time]").
+8. runs the generate → augment → retrain → F1 loop (augmentation_loop_
+   phase, "augmentation loop") through the port's CLIs on a corpus
+   fabricated in the reference's layout (seeded .tif images, train AD 32 /
+   HP 8 / ASS 8, valid and test 4 and 8 a class): polyp-lora-per-class's
+   main on full-width SD-v1-4 from seed 0 (AD HP ASS, 224 px, one epoch,
+   8 images a class), every count set to 0 just before each class and
+   read just after (flash exactly 0 at 224 px, whose 784 tokens are below
+   its 1024; GroupNorm and the GEGLU above 0); the same command again with
+   one sample a class deleted (nothing trained, each class topped up to
+   its quota under the same file names); the CLI's stack bit-equal after
+   both; polyp-train-classifier's and polyp-eval-augmentation's mains (B0,
+   224 px, batch 16, 3 epochs, weighted sampling): accuracy, precision,
+   recall and F1 finite and in [0, 1], the per-class Fréchet distances;
+   the classifier's seconds a train step (steps 2-6 at batch 16), train
+   and eval images/s, peak memory and a profiled step; and B0 at 224 px on
+   the card against the CPU (CLS_FORWARD_REL_L2 and the train-step
+   tolerances). cuDNN's TF32 is on in this phase, as PyTorch's default
+   and the classifier's choice (models/efficientnet.py);
+9. prints the kernel table (all eight kernel entries, with launches on
+   the main path that runs each, launches a train step and launches a
+   loop class) as one JSON line, the card line, and last the result line
+   {"ok": true, "device": {...}}. Each phase's seconds are printed as it
+   ends ("[time]").
 
-TF32 is off for every comparison. Details of each check go to
+TF32 is off for every comparison but the augmentation loop's (phase 8).
+Details of each check go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -126,12 +146,14 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -720,6 +742,81 @@ def gn_rows(dev: torch.device) -> list[dict]:
     return rows
 
 
+class ShapeRecorder:
+    """Inside `with recorder:`, every call unet_blocks makes to each named
+    kernel wrapper is counted under `keys[name](*args)` (its shape and
+    arguments), then passed on to the wrapper unchanged."""
+
+    def __init__(self, keys: dict):
+        from polyp_tpu_torch.models import unet_blocks
+
+        self.blocks, self.keys = unet_blocks, keys
+        self.seen = {name: Counter() for name in keys}
+
+    def __enter__(self):
+        self.wrappers = {name: getattr(self.blocks, name)
+                         for name in self.keys}
+        for name, fn in self.wrappers.items():
+            setattr(self.blocks, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name: str, fn):
+        def call(*args, **kwargs):
+            self.seen[name][self.keys[name](*args, **kwargs)] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.wrappers.items():
+            setattr(self.blocks, name, fn)
+
+
+def gn_key(x, weight, bias, num_groups=32, eps=1e-5, act=None,
+           act_scale=None) -> tuple:
+    return tuple(x.shape), x.dtype, num_groups, eps, act
+
+
+def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
+    """compare() of GN+SiLU (recorded under gn_key) and the bf16 GEGLU
+    (under its x's shape) at every recorded shape, on inputs drawn as
+    gn_rows and gemm_rows draw them, each row with the path's launches at
+    its shape."""
+    from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
+    from polyp_tpu_torch.ops.fused_gn import fused_group_norm, group_norm
+
+    randn = randn_on(dev, seed=0)
+    rows = []
+    for (shape, dtype, groups, eps, act), calls in sorted(
+            seen["fused_group_norm"].items(), key=str):
+        x = randn(*shape, scale=2.0, shift=0.3).to(dtype)
+        gamma = randn(shape[1], scale=0.1, shift=1.0).float()
+        beta = randn(shape[1], scale=0.1).float()
+        rows.append({**compare(
+            "fused_group_norm",
+            lambda: fused_group_norm(x, gamma, beta, groups, eps, act),
+            lambda: group_norm(x, gamma, beta, groups, eps, act),
+            group_norm(x.float(), gamma, beta, groups, eps, act),
+            f"{list(shape)} eps {eps:g}{' +SiLU' if act else ''}",
+            bound(10 * x.numel(), "fp32",
+                  2 * nbytes(x) + nbytes(gamma, beta))),
+            "path_launches": calls})
+    for shape, calls in sorted(seen["fused_geglu"].items()):
+        *lead, c = shape
+        n, per_image = lead[0], math.prod(lead[1:])
+        h, tokens = 4 * c, n * per_image
+        x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image)
+        args = (x.reshape(shape), w1, b1, w2, b2)
+        rows.append({**compare(
+            "fused_geglu", lambda: fused_geglu(*args),
+            lambda: reference_geglu(*args),
+            reference_geglu(*(t.float() for t in args)),
+            f"[{tokens},{c}]x[{c},{2 * h}]",
+            bound(6 * tokens * c * h, "bf16",
+                  2 * nbytes(x) + nbytes(w1, b1, w2, b2))),
+            "path_launches": calls})
+    return rows
+
+
 def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
     """One UNet forward (latents 32×32, CFG batch 2) and one VAE decode
     (8×8 latents) with the kernels, vs the same weights in fp32 on the CPU
@@ -880,6 +977,9 @@ def profile_loop(sampler, batch: int) -> dict:
     return {**out, "steps": sampler.num_steps}
 
 
+ANNOTATION = re.compile(r"[\w.]+#[\w.]+")
+
+
 def profile_device(fn) -> dict:
     """torch.profiler's kernel events of one call of `fn`: the device
     time, the sums of the kernel FAMILIES (ms, calls) and the largest
@@ -896,8 +996,12 @@ def profile_device(fn) -> dict:
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
+    # "range#name" entries (torch.optim's "Optimizer.step#Adam.step") are
+    # annotations spanning kernels already counted, not kernels (a kernel's
+    # name has no such form: "{lambda()#1}" sits among "::" and brackets)
     kernels = sorted((e for e in prof.key_averages()
-                      if getattr(e, "device_type", None) == DeviceType.CUDA),
+                      if getattr(e, "device_type", None) == DeviceType.CUDA
+                      and not ANNOTATION.fullmatch(e.key)),
                      key=us, reverse=True)
     families = {fam: [0.0, 0] for fam in FAMILIES}
     for e in kernels:
@@ -911,56 +1015,43 @@ def profile_device(fn) -> dict:
             "top": [[e.key[:60], us(e) / 1e3, e.count] for e in kernels[:8]]}
 
 
+def gemm_key(x: torch.Tensor, n: int) -> str:
+    """[M, C]x[C, N] of a GEGLU or dense call on x [..., C], int8 x
+    marked."""
+    c = x.shape[-1]
+    int8 = " int8" if x.dtype == torch.int8 else ""
+    return f"[{x.numel() // c},{c}]x[{c},{n}]{int8}"
+
+
 def shape_census(stack, dev: torch.device, scales: dict) -> dict:
     """Launches by shape of the bf16 GEGLU and the W8A8 dense in a UNet
     forward (one bf16 and one w8a8_static forward, CFG batch 4, 32×32
     latents; [M, C]x[C, N], int8 x marked), and of GroupNorm+SiLU in one
     VAE decode at the CFG batch 2 ([N, C, H, W]): the wrappers that
     unet_blocks calls, counted per shape."""
-    from collections import Counter
-
-    from polyp_tpu_torch.models import unet_blocks
     from polyp_tpu_torch.ops import quant
 
-    seen = {"fused_geglu": Counter(), "fused_w8a8_dense": Counter(),
-            "fused_group_norm": Counter()}
-    originals = {name: getattr(unet_blocks, name) for name in seen}
-    counting = {"fused_geglu", "fused_w8a8_dense"}  # GN: the decode only
-
-    def counted(name):
-        def fn(x, w, *args, **kwargs):
-            if name == "fused_group_norm":
-                key = str(list(x.shape))
-            else:
-                c = x.shape[-1]
-                n = w.shape[0] // 2 if name == "fused_geglu" else w.shape[0]
-                int8 = " int8" if x.dtype == torch.int8 else ""
-                key = f"[{x.numel() // c},{c}]x[{c},{n}]{int8}"
-            if name in counting:
-                seen[name][key] += 1
-            return originals[name](x, w, *args, **kwargs)
-        return fn
-
+    forward = ShapeRecorder({  # w1 is [2N, C]; the dense's w [N, C]
+        "fused_geglu": lambda x, w, *args: gemm_key(x, w.shape[0] // 2),
+        "fused_w8a8_dense": lambda x, w, *args, **kwargs: gemm_key(
+            x, w.shape[0])})
+    decode = ShapeRecorder({"fused_group_norm": lambda x, *args, **kwargs:
+                            str(list(x.shape))})
     g = torch.Generator("cpu").manual_seed(3)
     x = torch.randn(4, 4, 32, 32, generator=g).to(dev, torch.bfloat16)
     t = torch.full((4,), 500, device=dev)
     ctx = torch.randn(4, 77, 768, generator=g).to(dev, torch.bfloat16)
     z = torch.randn(2, 4, 32, 32, generator=g).to(dev, torch.bfloat16)
-    try:
-        for name in seen:
-            setattr(unet_blocks, name, counted(name))
-        with torch.no_grad():
+    with torch.no_grad():
+        with forward:
             stack.unet(x, t, ctx)
             with quant.override("w8a8_static", scales=quant.ScaleBank(scales),
                                 t=t):
                 stack.unet(x, t, ctx)
-            counting.clear()
-            counting.add("fused_group_norm")
+        with decode:
             stack.vae.decode(z)
-    finally:
-        for name, fn in originals.items():
-            setattr(unet_blocks, name, fn)
-    return {name: dict(sorted(c.items())) for name, c in seen.items()}
+    return {name: dict(sorted(c.items()))
+            for name, c in {**forward.seen, **decode.seen}.items()}
 
 
 def split_timed(sampler, spent: dict):
@@ -1749,6 +1840,430 @@ def training_phase(stack, dev: torch.device, card: str, reset_counts,
     return out
 
 
+# the augmentation loop phase: a corpus fabricated in the reference's
+# layout (seeded random RGB .tif images at 288×352, resized to 224 by the
+# data layer) in the reference's class imbalance, cut to size
+LOOP_CLASSES = ("AD", "HP", "ASS")
+LOOP_COUNTS = {"train": {"AD": 32, "HP": 8, "ASS": 8},
+               "valid": {"AD": 4, "HP": 4, "ASS": 4},
+               "test": {"AD": 8, "HP": 8, "ASS": 8}}
+LOOP_PX = 224          # the per-class CLI's default --image_size
+LOOP_QUOTA = 8         # a cut of get_num_images_to_generate's quotas
+LOOP_EPOCHS = 1        # LoRA epochs a class (the reference CLI's 200, cut)
+CLS_BATCH = 16         # bench.py:345's classifier configuration
+CLS_EPOCHS = 3         # the classifier CLIs' 100, cut
+# the classifier on the card (bf16 stem, TF32 convs: the module's and
+# PyTorch's defaults) against the same weights and inputs on the CPU (bf16
+# stem, fp32): TF32 keeps 10 mantissa bits (2^-11 relative rounding of
+# each conv's inputs), about 5e-4 of each of B0's ~50 convs' outputs, which
+# BatchNorm rescales but does not remove, and the bf16 stem rounds to
+# other values where its products sum in another order. A wrong layout,
+# padding, statistic or dtype gives O(1).
+CLS_FORWARD_REL_L2 = 1e-2
+CLS_LOSS_REL = 1e-2
+# the gradients pass that rounding twice (forward activations, then the
+# backward's own TF32 products), as the LoRA gradients do
+CLS_GRAD_REL_L2 = 2 * CLS_FORWARD_REL_L2
+# the step's move of the running statistics (0.1 × the batch statistics)
+CLS_STATS_REL_L2 = CLS_FORWARD_REL_L2
+
+
+def fabricate_corpus(root: Path, seed: int = 0) -> None:
+    """The reference's corpus layout (cli/common.py::DataLayout) under
+    `root`: seeded random RGB .tif images and each split's labels CSV
+    (image_id,cls) in a seeded order."""
+    import numpy as np
+    from PIL import Image
+
+    from polyp_tpu_torch.cli.common import DataLayout
+
+    layout = DataLayout(root)
+    rng = np.random.default_rng(seed)
+    for split, images, csv in (
+            ("train", layout.train_images, layout.train_csv),
+            ("valid", layout.val_images, layout.val_csv),
+            ("test", layout.test_images, layout.test_csv)):
+        images.mkdir(parents=True)
+        rows = [(f"{split}_{cls}_{i:03d}", cls)
+                for cls, n in LOOP_COUNTS[split].items() for i in range(n)]
+        rows = [rows[i] for i in rng.permutation(len(rows))]
+        for image_id, _ in rows:
+            Image.fromarray(rng.integers(0, 256, (288, 352, 3),
+                                         dtype=np.uint8)).save(
+                images / f"{image_id}.tif")
+        csv.write_text("image_id,cls\n"
+                       + "".join(f"{i},{c}\n" for i, c in rows))
+
+
+def calibrated_b0(seed: int = 0):
+    """A B0 classifier in fp32 on the CPU from `seed`, its BatchNorm
+    statistics set to one training forward's batch statistics over 8
+    random images (random running averages (0, 1) would wash the signal
+    out within a few blocks and make every comparison trivial)."""
+    import numpy as np
+
+    from polyp_tpu_torch.configs import ClassificationConfig
+    from polyp_tpu_torch.data.transforms import augment_classifier_batch
+    from polyp_tpu_torch.models.efficientnet import BatchNorm
+    from polyp_tpu_torch.train import classifier as tc
+
+    state = tc.create_classifier_state(ClassificationConfig(), 3, "cpu")
+    model = state.model
+    images = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, 256, (8, LOOP_PX, LOOP_PX, 3), dtype=np.uint8))
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    model.eval()
+    for bn in bns:  # batch statistics, and no stochastic depth
+        bn.train()
+        bn.decay = 0.0
+    with torch.no_grad():
+        model.backbone(augment_classifier_batch(images, None,
+                                                torch.float32))
+    for bn in bns:
+        bn.decay = 0.9
+    return state
+
+
+def classifier_vs_cpu(dev: torch.device) -> dict:
+    """The full B0 at 224 px on the card against the same weights and
+    inputs on the CPU: an evaluation forward at batch 2 (pooled features
+    and logits), and one train step at batch 4 with the same draws (the
+    loss, every gradient, the running statistics' move)."""
+    import copy
+
+    import numpy as np
+
+    from polyp_tpu_torch.data.transforms import augment_classifier_batch
+    from polyp_tpu_torch.train import classifier as tc
+
+    cpu = calibrated_b0()
+    model = copy.deepcopy(cpu.model).to(dev)
+    card = tc.ClassifierState(
+        model, type(cpu.optimizer)(model.parameters(),
+                                  **cpu.optimizer.defaults),
+        cpu.dtype)
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (4, LOOP_PX, LOOP_PX, 3), dtype=np.uint8))
+    out: dict = {}
+    feats, logits = {}, {}
+    for name, state in (("card", card), ("cpu", cpu)):
+        device = state.device
+        model = state.model.eval()
+        with torch.no_grad():
+            x = augment_classifier_batch(images[:2].to(device), None,
+                                         state.dtype)
+            feats[name] = model.backbone(x).cpu()
+            logits[name] = model(x).cpu()
+    # how far the two images' features are apart, beside the card's error
+    spread = rel_l2(feats["cpu"][0], feats["cpu"][1])
+    out["forward"] = {"features_rel_l2": rel_l2(feats["card"], feats["cpu"]),
+                      "logits_rel_l2": rel_l2(logits["card"], logits["cpu"]),
+                      "image_to_image_rel_l2": spread,
+                      "tolerance": CLS_FORWARD_REL_L2}
+    draws = tc.draw_step(cpu.model, 4, torch.Generator().manual_seed(4))
+    labels = torch.tensor([0, 1, 2, 0])
+    step = {}
+    for name, state in (("card", card), ("cpu", cpu)):
+        device = state.device
+        before = {k: v.clone() for k, v in state.model.named_buffers()}
+        on = tc.ClassifierDraws(
+            draws.flip.to(device),
+            {k: v.to(device) for k, v in draws.drop_path.items()},
+            draws.dropout.to(device))
+        loss, _ = tc.train_step(state, images.to(device), labels.to(device),
+                                on)
+        step[name] = {
+            "loss": loss.item(),
+            "grads": torch.cat([p.grad.float().cpu().reshape(-1)
+                                for p in state.model.parameters()]),
+            "stats": torch.cat([(v - before[k]).float().cpu().reshape(-1)
+                                for k, v in state.model.named_buffers()])}
+    out["train_step"] = {
+        "loss_card": step["card"]["loss"], "loss_cpu": step["cpu"]["loss"],
+        "loss_rel": abs(step["card"]["loss"] - step["cpu"]["loss"])
+        / abs(step["cpu"]["loss"]),
+        "grad_rel_l2": rel_l2(step["card"]["grads"], step["cpu"]["grads"]),
+        "stats_move_rel_l2": rel_l2(step["card"]["stats"],
+                                    step["cpu"]["stats"]),
+        "tolerances": {"loss": CLS_LOSS_REL, "grads": CLS_GRAD_REL_L2,
+                       "stats": CLS_STATS_REL_L2}}
+    f, t = out["forward"], out["train_step"]
+    print(f"[loop] B0 at {LOOP_PX}px, card (bf16 stem, TF32) vs cpu (bf16 "
+          f"stem, fp32): forward at batch 2, features rel L2 "
+          f"{f['features_rel_l2']:.3e}, logits {f['logits_rel_l2']:.3e} "
+          f"(tol {CLS_FORWARD_REL_L2:.0e}; the two images' features "
+          f"{f['image_to_image_rel_l2']:.3f} apart); train step at batch 4, loss "
+          f"{t['loss_card']:.6f} vs {t['loss_cpu']:.6f} (rel "
+          f"{t['loss_rel']:.2e}, tol {CLS_LOSS_REL:.0e}), gradients rel L2 "
+          f"{t['grad_rel_l2']:.3e} (tol {CLS_GRAD_REL_L2:.0e}), running "
+          f"statistics' move {t['stats_move_rel_l2']:.3e} (tol "
+          f"{CLS_STATS_REL_L2:.0e})", flush=True)
+    if not (f["features_rel_l2"] <= CLS_FORWARD_REL_L2
+            and f["logits_rel_l2"] <= CLS_FORWARD_REL_L2
+            and t["loss_rel"] <= CLS_LOSS_REL
+            and t["grad_rel_l2"] <= CLS_GRAD_REL_L2
+            and t["stats_move_rel_l2"] <= CLS_STATS_REL_L2):
+        raise AssertionError(f"classifier, card vs cpu: {out}")
+    return out
+
+
+def classifier_speed(dev: torch.device, card: str) -> dict:
+    """B0 at 224 px, batch 16 (bench.py:345): the seconds a train step
+    (host clock around synchronised steps 2-6), train images/s, eval
+    images/s (steps 2-6 of eval_step), max_memory_allocated, and one more
+    train step under the profiler."""
+    import numpy as np
+
+    from polyp_tpu_torch.configs import ClassificationConfig
+    from polyp_tpu_torch.train import classifier as tc
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)  # what earlier phases hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = tc.create_classifier_state(ClassificationConfig(), 3, dev)
+    rng = np.random.default_rng(3)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (CLS_BATCH, LOOP_PX, LOOP_PX, 3), dtype=np.uint8)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 3, CLS_BATCH)).to(dev)
+    valid = torch.ones(CLS_BATCH, dtype=torch.bool, device=dev)
+
+    def timed(fn, n=6) -> list[float]:
+        out = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - start)
+        return out
+
+    train = timed(lambda i: tc.train_step(
+        state, images, labels,
+        tc.step_draws(0, 0, i, state.model, CLS_BATCH, dev)))
+    peak = torch.cuda.max_memory_allocated(dev)
+    evals = timed(lambda i: tc.eval_step(state, images, labels, valid))
+    step_s = sum(train[1:]) / len(train[1:])
+    eval_s = sum(evals[1:]) / len(evals[1:])
+    prof = profile_device(lambda: tc.train_step(
+        state, images, labels,
+        tc.step_draws(0, 0, 6, state.model, CLS_BATCH, dev)))
+    prof["busy_share"] = prof["device_s"] / step_s
+    out = {"batch": CLS_BATCH, "px": LOOP_PX, "step_s": step_s,
+           "first_step_s": train[0], "train_images_per_s":
+           CLS_BATCH / step_s, "eval_batch_s": eval_s,
+           "eval_images_per_s": CLS_BATCH / eval_s,
+           "max_memory_allocated": peak, "resident_before": resident,
+           "classifier_peak": peak - resident, "profile": prof}
+    print(f"[loop] classifier B0, batch {CLS_BATCH}, {LOOP_PX}px: "
+          f"{step_s:.4f} s a train step (steps 2-6; step 1 "
+          f"{train[0]:.2f} s) = {out['train_images_per_s']:.1f} train "
+          f"images/s; eval {out['eval_images_per_s']:.1f} images/s; "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB, of which the "
+          f"classifier's {(peak - resident) / 2 ** 30:.2f} GiB; profiled "
+          f"step: "
+          f"device {prof['device_s']:.4f} s (busy share "
+          f"{prof['busy_share']:.2f}); top: " + "; ".join(
+              f"{k} {ms:.1f} ({n})" for k, ms, n in prof["top"][:5])
+          + f"; on {card}", flush=True)
+    return out
+
+
+def augmentation_loop_phase(dev: torch.device, card: str, reset_counts,
+                            read_counts, tmp: Path) -> dict:
+    """The generate → augment → retrain → F1 loop through the port's CLIs
+    on a fabricated corpus: polyp-lora-per-class (full-width SD-v1-4 from
+    seed 0, AD HP ASS, 224 px, one epoch, LOOP_QUOTA images a class),
+    again with one sample a class deleted (the resume branch: nothing
+    trained, each class topped up to its quota under the same names), then
+    polyp-train-classifier and polyp-eval-augmentation (B0, 224 px, batch
+    16, CLS_EPOCHS epochs, weighted sampling). Every count is set to 0
+    just before each class and read just after; the CLIs' SD stack is held
+    bit-equal; the metrics must be finite and in [0, 1]. Then the
+    classifier's speed and its card-vs-CPU checks."""
+    import numpy as np
+
+    from PIL import Image
+
+    from polyp_tpu_torch.cli import (
+        eval_augmentation, lora_per_class, train_classifier)
+
+    root = tmp / "loop"
+    data = root / "data"
+    fabricate_corpus(data)
+    run = root / "run"
+    common = ["--data-root", str(data), "--cache-dir", str(root / "cache"),
+              "--tracker-root", str(root / "mlruns")]
+    lora_argv = common + [
+        "--folder", str(run), "--classes_to_train", *LOOP_CLASSES,
+        "--num_imgs_to_generate", *[str(LOOP_QUOTA)] * len(LOOP_CLASSES),
+        "--num_epochs", str(LOOP_EPOCHS), "--image_size", str(LOOP_PX)]
+    held: dict = {}
+    per_class: dict = {}
+    real = {name: getattr(lora_per_class, name)
+            for name in ("load_sd_stack", "train_class", "resume_class")}
+
+    def load(*args, **kwargs):
+        stack = real["load_sd_stack"](*args, **kwargs)
+        held["stack"], held["before"] = stack, base_weights(stack)
+        return stack
+
+    def counted(name: str, cls_at: int):
+        def call(*args, **kwargs):
+            reset_counts()
+            start = time.perf_counter()
+            result = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            if result is not None:
+                per_class.setdefault(held["run"], {})[args[cls_at]] = {
+                    **result, "seconds": time.perf_counter() - start,
+                    "launches": read_counts()}
+            return result
+        return call
+
+    out: dict = {"card": card}
+    # the user's defaults for the loop (cuDNN TF32 on); the other phases'
+    # comparisons run with TF32 off
+    torch.backends.cudnn.allow_tf32 = True
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLIs' relative defaults (./results) land here
+    # every shape the per-class CLI gives GroupNorm and the GEGLU (224 px:
+    # maps of 28, 14, 7 and 4 in the UNet, 224 down to 28 in the VAE)
+    recorder = ShapeRecorder({"fused_group_norm": gn_key,
+                              "fused_geglu": lambda x, *args:
+                              tuple(x.shape)})
+    try:
+        lora_per_class.load_sd_stack = load
+        lora_per_class.train_class = counted("train_class", 4)
+        lora_per_class.resume_class = counted("resume_class", 3)
+        held["run"] = "first"
+        start = time.perf_counter()
+        with recorder:
+            first = lora_per_class.main(lora_argv)
+        first_s = time.perf_counter() - start
+        names = {c: sorted(p.name for p in (run / "samples" / c).iterdir())
+                 for c in LOOP_CLASSES}
+        for i, c in enumerate(LOOP_CLASSES):
+            (run / "samples" / c / f"{i + 2}.png").unlink()
+        held["run"] = "resume"
+        start = time.perf_counter()
+        with recorder:
+            second = lora_per_class.main(lora_argv)
+        resume_s = time.perf_counter() - start
+        check_base_unchanged(held["stack"], held["before"],
+                             "the per-class CLI (both runs)")
+        out["stack_bit_equal"] = len(held["before"])
+        del held["stack"], held["before"]
+
+        start = time.perf_counter()
+        baseline = train_classifier.main(common + [
+            "--num_epochs", str(CLS_EPOCHS), "--batch_size", str(CLS_BATCH),
+            "--image_size", str(LOOP_PX), "--weighted_sampling",
+            "--output-dir", str(root / "models"),
+            "--register", str(root / "results" / "register.csv")])
+        baseline_s = time.perf_counter() - start
+        start = time.perf_counter()
+        augmented = eval_augmentation.main(common + [
+            "--path_model", str(run), "--run_id", first["run_id"],
+            "--num_epochs", str(CLS_EPOCHS), "--batch_size", str(CLS_BATCH),
+            "--image_size", str(LOOP_PX)])
+        augmented_s = time.perf_counter() - start
+    finally:
+        os.chdir(cwd)
+        for name, fn in real.items():
+            setattr(lora_per_class, name, fn)
+        torch.backends.cudnn.allow_tf32 = False
+
+    for c in LOOP_CLASSES:
+        got = sorted(p.name for p in (run / "samples" / c).iterdir())
+        if got != names[c] or len(got) != LOOP_QUOTA:
+            raise AssertionError(f"samples/{c}: {got}, first run {names[c]}")
+        for f in got:
+            a = np.asarray(Image.open(run / "samples" / c / f))
+            if a.shape != (LOOP_PX, LOOP_PX, 3):
+                raise AssertionError(f"samples/{c}/{f}: {a.shape}")
+        if not first["classes"][c]["trained"] or \
+                second["classes"][c]["trained"]:
+            raise AssertionError(f"{c}: first {first['classes'][c]}, "
+                                 f"resume {second['classes'][c]}")
+        launches = per_class["first"][c]["launches"]
+        if (launches["flash_attention"] != 0
+                or launches["fused_group_norm"] <= 0
+                or launches["fused_geglu"] <= 0):
+            raise AssertionError(f"{c} launches {launches}: want flash 0 "
+                                 "(28×28 = 784 tokens < 1024), GroupNorm "
+                                 "and GEGLU > 0")
+    for name, metrics in (("baseline", baseline), ("augmented", augmented)):
+        for k in ("accuracy", "precision", "recall", "f1_score"):
+            if not (np.isfinite(metrics[k]) and 0.0 <= metrics[k] <= 1.0):
+                raise AssertionError(f"{name} {k} = {metrics[k]}")
+    frechet = augmented["frechet"]["per_class"]
+    if sorted(frechet) != sorted(LOOP_CLASSES) or not all(
+            np.isfinite(v) for v in frechet.values()):
+        raise AssertionError(f"Fréchet distances {frechet}")
+    want_train = sum(LOOP_COUNTS["train"].values()) + \
+        LOOP_QUOTA * len(LOOP_CLASSES)
+    if augmented["train_size"] != want_train:
+        raise AssertionError(f"augmented train set {augmented['train_size']}"
+                             f", want {want_train}")
+
+    # each kernel against its plain version at every shape the loop gave
+    # it, at the tolerances of the other check rows
+    with torch.no_grad():
+        out["kernel_checks"] = recorded_rows(recorder.seen, dev)
+    print(f"[loop] kernel checks at the loop's shapes: " + "; ".join(
+        f"{r['name']} {r['shape']} ({r['path_launches']} launches, "
+        f"max|err| {r['max_abs_err']:.2e})" for r in out["kernel_checks"]),
+        flush=True)
+
+    classes = {}
+    for c in LOOP_CLASSES:
+        t, r = per_class["first"][c], per_class["resume"][c]
+        classes[c] = {
+            "class_s": t["seconds"], "train_s": t["train_s"],
+            "steps": t["steps"],
+            "generate_s": t["generate_s"],
+            "generated_images_per_s": t["images"] / t["generate_s"],
+            "launches": t["launches"], "resume_images": r["images"],
+            "resume_class_s": r["seconds"],
+            "resume_generate_s": r["generate_s"],
+            "resume_launches": r["launches"]}
+        print(f"[loop] {c}: {t['seconds']:.2f} s the class (data, LoRA, "
+              f"save, sampling, Fréchet); LoRA {t['steps']} steps in "
+              f"{t['train_s']:.2f} s "
+              f"({LOOP_EPOCHS} epoch, {LOOP_PX}px, full-width SD-v1-4), "
+              f"{t['images']} images in {t['generate_s']:.2f} s = "
+              f"{classes[c]['generated_images_per_s']:.2f} generated "
+              f"images/s (UniPC 25 steps, CFG 7.5); launches a class "
+              f"{t['launches']}; resume: {r['images']} images in "
+              f"{r['generate_s']:.2f} s, nothing trained; on {card}",
+              flush=True)
+    pick = ("accuracy", "precision", "recall", "f1_score")
+    out.update({
+        "corpus": LOOP_COUNTS, "px": LOOP_PX, "quota": LOOP_QUOTA,
+        "lora_epochs": LOOP_EPOCHS, "classifier_epochs": CLS_EPOCHS,
+        "classes": classes, "per_class_cli_s": first_s,
+        "resume_cli_s": resume_s, "train_classifier_cli_s": baseline_s,
+        "eval_augmentation_cli_s": augmented_s,
+        "baseline": {k: baseline[k] for k in pick},
+        "augmented": {k: augmented[k] for k in pick},
+        "augmented_train_size": augmented["train_size"],
+        "frechet": augmented["frechet"]})
+    print(f"[loop] per-class CLI {first_s:.1f} s, resume {resume_s:.1f} s; "
+          f"train-classifier CLI ({CLS_EPOCHS} epochs) {baseline_s:.1f} s: "
+          f"{out['baseline']}; eval-augmentation CLI {augmented_s:.1f} s "
+          f"(train set {augmented['train_size']}): {out['augmented']}; "
+          f"Fréchet ({augmented['frechet']['extractor']}): {frechet}",
+          flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out["classifier"] = classifier_speed(dev, card)
+        out["classifier_vs_cpu"] = classifier_vs_cpu(dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1964,6 +2479,10 @@ def main() -> int:
                                   read_counts, tmp)
         phase("LoRA training")
 
+        loop = augmentation_loop_phase(dev, card, reset_counts, read_counts,
+                                       tmp)
+        phase("augmentation loop")
+
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
                  f"{path['decode_s']:.3f} s, decode share "
@@ -2056,8 +2575,10 @@ def main() -> int:
                                 "polyp_tpu/ops/fused_gn.py:136"),
         "fused_mha": ("distilled_bf16", "polyp_tpu_torch/csrc/fused_mha.cu",
                       "polyp_tpu/ops/fused_mha.py:241")}
+    rows += loop["kernel_checks"]
     table = []
     per_train_step = training["default"]["launches_per_step"]
+    per_loop_class = {c: v["launches"] for c, v in loop["classes"].items()}
     for name, (path, source, replaces) in sources.items():
         mine = [r for r in rows if r["name"] == name]
         head = mine[0]  # first row: the main path's headline shape
@@ -2069,12 +2590,14 @@ def main() -> int:
                       "bound_ms": head["bound_ms"],
                       "bound_by": head["bound_by"],
                       "library_ms": head["library_ms"],
-                      "launches_per_train_step": per_train_step[name]})
+                      "launches_per_train_step": per_train_step[name],
+                      "launches_per_loop_class": {
+                          c: v[name] for c, v in per_loop_class.items()}})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
               "shape_census": census, "serving": serving,
-              "training": training,
+              "training": training, "augmentation_loop": loop,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

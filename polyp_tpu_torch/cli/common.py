@@ -1,4 +1,9 @@
-"""SD stack loading: the twin of polyp_tpu/cli/common.py::load_sd_stack.
+"""Shared CLI plumbing: the twin of polyp_tpu/cli/common.py (the corpus
+layout `DataLayout`, `add_common_flags`, `get_tracker_from`,
+`print_banner`) and SD stack loading (`load_sd_stack`).
+
+The CLIs run on the card unless `--device cpu` is given. The reference's
+`--mesh` flag comes with the multi-GPU slice (ROADMAP.md Queue 1).
 
 The stack comes from a local diffusers checkpoint (`pretrained_dir`,
 models/importers.py::load_sd_checkpoint) or from a seeded random
@@ -16,6 +21,7 @@ those fp32 weights (lora/surgery.py).
 
 from __future__ import annotations
 
+import argparse
 import math
 from dataclasses import dataclass
 from pathlib import Path
@@ -25,6 +31,60 @@ import torch
 from torch import nn
 
 PARTS = ("unet", "vae", "text")
+
+
+@dataclass
+class DataLayout:
+    """The reference's corpus layout: {root}/m_train2/m_train/{images,
+    train.csv, masks}, {root}/m_valid/m_valid/{images,valid.csv},
+    {root}/m_test/m_test/{images,gt_test.csv}."""
+
+    root: Path
+
+    @property
+    def train_images(self): return self.root / "m_train2/m_train/images"
+    @property
+    def train_csv(self): return self.root / "m_train2/m_train/train.csv"
+    @property
+    def train_masks(self): return self.root / "m_train2/m_train/masks"
+    @property
+    def val_images(self): return self.root / "m_valid/m_valid/images"
+    @property
+    def val_csv(self): return self.root / "m_valid/m_valid/valid.csv"
+    @property
+    def test_images(self): return self.root / "m_test/m_test/images"
+    @property
+    def test_csv(self): return self.root / "m_test/m_test/gt_test.csv"
+
+
+def add_common_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--data-root", type=str, default="./data",
+                        help="corpus root (the reference's layout)")
+    parser.add_argument("--cache-dir", type=str, default="./data/cache")
+    parser.add_argument("--tracker-root", type=str, default="mlruns_local")
+    parser.add_argument("--experiment-name", type=str, default=None)
+    parser.add_argument("--quantize", type=str, default=None,
+                        choices=["w8a8", "w8a8_static"],
+                        help="quantized UNet sampling (ops/quant.py); "
+                             "training is never quantized")
+    parser.add_argument("--quant_fp_head", type=int, default=0,
+                        help="with --quantize: the first N sampling steps "
+                             "in full precision")
+    parser.add_argument("--quant_fp_tail", type=int, default=0,
+                        help="with --quantize: the final N sampling steps "
+                             "in full precision")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; the CLIs run on the card "
+                             "unless given a CPU")
+
+
+def get_tracker_from(args):
+    from polyp_tpu_torch.track import get_tracker
+    return get_tracker(args.tracker_root)
+
+
+def print_banner(msg: str) -> None:
+    print(f"\n=== {msg} ===")
 
 
 @dataclass

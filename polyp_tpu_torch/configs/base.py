@@ -10,13 +10,18 @@ models/importers.py::jax_module_path, so a preset picks the same layers in
 both packages. `quantize` takes the explicit modes only: "promoted"
 expands, in the reference, to the verdict of a quant gate measured on a
 TPU (polyp_tpu/ops/quant_gate.json), which the port does not read
-(ROADMAP.md Queue 1 item 2). The CLI fields (`output_dir`,
-`experiment_name`) come with the CLIs, `device_count` with multi-GPU.
+(ROADMAP.md Queue 1 item 2). `device_count` comes with multi-GPU, and
+`output_dir` is not kept: the per-class CLI writes to its `--folder`.
+
+`ClassificationConfig` is a copy of the reference's (:155-183): the
+classifier's fields, its CLI defaults and the same timestamped
+`output_dir`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
+from datetime import datetime
 
 LORA_MODULE_PRESETS: dict[str, tuple[str, ...]] = {
     "attention": ("to_q", "to_k", "to_v", "to_out"),
@@ -34,6 +39,10 @@ LORA_MODULE_PRESETS: dict[str, tuple[str, ...]] = {
 }
 
 QUANTIZE_MODES = (None, "w8a8", "w8a8_static")
+
+
+def _timestamp() -> str:
+    return datetime.now().strftime("%Y%m%d_%H%M%S")
 
 
 @dataclass(frozen=True)
@@ -79,6 +88,8 @@ class DiffusionConfig:
     lr_warmup_steps: int = 0
     lr_warmup_frac: float = 0.03
 
+    experiment_name: str = "baseline_with_lora"  # the tracker's default
+
     @property
     def modules_lora(self) -> tuple[str, ...]:
         return LORA_MODULE_PRESETS[self.lora_preset]
@@ -106,3 +117,33 @@ class DiffusionConfig:
                 "gate)")
         if self.quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantization mode: {self.quantize!r}")
+
+
+@dataclass(frozen=True)
+class ClassificationConfig:
+    """The classifier's configuration (the reference's
+    `ConfigClassification` and the flags of its classifier CLI)."""
+
+    image_size: int = 224
+    batch_size: int = 16
+    num_epochs: int = 100
+    patience: int = 10  # early stopping
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-3
+    hidden_features: int = 256
+    dropout: float = 0.5
+    # EfficientNet b0..b7 (models/efficientnet.py VARIANTS) or "tiny"
+    variant: str = "b0"
+    seed: int = 0
+
+    weighted_sampling: bool = True
+    weighted_loss: bool = False
+    one_vs_rest: bool = False
+    pretrained_backbone: bool = True
+
+    mixed_precision: str = "bf16"  # "bf16": the stem conv in bf16 | "fp32"
+    device_count: int = 1
+
+    output_dir: str = field(
+        default_factory=lambda: f"runs/classifier_{_timestamp()}")
+    experiment_name: str = "baseline_classification_model"

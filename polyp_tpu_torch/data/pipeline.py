@@ -5,10 +5,13 @@ Index batches come from a seeded `np.random.default_rng(seed)` in the
 reference's order, so the port's batches are the reference's. Batches keep
 a static shape: with `drop_last=False` the tail batch is padded by
 wrapping around and a boolean `valid` mask marks the real rows.
-`skip_epochs` fast-forwards the index stream for a resumed run. A batch
-is copied to the device from pinned memory one batch ahead, so the copy
-overlaps the previous step. Sharding over processes and devices is the
-multi-GPU slice's (ROADMAP.md Queue 1).
+`skip_epochs` fast-forwards the index stream for a resumed run.
+`weighted_sample_weights` gives the class-balanced draw weights of
+weighted sampling (torch's WeightedRandomSampler with replacement, as the
+reference's classifier draws). A batch is copied to the device from
+pinned memory one batch ahead, so the copy overlaps the previous step.
+Sharding over processes and devices is the multi-GPU slice's
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +20,15 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from polyp_tpu_torch.eval.metrics import balanced_class_weights
+
+
+def weighted_sample_weights(labels) -> np.ndarray:
+    """Per-sample draw weights: the balanced class weight of each label."""
+    weights = balanced_class_weights(labels)
+    return np.asarray([weights[int(l)] for l in np.asarray(labels)],
+                      dtype=np.float64)
 
 
 def epoch_batches(n: int, batch_size: int, rng: np.random.Generator,

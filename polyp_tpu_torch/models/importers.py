@@ -18,6 +18,14 @@ trainer's whole bundle (lora/surgery.py, train/sd_finetune.py).
 reference's `down_0_attn_0/transformer_blocks_0/attn1/to_out`, whose last
 component is the name the reference's LoRA targets match.
 
+The classifier (models/efficientnet.py) names its parameters by the
+reference's tree, so `efficientnet_from_jax` is a rename of leaves and
+the same transposes (a depthwise kernel (k, k, 1, C) → (C, 1, k, k)), with
+the batch statistics `mean`/`var` → `running_mean`/`running_var`.
+`efficientnet_from_torchvision` is the twin of the reference's
+`import_torch_state_dict` (polyp_tpu/models/efficientnet.py:230): a
+torchvision `efficientnet_bN` state dict → the port's backbone.
+
 `load_sd_checkpoint` reads a local diffusers SD-v1-4 directory (the twin
 of the reference's, importers.py:315-330): the port's keys are diffusers'
 keys, so the state dicts load as they are, from `.safetensors` (read by
@@ -237,6 +245,75 @@ def trainable_from_jax(bundle: Any) -> dict:
             out[key] = torch.from_numpy(np.array(val, np.float32))
         else:
             raise KeyError(f"unknown trainable entry {key!r}")
+    return out
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def efficientnet_from_jax(params: Any, batch_stats: Any | None = None
+                          ) -> dict[str, torch.Tensor]:
+    """polyp_tpu's PolypClassifier (or EfficientNet) `params` and
+    `batch_stats` trees → the port's state dict of the same module."""
+    out = _convert(_params(params), [])
+    if batch_stats is not None:
+        for path, val in _flatten(batch_stats).items():
+            *parents, leaf = path.split("/")
+            out[".".join([*parents, _BN_STATS[leaf]])] = torch.from_numpy(
+                np.array(val, np.float32))
+    return out
+
+
+def efficientnet_from_torchvision(state_dict: dict[str, Any],
+                                  variant: str = "b0"
+                                  ) -> dict[str, torch.Tensor]:
+    """A torchvision `efficientnet_bN` state dict → the port's backbone
+    state dict (`PolypClassifier.backbone`, models/efficientnet.py). The
+    classifier head is not imported: the reference replaces it. Every
+    other key must be consumed (`num_batches_tracked` aside), or KeyError.
+
+    torchvision's layout: features.0 the stem; features.{1..7}.{i}.block.
+    {j}, j = 0 the expand conv (absent where the expand ratio is 1), then
+    the depthwise conv, the squeeze-excite (fc1, fc2) and the projection;
+    features.8 the head conv."""
+    from polyp_tpu_torch.models.efficientnet import (
+        B0_STAGES, VARIANTS, _round_repeats)
+
+    out: dict[str, torch.Tensor] = {}
+    used: set[str] = set()
+
+    def take(src: str, dst: str) -> None:
+        used.add(src)
+        out[dst] = torch.as_tensor(np.array(state_dict[src], np.float32))
+
+    def convbn(src: str, dst: str) -> None:
+        take(f"{src}.0.weight", f"{dst}.conv.weight")
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            take(f"{src}.1.{leaf}", f"{dst}.bn.{leaf}")
+
+    convbn("features.0", "stem")
+    _, depth, _ = VARIANTS[variant]
+    for stage_i, (expand, _, repeats, _, _) in enumerate(B0_STAGES):
+        for i in range(_round_repeats(repeats, depth)):
+            name = f"stage{stage_i + 1}_block{i}"
+            src = f"features.{stage_i + 1}.{i}.block"
+            j = 0
+            if expand != 1:
+                convbn(f"{src}.{j}", f"{name}.expand")
+                j += 1
+            convbn(f"{src}.{j}", f"{name}.depthwise")
+            j += 1
+            for fc in ("fc1", "fc2"):
+                for leaf in ("weight", "bias"):
+                    take(f"{src}.{j}.{fc}.{leaf}", f"{name}.se.{fc}.{leaf}")
+            convbn(f"{src}.{j + 1}", f"{name}.project")
+    convbn("features.8", "head")
+    leftover = {k for k in state_dict
+                if k not in used and not k.startswith("classifier.")
+                and not k.endswith("num_batches_tracked")}
+    if leftover:
+        raise KeyError("unconsumed torchvision keys (first 10): "
+                       + ", ".join(sorted(leftover)[:10]))
     return out
 
 

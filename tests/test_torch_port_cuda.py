@@ -3,7 +3,8 @@ the card, at shapes the main path does not reach: every head dim, ragged
 token counts, narrow widths, odd spatial sizes, fp32 GroupNorm, the int8
 kernels (W8A8 dense, static and per-token GEGLU, the GroupNorm int8
 epilogue) at main-path and ragged shapes, and the fused MHA block at
-chip_smoke.py's shapes, ragged ones and every head dim it was built for.
+chip_smoke.py's shapes, ragged ones and every head dim it was built for;
+and the EfficientNet classifier's forward and train step against the CPU.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. This file
 imports no JAX, so it runs on a machine without it:
@@ -778,3 +779,80 @@ def test_entry_points_build_on_the_card_by_default(dev):
         tiny, _ = load_tiny_decoder()
     for module in (stack.unet, stack.vae, stack.text, tiny):
         assert {p.device.type for p in module.parameters()} == {"cuda"}
+
+
+def _classifier_states(dev, variant, mixed_precision):
+    """The classifier from seed 0 on the CPU and an identical copy on the
+    card, each with its Adam."""
+    import copy
+
+    from polyp_tpu_torch.configs import ClassificationConfig
+    from polyp_tpu_torch.train import classifier as tc
+
+    cfg = ClassificationConfig(variant=variant,
+                               mixed_precision=mixed_precision)
+    cpu = tc.create_classifier_state(cfg, 3, "cpu")
+    model = copy.deepcopy(cpu.model).to(dev)
+    card = tc.ClassifierState(model, tc.make_optimizer(model, cfg),
+                              cpu.dtype)
+    return cpu, card
+
+
+@pytest.mark.parametrize("variant,mixed_precision", [
+    ("tiny", "fp32"), ("b0", "fp32"), ("b0", "bf16")])
+def test_classifier_forward_and_train_step_match_the_cpu(
+        dev, variant, mixed_precision):
+    """The classifier at 64 px, batch 8, on the card and on the CPU from
+    the same weights and draws: the evaluation logits, and one train step's
+    loss, gradients and running statistics' move. fp32 (TF32 off) differs
+    by summation order only: 1e-3 relative L2 (the loss 1e-4). Under
+    "bf16" the stem conv's bf16 outputs round to other values where its
+    products sum in another order: 2e-2, the loss 1e-2."""
+    from polyp_tpu_torch.data.transforms import augment_classifier_batch
+    from polyp_tpu_torch.train import classifier as tc
+
+    tol, loss_tol = (1e-3, 1e-4) if mixed_precision == "fp32" else (2e-2,
+                                                                     1e-2)
+    cpu, card = _classifier_states(dev, variant, mixed_precision)
+    g = torch.Generator().manual_seed(1)
+    images = torch.randint(0, 256, (8, 64, 64, 3), generator=g,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 3, (8,), generator=g)
+    draws = tc.draw_step(cpu.model, 8, torch.Generator().manual_seed(2))
+    got = {}
+    for name, state in (("cpu", cpu), ("card", card)):
+        d = state.device
+        state.model.eval()
+        with torch.no_grad():
+            logits = state.model(augment_classifier_batch(
+                images.to(d), None, state.dtype)).cpu()
+        before = [b.clone() for b in state.model.buffers()]
+        on = tc.ClassifierDraws(draws.flip.to(d), {
+            k: v.to(d) for k, v in draws.drop_path.items()},
+            draws.dropout.to(d))
+        loss, _ = tc.train_step(state, images.to(d), labels.to(d), on)
+        got[name] = (logits, loss.item(), torch.cat(
+            [p.grad.cpu().reshape(-1) for p in state.model.parameters()]),
+            torch.cat([(b - b0).cpu().reshape(-1) for b, b0 in zip(
+                state.model.buffers(), before)]))
+    (lc, sc, gc, mc), (lk, sk, gk, mk) = got["cpu"], got["card"]
+    assert card.device.type == "cuda"
+    assert ((lk - lc).norm() / lc.norm()).item() <= tol
+    assert abs(sk - sc) <= loss_tol * abs(sc)
+    assert ((gk - gc).norm() / gc.norm()).item() <= tol
+    assert ((mk - mc).norm() / mc.norm()).item() <= tol
+
+
+def test_classifier_entry_points_build_on_the_card_by_default(dev):
+    """create_classifier_state and the Fréchet extractor called with no
+    device build on the card."""
+    import numpy as np
+
+    from polyp_tpu_torch.configs import ClassificationConfig
+    from polyp_tpu_torch.eval.fid import efficientnet_extractor
+    from polyp_tpu_torch.train.classifier import create_classifier_state
+
+    state = create_classifier_state(ClassificationConfig(variant="tiny"), 3)
+    assert state.device.type == "cuda"
+    feats = efficientnet_extractor(32)(np.zeros((3, 32, 32, 3), np.uint8))
+    assert feats.shape == (3, 1280) and np.isfinite(feats).all()

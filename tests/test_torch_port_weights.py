@@ -7,9 +7,11 @@ port weight carrier, and the package's independence from JAX.
   it natively with strict=True.
 * The full-size SD-v1-4 modules, built on the meta device, must have
   exactly the manifests' keys and shapes (tests/fixtures/manifests).
-* polyp_tpu_torch imports no jax, flax, optax, orbax, polyp_tpu or
-  safetensors (it reads `.safetensors` itself): by an
-  AST scan of its sources and by importing every module in a fresh
+* polyp_tpu_torch imports no jax, flax, optax, orbax, polyp_tpu,
+  safetensors (it reads `.safetensors` itself), pandas, sklearn or
+  torchvision, and no matplotlib or mlflow at module level (they are
+  imported where a plot is drawn or an mlflow tracker built): by an AST
+  scan of its sources and by importing every module in a fresh
   interpreter.
 """
 
@@ -44,9 +46,13 @@ from test_torch_block_goldens import (
 
 ROOT = Path(__file__).resolve().parents[1]
 MANIFESTS = ROOT / "tests" / "fixtures" / "manifests"
-# the card's machine has no JAX and no safetensors package
+# the card's machine has no JAX, safetensors, pandas, sklearn or
+# torchvision package
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "polyp_tpu",
-          "safetensors"}
+          "safetensors", "pandas", "sklearn", "torchvision"}
+# ... nor matplotlib or mlflow, which the port imports only inside the
+# functions that need them
+LAZY = {"matplotlib", "mlflow"}
 DECODER_KEYS = ("decoder.", "post_quant_conv.")
 ENCODER_KEYS = ("encoder.", "quant_conv.")
 
@@ -178,18 +184,37 @@ def _port_sources() -> list[Path]:
         ROOT / "chip_smoke.py"]
 
 
+def _imported(node: ast.AST) -> list[str]:
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module]
+    return []
+
+
+def _module_level_imports(tree: ast.Module) -> list[str]:
+    """What importing the module imports: every import statement outside
+    a function body (class bodies and `if`/`try` blocks run at import)."""
+    names, todo = [], list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        names += _imported(node)
+        todo += list(ast.iter_child_nodes(node))
+    return names
+
+
 def test_port_sources_import_no_jax():
     offenders = []
     for path in _port_sources():
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module]
-            else:
-                continue
-            offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names
-                          if n.split(".")[0] in BANNED]
+        tree = ast.parse(path.read_text(), str(path))
+        names = [n for node in ast.walk(tree) for n in _imported(node)
+                 if n.split(".")[0] in BANNED]
+        names += [n for n in _module_level_imports(tree)
+                  if n.split(".")[0] in LAZY]
+        offenders += [f"{path.relative_to(ROOT)}: {n}" for n in names]
     assert not offenders
 
 
@@ -221,20 +246,54 @@ SLICE5 = ["polyp_tpu_torch/models/vae.py",
           "polyp_tpu_torch/cli/sd_common.py"]
 
 
-@pytest.mark.parametrize("path", SLICE3 + SLICE5)
+# the modules of the augmentation-loop slice
+SLICE6 = ["polyp_tpu_torch/configs/base.py",
+          "polyp_tpu_torch/data/tables.py",
+          "polyp_tpu_torch/data/io.py",
+          "polyp_tpu_torch/data/cache.py",
+          "polyp_tpu_torch/data/native.py",
+          "polyp_tpu_torch/data/transforms.py",
+          "polyp_tpu_torch/data/pipeline.py",
+          "polyp_tpu_torch/eval/metrics.py",
+          "polyp_tpu_torch/eval/quota.py",
+          "polyp_tpu_torch/eval/register.py",
+          "polyp_tpu_torch/eval/fid.py",
+          "polyp_tpu_torch/eval/harness.py",
+          "polyp_tpu_torch/track/tracker.py",
+          "polyp_tpu_torch/utils/plotting.py",
+          "polyp_tpu_torch/models/efficientnet.py",
+          "polyp_tpu_torch/models/importers.py",
+          "polyp_tpu_torch/train/classifier.py",
+          "polyp_tpu_torch/cli/common.py",
+          "polyp_tpu_torch/cli/sd_common.py",
+          "polyp_tpu_torch/cli/lora_per_class.py",
+          "polyp_tpu_torch/cli/train_classifier.py",
+          "polyp_tpu_torch/cli/eval_augmentation.py"]
+
+
+@pytest.mark.parametrize("path", SLICE3 + SLICE5 + SLICE6)
 def test_no_jax_scan_covers_the_distilled_slice(path):
-    """Each module of the distilled and the LoRA-training slices is in the
-    scanned set, is importable as a module of the package (or is
-    chip_smoke.py), and names no banned package anywhere in its source,
-    imports inside functions included."""
+    """Each module of the distilled, the LoRA-training and the
+    augmentation-loop slices is in the scanned set, is importable as a
+    module of the package (or is chip_smoke.py), names no banned package
+    anywhere in its source, imports inside functions included, and
+    imports matplotlib and mlflow inside functions only."""
     assert ROOT / path in _port_sources()
     tree = ast.parse((ROOT / path).read_text())
-    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    names = [n for node in ast.walk(tree) for n in _imported(node)]
     assert not [n for n in names if n.split(".")[0] in BANNED]
+    assert not [n for n in _module_level_imports(tree)
+                if n.split(".")[0] in LAZY]
     assert names, "a module that imports nothing was not parsed"
+
+
+def test_the_lazy_import_scan_sees_module_level_imports():
+    """The scan's negative control: a module-level (or `try`-guarded)
+    matplotlib import is found, one inside a function is not."""
+    tree = ast.parse("import os\ntry:\n    import matplotlib.pyplot\n"
+                     "except ImportError:\n    pass\n"
+                     "def plot():\n    import mlflow\n")
+    assert sorted(_module_level_imports(tree)) == ["matplotlib.pyplot", "os"]
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -244,7 +303,8 @@ def test_importing_every_port_module_loads_no_jax():
         "for m in pkgutil.walk_packages(polyp_tpu_torch.__path__,\n"
         "                               'polyp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        f"bad = sorted({{n.split('.')[0] for n in sys.modules}} & {BANNED!r})\n"
+        f"bad = sorted({{n.split('.')[0] for n in sys.modules}} & "
+        f"{BANNED | LAZY!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
