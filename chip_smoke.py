@@ -131,11 +131,38 @@ caught:
    the card against the CPU (CLS_FORWARD_REL_L2 and the train-step
    tolerances). cuDNN's TF32 is on in this phase, as PyTorch's default
    and the classifier's choice (models/efficientnet.py);
-9. prints the kernel table (all eight kernel entries, with launches on
-   the main path that runs each, launches a train step and launches a
-   loop class) as one JSON line, the card line, and last the result line
-   {"ok": true, "device": {...}}. Each phase's seconds are printed as it
-   ends ("[time]").
+9. runs the scratch DDPM (scratch_phase, "scratch DDPM") through
+   polyp-train-scratch's main on phase 8's corpus at the reference's
+   width (polyp_scratch_unet, 113,664,003 params, bf16 over fp32 masters;
+   224 px, batch 8, one epoch, 25 DDIM sample steps, quotas AD 4 / HP 19
+   / ASS 19), every count set to 0 just before it and read just after
+   (GroupNorm exactly 71 a sampling forward, nothing else): the samples
+   and saved models; GroupNorm against its plain version at every shape
+   the CLI gave it (recorded on the path); one sampling forward's launches
+   (GroupNorm 71, flash 0); the train step's seconds (steps 2-6 at batch
+   8), train images/s, peak memory and a profiled step; the card against
+   the CPU at 112 px (a bf16 forward within REL_L2_TOLERANCE of fp32, one
+   train step's loss within REL_L2_TOLERANCE and its gradients within
+   LORA_GRAD_REL_L2); and the --quantize w8a8_static sampler over the
+   trained UNet, calibrated with cond=None: its launches a forward
+   (GroupNorm 71, 64 with the int8 epilogue, the dense 44), GroupNorm,
+   its int8 epilogue (against reference_gn_q8, as gn_rows holds it) and
+   the dense against their plain versions at every shape the sampler
+   gave them, and one int8 forward layer by layer against the CPU
+   (int8_layers);
+10. runs the SD CLIs (sd_clis_phase, "SD CLIs") on the same corpus at full
+   SD-v1-4 width: polyp-lora-all-classes --generate_subsamples at its
+   defaults with one epoch (flash 0 at 224 px), polyp-finetune-pretrained
+   at 256 px with one epoch and a grid of 4 (flash exactly STEP_FLASH a
+   train step and a sampling forward, counted apart), and
+   polyp-inspect-lora on its adapter (128 modules, rank 4); GroupNorm and
+   the bf16 GEGLU against their plain versions at every shape the two
+   training CLIs gave them (recorded on the path);
+11. prints the kernel table (all eight kernel entries, with launches on
+   the main path that runs each, launches a train step, launches a loop
+   class and launches a scratch forward) as one JSON line, the card line,
+   and last the result line {"ok": true, "device": {...}}. Each phase's
+   seconds are printed as it ends ("[time]").
 
 TF32 is off for every comparison but the augmentation loop's (phase 8).
 Details of each check go to
@@ -144,7 +171,9 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -466,9 +495,6 @@ def gemm_rows(dev: torch.device, geglu_batches=(4, 16, 32),
     int8 codes). The yardsticks are timed here only."""
     import torch.nn.functional as F
 
-    from polyp_tpu_torch.ops import quant
-    from polyp_tpu_torch.ops.fused_dense import (
-        fused_w8a8_dense, reference_w8a8_dense)
     from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
 
     randn = randn_on(dev, seed=0)
@@ -499,25 +525,35 @@ def gemm_rows(dev: torch.device, geglu_batches=(4, 16, 32),
     for n, (per_image, c, o, int8_in, what) in ((n, case)
                                                 for n in dense_batches
                                                 for case in DENSE_CASES):
-        m = n * per_image
-        x = randn(m, c)
-        wq, sw = quant.weight_q8_matrix(randn(o, c, scale=c ** -0.5))
-        bias = randn(o, scale=0.1)
-        s = amax_scale(x)
-        codes = quant.quantize_activation(x, s)[0]
-        if int8_in:
-            x = codes
-        dense_args = (x, wq, sw, bias, s)
-        rows.append(compare_q8(
-            "fused_w8a8_dense",
-            lambda: fused_w8a8_dense(*dense_args, out_dtype=torch.bfloat16),
-            lambda: reference_w8a8_dense(*dense_args,
-                                         out_dtype=torch.bfloat16),
-            reference_w8a8_dense(*dense_args, out_dtype=torch.float32),
-            f"{what} [{m},{c}]x[{c},{o}]",
-            bound(2 * m * c * o, "int8", nbytes(*dense_args) + 2 * m * o),
-            products=lambda: quant.int_mm(codes, wq)))
+        rows.append(dense_row(randn, n * per_image, c, o, int8_in, what))
     return rows
+
+
+def dense_row(randn, m: int, c: int, o: int, int8_in: bool,
+              what: str) -> dict:
+    """compare_q8() of the W8A8 dense on x [m, c] (bf16, or its int8 codes
+    where `int8_in`: a GroupNorm's handoff) and weights [o, c], beside the
+    product alone (`_int_mm` on the codes)."""
+    from polyp_tpu_torch.ops import quant
+    from polyp_tpu_torch.ops.fused_dense import (
+        fused_w8a8_dense, reference_w8a8_dense)
+
+    x = randn(m, c)
+    wq, sw = quant.weight_q8_matrix(randn(o, c, scale=c ** -0.5))
+    bias = randn(o, scale=0.1)
+    s = amax_scale(x)
+    codes = quant.quantize_activation(x, s)[0]
+    if int8_in:
+        x = codes
+    args = (x, wq, sw, bias, s)
+    return compare_q8(
+        "fused_w8a8_dense",
+        lambda: fused_w8a8_dense(*args, out_dtype=torch.bfloat16),
+        lambda: reference_w8a8_dense(*args, out_dtype=torch.bfloat16),
+        reference_w8a8_dense(*args, out_dtype=torch.float32),
+        f"{what} [{m},{c}]x[{c},{o}]",
+        bound(2 * m * c * o, "int8", nbytes(*args) + 2 * m * o),
+        products=lambda: quant.int_mm(codes, wq))
 
 
 def check_kernels(dev: torch.device) -> list[dict]:
@@ -690,8 +726,7 @@ def gn_rows(dev: torch.device) -> list[dict]:
     batch 8; the int8 epilogue at the UNet's shapes at the
     w8a8_static batches. About 10 fp32 operations an element (two sums,
     normalise, affine, SiLU): bound by bytes by far."""
-    from polyp_tpu_torch.ops.fused_gn import (
-        fused_group_norm, group_norm, reference_gn_q8)
+    from polyp_tpu_torch.ops.fused_gn import fused_group_norm, group_norm
 
     randn = randn_on(dev, seed=0)
     rows = []
@@ -714,32 +749,43 @@ def gn_rows(dev: torch.device) -> list[dict]:
                                                                    beta))))
         if eps != 1e-5 or n not in Q8_BATCHES:
             continue  # the VAE is not quantized, nor any batch-16 path
-        s = amax_scale(group_norm(x.float(), gamma, beta, 32, eps, "silu"))
-        got = fused_group_norm(x, gamma, beta, 32, eps, "silu", act_scale=s)
-        want = reference_gn_q8(x, gamma, beta, s, 32, eps, "silu")
-        diff = (got.int() - want.int()).abs()
-        row = {"name": "fused_group_norm_q8", "shape": shape,
-               "max_abs_err": diff.max().item(),
-               "codes_differing": (diff > 0).float().mean().item(),
-               "share_tolerance": GN_Q8_SHARE,
-               "ms": time_ms(lambda: fused_group_norm(
-                   x, gamma, beta, 32, eps, "silu", act_scale=s)),
-               "event_ms": event_ms(lambda: fused_group_norm(
-                   x, gamma, beta, 32, eps, "silu", act_scale=s)),
-               "plain_ms": time_ms(lambda: reference_gn_q8(
-                   x, gamma, beta, s, 32, eps, "silu")),
-               "library_ms": None,
-               **bound(12 * x.numel(), "fp32",
-                       nbytes(x, gamma, beta, s) + x.numel())}
-        print(f"[check] fused_group_norm_q8 {shape}: codes differing "
-              f"{row['codes_differing']:.3e} (tol {GN_Q8_SHARE:.0e}), max "
-              f"{row['max_abs_err']} code; kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
-        if row["max_abs_err"] > 1 or row["codes_differing"] > GN_Q8_SHARE:
-            raise AssertionError(f"GroupNorm int8 epilogue {shape}: {row}")
-        rows.append(row)
+        rows.append(gn_q8_row(x, gamma, beta, 32, eps, "silu", shape))
     return rows
+
+
+def gn_q8_row(x, gamma, beta, groups: int, eps: float, act, shape: str
+              ) -> dict:
+    """Row 3's int8 epilogue on `x` against reference_gn_q8, at the scale
+    of the plain output's absolute maximum (so the codes fill [-127, 127]):
+    at most one code apart, in at most GN_Q8_SHARE of the elements."""
+    from polyp_tpu_torch.ops.fused_gn import (
+        fused_group_norm, group_norm, reference_gn_q8)
+
+    s = amax_scale(group_norm(x.float(), gamma, beta, groups, eps, act))
+    got = fused_group_norm(x, gamma, beta, groups, eps, act, act_scale=s)
+    want = reference_gn_q8(x, gamma, beta, s, groups, eps, act)
+    diff = (got.int() - want.int()).abs()
+    row = {"name": "fused_group_norm_q8", "shape": shape,
+           "max_abs_err": diff.max().item(),
+           "codes_differing": (diff > 0).float().mean().item(),
+           "share_tolerance": GN_Q8_SHARE,
+           "ms": time_ms(lambda: fused_group_norm(
+               x, gamma, beta, groups, eps, act, act_scale=s)),
+           "event_ms": event_ms(lambda: fused_group_norm(
+               x, gamma, beta, groups, eps, act, act_scale=s)),
+           "plain_ms": time_ms(lambda: reference_gn_q8(
+               x, gamma, beta, s, groups, eps, act)),
+           "library_ms": None,
+           **bound(12 * x.numel(), "fp32",
+                   nbytes(x, gamma, beta, s) + x.numel())}
+    print(f"[check] fused_group_norm_q8 {shape}: codes differing "
+          f"{row['codes_differing']:.3e} (tol {GN_Q8_SHARE:.0e}), max "
+          f"{row['max_abs_err']} code; kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    if row["max_abs_err"] > 1 or row["codes_differing"] > GN_Q8_SHARE:
+        raise AssertionError(f"GroupNorm int8 epilogue {shape}: {row}")
+    return row
 
 
 class ShapeRecorder:
@@ -773,34 +819,48 @@ class ShapeRecorder:
 
 def gn_key(x, weight, bias, num_groups=32, eps=1e-5, act=None,
            act_scale=None) -> tuple:
-    return tuple(x.shape), x.dtype, num_groups, eps, act
+    """(shape, dtype, groups, eps, act, int8 epilogue) of a GroupNorm
+    call."""
+    return (tuple(x.shape), x.dtype, num_groups, eps, act,
+            act_scale is not None)
+
+
+def dense_key(x, w, *args, **kwargs) -> tuple:
+    """(M, C, N, int8 x) of a dense call on x [..., C] with w [N, C]."""
+    c = x.shape[-1]
+    return x.numel() // c, c, w.shape[0], x.dtype == torch.int8
 
 
 def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
-    """compare() of GN+SiLU (recorded under gn_key) and the bf16 GEGLU
-    (under its x's shape) at every recorded shape, on inputs drawn as
-    gn_rows and gemm_rows draw them, each row with the path's launches at
-    its shape."""
+    """compare() of GN(+SiLU) (recorded under gn_key; an int8 epilogue
+    call held to reference_gn_q8 as gn_rows holds it), the bf16 GEGLU
+    (under its x's shape) and the W8A8 dense (under dense_key) at every
+    recorded shape, on inputs drawn as gn_rows and gemm_rows draw them,
+    each row with the path's launches at its shape."""
     from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
     from polyp_tpu_torch.ops.fused_gn import fused_group_norm, group_norm
 
     randn = randn_on(dev, seed=0)
     rows = []
-    for (shape, dtype, groups, eps, act), calls in sorted(
-            seen["fused_group_norm"].items(), key=str):
+    for (shape, dtype, groups, eps, act, q8), calls in sorted(
+            seen.get("fused_group_norm", {}).items(), key=str):
         x = randn(*shape, scale=2.0, shift=0.3).to(dtype)
         gamma = randn(shape[1], scale=0.1, shift=1.0).float()
         beta = randn(shape[1], scale=0.1).float()
+        label = f"{list(shape)} eps {eps:g}{' +SiLU' if act else ''}"
+        if q8:
+            rows.append({**gn_q8_row(x, gamma, beta, groups, eps, act,
+                                     label), "path_launches": calls})
+            continue
         rows.append({**compare(
             "fused_group_norm",
             lambda: fused_group_norm(x, gamma, beta, groups, eps, act),
             lambda: group_norm(x, gamma, beta, groups, eps, act),
-            group_norm(x.float(), gamma, beta, groups, eps, act),
-            f"{list(shape)} eps {eps:g}{' +SiLU' if act else ''}",
+            group_norm(x.float(), gamma, beta, groups, eps, act), label,
             bound(10 * x.numel(), "fp32",
                   2 * nbytes(x) + nbytes(gamma, beta))),
             "path_launches": calls})
-    for shape, calls in sorted(seen["fused_geglu"].items()):
+    for shape, calls in sorted(seen.get("fused_geglu", {}).items()):
         *lead, c = shape
         n, per_image = lead[0], math.prod(lead[1:])
         h, tokens = 4 * c, n * per_image
@@ -814,7 +874,79 @@ def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
             bound(6 * tokens * c * h, "bf16",
                   2 * nbytes(x) + nbytes(w1, b1, w2, b2))),
             "path_launches": calls})
+    for (m, c, o, int8_in), calls in sorted(
+            seen.get("fused_w8a8_dense", {}).items()):
+        rows.append({**dense_row(randn, m, c, o, int8_in, "recorded"),
+                     "path_launches": calls})
     return rows
+
+
+def int8_layers(card_model, cpu_model, forward, bank, t: torch.Tensor
+                ) -> dict:
+    """One w8a8_static forward of `card_model` (`forward(model, device)`,
+    under quant.override with `bank` at timesteps `t`), every call of a
+    quantizable layer in it (convs, linears, feed-forwards, GroupNorm int8
+    epilogues) captured with its inputs and output, and each re-run on the
+    CPU in fp32 (`cpu_model`'s layer, plain versions) from the card's
+    input: the worst relative L2 of a layer and the share of GroupNorm
+    int8 codes that differ. Returns the counts and the card's output."""
+    from polyp_tpu_torch.models.unet_blocks import (
+        FeedForward, GroupNorm, QConv2d, QLinear)
+    from polyp_tpu_torch.ops import quant
+
+    calls = []
+
+    def capture(name):
+        def hook(module, args, output):
+            if isinstance(module, GroupNorm) and (len(args) < 2
+                                                  or args[1] is None):
+                return  # a GroupNorm without the int8 epilogue
+            calls.append((name, [a.detach().to("cpu", copy=True)
+                                 for a in args],
+                          output.detach().to("cpu", copy=True)))
+        return hook
+
+    dev = next(card_model.parameters()).device
+    hooks = [m.register_forward_hook(capture(name))
+             for name, m in card_model.named_modules()
+             if isinstance(m, (QConv2d, QLinear, FeedForward, GroupNorm))]
+    try:
+        with torch.no_grad(), quant.override("w8a8_static", scales=bank,
+                                             t=t.to(dev)):
+            got = forward(card_model, dev)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst, worst_name, codes, flipped, max_code = 0.0, "", 0, 0, 0
+    with torch.no_grad(), quant.override("w8a8_static", scales=bank,
+                                         t=t.cpu()):
+        for name, args, out in calls:
+            args = [a.float() if a.is_floating_point() else a
+                    for a in args]
+            want = cpu_model.get_submodule(name)(*args)
+            if out.dtype == torch.int8:
+                diff = (out.int() - want.int()).abs()
+                codes += diff.numel()
+                flipped += int((diff > 0).sum())
+                max_code = max(max_code, int(diff.max()))
+                continue
+            err = rel_l2(out, want)
+            if err > worst:
+                worst, worst_name = err, name
+    expected = sum(isinstance(m, (QConv2d, FeedForward))
+                   for m in card_model.modules())
+    out = {"layers_checked": len(calls), "layer_max_rel_l2": worst,
+           "worst_layer": worst_name,
+           "gn_q8_codes_differing": flipped / max(codes, 1),
+           "gn_q8_max_code_diff": max_code, "output": got}
+    # every quantized conv and feed-forward must have been seen
+    if len(calls) < expected or not worst <= LAYER_REL_L2:
+        raise AssertionError(f"int8 layer {worst_name}: rel L2 {worst} > "
+                             f"{LAYER_REL_L2} ({len(calls)} calls, "
+                             f"{expected} expected)")
+    if max_code > 1 or out["gn_q8_codes_differing"] > GN_Q8_SHARE:
+        raise AssertionError(f"GN int8 codes: {out}")
+    return out
 
 
 def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
@@ -822,10 +954,8 @@ def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
     (8×8 latents) with the kernels, vs the same weights in fp32 on the CPU
     running the plain versions; and one w8a8_static UNet forward with
     `scales`, whose every quantized layer is re-run on the CPU from the
-    card's input to it."""
+    card's input to it (int8_layers)."""
     from polyp_tpu_torch.models import AutoencoderKL, sd14_unet
-    from polyp_tpu_torch.models.unet_blocks import (
-        FeedForward, GroupNorm, QConv2d, QLinear)
     from polyp_tpu_torch.ops import quant
 
     g = torch.Generator("cpu").manual_seed(1)
@@ -841,62 +971,26 @@ def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
     vae_cpu.load_state_dict(stack.vae.state_dict())
     bank = quant.ScaleBank(scales)
 
-    # every call of a quantizable layer in the card's int8 forward, with its
-    # inputs and output copied to the CPU
-    calls = []
-
-    def capture(name):
-        def hook(module, args, output):
-            if isinstance(module, GroupNorm) and (len(args) < 2
-                                                  or args[1] is None):
-                return  # a GroupNorm without the int8 epilogue
-            calls.append((name, [a.detach().to("cpu", copy=True)
-                                 for a in args],
-                          output.detach().to("cpu", copy=True)))
-        return hook
-
-    def int8(unet, device):
-        tt = t.to(device)
-        with quant.override("w8a8_static", scales=bank, t=tt):
-            return unet(x.to(device), tt, ctx.to(device))
+    def forward(unet, device):
+        return unet(x.to(device), t.to(device), ctx.to(device))
 
     with torch.no_grad():
         want_unet = unet_cpu(x, t, ctx)
-        want_q8 = int8(unet_cpu, "cpu")
+        with quant.override("w8a8_static", scales=bank, t=t):
+            want_q8 = unet_cpu(x, t, ctx)
         want_img = vae_cpu.decode(z)
         got_unet = stack.unet(x.to(dev), t.to(dev), ctx.to(dev))
-        hooks = [m.register_forward_hook(capture(name))
-                 for name, m in stack.unet.named_modules()
-                 if isinstance(m, (QConv2d, QLinear, FeedForward, GroupNorm))]
-        try:
-            got_q8 = int8(stack.unet, dev)
-        finally:
-            for h in hooks:
-                h.remove()
         got_img = stack.vae.decode(z.to(dev))
-
-        # each captured layer again on the CPU, from the card's input
-        worst, worst_name, codes, flipped, max_code = 0.0, "", 0, 0, 0
-        with quant.override("w8a8_static", scales=bank, t=t):
-            for name, args, out in calls:
-                args = [a.float() if a.is_floating_point() else a
-                        for a in args]
-                want = unet_cpu.get_submodule(name)(*args)
-                if out.dtype == torch.int8:
-                    diff = (out.int() - want.int()).abs()
-                    codes += diff.numel()
-                    flipped += int((diff > 0).sum())
-                    max_code = max(max_code, int(diff.max()))
-                    continue
-                err = rel_l2(out, want)
-                if err > worst:
-                    worst, worst_name = err, name
+    layers = int8_layers(stack.unet, unet_cpu, forward, bank, t)
+    got_q8 = layers.pop("output")
+    worst, worst_name = layers["layer_max_rel_l2"], layers["worst_layer"]
+    max_code = layers["gn_q8_max_code_diff"]
     out = {"unet_rel_l2": rel_l2(got_unet, want_unet),
            "vae_rel_l2": rel_l2(got_img, want_img),
-           "w8a8_static_layers_checked": len(calls),
+           "w8a8_static_layers_checked": layers["layers_checked"],
            "w8a8_static_layer_max_rel_l2": worst,
            "w8a8_static_worst_layer": worst_name,
-           "gn_q8_codes_differing": flipped / max(codes, 1),
+           "gn_q8_codes_differing": layers["gn_q8_codes_differing"],
            "gn_q8_max_code_diff": max_code,
            "unet_w8a8_static_rel_l2": rel_l2(got_q8, want_q8),
            "cpu_int8_vs_fp32_rel_l2": rel_l2(want_q8, want_unet),
@@ -905,7 +999,8 @@ def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
           f"{out['unet_rel_l2']:.3e}, VAE decode rel L2 "
           f"{out['vae_rel_l2']:.3e} (tol {REL_L2_TOLERANCE:.0e})", flush=True)
     print(f"[check] card w8a8_static UNet forward, layer by layer vs cpu fp32 "
-          f"from the card's inputs: {len(calls)} layer calls, max rel L2 "
+          f"from the card's inputs: {layers['layers_checked']} layer calls, "
+          f"max rel L2 "
           f"{worst:.3e} ({worst_name}; tol {LAYER_REL_L2:.0e}); GN int8 "
           f"codes differing {out['gn_q8_codes_differing']:.3e}, max "
           f"{max_code} (tol {GN_Q8_SHARE:.0e})", flush=True)
@@ -917,14 +1012,6 @@ def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
     for key in ("unet_rel_l2", "vae_rel_l2"):
         if not out[key] <= REL_L2_TOLERANCE:
             raise AssertionError(f"{key} {out[key]} > {REL_L2_TOLERANCE}")
-    # every quantized conv and feed-forward must have been seen
-    expected = sum(isinstance(m, (QConv2d, FeedForward))
-                   for m in stack.unet.modules())
-    if len(calls) < expected or not worst <= LAYER_REL_L2:
-        raise AssertionError(f"int8 layer {worst_name}: rel L2 {worst} > "
-                             f"{LAYER_REL_L2} ({len(calls)} calls)")
-    if max_code > 1 or out["gn_q8_codes_differing"] > GN_Q8_SHARE:
-        raise AssertionError(f"GN int8 codes: {out}")
     if not out["unet_w8a8_static_rel_l2"] <= (
             INT8_FORWARD_NOISE * out["cpu_int8_vs_fp32_rel_l2"]):
         raise AssertionError(f"int8 forward: {out}")
@@ -2264,6 +2351,432 @@ def augmentation_loop_phase(dev: torch.device, card: str, reset_counts,
     return out
 
 
+# the scratch DDPM phase: polyp-train-scratch at the reference's width
+# (polyp_scratch_unet, 113,664,003 parameters, bf16 compute over fp32
+# masters) on the loop phase's corpus, cut to one epoch (the CLI's 200),
+# 25 DDIM sample steps (its 1,000 ancestral) and the quotas that
+# --ad_minimum 36 gives that corpus (AD 4, HP 19, ASS 19)
+SCRATCH_PX, SCRATCH_BATCH, SCRATCH_STEPS = 224, 8, 25
+SCRATCH_AD_MINIMUM = 36
+# the size of the scratch path's card-vs-CPU checks (the CPU runs fp32):
+# 112 px still meets an odd map (7 → 4 → 7) on the way
+SCRATCH_CHECK_PX = 112
+# launches a scratch UNet forward: GroupNorm in 32 resnets (2 each), 6
+# attentions and conv_norm_out; under w8a8_static, 64 of them with the
+# int8 epilogue (every resnet conv is quantized) and 44 W8A8 denses (20
+# 1×1 shortcuts, 24 attention projections); flash never (196 tokens at
+# most, below its 1,024)
+SCRATCH_FORWARD = {"fused_group_norm": 71, "fused_group_norm_q8": 0,
+                   "fused_w8a8_dense": 0, "flash_attention": 0}
+SCRATCH_FORWARD_Q8 = {"fused_group_norm": 71, "fused_group_norm_q8": 64,
+                      "fused_w8a8_dense": 44, "flash_attention": 0}
+
+
+def scratch_vs_cpu(state, dev: torch.device) -> tuple[dict, object]:
+    """The trained scratch UNet at SCRATCH_CHECK_PX on the card (bf16,
+    kernels) against its fp32 masters on the CPU (plain versions): one
+    forward at batch 2 (rel L2 within REL_L2_TOLERANCE) and one train step
+    at batch 1 with the same draws (the loss within REL_L2_TOLERANCE, the
+    gradients of every parameter within LORA_GRAD_REL_L2, the LoRA step's
+    bounds). Returns the comparison and the fp32 CPU model."""
+    import numpy as np
+
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.models.unet2d import polyp_scratch_unet
+    from polyp_tpu_torch.train import scratch_ddpm as sd
+
+    px = SCRATCH_CHECK_PX
+    cpu = polyp_scratch_unet(dtype=torch.float32, device="cpu").eval()
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in
+                         state.params.items()})
+    cpu_state = sd.DDPMState(0, {k: v.detach().cpu().clone()
+                                 .requires_grad_()
+                                 for k, v in state.params.items()},
+                             {}, None, cpu)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 3, px, px, generator=g)
+    t = torch.tensor([40, 900])
+    with torch.no_grad():
+        want = cpu(x, t)
+        got = state.load_into_model()(x.to(dev), t.to(dev))
+    schedule = DiffusionSchedule.create(1000)
+    images = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (1, px, px, 3), dtype=np.uint8))
+
+    def step(st, device):
+        return sd.ddpm_loss_and_grads(
+            st, schedule, images.to(device),
+            FixedDraws(1, (1, 3, px, px)).to(device))
+
+    card_loss, card_grads = step(state, dev)
+    cpu_loss, cpu_grads = step(cpu_state, "cpu")
+    flat = [torch.cat([g.float().cpu().reshape(-1) for g in grads.values()])
+            for grads in (card_grads, cpu_grads)]
+    out = {"forward_rel_l2": rel_l2(got, want),
+           "loss_card": card_loss.item(), "loss_cpu": cpu_loss.item(),
+           "loss_rel": abs(card_loss.item() - cpu_loss.item())
+           / abs(cpu_loss.item()),
+           "grad_rel_l2": rel_l2(flat[0], flat[1]),
+           "grad_values": flat[1].numel(), "px": px}
+    if not (out["forward_rel_l2"] <= REL_L2_TOLERANCE
+            and out["loss_rel"] <= REL_L2_TOLERANCE
+            and out["grad_rel_l2"] <= LORA_GRAD_REL_L2):
+        raise AssertionError(f"scratch UNet, card vs cpu: {out}")
+    return out, cpu
+
+
+def scratch_speed(dev: torch.device, reset_counts, read_counts) -> dict:
+    """The scratch train step at full width, 224 px, batch 8 (ddpm_train_step,
+    the CLI's step): seconds a step over steps 2-6 (synchronised host
+    clock), train images/s, peak memory, the launches of our kernels a
+    step (none: GroupNorm and attention run their plain versions under
+    autograd) and one more step under torch.profiler."""
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.models.unet2d import polyp_scratch_unet
+    from polyp_tpu_torch.train import scratch_ddpm as sd
+
+    model = polyp_scratch_unet(device=dev)
+    cfg = DiffusionConfig(num_epochs=1).with_schedule(7)
+    state = sd.create_ddpm_state(cfg, model,
+                                 torch.Generator(dev).manual_seed(0))
+    g = torch.Generator(dev).manual_seed(1)
+    images = torch.randint(0, 256, (SCRATCH_BATCH, SCRATCH_PX, SCRATCH_PX, 3),
+                           generator=g, device=dev, dtype=torch.uint8)
+    schedule = DiffusionSchedule.create(1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    reset_counts()
+    for step in range(6):
+        start = time.perf_counter()
+        state, loss = sd.ddpm_train_step(state, schedule, images,
+                                         sd.ddpm_draws(0, 0, step, dev))
+        losses.append(loss.item())  # synchronises
+        times.append(time.perf_counter() - start)
+    launches = read_counts()
+    step_s = sum(times[1:]) / len(times[1:])
+    prof = profile_device(lambda: sd.ddpm_train_step(
+        state, schedule, images, sd.ddpm_draws(0, 0, 6, dev)))
+    out = {"step_s": step_s, "step_s_each": times,
+           "train_images_per_s": SCRATCH_BATCH / step_s,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "losses": losses, "launches_per_step": {
+               k: v / 6 for k, v in launches.items()},
+           "profile": {**prof, "busy_share": prof["device_s"] / step_s}}
+    if not all(math.isfinite(v) for v in losses) or any(launches.values()):
+        raise AssertionError(f"scratch train steps: {out}")
+    del state, model
+    return out
+
+
+def scratch_phase(dev: torch.device, card: str, reset_counts, read_counts,
+                  tmp: Path, data: Path) -> dict:
+    """The scratch DDPM path through polyp-train-scratch's main on the
+    fabricated corpus (SCRATCH_* above; every count set to 0 just before
+    it and read just after: GroupNorm exactly 71 a sampling forward,
+    nothing else); the samples and saved models; its GroupNorm shapes
+    (recorded on the path) against the plain version; the launches of one
+    sampling forward; the train step's speed; the card against the CPU;
+    and the --quantize w8a8_static sampler over the trained UNet
+    (calibrated without conditioning): its dense and GroupNorm shapes
+    against their plain versions, its launches, and one int8 forward layer
+    by layer against the CPU."""
+    import numpy as np
+    from PIL import Image
+
+    from polyp_tpu_torch.cli import train_scratch
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.ops import quant
+    from polyp_tpu_torch.pipeline import PixelDiffusionSampler
+
+    out_dir = tmp / "scratch"
+    argv = ["--data-root", str(data), "--cache-dir", str(tmp / "scratch_cache"),
+            "--tracker-root", str(tmp / "scratch_mlruns"),
+            "--num_epochs", "1", "--image_size", str(SCRATCH_PX),
+            "--sample_steps", str(SCRATCH_STEPS),
+            "--ad_minimum", str(SCRATCH_AD_MINIMUM),
+            "--output-dir", str(out_dir)]
+    generated = {}
+    real = train_scratch.generate_to_dir
+
+    def timed(sampler, n, out, *args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        written = real(sampler, n, out, *args, **kwargs)
+        torch.cuda.synchronize()
+        generated[Path(out).name] = {
+            "images": written, "seconds": time.perf_counter() - start}
+        return written
+
+    recorder = ShapeRecorder({"fused_group_norm": gn_key})
+    train_scratch.generate_to_dir = timed
+    start = time.perf_counter()
+    reset_counts()
+    try:
+        with recorder:
+            states = train_scratch.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        train_scratch.generate_to_dir = real
+    cli_s = time.perf_counter() - start
+    launches = read_counts()
+    forwards = SCRATCH_STEPS * sum(-(-v["images"] // 20)
+                                   for v in generated.values())
+    want = {k: v * forwards for k, v in SCRATCH_FORWARD.items()}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"scratch CLI launches {launches}, want {want}")
+    for cls, info in generated.items():
+        pngs = sorted((out_dir / "samples" / cls).glob("*.png"))
+        if len(pngs) != info["images"] or not (
+                out_dir / "models" / f"model_{cls}").exists():
+            raise AssertionError(f"scratch {cls}: {len(pngs)} PNGs, "
+                                 f"{info}")
+        for p in pngs:
+            a = np.asarray(Image.open(p))
+            if a.shape != (SCRATCH_PX, SCRATCH_PX, 3):
+                raise AssertionError(f"scratch {cls}/{p.name}: {a.shape}")
+    with torch.no_grad():
+        rows = recorded_rows(recorder.seen, dev)
+
+    state = states.pop("ASS")
+    states.clear()
+    model = state.load_into_model()
+    x = torch.randn(SCRATCH_BATCH, 3, SCRATCH_PX, SCRATCH_PX, device=dev)
+    t = torch.full((SCRATCH_BATCH,), 500, device=dev)
+    reset_counts()
+    with torch.no_grad():
+        model(x, t)
+    torch.cuda.synchronize()
+    forward = {k: read_counts()[k] for k in SCRATCH_FORWARD}
+    if forward != SCRATCH_FORWARD:
+        raise AssertionError(f"a scratch forward launched {forward}, want "
+                             f"{SCRATCH_FORWARD}")
+
+    speed = scratch_speed(dev, reset_counts, read_counts)
+    agreement, cpu = scratch_vs_cpu(state, dev)
+
+    # the --quantize w8a8_static sampler the CLI builds over the trained
+    # UNet: calibrated without conditioning, on the card
+    schedule = DiffusionSchedule.create(1000)
+    start = time.perf_counter()
+    q8 = PixelDiffusionSampler(model, schedule, SCRATCH_PX, sampler="ddim",
+                               num_steps=SCRATCH_STEPS,
+                               quantize="w8a8_static")
+    torch.cuda.synchronize()
+    calibration_s = time.perf_counter() - start
+    q8_recorder = ShapeRecorder({"fused_group_norm": gn_key,
+                                 "fused_w8a8_dense": dense_key})
+    reset_counts()
+    start = time.perf_counter()
+    with q8_recorder:
+        q8_images = q8(SCRATCH_BATCH, 0)
+    torch.cuda.synchronize()
+    q8_s = time.perf_counter() - start
+    q8_launches = read_counts()
+    want = {k: v * SCRATCH_STEPS for k, v in SCRATCH_FORWARD_Q8.items()}
+    if {k: q8_launches[k] for k in want} != want or not torch.isfinite(
+            q8_images).all():
+        raise AssertionError(f"w8a8_static scratch sampler launches "
+                             f"{q8_launches}, want {want}")
+    with torch.no_grad():
+        rows += recorded_rows(q8_recorder.seen, dev)
+    px = SCRATCH_CHECK_PX
+    xq = torch.randn(2, 3, px, px, generator=torch.Generator().manual_seed(9))
+    tq = torch.tensor([500, 500])
+    # the CPU holds the card's own (bf16) weights here, so each layer's
+    # int8 weight codes are the card's
+    cpu.load_state_dict(model.state_dict())
+    layers = int8_layers(model, cpu, lambda m, d: m(xq.to(d), tq.to(d)),
+                         quant.ScaleBank(q8.quant_scales), tq)
+    layers.pop("output")
+    out = {"card": card, "px": SCRATCH_PX, "batch": SCRATCH_BATCH,
+           "sample_steps": SCRATCH_STEPS, "cli_s": cli_s,
+           "cli_launches": launches, "generated": {
+               c: {**v, "images_per_s": v["images"] / v["seconds"]}
+               for c, v in generated.items()},
+           "forward_launches": forward,
+           "w8a8_static": {"calibration_s": calibration_s,
+                           "calibrated_layers": len(q8.quant_scales),
+                           "images_per_s": SCRATCH_BATCH / q8_s,
+                           "launches_per_forward": {
+                               k: q8_launches[k] / SCRATCH_STEPS
+                               for k in SCRATCH_FORWARD_Q8},
+                           **layers},
+           "speed": speed, "card_vs_cpu": agreement, "kernel_checks": rows}
+    print(f"[scratch] polyp-train-scratch (full width, {SCRATCH_PX} px, batch "
+          f"{SCRATCH_BATCH}, 1 epoch, {SCRATCH_STEPS} DDIM steps): "
+          f"{cli_s:.1f} s; generated images/s " + ", ".join(
+              f"{c} {v['images_per_s']:.2f} ({v['images']})"
+              for c, v in out["generated"].items())
+          + f"; launches {launches}; a sampling forward {forward} on {card}",
+          flush=True)
+    prof = speed["profile"]
+    print(f"[scratch] train step at batch {SCRATCH_BATCH}, {SCRATCH_PX} px: "
+          f"{speed['step_s']:.4f} s (steps 2-6) = "
+          f"{speed['train_images_per_s']:.1f} train images/s, peak "
+          f"{speed['peak_memory_gib']:.2f} GiB, launches a step "
+          f"{speed['launches_per_step']}; profiled step device "
+          f"{prof['device_s']:.4f} s (busy {prof['busy_share']:.2f}); top "
+          + "; ".join(f"{k} {ms:.1f} ({n})" for k, ms, n in prof["top"][:5])
+          + f" on {card}", flush=True)
+    print(f"[scratch] card bf16 vs cpu fp32 at {px} px: forward rel L2 "
+          f"{agreement['forward_rel_l2']:.3e}, train step loss rel "
+          f"{agreement['loss_rel']:.3e} (tol {REL_L2_TOLERANCE:.0e}), "
+          f"gradients ({agreement['grad_values']} values) rel L2 "
+          f"{agreement['grad_rel_l2']:.3e} (tol {LORA_GRAD_REL_L2:.0e})",
+          flush=True)
+    print(f"[scratch] w8a8_static sampler (cond=None): calibrated "
+          f"{len(q8.quant_scales)} layers in {calibration_s:.2f} s; "
+          f"{SCRATCH_BATCH / q8_s:.2f} images/s; launches a forward "
+          f"{out['w8a8_static']['launches_per_forward']}; layer by layer "
+          f"vs cpu fp32: {layers['layers_checked']} calls, max rel L2 "
+          f"{layers['layer_max_rel_l2']:.3e} ({layers['worst_layer']}; tol "
+          f"{LAYER_REL_L2:.0e}), GN int8 codes differing "
+          f"{layers['gn_q8_codes_differing']:.3e} on {card}", flush=True)
+    print(f"[scratch] kernel checks at the scratch path's shapes on {card}: "
+          + "; ".join(f"{r['name']} {r['shape']} ({r['path_launches']} "
+                      f"launches, {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})"
+                      for r in rows), flush=True)
+    return out
+
+
+# the SD CLIs phase: polyp-lora-all-classes at its defaults (224 px, all
+# three classes) with one epoch and --generate_subsamples (5 images a
+# class); polyp-finetune-pretrained at its 256 px with one epoch (6 steps
+# over the corpus' 48 training images) and a grid of FT_GRID images
+FT_GRID = 4
+FT_STEPS = 25          # its --num_inference_steps default (UniPC, CFG 7.5)
+ATTENTION_MODULES = 128  # to_q/k/v/out of SD-v1-4's 32 attentions
+
+
+def sd_clis_phase(dev: torch.device, card: str, reset_counts, read_counts,
+                  tmp: Path, data: Path) -> dict:
+    """polyp-lora-all-classes, polyp-finetune-pretrained and
+    polyp-inspect-lora through their mains on the fabricated corpus at
+    full SD-v1-4 width: counts set to 0 just before each and read just
+    after (the finetune CLI's train loop and its sampling apart): flash 0
+    at 224 px (784 tokens), exactly STEP_FLASH a train step and 5 a
+    sampling forward at 256 px; the PNGs; the adapter's modules and
+    rank; and GroupNorm and the bf16 GEGLU against their plain versions
+    at every shape the two training CLIs gave them (recorded on the
+    path)."""
+    import numpy as np
+    from PIL import Image
+
+    from polyp_tpu_torch.cli import (
+        finetune_pretrained, inspect_lora, lora_all_classes)
+
+    root = tmp / "sd_clis"
+    common = ["--data-root", str(data), "--cache-dir", str(root / "cache"),
+              "--tracker-root", str(root / "mlruns")]
+    out: dict = {"card": card}
+
+    def pngs(d: Path, n: int, px: int) -> None:
+        files = sorted(d.glob("*.png"))
+        if len(files) != n or any(np.asarray(Image.open(f)).shape
+                                  != (px, px, 3) for f in files):
+            raise AssertionError(f"{d}: {[f.name for f in files]}")
+
+    # lora-all-classes: CFG batch 10 (5 images) at 224 px, its VAE decode
+    # at batch 5, its encode at the train batch; finetune-pretrained: CFG
+    # batch 2 * FT_GRID at 256 px, its decode at FT_GRID
+    recorder = ShapeRecorder({"fused_group_norm": gn_key,
+                              "fused_geglu": lambda x, *args:
+                              tuple(x.shape)})
+    reset_counts()
+    start = time.perf_counter()
+    with recorder:
+        result = lora_all_classes.main(common + [
+            "--folder", str(root / "all"), "--generate_subsamples",
+            "--num_epochs", "1", "--image_size", str(LOOP_PX)])
+    torch.cuda.synchronize()
+    out["lora_all_classes"] = {
+        "seconds": time.perf_counter() - start, "launches": read_counts(),
+        "classes": {c: {k: v for k, v in r.items()}
+                    for c, r in result["classes"].items()}}
+    for c in result["classes"]:
+        pngs(root / "all" / "samples" / c, 5, LOOP_PX)
+    if out["lora_all_classes"]["launches"]["flash_attention"] != 0:
+        raise AssertionError(f"lora-all-classes launched flash at 224 px: "
+                             f"{out['lora_all_classes']}")
+
+    spent: dict = {}
+    real = {n: getattr(finetune_pretrained, n)
+            for n in ("train_sd_lora", "generate_to_dir")}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            reset_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = real[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] = {"seconds": time.perf_counter() - start,
+                           "launches": read_counts()}
+            return result
+        return call
+
+    try:
+        for name in real:
+            setattr(finetune_pretrained, name, counted(name))
+        start = time.perf_counter()
+        with recorder:
+            ft = finetune_pretrained.main(common + [
+                "--output-dir", str(root / "ft"), "--num_epochs", "1",
+                "--eval_batch_size", str(FT_GRID)])
+        ft_s = time.perf_counter() - start
+    finally:
+        for name, fn in real.items():
+            setattr(finetune_pretrained, name, fn)
+    pngs(ft["samples"], FT_GRID, 256)
+    train, sample = spent["train_sd_lora"], spent["generate_to_dir"]
+    flash = {"a train step": train["launches"]["flash_attention"]
+             / ft["steps"],
+             "a sampling forward": sample["launches"]["flash_attention"]
+             / FT_STEPS}
+    # the five level-0 self-attentions of a UNet forward, in the train
+    # step (forward only: the backward is plain) and in each sampling
+    # forward
+    if flash != {"a train step": STEP_FLASH,
+                 "a sampling forward": STEP_FLASH}:
+        raise AssertionError(f"finetune-pretrained flash launches {flash}")
+    listing = io.StringIO()  # its 128 module lines go to the JSON
+    with contextlib.redirect_stdout(listing):
+        report = inspect_lora.main([str(root / "ft" / "lora_weights")])
+    if len(report["modules"]) != ATTENTION_MODULES or report["ranks"] != [4]:
+        raise AssertionError(f"inspect-lora: {report}")
+    out["finetune_pretrained"] = {
+        "seconds": ft_s, "steps": ft["steps"], "loss_hist": ft["loss_hist"],
+        "train": train, "sample": sample, "flash": flash,
+        "grid_images_per_s": FT_GRID / sample["seconds"]}
+    out["inspect_lora"] = {**{k: report[k] for k in ("ranks", "params")},
+                           "printed": listing.getvalue()}
+    with torch.no_grad():
+        out["kernel_checks"] = rows = recorded_rows(recorder.seen, dev)
+    la = out["lora_all_classes"]
+    print(f"[sd-clis] lora-all-classes --generate_subsamples ({LOOP_PX} px, 1 "
+          f"epoch, 5 images a class): {la['seconds']:.1f} s, launches "
+          f"{la['launches']}; " + "; ".join(
+              f"{c} {r['steps']} steps {r['train_s']:.2f} s, 5 images "
+              f"{r['generate_s']:.2f} s" for c, r in la["classes"].items())
+          + f" on {card}", flush=True)
+    print(f"[sd-clis] finetune-pretrained (256 px, 1 epoch = {ft['steps']} "
+          f"steps in {train['seconds']:.2f} s, grid of {FT_GRID} in "
+          f"{sample['seconds']:.2f} s = "
+          f"{out['finetune_pretrained']['grid_images_per_s']:.2f} images/s): "
+          f"{ft_s:.1f} s; flash {flash}; inspect-lora: "
+          f"{len(report['modules'])} modules, rank {report['ranks']}, "
+          f"{report['params']:,} params on {card}", flush=True)
+    print(f"[sd-clis] kernel checks at the two CLIs' shapes on {card}: "
+          + "; ".join(f"{r['name']} {r['shape']} ({r['path_launches']} "
+                      f"launches, {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})"
+                      for r in rows), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2483,6 +2996,14 @@ def main() -> int:
                                        tmp)
         phase("augmentation loop")
 
+        # the scratch path and the SD CLIs on the loop's corpus
+        scratch = scratch_phase(dev, card, reset_counts, read_counts, tmp,
+                                tmp / "loop" / "data")
+        phase("scratch DDPM")
+        sd_clis = sd_clis_phase(dev, card, reset_counts, read_counts, tmp,
+                                tmp / "loop" / "data")
+        phase("SD CLIs")
+
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
                  f"{path['decode_s']:.3f} s, decode share "
@@ -2575,7 +3096,8 @@ def main() -> int:
                                 "polyp_tpu/ops/fused_gn.py:136"),
         "fused_mha": ("distilled_bf16", "polyp_tpu_torch/csrc/fused_mha.cu",
                       "polyp_tpu/ops/fused_mha.py:241")}
-    rows += loop["kernel_checks"]
+    rows += (loop["kernel_checks"] + scratch["kernel_checks"]
+             + sd_clis["kernel_checks"])
     table = []
     per_train_step = training["default"]["launches_per_step"]
     per_loop_class = {c: v["launches"] for c, v in loop["classes"].items()}
@@ -2592,12 +3114,17 @@ def main() -> int:
                       "library_ms": head["library_ms"],
                       "launches_per_train_step": per_train_step[name],
                       "launches_per_loop_class": {
-                          c: v[name] for c, v in per_loop_class.items()}})
+                          c: v[name] for c, v in per_loop_class.items()},
+                      "launches_per_scratch_forward": {
+                          "bf16": scratch["forward_launches"].get(name, 0),
+                          "w8a8_static": scratch["w8a8_static"][
+                              "launches_per_forward"].get(name, 0)}})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
               "shape_census": census, "serving": serving,
               "training": training, "augmentation_loop": loop,
+              "scratch": scratch, "sd_clis": sd_clis,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

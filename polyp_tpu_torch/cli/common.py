@@ -87,6 +87,14 @@ def print_banner(msg: str) -> None:
     print(f"\n=== {msg} ===")
 
 
+def class_split(one_vs_rest: bool) -> tuple[list[str], dict[str, list[str]]]:
+    """The classes a per-class CLI trains, and the labels each keeps: AD,
+    HP and ASS each alone, or AD and REST (HP with ASS)."""
+    if one_vs_rest:
+        return ["AD", "REST"], {"AD": ["AD"], "REST": ["HP", "ASS"]}
+    return ["AD", "HP", "ASS"], {c: [c] for c in ("AD", "HP", "ASS")}
+
+
 @dataclass
 class SDStack:
     unet: nn.Module

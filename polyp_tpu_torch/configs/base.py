@@ -10,8 +10,7 @@ models/importers.py::jax_module_path, so a preset picks the same layers in
 both packages. `quantize` takes the explicit modes only: "promoted"
 expands, in the reference, to the verdict of a quant gate measured on a
 TPU (polyp_tpu/ops/quant_gate.json), which the port does not read
-(ROADMAP.md Queue 1 item 2). `device_count` comes with multi-GPU, and
-`output_dir` is not kept: the per-class CLI writes to its `--folder`.
+(ROADMAP.md Queue 1 item 2). `device_count` comes with multi-GPU.
 
 `ClassificationConfig` is a copy of the reference's (:155-183): the
 classifier's fields, its CLI defaults and the same timestamped
@@ -88,6 +87,10 @@ class DiffusionConfig:
     lr_warmup_steps: int = 0
     lr_warmup_frac: float = 0.03
 
+    # where the scratch and fine-tuning CLIs write (the per-class CLIs
+    # write to their --folder)
+    output_dir: str = field(
+        default_factory=lambda: f"runs/diffusion_{_timestamp()}")
     experiment_name: str = "baseline_with_lora"  # the tracker's default
 
     @property

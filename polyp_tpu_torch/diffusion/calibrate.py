@@ -97,7 +97,7 @@ def ensure_scales(unet: torch.nn.Module, schedule: DiffusionSchedule,
 
 def _calib_forward(unet, x, t, ctx) -> tuple[torch.Tensor, dict[str, float]]:
     with quant.override("w8a8_calib") as state:
-        out = unet(x, t, ctx)
+        out = unet(x, t) if ctx is None else unet(x, t, ctx)
     names = list(state.stats)
     values = (torch.stack([state.stats[k] for k in names]).tolist()
               if names else [])  # one transfer per forward
@@ -122,7 +122,9 @@ def calibrate_unet_scales(
     (NCHW latents of `latent_shape`; drawn from a generator seeded 0 when
     None), recording each quantizable layer's input amax at every point,
     on the conditional and the unconditional branch as separate forwards,
-    as the reference does. Returns {module name: [num_train_timesteps
+    as the reference does. `cond=None` drives an unconditional pixel model
+    (models/unet2d.py), called without a context, with the trajectory in
+    the module's dtype. Returns {module name: [num_train_timesteps
     floats]}, linearly interpolated between the points."""
     device = next(unet.parameters()).device
     dtype = cond.dtype if cond is not None else unet.dtype
@@ -131,7 +133,8 @@ def calibrate_unet_scales(
         uncond = None  # guidance folded into the model: no uncond branch
 
     def bcast(emb):
-        return emb.expand(n, *emb.shape[-2:]).to(device)
+        return (None if emb is None
+                else emb.expand(n, *emb.shape[-2:]).to(device))
 
     T = schedule.num_train_timesteps
     ts = np.unique(np.linspace(T - 1, 0, num_steps).round().astype(np.int64)

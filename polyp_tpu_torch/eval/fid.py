@@ -13,7 +13,7 @@ polyp_tpu/eval/fid.py.
   given, else a seeded random backbone: repeatable, comparable between
   runs, not with published FID (the result says which);
 * `class_frechet_distances`: per class, real training images against
-  `samples/{cls}`.
+  `samples/{cls}`; `fid_between_dirs`: two image directories.
 """
 
 from __future__ import annotations
@@ -118,6 +118,23 @@ def load_image_dir(d: str | Path, image_size: int,
     if not paths:
         raise ValueError(f"no images in {d}")
     return np.stack([load_preprocessed(p, image_size) for p in paths])
+
+
+def fid_between_dirs(real_dir: str | Path, fake_dir: str | Path,
+                     extractor: FeatureExtractor | None = None,
+                     image_size: int = 224, device: str = "cuda") -> dict:
+    """The Fréchet distance between two image directories, with the
+    extractor's name, whether it is calibrated, and the image counts.
+    Without `extractor`, B0's features on `device`."""
+    extractor = extractor or efficientnet_extractor(image_size,
+                                                    device=str(device))
+    real = extractor(load_image_dir(real_dir, image_size))
+    fake = extractor(load_image_dir(fake_dir, image_size))
+    mu_r, s_r = feature_statistics(real)
+    mu_f, s_f = feature_statistics(fake)
+    return {"frechet_distance": frechet_distance(mu_r, s_r, mu_f, s_f),
+            "extractor": extractor.name, "calibrated": extractor.calibrated,
+            "n_real": len(real), "n_fake": len(fake)}
 
 
 def frechet_from_arrays(real_u8: np.ndarray, fake_u8: np.ndarray,

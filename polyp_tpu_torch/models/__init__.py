@@ -11,6 +11,7 @@ from polyp_tpu_torch.models.vae import (  # noqa: F401
 from polyp_tpu_torch.models.clip_text import (  # noqa: F401
     SD14_TEXT_CONFIG,
     TINY_TEXT_CONFIG,
+    VIT_B32_TEXT_CONFIG,
     CLIPTextConfig,
     CLIPTextModel,
 )

@@ -30,6 +30,8 @@ class CLIPTextConfig:
 
 
 SD14_TEXT_CONFIG = CLIPTextConfig()  # ViT-L/14 text tower
+# clip-vit-base-patch32's text tower (the scratch CLI's conditioning)
+VIT_B32_TEXT_CONFIG = CLIPTextConfig(width=512, heads=8)
 TINY_TEXT_CONFIG = CLIPTextConfig(vocab_size=512, width=32, layers=2, heads=2,
                                   max_length=16)
 

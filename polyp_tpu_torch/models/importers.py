@@ -12,7 +12,9 @@ Each `*_from_jax` function takes the parameter tree as nested dicts of
 numpy arrays (`params` of `model.init`, or an imported tree) and returns a
 state dict of fp32 tensors for `load_state_dict(..., strict=True)`;
 `lora_from_jax` and `trainable_from_jax` carry LoRA adapters and the
-trainer's whole bundle (lora/surgery.py, train/sd_finetune.py).
+trainer's whole bundle (lora/surgery.py, train/sd_finetune.py);
+`unet2d_from_jax` and `simple_unet_from_jax` the scratch path's models
+(models/unet2d.py, models/simple_unet.py).
 `jax_module_path` is the inverse for module names: the port's module
 `down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.0` is the
 reference's `down_0_attn_0/transformer_blocks_0/attn1/to_out`, whose last
@@ -122,6 +124,20 @@ def unet_from_jax(params: Any) -> dict[str, torch.Tensor]:
     path, so the params of any one block (ResnetBlock2D, Transformer2D,
     SpatialSelfAttention, ...) give that block's state dict."""
     return _convert(_params(params), _BLOCK_RULES)
+
+
+def unet2d_from_jax(params: Any) -> dict[str, torch.Tensor]:
+    """polyp_tpu scratch UNet2D params → the port's UNet2D state dict
+    (models/unet2d.py names its modules by the same rules:
+    `down_4_attn_0/attn/attention/to_q` → `down_blocks.4.attentions.0.
+    attn.to_q`, `cross_attn/to_out` → `cross_attn.to_out.0`)."""
+    return _convert(_params(params), _BLOCK_RULES)
+
+
+def simple_unet_from_jax(params: Any) -> dict[str, torch.Tensor]:
+    """polyp_tpu SimpleUNet params → the port's SimpleUNet state dict: the
+    flax module names are kept (`down_0/conv1` → `down_0.conv1`)."""
+    return _convert(_params(params), [])
 
 
 def vae_decoder_from_jax(params: Any) -> dict[str, torch.Tensor]:

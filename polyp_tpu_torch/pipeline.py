@@ -1,4 +1,5 @@
-"""Generation pipeline: the twin of polyp_tpu/pipeline.py (the SD path).
+"""Generation pipeline: the twin of polyp_tpu/pipeline.py (the SD path
+and the scratch path's PixelDiffusionSampler).
 
 Prompt → CLIP → classifier-free-guided UNet sampling → VAE decode → uint8
 PNGs, with quota-driven batching and idempotent top-up resume.
@@ -112,6 +113,74 @@ def fetch_uint8(images: torch.Tensor) -> Callable[[], np.ndarray]:
         copied.synchronize()
         return host.numpy()
     return wait
+
+
+class PixelDiffusionSampler:
+    """DDPMPipeline equivalent over a pixel-space UNet (models/unet2d.py,
+    models/simple_unet.py), which carries its weights and device: the
+    reference's :102-193. `sampler` is "ddpm" (every train timestep by
+    default) or any other of diffusion/samplers.py; `text_embeddings`
+    ([1, L, D]) condition every sample; `quantize`, `quant_fp_head` and
+    `quant_fp_tail` as StableDiffusionSampler's, w8a8_static calibrated
+    once on the unconditioned (or text-conditioned) trajectory and cached
+    on disk by weight fingerprint; `sampler_kwargs` go to the sampler.
+    A call `sampler(batch_size, seed)` is a BatchSampler: fp32 NCHW images
+    in about [-1, 1], the initial noise from a generator seeded `seed`."""
+
+    def __init__(self, model, schedule: DiffusionSchedule, image_size: int,
+                 sampler: str = "ddpm", num_steps: int | None = None,
+                 text_embeddings: torch.Tensor | None = None,
+                 quantize: str | None = None, quant_fp_head: int = 0,
+                 quant_fp_tail: int = 0, sampler_kwargs: dict | None = None):
+        get_sampler(sampler)  # refuse an unknown sampler before any work
+        if quantize not in (None, "w8a8", "w8a8_static"):
+            raise ValueError(f"unknown quantization mode: {quantize!r}")
+        self.model = model
+        self.schedule = schedule
+        self.image_size = image_size
+        self.sampler = sampler
+        self.num_steps = num_steps or schedule.num_train_timesteps
+        self.sampler_kwargs = dict(sampler_kwargs or {})
+        self.quantize, self._split = _precision_split(
+            self.num_steps, quantize, quant_fp_head, quant_fp_tail)
+        self.device = next(model.parameters()).device
+        self.text_embeddings = (None if text_embeddings is None
+                                else text_embeddings.to(self.device))
+        self.quant_scales: dict | None = None
+        self._scale_bank: quant.ScaleBank | None = None
+        if self.quantize == "w8a8_static":
+            from polyp_tpu_torch.diffusion.calibrate import ensure_scales
+            self.quant_scales = ensure_scales(
+                model, schedule,
+                (2, model.out_channels, image_size, image_size),
+                self.text_embeddings, fingerprint_extras=(
+                    image_size, schedule.num_train_timesteps))
+            self._scale_bank = quant.ScaleBank(self.quant_scales)
+
+    @torch.no_grad()
+    def __call__(self, batch_size: int, seed: int) -> torch.Tensor:
+        """`batch_size` images, the initial noise (and a stochastic
+        sampler's per-step noise) from a generator seeded `seed`."""
+        generator = torch.Generator(self.device).manual_seed(seed)
+        emb = self.text_embeddings
+        ctx = (None if emb is None
+               else emb.expand(batch_size, *emb.shape[-2:]))
+
+        def apply_in(mode):
+            def fn(x, t):
+                args = (x, t) if ctx is None else (x, t, ctx)
+                with quant.override(mode, scales=self._scale_bank, t=t):
+                    return self.model(*args)
+            return fn
+
+        model_fn = apply_in(self.quantize)
+        if self._split is not None:
+            model_fn = _precision_segments(model_fn, apply_in(None),
+                                           self.num_steps, self._split)
+        shape = (batch_size, self.model.out_channels, self.image_size,
+                 self.image_size)
+        return sample(self.sampler, model_fn, self.schedule, shape,
+                      generator, self.num_steps, **self.sampler_kwargs)
 
 
 class StableDiffusionSampler:

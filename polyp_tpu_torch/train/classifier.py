@@ -48,6 +48,7 @@ from polyp_tpu_torch.data.transforms import augment_classifier_batch
 from polyp_tpu_torch.eval import metrics as M
 from polyp_tpu_torch.models.efficientnet import (
     PolypClassifier, init_classifier_)
+from polyp_tpu_torch.utils.faults import maybe_crash
 from polyp_tpu_torch.utils.rng import stream_generator
 
 MIXED_PRECISION = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -126,8 +127,12 @@ class ClassifierState:
         `batch_stats` (the best epoch's, say); this state is unchanged."""
         model = copy.deepcopy(self.model)
         model.load_state_dict({**params, **batch_stats})
-        optimizer = type(self.optimizer)(model.parameters(),
-                                         **self.optimizer.defaults)
+        # the constructor's own arguments: a restored optimizer's
+        # `defaults` also hold torch's (load_state_dict adds
+        # `differentiable`), which OptaxAdam does not take
+        optimizer = OptaxAdam(model.parameters(), **{
+            k: self.optimizer.defaults[k]
+            for k in ("lr", "weight_decay", "betas", "eps")})
         return ClassifierState(model, optimizer, self.dtype, self.step)
 
 
@@ -364,8 +369,9 @@ def train_classifier(
         if early_stopping == config.patience:
             result.stopped_epoch = epoch
             break
-        if checkpointer is not None:
-            checkpointer.save(epoch, snapshot(), aux=aux())
+        if checkpointer is not None and checkpointer.save(
+                epoch, snapshot(), aux=aux()):
+            maybe_crash("epoch", epoch)  # a no-op unless a test arms it
 
     if checkpointer is not None and config.num_epochs > start_epoch:
         # the terminal snapshot: a rerun of a finished job returns at once

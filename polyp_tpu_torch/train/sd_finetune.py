@@ -53,6 +53,7 @@ from polyp_tpu_torch.models.vae import SD_VAE_SCALING, DiagonalGaussian
 from polyp_tpu_torch.train.dreambooth import embed_with_special_rows
 from polyp_tpu_torch.train.scratch_ddpm import cosine_warmup_schedule
 from polyp_tpu_torch.utils.checkpoint import tree_leaves, tree_map
+from polyp_tpu_torch.utils.faults import maybe_crash
 from polyp_tpu_torch.utils.rng import stream_generator
 
 TOKEN_TABLE = "text_model.embeddings.token_embedding.weight"
@@ -436,9 +437,9 @@ def train_sd_lora(
         result.loss_hist.append(avg)
         if log:
             log("train_loss", avg, epoch)
-        if checkpointer is not None:
-            checkpointer.save(epoch, state.tree(),
-                              aux={"loss_hist": result.loss_hist})
+        if checkpointer is not None and checkpointer.save(
+                epoch, state.tree(), aux={"loss_hist": result.loss_hist}):
+            maybe_crash("epoch", epoch)  # a no-op unless a test arms it
         if epoch_callback:
             epoch_callback(epoch, state)
     return state, result
