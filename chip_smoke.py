@@ -158,11 +158,34 @@ caught:
    polyp-inspect-lora on its adapter (128 modules, rank 4); GroupNorm and
    the bf16 GEGLU against their plain versions at every shape the two
    training CLIs gave them (recorded on the path);
-11. prints the kernel table (all eight kernel entries, with launches on
+11. distils (distill_phase, "distill") at full width: polyp-distill-sd-
+   torch's main over phase 10's three LoRA bundles (SD-v1-4, 256 px, batch
+   8, one 8 → 4 phase of 4 steps a class, 8 samples a class): every step
+   launches exactly flash 15, GEGLU 32 and GroupNorm 122 (the teacher's
+   two CFG forwards at batch 16; the student's forward under autograd runs
+   flash only), and its seconds (steps 2-4), train images/s, peak memory,
+   a profiled step's busy share and each student's save seconds are
+   printed; its reparam warmup once through distill_progressive (a
+   v-prediction student, 2 warmup steps of flash 10, GEGLU 16 and
+   GroupNorm 61, then 2 phase steps); load_student_sampler on a saved
+   student (16 images at batch 16, launches exact); the three students
+   behind polyp-serve-torch's service (--distilled-dir, --distilled-class
+   all) over HTTP, 8 requests across them, each of 3 solo twins
+   pixel-equal to its coalesced request; polyp-distill-torch over phase
+   9's models (224 px, batch 8, GroupNorm exactly 142 a step) and
+   polyp-distill-vae-torch with mixed latents (256 px, batch 8, 20 steps,
+   GroupNorm exactly 30 a step; the tiny decoder reloaded and decoding);
+   one SD distill step at batch 1 on the card against the same step in
+   fp32 on the CPU (loss within REL_L2_TOLERANCE, student gradients within
+   LORA_GRAD_REL_L2); and flash, the bf16 GEGLU and GroupNorm against
+   their plain versions at every shape these paths gave them (recorded
+   on the path);
+12. prints the kernel table (all eight kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
-   class and launches a scratch forward) as one JSON line, the card line,
-   and last the result line {"ok": true, "device": {...}}. Each phase's
-   seconds are printed as it ends ("[time]").
+   class, launches a scratch forward and launches a distill step) as one
+   JSON line, the card line, and last the result line {"ok": true,
+   "device": {...}}. Each phase's seconds are printed as it ends
+   ("[time]").
 
 TF32 is off for every comparison but the augmentation loop's (phase 8).
 Details of each check go to
@@ -171,6 +194,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import io
@@ -565,12 +589,6 @@ def check_kernels(dev: torch.device) -> list[dict]:
         fused_mha_linear, reference_mha_linear)
 
     randn = randn_on(dev, seed=0)
-
-    def sdpa(q, k, v):  # BTHD in and out, as the port's attention
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2),
-            v.transpose(1, 2)).transpose(1, 2)
-
     rows = []
     # level-0 self-attention at 256px: [4, 1024, 8, 40] for batch 2 under
     # CFG (the headline row), the LoRA train step's batch 8, and the
@@ -789,21 +807,25 @@ def gn_q8_row(x, gamma, beta, groups: int, eps: float, act, shape: str
 
 
 class ShapeRecorder:
-    """Inside `with recorder:`, every call unet_blocks makes to each named
-    kernel wrapper is counted under `keys[name](*args)` (its shape and
+    """Inside `with recorder:`, every call the models make to each named
+    kernel wrapper (flash from ops/attention.py, the others from
+    unet_blocks) is counted under `keys[name](*args)` (its shape and
     arguments), then passed on to the wrapper unchanged."""
 
     def __init__(self, keys: dict):
         from polyp_tpu_torch.models import unet_blocks
+        from polyp_tpu_torch.ops import attention
 
-        self.blocks, self.keys = unet_blocks, keys
+        self.keys = keys
+        self.owners = {name: attention if name == "flash_attention"
+                       else unet_blocks for name in keys}
         self.seen = {name: Counter() for name in keys}
 
     def __enter__(self):
-        self.wrappers = {name: getattr(self.blocks, name)
+        self.wrappers = {name: getattr(self.owners[name], name)
                          for name in self.keys}
         for name, fn in self.wrappers.items():
-            setattr(self.blocks, name, self._counted(name, fn))
+            setattr(self.owners[name], name, self._counted(name, fn))
         return self
 
     def _counted(self, name: str, fn):
@@ -814,7 +836,7 @@ class ShapeRecorder:
 
     def __exit__(self, *exc):
         for name, fn in self.wrappers.items():
-            setattr(self.blocks, name, fn)
+            setattr(self.owners[name], name, fn)
 
 
 def gn_key(x, weight, bias, num_groups=32, eps=1e-5, act=None,
@@ -823,6 +845,21 @@ def gn_key(x, weight, bias, num_groups=32, eps=1e-5, act=None,
     call."""
     return (tuple(x.shape), x.dtype, num_groups, eps, act,
             act_scale is not None)
+
+
+def flash_key(q, k, v, *args, **kwargs) -> tuple:
+    """(q's shape, k's shape, dtype) of a flash attention call (BTHD)."""
+    return tuple(q.shape), tuple(k.shape), q.dtype
+
+
+def sdpa(q, k, v):
+    """F.scaled_dot_product_attention on BTHD tensors, as the port's
+    attention takes them."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2)).transpose(1, 2)
 
 
 def dense_key(x, w, *args, **kwargs) -> tuple:
@@ -834,14 +871,29 @@ def dense_key(x, w, *args, **kwargs) -> tuple:
 def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
     """compare() of GN(+SiLU) (recorded under gn_key; an int8 epilogue
     call held to reference_gn_q8 as gn_rows holds it), the bf16 GEGLU
-    (under its x's shape) and the W8A8 dense (under dense_key) at every
-    recorded shape, on inputs drawn as gn_rows and gemm_rows draw them,
-    each row with the path's launches at its shape."""
+    (under its x's shape), the W8A8 dense (under dense_key) and flash
+    attention (under flash_key) at every recorded shape, on inputs drawn
+    as gn_rows, gemm_rows and check_kernels draw them, each row with the
+    path's launches at its shape."""
+    from polyp_tpu_torch.ops.flash_attention import (
+        flash_attention, reference_attention)
     from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
     from polyp_tpu_torch.ops.fused_gn import fused_group_norm, group_norm
 
     randn = randn_on(dev, seed=0)
     rows = []
+    for (qs, ks, dtype), calls in sorted(
+            seen.get("flash_attention", {}).items(), key=str):
+        q = randn(*qs).to(dtype)
+        k, v = (randn(*ks).to(dtype) for _ in range(2))
+        n, tq, h, d = qs
+        rows.append({**compare(
+            "flash_attention", lambda: flash_attention(q, k, v),
+            lambda: reference_attention(q, k, v),
+            reference_attention(q.float(), k.float(), v.float()),
+            str(list(qs)), bound(4 * n * h * tq * ks[1] * d, "bf16",
+                                 nbytes(q, k, v) + nbytes(q)),
+            library_fn=lambda: sdpa(q, k, v)), "path_launches": calls})
     for (shape, dtype, groups, eps, act, q8), calls in sorted(
             seen.get("fused_group_norm", {}).items(), key=str):
         x = randn(*shape, scale=2.0, shift=0.3).to(dtype)
@@ -2777,6 +2829,492 @@ def sd_clis_phase(dev: torch.device, card: str, reset_counts, read_counts,
     return out
 
 
+# the distill phase: polyp-distill-sd-torch over sd_clis_phase's three
+# LoRA bundles at the 40 → 20 phase's shapes (bench.py:455-530: SD-v1-4,
+# 256 px, batch 8), cut to one 8 → 4 phase of 4 steps a class (the
+# reference CLI's 40 → 10 at 2,000 steps a phase); its reparam warmup once
+# through distill_progressive; polyp-distill-torch over scratch_phase's
+# models at 224 px (100 → 25 at 2,000, cut to 8 → 4 at 4); and
+# polyp-distill-vae-torch at 256 px (2,000 steps, cut to 20)
+DISTILL_PX, DISTILL_BATCH, DISTILL_STEPS = 256, 8, 4
+DISTILL_GENERATE, STUDENT_IMAGES = 8, 16
+SCRATCH_DISTILL_GENERATE, VAE_DISTILL_STEPS = 4, 20
+# launches a step: the SD step's teacher runs two CFG forwards (5 flash, 16
+# GEGLU, 61 GroupNorm each) and its student one forward under autograd
+# (flash only: GEGLU and GroupNorm take their plain versions); a reparam
+# warmup step has one teacher forward; the scratch teacher's two forwards
+# run 71 GroupNorms each; the VAE step is the teacher's decode
+KERNEL_NAMES = ("flash_attention", "fused_geglu", "fused_group_norm",
+                "fused_w8a8_dense", "fused_geglu_w8a8", "fused_geglu_w8a8_pt",
+                "fused_group_norm_q8", "fused_mha")
+
+
+def launches_of(**counts) -> dict:
+    return {k: counts.get(k, 0) for k in KERNEL_NAMES}
+
+
+# a bf16 UNet forward at 256 px and a VAE decode (PERF.md §6)
+UNET_FORWARD = launches_of(flash_attention=5, fused_geglu=16,
+                           fused_group_norm=61)
+VAE_DECODE = launches_of(fused_group_norm=30)
+SD_DISTILL_STEP = launches_of(flash_attention=15, fused_geglu=32,
+                              fused_group_norm=122)
+REPARAM_STEP = launches_of(flash_attention=10, fused_geglu=16,
+                           fused_group_norm=61)
+SCRATCH_DISTILL_STEP = launches_of(fused_group_norm=142)
+VAE_DISTILL_STEP = launches_of(fused_group_norm=30)
+
+
+class StepMeter:
+    """Wraps a train step: each call synchronised and timed on the host
+    clock, its launches the change of every count over it; the call at
+    index `profile_at` runs through profile_device."""
+
+    def __init__(self, read_counts, profile_at: int | None = None):
+        self.read_counts, self.profile_at = read_counts, profile_at
+        self.steps: list[dict] = []
+        self.profile: dict | None = None
+
+    def wrap(self, step, **info):
+        def call(*args, **kwargs):
+            before = self.read_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            if len(self.steps) == self.profile_at:
+                box = []
+                self.profile = profile_device(
+                    lambda: box.append(step(*args, **kwargs)))
+                out = box[0]
+            else:
+                out = step(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            after = self.read_counts()
+            self.steps.append({**info, "s": seconds, "launches": {
+                k: after[k] - before[k] for k in after}})
+            return out
+        return call
+
+    def check(self, what: str, want: dict, **match) -> list[dict]:
+        """The steps with `match` in their info, each launching exactly
+        `want`."""
+        steps = [st for st in self.steps
+                 if all(st.get(k) == v for k, v in match.items())]
+        bad = [st["launches"] for st in steps if st["launches"] != want]
+        if not steps or bad:
+            raise AssertionError(f"{what}: {len(steps)} steps, launches "
+                                 f"{bad or None}, want {want}")
+        return steps
+
+
+class _Recorded:
+    """An optimizer stand-in that keeps a step's gradients."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params):
+        self.grads = grads
+
+
+def distill_vs_cpu(stack, dev: torch.device) -> dict:
+    """One SD distill step (CFG 7.5 folded, the 2-substep target) at batch
+    1 on the card (bf16, kernels) and on the CPU (fp32 copies of the same
+    weights, plain versions), with the same draws and the same fp32
+    masters: the loss and every student gradient."""
+    from polyp_tpu_torch.cli.distill_sd import sd_schedule
+    from polyp_tpu_torch.models import sd14_unet
+    from polyp_tpu_torch.train import distill as td
+
+    schedule = sd_schedule()
+    grid = td.distill_grid(schedule, 4)
+    with torch.no_grad():
+        cond, uncond = (stack.text(torch.as_tensor(
+            stack.tokenizer([p]), device=dev)).float().cpu()
+            for p in (PROMPT, ""))
+    g = torch.Generator().manual_seed(11)
+    lat = (1, 4, TRAIN_PX // 8, TRAIN_PX // 8)
+    x0, noise = torch.randn(lat, generator=g), torch.randn(lat, generator=g)
+
+    class Fixed(td.DistillDraws):
+        def __init__(self, device):
+            self.device = device
+
+        def idx(self, n, high):
+            return torch.tensor([1], device=self.device)
+
+        def noise(self, shape):
+            return noise.to(self.device)
+
+    def run(model, device):
+        applies = td.make_applies(model, 7.5, cond.to(device),
+                                  uncond.to(device))
+        tx = _Recorded()
+        state = td.init_distill_state(
+            {k: v.float() for k, v in model.named_parameters()}, tx)
+        step = td.make_distill_step(applies.student, applies.teacher,
+                                    schedule, schedule, grid)
+        _, loss = step(state, applies.cast(state.params), x0.to(device),
+                       Fixed(device))
+        return loss.item(), tx.grads
+
+    card_loss, card_grads = run(stack.unet, dev)
+    cpu = sd14_unet(dtype=torch.float32, device="meta").to_empty(
+        device="cpu")
+    cpu.load_state_dict(stack.unet.state_dict())
+    cpu_loss, cpu_grads = run(cpu.eval(), "cpu")
+    diff = sum((card_grads[k].float().cpu() - g).square().sum().item()
+               for k, g in cpu_grads.items())
+    norm = sum(g.square().sum().item() for g in cpu_grads.values())
+    out = {"loss_card": card_loss, "loss_cpu": cpu_loss,
+           "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
+           "grad_rel_l2": math.sqrt(diff / norm),
+           "grad_values": sum(g.numel() for g in cpu_grads.values()),
+           "loss_tolerance": REL_L2_TOLERANCE,
+           "grad_tolerance": LORA_GRAD_REL_L2}
+    print(f"[distill] one SD distill step at batch 1, card bf16 vs cpu "
+          f"fp32, same draws and masters: loss {card_loss:.6f} vs "
+          f"{cpu_loss:.6f} (rel {out['loss_rel']:.3e}, tol "
+          f"{REL_L2_TOLERANCE:.0e}); student gradients "
+          f"({out['grad_values']} values) rel L2 {out['grad_rel_l2']:.3e} "
+          f"(tol {LORA_GRAD_REL_L2:.0e})", flush=True)
+    if not (out["loss_rel"] <= REL_L2_TOLERANCE
+            and out["grad_rel_l2"] <= LORA_GRAD_REL_L2):
+        raise AssertionError(f"distill step, card vs cpu: {out}")
+    return out
+
+
+def distill_phase(stack, dev: torch.device, card: str, reset_counts,
+                  read_counts, tmp: Path, data: Path) -> dict:
+    """Distillation training at full width and its students served:
+    polyp-distill-sd-torch's main over sd_clis_phase's three LoRA bundles
+    (DISTILL_* above; the exact launches of every step, s a step over steps
+    2-4, train images/s, peak memory, a profiled step's busy share, the
+    saves' seconds); its reparam warmup once through distill_progressive (a
+    v-prediction student, 2 warmup and 2 phase steps, one class);
+    load_student_sampler on a saved student (STUDENT_IMAGES images at
+    their own batch); polyp-serve-torch's service over --distilled-dir
+    with --distilled-class all behind HTTP (8 requests across the three
+    students, each solo twin pixel-equal); polyp-distill-torch over
+    scratch_phase's models and polyp-distill-vae-torch with mixed latents
+    (their exact launches a step; the tiny decoder reloaded and decoding);
+    one SD distill step on the card against the CPU; and every kernel call
+    of these paths against its plain version at its own shape (recorded
+    on the path). Every count is set to 0 just before each run and read
+    just after."""
+    import base64
+
+    import numpy as np
+    from PIL import Image
+
+    from polyp_tpu_torch import serve as serve_mod
+    from polyp_tpu_torch.cli import distill, distill_sd, distill_vae
+    from polyp_tpu_torch.cli.sd_common import (
+        fp32_unet_params, load_class_bundle)
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.models.tiny_decoder import load_tiny_decoder
+    from polyp_tpu_torch.pipeline import generate_to_dir
+    from polyp_tpu_torch.train import distill as td
+    from polyp_tpu_torch.train import distill_vae as tdv
+
+    root = tmp / "distill"
+    common = ["--data-root", str(data), "--cache-dir", str(root / "cache"),
+              "--tracker-root", str(root / "mlruns")]
+    lora_dir = tmp / "sd_clis" / "all"
+    recorder = ShapeRecorder({"fused_group_norm": gn_key,
+                              "fused_geglu": lambda x, *args: tuple(x.shape),
+                              "flash_attention": flash_key})
+    out: dict = {"card": card}
+
+    def pngs(d: Path, n: int, px: int) -> None:
+        files = sorted(d.glob("*.png"))
+        if len(files) != n or any(np.asarray(Image.open(f)).shape
+                                  != (px, px, 3) for f in files):
+            raise AssertionError(f"{d}: {[f.name for f in files]}")
+
+    # polyp-distill-sd-torch: 3 classes × 4 steps; the last step profiled
+    meter = StepMeter(read_counts, profile_at=3 * DISTILL_STEPS - 1)
+    real_step = td.make_distill_step
+    td.make_distill_step = lambda *args, **kwargs: meter.wrap(
+        real_step(*args, **kwargs), reparam=kwargs.get("reparam", False))
+    sd_out = root / "sd"
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    try:
+        with recorder:
+            classes = distill_sd.main(common + [
+                "--model-dir", str(lora_dir), "--output-dir", str(sd_out),
+                "--image_size", str(DISTILL_PX),
+                "--train_batch_size", str(DISTILL_BATCH),
+                "--start_steps", "8", "--end_steps", "4",
+                "--steps_per_phase", str(DISTILL_STEPS),
+                "--generate", str(DISTILL_GENERATE)])
+        torch.cuda.synchronize()
+    finally:
+        td.make_distill_step = real_step
+    sd_s = time.perf_counter() - start
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = meter.check("the SD distill steps", SD_DISTILL_STEP)
+    if len(steps) != 3 * DISTILL_STEPS:
+        raise AssertionError(f"{len(steps)} SD distill steps")
+    step_s = sum(st["s"] for st in steps[1:DISTILL_STEPS]) / (
+        DISTILL_STEPS - 1)
+    prof = meter.profile
+    prof["busy_share"] = prof["device_s"] / step_s
+    for cls, r in classes.items():
+        pngs(sd_out / "samples" / cls, DISTILL_GENERATE, DISTILL_PX)
+        if r["num_steps"] != 4 or not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"distill-sd {cls}: {r}")
+    out["sd"] = {
+        "seconds": sd_s, "launches": launches, "classes": classes,
+        "steps": steps, "step_s": step_s,
+        "train_images_per_s": DISTILL_BATCH / step_s,
+        "peak_memory_gib": peak, "profile": prof,
+        "launches_per_step": SD_DISTILL_STEP,
+        "save_s": {c: r["save_s"] for c, r in classes.items()}}
+    print(f"[distill] polyp-distill-sd-torch (SD-v1-4 full width, "
+          f"{DISTILL_PX} px, batch {DISTILL_BATCH}, 8 -> 4 at "
+          f"{DISTILL_STEPS} steps, 3 classes, {DISTILL_GENERATE} samples a "
+          f"class): {sd_s:.1f} s; a step {step_s:.4f} s (steps 2-4) = "
+          f"{DISTILL_BATCH / step_s:.1f} train images/s, peak {peak:.2f} "
+          f"GiB, launches a step {SD_DISTILL_STEP}; profiled step device "
+          f"{prof['device_s']:.4f} s (busy {prof['busy_share']:.2f}); top "
+          + "; ".join(f"{k} {ms:.1f} ({n})" for k, ms, n in prof["top"][:5])
+          + "; saves " + ", ".join(f"{c} {r['save_s']:.2f} s"
+                                   for c, r in classes.items())
+          + f"; launches {launches} on {card}", flush=True)
+
+    # the reparam warmup (ε teacher → v student) through
+    # distill_progressive at the same shapes, one class
+    config = DiffusionConfig()
+    bundle = load_class_bundle(stack, lora_dir, "AD")
+    teacher = fp32_unet_params(stack, config, bundle)
+    del bundle
+    g = torch.Generator(dev).manual_seed(13)
+    x0 = torch.randn(DISTILL_BATCH, 4, DISTILL_PX // 8, DISTILL_PX // 8,
+                     generator=g, device=dev)
+    with torch.no_grad():
+        cond, uncond = (stack.text(torch.as_tensor(
+            stack.tokenizer([p]), device=dev)).float() for p in (PROMPT, ""))
+    meter = StepMeter(read_counts)
+    td.make_distill_step = lambda *args, **kwargs: meter.wrap(
+        real_step(*args, **kwargs), reparam=kwargs.get("reparam", False))
+    reset_counts()
+    start = time.perf_counter()
+    try:
+        with recorder:
+            result = td.distill_progressive(
+                stack.unet, teacher, distill_sd.sd_schedule(), lambda: [x0],
+                start_steps=8, end_steps=4, steps_per_phase=2,
+                reparam_steps=2, student_prediction_type="v_prediction",
+                guidance_scale=7.5, cond=cond, uncond=uncond)
+        torch.cuda.synchronize()
+    finally:
+        td.make_distill_step = real_step
+    reparam_s = time.perf_counter() - start
+    reparam_launches = read_counts()
+    warm = meter.check("the reparam warmup steps", REPARAM_STEP,
+                       reparam=True)
+    meter.check("the v student's phase steps", SD_DISTILL_STEP,
+                reparam=False)
+    del teacher
+    if len(warm) != 2 or result.prediction_type != "v_prediction":
+        raise AssertionError(f"reparam run: {meter.steps}")
+    out["reparam"] = {"seconds": reparam_s, "launches": reparam_launches,
+                      "steps": meter.steps,
+                      "losses": [p.losses for p in result.phases]}
+    del result
+    print(f"[distill] reparam warmup through distill_progressive (v "
+          f"student, 2 warmup + 2 phase steps, batch {DISTILL_BATCH}): "
+          f"{reparam_s:.1f} s; launches a warmup step {REPARAM_STEP}, a "
+          f"phase step {SD_DISTILL_STEP}; warmup steps "
+          + ", ".join(f"{st['s']:.4f}" for st in warm) + f" s on {card}",
+          flush=True)
+
+    # a saved student through load_student_sampler, at its own batch
+    student = distill_sd.load_student_sampler(stack, sd_out, "AD",
+                                              image_size=DISTILL_PX)
+    prompt = json.loads((sd_out / "models" / "distilled_AD_meta.json")
+                        .read_text())["prompt"]
+    reset_counts()
+    start = time.perf_counter()
+    with recorder:
+        generate_to_dir(student.for_prompt(prompt), STUDENT_IMAGES,
+                        root / "student", STUDENT_IMAGES, 0)
+    torch.cuda.synchronize()
+    student_s = time.perf_counter() - start
+    student_launches = read_counts()
+    pngs(root / "student", STUDENT_IMAGES, DISTILL_PX)
+    forwards = student.num_steps
+    want = {k: UNET_FORWARD[k] * forwards + VAE_DECODE[k]
+            for k in KERNEL_NAMES}
+    if student_launches != want or student.guidance_scale is not None:
+        raise AssertionError(f"load_student_sampler: launches "
+                             f"{student_launches}, want {want}")
+    del student
+    out["student"] = {"images": STUDENT_IMAGES, "seconds": student_s,
+                      "images_per_s": STUDENT_IMAGES / student_s,
+                      "steps": forwards, "launches": student_launches}
+    print(f"[distill] load_student_sampler (AD, {forwards} steps, folded "
+          f"guidance): {STUDENT_IMAGES} images at batch {STUDENT_IMAGES} in "
+          f"{student_s:.2f} s = {STUDENT_IMAGES / student_s:.2f} images/s; "
+          f"launches {student_launches} on {card}", flush=True)
+
+    # the three students behind polyp-serve-torch --distilled-dir
+    args = argparse.Namespace(
+        distilled_dir=str(sd_out), distilled_class="all",
+        pretrained_dir=None, tiny=False, device="cuda",
+        image_size=DISTILL_PX, steps=25, quantize=None, quant_fp_head=0,
+        quant_fp_tail=0, vae_decoder="full", tiny_decoder_dir=None,
+        max_batch=SERVE_BATCH, batch_window_ms=50.0, pipeline_depth=1,
+        max_pending=64, request_timeout_s=None)
+    start = time.perf_counter()
+    with recorder:
+        service = serve_mod.service_from_args(args)
+    warm_s = time.perf_counter() - start
+    server = serve_mod.serve(service, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    models = ["AD", "ASS", "HP"]
+    prompts = {m: json.loads((sd_out / "models" / f"distilled_{m}_meta.json")
+                             .read_text())["prompt"] for m in models}
+    asks = [{"prompt": prompts[models[i % 3]], "num_images": 1,
+             "seed": 200 + i, "model": models[i % 3]}
+            for i in range(SERVE_BATCH)]
+    try:
+        status, health, _ = http_json(url + "/healthz")
+        if status != 200 or health["models"] != models or not health["warm"]:
+            raise AssertionError(f"/healthz {status}: {health}")
+        before = service.snapshot()
+        reset_counts()
+        start = time.perf_counter()
+        with recorder:
+            answers = in_threads([functools.partial(
+                http_json, url + "/generate", a) for a in asks])
+        served_s = time.perf_counter() - start
+        served_launches = read_counts()
+        after = service.snapshot()
+        with recorder:
+            solos = [http_json(url + "/generate", a) for a in asks[:3]]
+    finally:
+        server.shutdown()
+        service.close()
+    del service
+    if any(st != 200 or body["model"] != a["model"]
+           for (st, body, _), a in zip(answers + solos, asks + asks[:3])):
+        raise AssertionError(f"distilled requests: {answers + solos}")
+    differ = []
+    for (_, solo, _), (_, twin, _) in zip(solos, answers[:3]):
+        a = png_pixels(base64.b64decode(solo["images"][0]))
+        b = png_pixels(base64.b64decode(twin["images"][0]))
+        if a.shape != (DISTILL_PX, DISTILL_PX, 3):
+            raise AssertionError(f"served image {a.shape}")
+        differ.append(int((a != b).any(axis=-1).sum()))
+    by_model = {m: after["launches_by_model"][m]
+                - before["launches_by_model"][m] for m in models}
+    out["serving"] = {
+        "warm_s": warm_s, "requests": SERVE_BATCH, "seconds": served_s,
+        "launches_by_model": by_model, "kernel_launches": served_launches,
+        "batched_samples": sorted({b["batched_samples"]
+                                   for _, b, _ in answers}),
+        "solo_vs_coalesced_pixels_differing": differ}
+    print(f"[distill] polyp-serve-torch --distilled-dir --distilled-class "
+          f"all: {models} warm in {warm_s:.1f} s; {SERVE_BATCH} concurrent "
+          f"requests across them in {served_s:.2f} s, launches by model "
+          f"{by_model}, kernel launches {served_launches}; 3 solo twins vs "
+          f"coalesced: {differ} pixels differ on {card}", flush=True)
+    if any(differ) or not all(by_model.values()):
+        raise AssertionError(f"distilled serving: {out['serving']}")
+
+    # polyp-distill-torch over scratch_phase's models
+    meter = StepMeter(read_counts)
+    td.make_distill_step = lambda *args, **kwargs: meter.wrap(
+        real_step(*args, **kwargs))
+    reset_counts()
+    start = time.perf_counter()
+    try:
+        with recorder:
+            scratch = distill.main(common + [
+                "--model-dir", str(tmp / "scratch"),
+                "--output-dir", str(root / "scratch"),
+                "--image_size", str(SCRATCH_PX),
+                "--train_batch_size", str(DISTILL_BATCH),
+                "--start_steps", "8", "--end_steps", "4",
+                "--steps_per_phase", str(DISTILL_STEPS),
+                "--generate", str(SCRATCH_DISTILL_GENERATE)])
+        torch.cuda.synchronize()
+    finally:
+        td.make_distill_step = real_step
+    scratch_s = time.perf_counter() - start
+    scratch_launches = read_counts()
+    steps = meter.check("the scratch distill steps", SCRATCH_DISTILL_STEP)
+    for cls in scratch:
+        pngs(root / "scratch" / "samples" / cls, SCRATCH_DISTILL_GENERATE,
+             SCRATCH_PX)
+    scratch_step_s = sum(st["s"] for st in steps[1:DISTILL_STEPS]) / (
+        DISTILL_STEPS - 1)
+    out["scratch"] = {"seconds": scratch_s, "launches": scratch_launches,
+                      "steps": steps, "step_s": scratch_step_s,
+                      "classes": scratch,
+                      "launches_per_step": SCRATCH_DISTILL_STEP}
+    print(f"[distill] polyp-distill-torch (polyp_scratch_unet, "
+          f"{SCRATCH_PX} px, batch {DISTILL_BATCH}, 8 -> 4 at "
+          f"{DISTILL_STEPS} steps, 3 classes, {SCRATCH_DISTILL_GENERATE} "
+          f"samples a class): {scratch_s:.1f} s; a step "
+          f"{scratch_step_s:.4f} s (steps 2-4); launches a step "
+          f"{SCRATCH_DISTILL_STEP}; launches {scratch_launches} on {card}",
+          flush=True)
+
+    # polyp-distill-vae-torch with mixed latents
+    meter = StepMeter(read_counts)
+    real_vae_step = tdv.distill_vae_step
+    tdv.distill_vae_step = meter.wrap(real_vae_step)
+    reset_counts()
+    start = time.perf_counter()
+    try:
+        with recorder:
+            vae = distill_vae.main(common + [
+                "--output-dir", str(root / "tiny_decoder"),
+                "--image_size", str(DISTILL_PX),
+                "--batch", str(DISTILL_BATCH),
+                "--steps", str(VAE_DISTILL_STEPS)])
+        torch.cuda.synchronize()
+    finally:
+        tdv.distill_vae_step = real_vae_step
+    vae_s = time.perf_counter() - start
+    vae_launches = read_counts()
+    steps = meter.check("the VAE distill steps", VAE_DISTILL_STEP)
+    decoder, meta = load_tiny_decoder(root / "tiny_decoder", device=dev)
+    with torch.no_grad():
+        images = decoder(x0)
+    if (len(steps) != VAE_DISTILL_STEPS or meta["latent_source"] != "mixed"
+            or images.shape != (DISTILL_BATCH, 3, DISTILL_PX, DISTILL_PX)
+            or not torch.isfinite(images).all()):
+        raise AssertionError(f"distill-vae: {meta}, {images.shape}")
+    vae_step_s = sum(st["s"] for st in steps[1:]) / (len(steps) - 1)
+    out["vae"] = {"seconds": vae_s, "launches": vae_launches,
+                  "steps": steps, "step_s": vae_step_s, "meta": meta,
+                  "launches_per_step": VAE_DISTILL_STEP}
+    print(f"[distill] polyp-distill-vae-torch ({DISTILL_PX} px, batch "
+          f"{DISTILL_BATCH}, {VAE_DISTILL_STEPS} steps, mixed latents): "
+          f"{vae_s:.1f} s; a step {vae_step_s:.4f} s (steps 2-"
+          f"{VAE_DISTILL_STEPS}); launches a step {VAE_DISTILL_STEP}; "
+          f"holdout rel L2 {meta['rel_l2']:.4f} (random weights: a number, "
+          f"not a quality claim); reloaded and decoded {tuple(images.shape)} "
+          f"on {card}", flush=True)
+
+    out["card_vs_cpu"] = distill_vs_cpu(stack, dev)
+    with torch.no_grad():
+        out["kernel_checks"] = rows = recorded_rows(recorder.seen, dev)
+    print(f"[distill] kernel checks at the distill paths' shapes on {card}: "
+          + "; ".join(f"{r['name']} {r['shape']} ({r['path_launches']} "
+                      f"launches, {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f})"
+                      for r in rows), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3003,6 +3541,9 @@ def main() -> int:
         sd_clis = sd_clis_phase(dev, card, reset_counts, read_counts, tmp,
                                 tmp / "loop" / "data")
         phase("SD CLIs")
+        distilling = distill_phase(stack, dev, card, reset_counts,
+                                   read_counts, tmp, tmp / "loop" / "data")
+        phase("distill")
 
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
@@ -3097,7 +3638,7 @@ def main() -> int:
         "fused_mha": ("distilled_bf16", "polyp_tpu_torch/csrc/fused_mha.cu",
                       "polyp_tpu/ops/fused_mha.py:241")}
     rows += (loop["kernel_checks"] + scratch["kernel_checks"]
-             + sd_clis["kernel_checks"])
+             + sd_clis["kernel_checks"] + distilling["kernel_checks"])
     table = []
     per_train_step = training["default"]["launches_per_step"]
     per_loop_class = {c: v["launches"] for c, v in loop["classes"].items()}
@@ -3118,13 +3659,19 @@ def main() -> int:
                       "launches_per_scratch_forward": {
                           "bf16": scratch["forward_launches"].get(name, 0),
                           "w8a8_static": scratch["w8a8_static"][
-                              "launches_per_forward"].get(name, 0)}})
+                              "launches_per_forward"].get(name, 0)},
+                      "launches_per_distill_step": {
+                          "sd": SD_DISTILL_STEP[name],
+                          "sd_reparam": REPARAM_STEP[name],
+                          "scratch": SCRATCH_DISTILL_STEP[name],
+                          "vae": VAE_DISTILL_STEP[name]}})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
               "shape_census": census, "serving": serving,
               "training": training, "augmentation_loop": loop,
               "scratch": scratch, "sd_clis": sd_clis,
+              "distill": distilling,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

@@ -8,7 +8,9 @@ polyp_tpu/cli/sd_common.py (:94-371).
   bundle saved as `{folder}/lora_{cls}` → the class's quota generated into
   `{folder}/samples/{cls}`.
 * `restore_class_params` / `resume_class`: the filesystem-state resume
-  branch. A saved bundle is loaded and attached; the DreamBooth token is
+  branch (`load_class_bundle` + `attach_bundle`; `fp32_unet_params` gives
+  the distillation CLI the merged UNet in fp32). A saved bundle is loaded
+  and attached; the DreamBooth token is
   registered again in this process's tokenizer and its row scattered at
   the id it has here (ids are given in the order classes register them,
   so the id at training time may differ); missing samples are topped up
@@ -154,18 +156,26 @@ def _text_lora_config(config: DiffusionConfig) -> LoRAConfig:
                       LORA_MODULE_PRESETS["text_encoder"])
 
 
-def restore_class_params(stack: SDStack, config: DiffusionConfig,
-                         folder: Path, cls: str) -> SDStack | None:
-    """`stack` with class `cls`'s saved bundle (`{folder}/lora_{cls}`)
-    attached (merged_stack), or None where there is no bundle. Where the
-    bundle holds a DreamBooth row, the class's token is registered in
-    `stack.tokenizer` and the row goes to the id it has there."""
+def load_class_bundle(stack: SDStack, folder: Path,
+                      cls: str) -> dict | None:
+    """Class `cls`'s saved bundle (`{folder}/lora_{cls}`) on the stack's
+    device, less the DreamBooth id it had at training time; None where
+    there is no bundle."""
     path = Path(folder) / f"lora_{cls}"
     if not path.exists():
         return None
     device = _device(stack)
     bundle = tree_map(lambda t: t.to(device), load_lora(path))
-    bundle.pop("special_ids", None)  # the id at training time
+    bundle.pop("special_ids", None)
+    return bundle
+
+
+def attach_bundle(stack: SDStack, config: DiffusionConfig, cls: str,
+                  bundle: dict) -> SDStack:
+    """`stack` with class `cls`'s `bundle` attached (merged_stack). Where
+    the bundle holds a DreamBooth row, the class's token is registered in
+    `stack.tokenizer` and the row goes to the id it has there."""
+    device = _device(stack)
     lcfg = LoRAConfig(config.lora_rank, config.lora_alpha,
                       config.lora_dropout, config.modules_lora)
     table, special_ids = None, None
@@ -180,6 +190,34 @@ def restore_class_params(stack: SDStack, config: DiffusionConfig,
     frozen = make_components(stack, bundle, token_table=table)
     tcfg = _text_lora_config(config) if "text_lora" in bundle else None
     return merged_stack(stack, frozen, bundle, lcfg, tcfg, special_ids)
+
+
+@torch.no_grad()
+def fp32_unet_params(stack: SDStack, config: DiffusionConfig,
+                     bundle: dict) -> dict[str, torch.Tensor]:
+    """Every UNet parameter in fp32 with `bundle` merged, as the
+    reference's `restore_class_params` returns them
+    (polyp_tpu/cli/sd_common.py:94-117): the stack's fp32 weights
+    (SDStack.fp32_params), the `unfrozen` weights over them, the adapter
+    merged in fp32 and never rounded. `merged_stack` rounds the same
+    merge to the module's dtype for sampling."""
+    lcfg = LoRAConfig(config.lora_rank, config.lora_alpha,
+                      config.lora_dropout, config.modules_lora)
+    params = stack.fp32_params("unet", [n for n, _ in
+                                        stack.unet.named_parameters()])
+    params.update({k: v.float() for k, v in
+                   bundle.get("unfrozen", {}).items()})
+    params.update(merge_lora(params, bundle["unet_lora"], lcfg))
+    return params
+
+
+def restore_class_params(stack: SDStack, config: DiffusionConfig,
+                         folder: Path, cls: str) -> SDStack | None:
+    """`stack` with class `cls`'s saved bundle (`{folder}/lora_{cls}`)
+    attached (attach_bundle), or None where there is no bundle."""
+    bundle = load_class_bundle(stack, folder, cls)
+    return None if bundle is None else attach_bundle(stack, config, cls,
+                                                     bundle)
 
 
 def resume_class(stack: SDStack, config: DiffusionConfig, folder: Path,

@@ -77,10 +77,12 @@ class DiffusionSchedule:
         return sqrt_abar * noise - sqrt_1m * x0
 
     def to_x0_eps(self, model_out: torch.Tensor, x_t: torch.Tensor,
-                  t: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Convert a model output at the scalar timestep `t` under
-        `prediction_type` into (x̂₀, ε̂)."""
+                  t: int | torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Convert a model output at the timestep `t` (a scalar, or one
+        per sample) under `prediction_type` into (x̂₀, ε̂)."""
         abar = self.alphas_cumprod[t]
+        if abar.dim():
+            abar = abar.reshape((-1,) + (1,) * (x_t.dim() - 1))
         sqrt_abar, sqrt_1m = torch.sqrt(abar), torch.sqrt(1.0 - abar)
         if self.prediction_type == "epsilon":
             eps = model_out

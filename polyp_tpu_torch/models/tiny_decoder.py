@@ -16,11 +16,12 @@ padding. NCHW; module names are the reference's flax names (`conv_in`,
 `in_block_0.conv1`, `up_2_conv`, `up_2_block_1.conv2`, `conv_out`), so
 importers.tiny_decoder_from_jax carries its weights.
 
-Weights: the reference's trained artifact is an orbax checkpoint
-(`models/tiny_decoder/params`), which a machine without JAX cannot read.
-`tools/convert_tiny_decoder.py` converts it once into
-`polyp_tpu_torch/weights/tiny_decoder/params.npz` (fp32) beside a copy of
-its `meta.json`; `load_tiny_decoder` reads those.
+Weights: the port's artifact is a directory of `params.npz` (fp32, by
+state-dict name) and `meta.json`, which `save_tiny_decoder` writes
+(polyp-distill-vae-torch) and `load_tiny_decoder` reads. The reference's
+trained artifact is an orbax checkpoint (`models/tiny_decoder/params`),
+which a machine without JAX cannot read; `tools/convert_tiny_decoder.py`
+converts it once into `polyp_tpu_torch/weights/tiny_decoder/`.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ class TinyDecoder(nn.Module):
         super().__init__()
         c = base_channels
         self.dtype = dtype
+        self.base_channels = c
         self.latent_channels = latent_channels
         self.blocks_per_stage = blocks_per_stage
         self.num_upsamples = num_upsamples
@@ -101,6 +103,20 @@ def tiny_decoder_for_vae(vae, base_channels: int = 64,
     return TinyDecoder(base_channels=base_channels,
                        latent_channels=vae.latent_channels, dtype=dtype,
                        device=device)
+
+
+def save_tiny_decoder(out_dir: str | Path, params: dict[str, torch.Tensor],
+                      meta: dict) -> Path:
+    """Write a trained tiny decoder as `load_tiny_decoder` reads it:
+    `{out_dir}/params.npz` (fp32, by state-dict name) and
+    `{out_dir}/meta.json` (the architecture and the measured rel-L2 against
+    its teacher). Returns `out_dir`."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    np.savez(out_dir / "params.npz", **{
+        k: v.detach().float().cpu().numpy() for k, v in params.items()})
+    (out_dir / "meta.json").write_text(json.dumps(meta, indent=2))
+    return out_dir
 
 
 def load_tiny_decoder(out_dir: str | Path = DEFAULT_DIR,

@@ -46,6 +46,10 @@ Design, as the reference's:
   reports a copy taken under it (`snapshot`). The reference changes
   `shed` under another lock than the other counters (its serve.py:206).
 
+`main` (polyp-serve-torch) serves the base stack, or with
+`--distilled-dir` the students polyp-distill-sd-torch wrote (one model a
+student, `--distilled-class` picks them) behind one card.
+
 Threads and torch: grad mode is thread-local, so the dispatcher runs the
 sampler under `torch.no_grad()` (the inference-only kernels refuse
 otherwise). The dispatcher queues each launch's uint8 conversion and copy
@@ -63,6 +67,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import Callable, Sequence
 
 import numpy as np
@@ -396,12 +401,31 @@ def serve(service: GenerationService, host: str = "127.0.0.1",
 
 # what `main` cannot serve yet, and where the roadmap has it
 REFUSED = {
-    "distilled_dir": "--distilled-dir: load_student_sampler comes with the "
-                     "distillation CLIs (ROADMAP.md Queue 1 item 10)",
     "promoted": "--quantize promoted: the port does not read the TPU's "
                 "quant_gate.json; pass w8a8 or w8a8_static (ROADMAP.md "
                 "Queue 1 item 2)",
 }
+
+
+def _decoder_from_args(args):
+    """The tiny decoder `--vae-decoder tiny` asks for, else None: from
+    `--tiny-decoder-dir`, else `<distilled-dir>/models/tiny_decoder` where
+    there is one, else the committed weights."""
+    from polyp_tpu_torch.models.tiny_decoder import (
+        DEFAULT_DIR, load_tiny_decoder)
+
+    if args.vae_decoder != "tiny":
+        return None
+    tiny_dir = args.tiny_decoder_dir
+    distilled = getattr(args, "distilled_dir", None)
+    if tiny_dir is None and distilled is not None:
+        candidate = Path(distilled) / "models" / "tiny_decoder"
+        tiny_dir = candidate if candidate.exists() else None
+    tiny_dir = tiny_dir or DEFAULT_DIR
+    decoder, meta = load_tiny_decoder(tiny_dir, device=args.device)
+    print(f"tiny decoder from {tiny_dir} (trained rel_l2 vs the full "
+          f"decode: {meta.get('rel_l2')})")
+    return decoder
 
 
 def sampler_from_args(args):
@@ -412,8 +436,6 @@ def sampler_from_args(args):
     from polyp_tpu_torch.cli.common import load_sd_stack
     from polyp_tpu_torch.cli.sd_common import make_sampler
     from polyp_tpu_torch.configs import DiffusionConfig
-    from polyp_tpu_torch.models.tiny_decoder import (
-        DEFAULT_DIR, load_tiny_decoder)
 
     stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
                           device=args.device)
@@ -422,13 +444,64 @@ def sampler_from_args(args):
                              quantize=args.quantize,
                              quant_fp_head=args.quant_fp_head,
                              quant_fp_tail=args.quant_fp_tail)
-    decoder = None
-    if args.vae_decoder == "tiny":
-        tiny_dir = args.tiny_decoder_dir or DEFAULT_DIR
-        decoder, meta = load_tiny_decoder(tiny_dir, device=args.device)
-        print(f"tiny decoder from {tiny_dir} (trained rel_l2 vs the full "
-              f"decode: {meta.get('rel_l2')})")
-    return make_sampler(stack, config, decoder=decoder)
+    return make_sampler(stack, config, decoder=_decoder_from_args(args))
+
+
+def student_samplers_from_args(args) -> tuple[dict, dict]:
+    """The distilled students under `args.distilled_dir` (a
+    polyp-distill-sd-torch output) that `--distilled-class` names ("all":
+    every `models/distilled_*`), each through load_student_sampler over
+    one base stack: ({cls: sampler}, {cls: its meta's prompt})."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.cli.distill_sd import load_student_sampler
+
+    models = Path(args.distilled_dir) / "models"
+    if args.distilled_class == "all":
+        classes = sorted(p.name.split("distilled_", 1)[1]
+                         for p in models.glob("distilled_*")
+                         if p.is_file() and not p.suffix)
+    else:
+        classes = [args.distilled_class]
+    if not classes:
+        raise FileNotFoundError(f"no distilled_* under {models}")
+    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                          device=args.device)
+    decoder = _decoder_from_args(args)
+    samplers, prompts = {}, {}
+    for cls in classes:
+        samplers[cls] = load_student_sampler(
+            stack, args.distilled_dir, cls, image_size=args.image_size,
+            quantize=args.quantize, quant_fp_head=args.quant_fp_head,
+            quant_fp_tail=args.quant_fp_tail, decoder=decoder)
+        prompts[cls] = json.loads((models / f"distilled_{cls}_meta.json")
+                                  .read_text())["prompt"]
+    return samplers, prompts
+
+
+def service_from_args(args) -> GenerationService:
+    """`main`'s service, warm: the base stack's sampler, or with
+    `--distilled-dir` one model per student, each warmed with its own
+    prompt (the embedding it was trained on)."""
+    def launcher(sampler):
+        # pad_to=max_batch: every launch has the same shapes
+        return lambda prompts, ids: sampler.generate_batch(
+            prompts, ids, pad_to=args.max_batch)
+
+    common = dict(batch_window_s=args.batch_window_ms / 1e3,
+                  pipeline_depth=args.pipeline_depth,
+                  max_pending=args.max_pending or None,
+                  default_timeout_s=args.request_timeout_s)
+    if args.distilled_dir is None:
+        return GenerationService(launcher(sampler_from_args(args)),
+                                 args.max_batch, model_name="polyp-sd",
+                                 warm_prompt="a colon polyp", **common)
+    samplers, prompts = student_samplers_from_args(args)
+    service = GenerationService(
+        {cls: launcher(s) for cls, s in samplers.items()}, args.max_batch,
+        model_name=f"polyp-sd-distilled[{','.join(samplers)}]", **common)
+    for cls, prompt in prompts.items():
+        service.generate(prompt, 1, seed=0, model=cls)
+    return service
 
 
 def main(argv=None):
@@ -474,30 +547,28 @@ def main(argv=None):
                         help="with --quantize: the final N steps in full "
                              "precision")
     parser.add_argument("--distilled-dir", default=None,
-                        help="refused: " + REFUSED["distilled_dir"])
+                        help="serve polyp-distill-sd-torch's students "
+                             "instead of the base stack: few-step trailing "
+                             "DDIM, guidance folded (cond-only UNet at 1x "
+                             "batch)")
+    parser.add_argument("--distilled-class", default="all",
+                        help="which distilled_{cls} student(s) to serve: a "
+                             "class name, or 'all' for every distilled_* "
+                             "(a request names its model)")
     parser.add_argument("--vae-decoder", default="full",
                         choices=["full", "tiny"],
                         help="'tiny': decode with the tiny decoder "
                              "(polyp_tpu_torch/weights/tiny_decoder) "
                              "instead of the VAE")
     parser.add_argument("--tiny-decoder-dir", default=None,
-                        help="a converted tiny decoder (params.npz + "
-                             "meta.json); default: the committed one")
+                        help="a tiny decoder (params.npz + meta.json); "
+                             "default: <distilled-dir>/models/tiny_decoder "
+                             "where there is one, else the committed one")
     args = parser.parse_args(argv)
-    for key, given in (("distilled_dir", args.distilled_dir),
-                       ("promoted", args.quantize == "promoted")):
-        if given:
-            parser.error(REFUSED[key])
+    if args.quantize == "promoted":
+        parser.error(REFUSED["promoted"])
 
-    sampler = sampler_from_args(args)
-    service = GenerationService(
-        lambda prompts, ids: sampler.generate_batch(prompts, ids,
-                                                    pad_to=args.max_batch),
-        args.max_batch, model_name="polyp-sd", warm_prompt="a colon polyp",
-        batch_window_s=args.batch_window_ms / 1e3,
-        pipeline_depth=args.pipeline_depth,
-        max_pending=args.max_pending or None,
-        default_timeout_s=args.request_timeout_s)
+    service = service_from_args(args)
     server = serve(service, args.host, args.port)
     print(f"serving {service.models} on http://{args.host}:"
           f"{server.server_address[1]} (warm)", flush=True)

@@ -143,9 +143,12 @@ class OptaxAdam(torch.optim.Optimizer):
     reference's compiled step, in its order: g + wd·p; μ = (1 − β1)·g +
     β1·μ; ν = (1 − β2)·g² + β2·ν; p − lr·μ / ((1 − β1^t)·(√(ν / (1 −
     β2^t)) + ε)) (XLA folds optax's μ / (1 − β1^t) / (…) into one
-    division). β^t is fp32 powf of the update count, as XLA raises it."""
+    division). β^t is fp32 powf of the update count, as XLA raises it.
+    `lr` is a rate, or a schedule of the update count (read before the
+    count advances, as optax's scale_by_schedule reads it)."""
 
-    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+    def __init__(self, params, lr: float | Callable[[int], float],
+                 weight_decay: float = 0.0,
                  betas: tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
@@ -184,8 +187,9 @@ class OptaxAdam(torch.optim.Optimizer):
             torch._foreach_sqrt_(v)
             torch._foreach_add_(v, group["eps"])
             torch._foreach_mul_(v, 1 - torch.tensor(b1, **f32) ** t)
-            torch._foreach_add_(p, torch._foreach_div(mu, v),
-                                alpha=-group["lr"])
+            lr = group["lr"]
+            torch._foreach_add_(p, torch._foreach_div(mu, v), alpha=-(
+                lr(count - 1) if callable(lr) else lr))
             for s in states:
                 s["count"] = count
 

@@ -1141,10 +1141,11 @@ def test_service_over_generate_batch_is_coalescing_invariant(port_sampler):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--distilled-dir", "runs/distill"],
+    ["--quantize", "promoted", "--distilled-dir", "runs/distill"],
     ["--quantize", "promoted"]])
 def test_main_refuses_what_the_port_cannot_serve(argv, capsys):
-    """Refused before any stack is built, naming ROADMAP.md."""
+    """Refused before any stack is built, naming ROADMAP.md: --quantize
+    promoted, for the base stack and for distilled students alike."""
     with pytest.raises(SystemExit) as e:
         serve_mod.main(argv)
     assert e.value.code == 2
