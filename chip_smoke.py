@@ -180,7 +180,26 @@ caught:
    LORA_GRAD_REL_L2); and flash, the bf16 GEGLU and GroupNorm against
    their plain versions at every shape these paths gave them (recorded
    on the path);
-12. prints the kernel table (all eight kernel entries, with launches on
+12. runs the port's quant gate (quant_gate_phase, "quant gate"; `[gate]`
+   lines) on the same stack at 256 px: `--quantize promoted` resolved from
+   the vendored polyp_tpu_torch/ops/quant_gate.json through
+   DiffusionConfig, polyp-serve-torch's service_from_args (the base stack,
+   and --distilled-dir on phase 11's students) and load_student_sampler,
+   a demoted entry exiting with a message that names the port's file;
+   then, to check the mechanics whatever the verdict, the same calls under
+   a temporary copy whose entries are marked passing (a request through
+   each service); cli/verify_assets.remeasure_quant_gate at 25 steps and
+   batch 16 (each rel-L2 below the gate where the file says pass, the
+   full-trajectory one within GATE_REPEAT_ABS of the file's; samples/s
+   beside bf16's printed, not held); the launches of one promoted
+   sampling call and one distilled one, exactly (promoted_launches: the
+   bf16 head runs the bf16 GEGLU, the int8 middle the static int8 GEGLU,
+   the dense and GroupNorm's int8 epilogue); tools/quant_sensitivity's
+   run_sweep(forward_only=True) at batch 4, 25 steps (the per-token int8
+   GEGLU on this path); and every flash, GEGLU (bf16 and both int8
+   forms), dense and GroupNorm call of the phase against its plain
+   version at its shape;
+13. prints the kernel table (all eight kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
    class, launches a scratch forward and launches a distill step) as one
    JSON line, the card line, and last the result line {"ok": true,
@@ -661,15 +680,13 @@ def check_kernels(dev: torch.device) -> list[dict]:
 Q8_BATCHES = (4, 32)
 
 
-def geglu_q8_rows(dev: torch.device, static: bool = True,
-                  per_token: bool = True) -> list[dict]:
-    """Row 4 (the static int8 GEGLU) at the w8a8_static batches 4 and 32 at
-    every UNet level and the mid block, beside two yardsticks timed here
-    only: its two products alone (`_int_mm` on int8 codes of x and of h)
-    and the bf16 GEGLU on the same x and weights; and row 6 (the per-token
-    form) at batch 4 (dynamic w8a8 runs only under CFG) at every level,
-    beside the same products alone and the static form on the same x and
-    weights."""
+def geglu_q8_row(randn, n: int, c: int, per_image: int, static: bool,
+                 others: bool = True) -> dict:
+    """compare_q8() of row 4 (`static`, two calibrated scales) or row 6
+    (per-token scales) on x [n, per_image, C] and GEGLU weights drawn by
+    geglu_case, beside (with `others`) two yardsticks timed here only: its
+    two products alone (`_int_mm` on int8 codes of x and of h) and the bf16
+    GEGLU (row 4) or the static form (row 6) on the same x and weights."""
     import torch.nn.functional as F
 
     from polyp_tpu_torch.ops import quant
@@ -677,46 +694,55 @@ def geglu_q8_rows(dev: torch.device, static: bool = True,
         fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt,
         reference_geglu_w8a8, reference_geglu_w8a8_pt)
 
+    h, tokens = 4 * c, n * per_image
+    x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image)
+    shape = f"[{tokens},{c}]x[{c},{2 * h}]"
+    ops = 6 * tokens * c * h
+    q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2), b2)
+    s1 = amax_scale(x)
+    a, gate = F.linear(x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
+    s2 = amax_scale(a * F.gelu(gate))
+    xq = quant.quantize_activation(x, s1)[0].reshape(tokens, c)
+    hq = quant.quantize_activation(a * F.gelu(gate), s2)[0].reshape(tokens, h)
+
+    def products():
+        return quant.int_mm(xq, q8[0]), quant.int_mm(hq, q8[3])
+
+    if static:
+        yardsticks = dict(products=products,
+                          bf16_geglu=lambda: fused_geglu(x, w1, b1, w2, b2))
+        return compare_q8(
+            "fused_geglu_w8a8", lambda: fused_geglu_w8a8(x, *q8, s1, s2),
+            lambda: reference_geglu_w8a8(x, *q8, s1, s2),
+            reference_geglu_w8a8(x, *q8, s1, s2, out_dtype=torch.float32),
+            shape, bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8, s1, s2)),
+            **(yardsticks if others else {}))
+    yardsticks = dict(products=products,
+                      static=lambda: fused_geglu_w8a8(x, *q8, s1, s2))
+    return compare_q8(
+        "fused_geglu_w8a8_pt", lambda: fused_geglu_w8a8_pt(x, *q8),
+        lambda: reference_geglu_w8a8_pt(x, *q8),
+        reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape,
+        bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8)),
+        **(yardsticks if others else {}))
+
+
+def geglu_q8_rows(dev: torch.device, static: bool = True,
+                  per_token: bool = True) -> list[dict]:
+    """Row 4 (the static int8 GEGLU) at the w8a8_static batches 4 and 32 at
+    every UNet level and the mid block, and row 6 (the per-token form) at
+    batch 4 (dynamic w8a8 runs only under CFG) at every level, each beside
+    geglu_q8_row's yardsticks."""
     randn = randn_on(dev, seed=0)
     rows = []
     for n, c, per_image in ((n, c, t) for n in Q8_BATCHES
                             for c, t in FF_LEVELS):
-        h, tokens = 4 * c, n * per_image
-        x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image)
-        shape = f"[{tokens},{c}]x[{c},{2 * h}]"
-        ops = 6 * tokens * c * h
-        q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2),
-              b2)
-        s1 = amax_scale(x)
-        a, gate = F.linear(x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
-        s2 = amax_scale(a * F.gelu(gate))
-        xq = quant.quantize_activation(x, s1)[0].reshape(tokens, c)
-        hq = quant.quantize_activation(a * F.gelu(gate), s2)[0].reshape(
-            tokens, h)
         per_forward = 1 if per_image == 16 else FF_PER_FORWARD[c]
-
-        def products():
-            return quant.int_mm(xq, q8[0]), quant.int_mm(hq, q8[3])
-
-        if static:
-            row = compare_q8(
-                "fused_geglu_w8a8", lambda: fused_geglu_w8a8(x, *q8, s1, s2),
-                lambda: reference_geglu_w8a8(x, *q8, s1, s2),
-                reference_geglu_w8a8(x, *q8, s1, s2, out_dtype=torch.float32),
-                shape, bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8, s1, s2)),
-                products=products,
-                bf16_geglu=lambda: fused_geglu(x, w1, b1, w2, b2))
-            rows.append({**row, "launches_per_forward": per_forward})
-        if n != 4 or not per_token:
-            continue
-        row = compare_q8(
-            "fused_geglu_w8a8_pt", lambda: fused_geglu_w8a8_pt(x, *q8),
-            lambda: reference_geglu_w8a8_pt(x, *q8),
-            reference_geglu_w8a8_pt(x, *q8, out_dtype=torch.float32), shape,
-            bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8)),
-            products=products,
-            static=lambda: fused_geglu_w8a8(x, *q8, s1, s2))
-        rows.append({**row, "launches_per_forward": per_forward})
+        forms = ([True] if static else []) + (
+            [False] if per_token and n == 4 else [])
+        for form in forms:
+            rows.append({**geglu_q8_row(randn, n, c, per_image, form),
+                         "launches_per_forward": per_forward})
     return rows
 
 
@@ -870,11 +896,12 @@ def dense_key(x, w, *args, **kwargs) -> tuple:
 
 def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
     """compare() of GN(+SiLU) (recorded under gn_key; an int8 epilogue
-    call held to reference_gn_q8 as gn_rows holds it), the bf16 GEGLU
-    (under its x's shape), the W8A8 dense (under dense_key) and flash
-    attention (under flash_key) at every recorded shape, on inputs drawn
-    as gn_rows, gemm_rows and check_kernels draw them, each row with the
-    path's launches at its shape."""
+    call held to reference_gn_q8 as gn_rows holds it), the bf16 GEGLU and
+    both int8 GEGLUs (under their x's shape), the W8A8 dense (under
+    dense_key) and flash attention (under flash_key) at every recorded
+    shape, on inputs drawn as gn_rows, gemm_rows, geglu_q8_row and
+    check_kernels draw them, each row with the path's launches at its
+    shape."""
     from polyp_tpu_torch.ops.flash_attention import (
         flash_attention, reference_attention)
     from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
@@ -926,6 +953,13 @@ def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
             bound(6 * tokens * c * h, "bf16",
                   2 * nbytes(x) + nbytes(w1, b1, w2, b2))),
             "path_launches": calls})
+    for name in ("fused_geglu_w8a8", "fused_geglu_w8a8_pt"):
+        for shape, calls in sorted(seen.get(name, {}).items()):
+            *lead, c = shape
+            rows.append({**geglu_q8_row(
+                randn, lead[0], c, math.prod(lead[1:]),
+                static=name == "fused_geglu_w8a8", others=False),
+                "path_launches": calls})
     for (m, c, o, int8_in), calls in sorted(
             seen.get("fused_w8a8_dense", {}).items()):
         rows.append({**dense_row(randn, m, c, o, int8_in, "recorded"),
@@ -3315,6 +3349,268 @@ def distill_phase(stack, dev: torch.device, card: str, reset_counts,
     return out
 
 
+# the quant gate phase: the verdict's batch, the runbook's steps (UniPC,
+# the config's default) and the tool's family sweep at its own batch
+GATE_BATCH, GATE_STEPS, GATE_PX, SWEEP_BATCH = 16, 25, 256, 4
+# the re-measured full-trajectory rel-L2 against the number the vendored
+# file records for the same measurement (the runbook's `rel_l2_real`): the
+# same seeds, weights and kernels give the same trajectory up to the
+# card's nondeterminism in reductions; more than this and the vendored
+# verdict no longer describes this tree
+GATE_REPEAT_ABS = 0.01
+
+
+def promoted_launches(steps: int, head: int) -> dict:
+    """One promoted sampling call at 256 px, one UNet forward a step (CFG
+    batches cond and uncond together), `head` bf16 steps and the rest
+    int8, then one VAE decode: every bf16 forward runs the bf16 GEGLU 16
+    times, every int8 forward the static int8 GEGLU 16 times, the dense
+    174 and GroupNorm's int8 epilogue 60 of its 61 GroupNorms; flash runs
+    5 a forward in both."""
+    q8 = steps - head
+    return launches_of(flash_attention=5 * steps, fused_geglu=16 * head,
+                       fused_group_norm=61 * steps + 30,
+                       fused_group_norm_q8=60 * q8,
+                       fused_w8a8_dense=174 * q8, fused_geglu_w8a8=16 * q8)
+
+
+def quant_gate_phase(stack, dev: torch.device, card: str, reset_counts,
+                     read_counts, tmp: Path, distilled_dir: Path) -> dict:
+    """The port's quant gate on the card, over the full-width stack (random
+    weights from seed 0, 256 px): (1) `--quantize promoted` resolved from
+    the vendored ops/quant_gate.json through DiffusionConfig,
+    polyp-serve-torch's service_from_args (the base stack, and
+    --distilled-dir on distill_phase's students) and load_student_sampler:
+    a demoted entry exits naming the port's file; then, to check the
+    mechanics whatever the verdict, the same calls under a temporary copy
+    whose two entries are marked passing (one request through each
+    service); (2) verify_assets.remeasure_quant_gate at GATE_STEPS steps and
+    GATE_BATCH, held below the gate where the file says pass and within
+    GATE_REPEAT_ABS of the file's own full-trajectory rel-L2 (throughput
+    printed, not held: host-clock rates are noisy); (3) the launches of one
+    promoted sampling call (after calibration) and of one distilled one,
+    exactly; (4) tools/quant_sensitivity.run_sweep(forward_only=True) at
+    SWEEP_BATCH; (5) every flash, GEGLU (bf16 and both int8 forms), dense
+    and GroupNorm call of steps 1-4 against its plain version at its
+    shape."""
+    from polyp_tpu_torch import serve as serve_mod
+    from polyp_tpu_torch.cli import common as cli_common
+    from polyp_tpu_torch.cli import verify_assets
+    from polyp_tpu_torch.cli.distill_sd import load_student_sampler
+    from polyp_tpu_torch.cli.sd_common import make_sampler
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.ops import quant
+    from polyp_tpu_torch.tools import quant_sensitivity as qs
+
+    root = tmp / "gate"
+    root.mkdir()
+    vendored_path = quant.GATE_PATH
+    gate = json.loads(vendored_path.read_text())
+    entries = {"promoted": gate["promoted"],
+               "promoted_distilled": gate["promoted_distilled"]}
+    out: dict = {"card": card, "vendored": gate}
+    print(f"[gate] vendored verdict {vendored_path.relative_to(ROOT)}: "
+          f"measured on {gate.get('measured_on')}; this run on {card}",
+          flush=True)
+    for key, entry in entries.items():
+        print(f"[gate] {key}: {entry}", flush=True)
+    recorder = ShapeRecorder({
+        "fused_group_norm": gn_key, "flash_attention": flash_key,
+        "fused_geglu": lambda x, *args: tuple(x.shape),
+        "fused_geglu_w8a8": lambda x, *args: tuple(x.shape),
+        "fused_geglu_w8a8_pt": lambda x, *args: tuple(x.shape),
+        "fused_w8a8_dense": dense_key})
+    prompt = json.loads((distilled_dir / "models" / "distilled_AD_meta.json")
+                        .read_text())["prompt"]
+
+    def serve_args(distilled: bool) -> argparse.Namespace:
+        return argparse.Namespace(
+            distilled_dir=str(distilled_dir) if distilled else None,
+            distilled_class="AD", pretrained_dir=None, tiny=False,
+            device="cuda", image_size=GATE_PX, steps=GATE_STEPS,
+            quantize="promoted", quant_fp_head=0, quant_fp_tail=0,
+            vae_decoder="full", tiny_decoder_dir=None, max_batch=GATE_BATCH,
+            batch_window_ms=1.0, pipeline_depth=1, max_pending=64,
+            request_timeout_s=None)
+
+    def resolve(mechanics: bool) -> dict:
+        """Drive the four surfaces; a demoted entry must exit naming the
+        port's file, a passing one resolve to its mode and head (and, with
+        `mechanics`, serve one request)."""
+        seen = {}
+        calls = {
+            "DiffusionConfig": ("promoted", lambda: DiffusionConfig(
+                image_size=GATE_PX, quantize="promoted")),
+            "service_from_args": ("promoted", lambda: serve_mod.
+                                  service_from_args(serve_args(False))),
+            "service_from_args --distilled-dir": (
+                "promoted_distilled",
+                lambda: serve_mod.service_from_args(serve_args(True))),
+            "load_student_sampler": (
+                "promoted_distilled", lambda: load_student_sampler(
+                    stack, distilled_dir, "AD", image_size=GATE_PX,
+                    quantize="promoted"))}
+        current = json.loads(quant.GATE_PATH.read_text())
+        for name, (key, call) in calls.items():
+            entry = current[key]
+            if not entry["gate_pass"]:
+                try:
+                    call()
+                except SystemExit as e:
+                    if str(vendored_path.relative_to(ROOT)) not in str(e):
+                        raise AssertionError(f"{name}: {e} names no port "
+                                             f"gate file") from None
+                    seen[name] = f"exit: {e}"
+                    continue
+                raise AssertionError(f"{name} resolved a demoted {key}")
+            got = call()
+            want = (entry["mode"], entry["quant_fp_head"])
+            if isinstance(got, DiffusionConfig):
+                have = (got.quantize, got.quant_fp_head)
+                ok = have == want and got.quant_promoted
+            elif isinstance(got, serve_mod.GenerationService):
+                # the base stack's tokenizer may hold tokens that an
+                # earlier phase's DreamBooth run added: the student's
+                # prompt goes to the student only (its saved embedding)
+                student = key == "promoted_distilled"
+                try:
+                    reply = got.generate(prompt if student else PROMPT, 1,
+                                         seed=0,
+                                         model="AD" if student else None)
+                finally:
+                    got.close()
+                have = reply["model"], reply["batched_samples"]
+                ok = len(reply["images"]) == 1
+            else:
+                have = (got.quantize, got._split)
+                ok = have == (entry["mode"], None)
+            if not ok:
+                raise AssertionError(f"{name}: {have}, want {want}")
+            seen[name] = f"resolved to {want}: {have}"
+        label = ("mechanics (entries marked passing)" if mechanics
+                 else "vendored verdict")
+        for name, what in seen.items():
+            print(f"[gate] {label}: {name}: {what}", flush=True)
+        return seen
+
+    # services take the phase's stack rather than build another
+    real_load = cli_common.load_sd_stack
+    cli_common.load_sd_stack = lambda *args, **kwargs: stack
+    marked = dict(gate, **{k: dict(v, gate_pass=True)
+                           for k, v in entries.items()})
+    marked_path = root / "quant_gate_marked_passing.json"
+    marked_path.write_text(json.dumps(marked))
+    start = time.perf_counter()
+    try:
+        with recorder:
+            out["resolution"] = {"vendored": resolve(False)}
+            quant.GATE_PATH = marked_path
+            out["resolution"]["marked_passing"] = resolve(True)
+            quant.GATE_PATH = vendored_path
+
+            # (2) the runbook's re-measurement of the vendored entries
+            args = argparse.Namespace(
+                image_size=GATE_PX, steps=GATE_STEPS, gate_batch=GATE_BATCH,
+                fixtures_dir=str(root / "remeasure"), apply_gate=False)
+            report: list = []
+            again = verify_assets.remeasure_quant_gate(args, stack, report)
+            if again is None:
+                raise AssertionError(f"remeasure_quant_gate: {report}")
+            out["remeasured"] = {"report": report, "gate": again}
+            for key, entry in entries.items():
+                new = again[key]
+                rels = {k: v for k, v in new.items()
+                        if k.startswith("rel_l2") and k.endswith("_real")}
+                rates = {k: v for k, v in new.items()
+                         if "samples_per_sec" in k
+                         and ("real" in k or "batch" in k)}
+                how = (f"{GATE_STEPS} steps, batch {GATE_BATCH}"
+                       if key == "promoted" else
+                       f"8 steps at batch {GATE_BATCH}, 4 at "
+                       f"{2 * GATE_BATCH}")
+                print(f"[gate] re-measured {key} ({how}): rel-L2 {rels}; "
+                      f"samples/s {rates} on {card}", flush=True)
+                if entry["gate_pass"] and not all(
+                        v < gate["gate_rel_l2"] for v in rels.values()):
+                    raise AssertionError(f"{key} passes in the file but "
+                                         f"measures {rels}")
+            drift = abs(again["promoted"]["rel_l2_real"]
+                        - gate["promoted"]["rel_l2_real"])
+            print(f"[gate] full-trajectory rel-L2 "
+                  f"{again['promoted']['rel_l2_real']:.6f} vs the file's "
+                  f"{gate['promoted']['rel_l2_real']:.6f}: {drift:.2e} "
+                  f"apart (tol {GATE_REPEAT_ABS})", flush=True)
+            if not drift <= GATE_REPEAT_ABS:
+                raise AssertionError(f"re-measured rel-L2 drifts {drift}")
+
+            # (3) the launches of one promoted sampling call each
+            quant.GATE_PATH = marked_path
+            launches = {}
+            config = DiffusionConfig(image_size=GATE_PX,
+                                     num_inference_steps=GATE_STEPS,
+                                     quantize="promoted")
+            sampler = make_sampler(stack, config)
+            student = load_student_sampler(stack, distilled_dir, "AD",
+                                           image_size=GATE_PX,
+                                           quantize="promoted")
+            head = marked["promoted"]["quant_fp_head"]
+            for name, fn, steps, h in (
+                    ("promoted", sampler.for_prompt(PROMPT),
+                     config.num_inference_steps, head),
+                    ("promoted_distilled", student.for_prompt(prompt),
+                     student.num_steps, 0)):
+                torch.cuda.synchronize()
+                reset_counts()
+                images = fn(GATE_BATCH, 0)
+                torch.cuda.synchronize()
+                got = read_counts()
+                want = promoted_launches(steps, h)
+                if (got != want or images.shape != (GATE_BATCH, 3, GATE_PX,
+                                                    GATE_PX)
+                        or not torch.isfinite(images).all()):
+                    raise AssertionError(f"{name}: launches {got}, want "
+                                         f"{want}; {tuple(images.shape)}")
+                launches[name] = {"steps": steps, "fp_head": h,
+                                  "batch": GATE_BATCH, "launches": got}
+                print(f"[gate] {name} (mechanics): one sampling call, "
+                      f"{steps} steps, bf16 head {h}, batch {GATE_BATCH}: "
+                      f"launches {got} (exact)", flush=True)
+            quant.GATE_PATH = vendored_path
+            out["launches"] = launches
+            del sampler, student
+
+            # (4) the tool's family sweep on one forward, at full width
+            sweep_start = time.perf_counter()
+            ctx = qs._sweep_context(SWEEP_BATCH, GATE_PX, GATE_STEPS, False,
+                                    0, stack=stack)
+            sweep = qs.run_sweep(SWEEP_BATCH, GATE_PX, GATE_STEPS,
+                                 forward_only=True, ctx=ctx)
+            sweep["seconds"] = time.perf_counter() - sweep_start
+            del ctx
+            out["sweep"] = sweep
+            print(f"[gate] tools/quant_sensitivity run_sweep(forward_only, "
+                  f"batch {SWEEP_BATCH}, {GATE_STEPS} steps) in "
+                  f"{sweep['seconds']:.1f} s: {json.dumps(sweep)}",
+                  flush=True)
+    finally:
+        quant.GATE_PATH = vendored_path
+        cli_common.load_sd_stack = real_load
+    out["seconds"] = time.perf_counter() - start
+    for name in ("fused_geglu_w8a8", "fused_geglu_w8a8_pt",
+                 "fused_w8a8_dense", "fused_geglu", "flash_attention"):
+        if not recorder.seen[name]:
+            raise AssertionError(f"the gate's paths never called {name}")
+
+    with torch.no_grad():
+        out["kernel_checks"] = rows = recorded_rows(recorder.seen, dev)
+    print(f"[gate] kernel checks at the gate paths' shapes on {card}: "
+          + "; ".join(f"{r['name']} {r['shape']} ({r['path_launches']} "
+                      f"calls, {r['ms']:.4f} ms, plain {r['plain_ms']:.4f},"
+                      f" bound {r['bound_ms']:.4f})" for r in rows),
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3544,6 +3840,9 @@ def main() -> int:
         distilling = distill_phase(stack, dev, card, reset_counts,
                                    read_counts, tmp, tmp / "loop" / "data")
         phase("distill")
+        gating = quant_gate_phase(stack, dev, card, reset_counts,
+                                  read_counts, tmp, tmp / "distill" / "sd")
+        phase("quant gate")
 
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
@@ -3638,7 +3937,8 @@ def main() -> int:
         "fused_mha": ("distilled_bf16", "polyp_tpu_torch/csrc/fused_mha.cu",
                       "polyp_tpu/ops/fused_mha.py:241")}
     rows += (loop["kernel_checks"] + scratch["kernel_checks"]
-             + sd_clis["kernel_checks"] + distilling["kernel_checks"])
+             + sd_clis["kernel_checks"] + distilling["kernel_checks"]
+             + gating["kernel_checks"])
     table = []
     per_train_step = training["default"]["launches_per_step"]
     per_loop_class = {c: v["launches"] for c, v in loop["classes"].items()}
@@ -3671,7 +3971,7 @@ def main() -> int:
               "shape_census": census, "serving": serving,
               "training": training, "augmentation_loop": loop,
               "scratch": scratch, "sd_clis": sd_clis,
-              "distill": distilling,
+              "distill": distilling, "quant_gate": gating,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

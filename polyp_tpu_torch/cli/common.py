@@ -64,9 +64,12 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--tracker-root", type=str, default="mlruns_local")
     parser.add_argument("--experiment-name", type=str, default=None)
     parser.add_argument("--quantize", type=str, default=None,
-                        choices=["w8a8", "w8a8_static"],
+                        choices=["w8a8", "w8a8_static", "promoted"],
                         help="quantized UNet sampling (ops/quant.py); "
-                             "training is never quantized")
+                             "training is never quantized. 'promoted' "
+                             "expands to the gate-passing config from "
+                             "quant.promoted_config() (DiffusionConfig "
+                             "resolves it)")
     parser.add_argument("--quant_fp_head", type=int, default=0,
                         help="with --quantize: the first N sampling steps "
                              "in full precision")

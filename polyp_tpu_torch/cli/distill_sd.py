@@ -26,9 +26,9 @@ trailing grid with steps_offset 0, guidance "folded", the prompt);
 `load_student_sampler` reads those back into a sampler (polyp-serve-torch
 --distilled-dir); `make_student_sampler` serves a student: trailing DDIM
 at its step count, `guidance_scale=None` (cond-only forwards at 1×
-batch), optionally the tiny decoder in place of the VAE decode. The quant
-mode is explicit: the port never reads polyp_tpu/ops/quant_gate.json,
-whose promoted verdict was measured on a TPU.
+batch), optionally the tiny decoder in place of the VAE decode.
+`quantize="promoted"` resolves to the distilled verdict of the port's own
+quant gate (ops/quant.py::resolve_quantize_arg, `distilled=True`).
 """
 
 from __future__ import annotations
@@ -53,11 +53,6 @@ from polyp_tpu_torch.utils.checkpoint import save_pytree
 from polyp_tpu_torch.utils.rng import stream_generator
 
 TRAILING = {"spacing": "trailing", "steps_offset": 0}
-PROMOTED_REFUSED = (
-    "quantize='promoted' names the TPU's quant gate verdict (for a "
-    "distilled student: w8a8_static without a bf16 head), which "
-    "polyp_tpu_torch does not read; pass w8a8 or w8a8_static (ROADMAP.md "
-    "Queue 1 item 2: the port's own gate)")
 
 
 def sd_schedule(num_train_timesteps: int = 1000,
@@ -278,6 +273,7 @@ def load_student_sampler(stack, output_dir: str | Path, cls: str, *,
                          image_size: int = 256,
                          quantize: str | None = None,
                          quant_fp_head: int = 0, quant_fp_tail: int = 0,
+                         quant_promoted: bool = False,
                          decoder: nn.Module | None = None
                          ) -> StableDiffusionSampler:
     """A polyp-distill-sd-torch output (`models/distilled_{cls}` and its
@@ -287,13 +283,17 @@ def load_student_sampler(stack, output_dir: str | Path, cls: str, *,
     (step count, prediction type, trailing grid, folded guidance) holds;
     the class prompt resolves to the saved cond embedding (a DreamBooth
     token the base text stack cannot encode included). `decoder`: a
-    TinyDecoder replacing the VAE decode. `quantize="promoted"` is
-    refused: it names the TPU's gate verdict (ROADMAP.md Queue 1
-    item 2)."""
+    TinyDecoder replacing the VAE decode. `quantize="promoted"`, or
+    `quant_promoted` (a DiffusionConfig's, which expanded "promoted" with
+    the full-trajectory verdict), resolves to the distilled verdict
+    (reference :257-265): a full-trajectory bf16 head would cover a
+    4-8-step grid and drop the quantization (pipeline._precision_split)."""
+    from polyp_tpu_torch.ops.quant import resolve_quantize_arg
     from polyp_tpu_torch.utils.checkpoint import load_pytree
 
-    if quantize == "promoted":
-        raise NotImplementedError(PROMOTED_REFUSED)
+    if quantize == "promoted" or quant_promoted:
+        quantize, quant_fp_head, quant_fp_tail = resolve_quantize_arg(
+            "promoted", 0, 0, distilled=True)
     models = Path(output_dir) / "models"
     meta = json.loads((models / f"distilled_{cls}_meta.json").read_text())
     params = load_pytree(models / f"distilled_{cls}")["params"]

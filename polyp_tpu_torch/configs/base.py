@@ -7,10 +7,10 @@ copy, not an import: `polyp_tpu.configs` runs the JAX package's
 The presets name modules as the reference does (`to_out`,
 `ff_net_0_proj`, ...); lora/surgery.py matches them through
 models/importers.py::jax_module_path, so a preset picks the same layers in
-both packages. `quantize` takes the explicit modes only: "promoted"
-expands, in the reference, to the verdict of a quant gate measured on a
-TPU (polyp_tpu/ops/quant_gate.json), which the port does not read
-(ROADMAP.md Queue 1 item 2). `device_count` comes with multi-GPU.
+both packages. `quantize="promoted"` expands, as in the reference
+(:86-104), to the full-trajectory verdict of the port's own quant gate
+(ops/quant.py::resolve_quantize_arg, measured on the card), and sets
+`quant_promoted`. `device_count` comes with multi-GPU.
 
 `ClassificationConfig` is a copy of the reference's (:155-183): the
 classifier's fields, its CLI defaults and the same timestamped
@@ -64,11 +64,16 @@ class DiffusionConfig:
     num_inference_steps: int = 25
     guidance_scale: float = 7.5
     sampler: str = "unipc"  # "ddpm" | "ddim" | "dpmpp_2m" | "unipc"
-    quantize: str | None = None  # None | "w8a8" | "w8a8_static"
+    quantize: str | None = None  # None | "w8a8" | "w8a8_static" | "promoted"
     # the first / final N inference steps in full precision, the rest
     # quantized (pipeline._precision_split); 0/0 = the pure mode
     quant_fp_head: int = 0
     quant_fp_tail: int = 0
+    # True when `quantize` was "promoted": few-step consumers
+    # (cli/distill_sd.py::load_student_sampler) re-resolve it to the
+    # distilled verdict rather than carry a full-trajectory head onto a
+    # 4-8-step grid
+    quant_promoted: bool = False
 
     # LoRA
     lora_rank: int = 8
@@ -113,11 +118,13 @@ class DiffusionConfig:
 
     def __post_init__(self):
         if self.quantize == "promoted":
-            raise NotImplementedError(
-                "quantize='promoted' names the TPU's quant gate verdict, "
-                "which polyp_tpu_torch does not read; pass w8a8 or "
-                "w8a8_static (ROADMAP.md Queue 1 item 2: the port's own "
-                "gate)")
+            from polyp_tpu_torch.ops.quant import resolve_quantize_arg
+            mode, head, tail = resolve_quantize_arg(
+                "promoted", self.quant_fp_head, self.quant_fp_tail)
+            object.__setattr__(self, "quantize", mode)
+            object.__setattr__(self, "quant_fp_head", head)
+            object.__setattr__(self, "quant_fp_tail", tail)
+            object.__setattr__(self, "quant_promoted", True)
         if self.quantize not in QUANTIZE_MODES:
             raise ValueError(f"unknown quantization mode: {self.quantize!r}")
 

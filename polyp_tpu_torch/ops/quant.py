@@ -27,13 +27,24 @@ port refuses at once: quantizing a tensor that records a gradient raises.
 Weights are quantized once per module and cached (`module_weight_q8`),
 re-quantized only when the weight changes — the port's form of XLA
 hoisting the loop-invariant weight quantize out of each sampling scan.
+
+`--quantize promoted` resolves through `promoted_config` /
+`resolve_quantize_arg` (reference :85-134) to the verdict in
+`quant_gate.json` beside this module, which the port measures on its own
+card (tools/quant_sensitivity.py, cli/verify_assets.py). It never reads
+the reference's file, a TPU verdict. A missing file means demoted, as in
+the reference; a file that is there but does not parse, or whose entry
+lacks its mode, raises ValueError naming the file, where the reference
+would demote silently.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Literal, Mapping, Sequence
 
 import numpy as np
@@ -43,6 +54,82 @@ Mode = Literal["w8a8", "w8a8_static", "w8a8_calib"] | None
 
 # don't quantize thin layers (conv_in 4→320, conv_out →4, tiny test models)
 MIN_QUANT_CHANNELS = 64
+
+# the port's own promotion verdict (package data); tests point it elsewhere
+GATE_PATH = Path(__file__).parent / "quant_gate.json"
+
+
+def gate_passes(entry: Mapping[str, Any], gate_rel_l2: float) -> bool:
+    """The gate's rule for one entry: every rel-L2 it records
+    (`rel_l2*`) is below `gate_rel_l2`, and every samples/s it records
+    (`samples_per_sec*`) is above the bf16 samples/s measured beside it
+    (`bf16_samples_per_sec*`). An entry with no rel-L2 fails."""
+    rels = [v for k, v in entry.items()
+            if k.startswith("rel_l2") and v is not None]
+    rates = [(v, entry.get(f"bf16_{k}")) for k, v in entry.items()
+             if k.startswith("samples_per_sec") and v is not None]
+    return (bool(rels) and all(r < gate_rel_l2 for r in rels)
+            and all(bf16 is not None and v > bf16 for v, bf16 in rates))
+
+
+def _gate_entry(key: str) -> dict | None:
+    """The entry `key` of the file at GATE_PATH, or None when the file is
+    absent. Raises ValueError when the file does not parse or the entry
+    lacks its mode."""
+    try:
+        text = GATE_PATH.read_text()
+    except FileNotFoundError:
+        return None
+    try:
+        gate = json.loads(text)
+    except json.JSONDecodeError as e:
+        raise ValueError(f"{GATE_PATH} does not parse: {e}") from None
+    if not isinstance(gate, dict):
+        raise ValueError(f"{GATE_PATH} holds no JSON object")
+    entry = gate.get(key)
+    if entry is None:
+        return None
+    if not isinstance(entry, dict) or "mode" not in entry:
+        raise ValueError(f"{GATE_PATH}: entry {key!r} has no 'mode'")
+    return entry
+
+
+def promoted_config(distilled: bool = False) -> dict | None:
+    """The gate-passing quantization config, if one exists: the entry
+    `promoted` (full-trajectory CFG sampling, 25/50 steps) or, with
+    `distilled`, `promoted_distilled` (few-step folded-guidance sampling)
+    of the file at GATE_PATH, when its `gate_pass` is true; else None.
+    Demotion is data: delete the file or flip `gate_pass`."""
+    entry = _gate_entry("promoted_distilled" if distilled else "promoted")
+    return entry if entry is not None and entry.get("gate_pass") else None
+
+
+def resolve_quantize_arg(quantize: str | None, fp_head: int, fp_tail: int,
+                         distilled: bool = False
+                         ) -> tuple[str | None, int, int]:
+    """`--quantize promoted` → the gate-passing (mode, fp_head, fp_tail) of
+    `promoted_config(distilled)`; explicit modes pass through untouched.
+    Raises SystemExit, naming the file, the entry's measured numbers and
+    the tool, when promotion is asked for and nothing passes."""
+    if quantize != "promoted":
+        return quantize, fp_head, fp_tail
+    promo = promoted_config(distilled=distilled)
+    if promo is None:
+        key = "promoted_distilled" if distilled else "promoted"
+        entry = _gate_entry(key)
+        measured = ("the file is absent" if not GATE_PATH.exists() else
+                    f"entry {key!r} is absent" if entry is None else
+                    f"entry {key!r} has gate_pass false: " + ", ".join(
+                        f"{k} {v}" for k, v in entry.items()
+                        if k.startswith(("rel_l2", "samples_per_sec",
+                                         "bf16_samples_per_sec"))))
+        raise SystemExit(
+            f"--quantize promoted: no gate-passing config in {GATE_PATH} "
+            f"({measured}); pick an explicit mode (w8a8 | w8a8_static) or "
+            "re-judge with python -m polyp_tpu_torch.tools.quant_sensitivity"
+            " and polyp-verify-assets-torch")
+    return (promo["mode"], int(promo.get("quant_fp_head", 0)),
+            int(promo.get("quant_fp_tail", 0)))
 
 
 class ScaleBank:

@@ -399,14 +399,6 @@ def serve(service: GenerationService, host: str = "127.0.0.1",
     return server
 
 
-# what `main` cannot serve yet, and where the roadmap has it
-REFUSED = {
-    "promoted": "--quantize promoted: the port does not read the TPU's "
-                "quant_gate.json; pass w8a8 or w8a8_static (ROADMAP.md "
-                "Queue 1 item 2)",
-}
-
-
 def _decoder_from_args(args):
     """The tiny decoder `--vae-decoder tiny` asks for, else None: from
     `--tiny-decoder-dir`, else `<distilled-dir>/models/tiny_decoder` where
@@ -437,13 +429,15 @@ def sampler_from_args(args):
     from polyp_tpu_torch.cli.sd_common import make_sampler
     from polyp_tpu_torch.configs import DiffusionConfig
 
-    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
-                          device=args.device)
+    # the config first: `--quantize promoted` resolves (or exits) before
+    # any stack is built
     config = DiffusionConfig(image_size=args.image_size,
                              num_inference_steps=args.steps,
                              quantize=args.quantize,
                              quant_fp_head=args.quant_fp_head,
                              quant_fp_tail=args.quant_fp_tail)
+    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                          device=args.device)
     return make_sampler(stack, config, decoder=_decoder_from_args(args))
 
 
@@ -539,7 +533,10 @@ def main(argv=None):
                         choices=["w8a8", "w8a8_static", "promoted"],
                         help="int8 UNet (ops/quant.py); w8a8_static "
                              "calibrates its scales on first use. "
-                             "'promoted' is refused: " + REFUSED["promoted"])
+                             "'promoted' expands to the gate-passing config "
+                             "of the port's own verdict "
+                             "(polyp_tpu_torch/ops/quant_gate.json; the "
+                             "distilled entry with --distilled-dir)")
     parser.add_argument("--quant-fp-head", type=int, default=0,
                         help="with --quantize: the first N steps in full "
                              "precision")
@@ -565,8 +562,13 @@ def main(argv=None):
                              "default: <distilled-dir>/models/tiny_decoder "
                              "where there is one, else the committed one")
     args = parser.parse_args(argv)
-    if args.quantize == "promoted":
-        parser.error(REFUSED["promoted"])
+    # expand --quantize promoted before any stack is built (reference
+    # :514-517): the distilled verdict for students
+    from polyp_tpu_torch.ops.quant import resolve_quantize_arg
+    args.quantize, args.quant_fp_head, args.quant_fp_tail = \
+        resolve_quantize_arg(args.quantize, args.quant_fp_head,
+                             args.quant_fp_tail,
+                             distilled=args.distilled_dir is not None)
 
     service = service_from_args(args)
     server = serve(service, args.host, args.port)

@@ -31,8 +31,8 @@ import threading
 import time
 from typing import Callable
 
+from polyp_tpu_torch.ops.quant import resolve_quantize_arg
 from polyp_tpu_torch.serve import (
-    REFUSED,
     DeadlineExceeded,
     GenerationService,
     ServiceOverloaded,
@@ -241,8 +241,12 @@ def main(argv=None) -> None:
                         help="--overload: each request's queue-wait "
                              "deadline")
     args = parser.parse_args(argv)
-    if args.quantize == "promoted":
-        parser.error(REFUSED["promoted"])
+    # expand --quantize promoted into the gate-passing config before any
+    # stack is built (reference :389-396); this tool serves the base stack
+    # only, so the full-trajectory verdict
+    args.quantize, args.quant_fp_head, args.quant_fp_tail = \
+        resolve_quantize_arg(args.quantize, args.quant_fp_head,
+                             args.quant_fp_tail, distilled=False)
 
     window = args.batch_window_ms / 1e3
     sampler = sampler_from_args(args)

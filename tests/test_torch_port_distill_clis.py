@@ -60,6 +60,7 @@ from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.lora import save_lora
 from polyp_tpu_torch.models import importers as timp
 from polyp_tpu_torch.models.tiny_decoder import load_tiny_decoder
+from polyp_tpu_torch.ops import quant as tquant
 from polyp_tpu_torch.pipeline import to_uint8
 from polyp_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from test_torch_port_cli_rest import _common, _listing, _run_params
@@ -372,7 +373,9 @@ def test_student_sampler_and_distilled_serving_match(tmp_path, monkeypatch):
     polyp-serve-torch's service over --distilled-dir with two students
     (`--distilled-class all`): both models hosted and warm, each request
     answered by its own student, pixel-equal to load_student_sampler's
-    generate_batch; `--quantize promoted` refused, naming ROADMAP.md."""
+    generate_batch; `--quantize promoted` resolved to the port's
+    distilled verdict, and refused by polyp-serve-torch where that entry
+    is demoted."""
     prompts = _students(tmp_path / "jax", "jax", ("AD",))
     _students(tmp_path / "torch", "torch", ("AD", "HP"))
     want = jdsd.load_student_sampler(
@@ -393,10 +396,17 @@ def test_student_sampler_and_distilled_serving_match(tmp_path, monkeypatch):
     got01 = (got.numpy().transpose(0, 2, 3, 1).astype(np.float64) + 1) / 2
     assert np.abs(np.clip(got01, 0, 1) - np.clip(want01, 0, 1)).max() \
         <= 5e-3
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
-                                                  "item 2"):
-        distill_sd.load_student_sampler(stack, tmp_path / "torch", "AD",
-                                        quantize="promoted")
+    gate = tmp_path / "quant_gate.json"
+    monkeypatch.setattr(tquant, "GATE_PATH", gate)
+    gate.write_text(json.dumps({"promoted_distilled": {
+        "mode": "w8a8_static", "quant_fp_head": 0, "quant_fp_tail": 0,
+        "gate_pass": True}}))
+    promoted = distill_sd.load_student_sampler(
+        stack, tmp_path / "torch", "AD", quantize="promoted")
+    assert (promoted.quantize, promoted._split) == ("w8a8_static", None)
+    gate.write_text(json.dumps({"promoted_distilled": {
+        "mode": "w8a8_static", "quant_fp_head": 0, "quant_fp_tail": 0,
+        "gate_pass": False}}))
 
     monkeypatch.setattr(tcommon, "load_sd_stack",
                         lambda *args, **kwargs: stack)
@@ -423,7 +433,7 @@ def test_student_sampler_and_distilled_serving_match(tmp_path, monkeypatch):
                                           expect)
     finally:
         service.close()
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="quant_gate.json"):
         tserve.main(["--distilled-dir", str(tmp_path / "torch"),
                      "--quantize", "promoted"])
 

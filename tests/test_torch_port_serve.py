@@ -1143,11 +1143,38 @@ def test_service_over_generate_batch_is_coalescing_invariant(port_sampler):
 @pytest.mark.parametrize("argv", [
     ["--quantize", "promoted", "--distilled-dir", "runs/distill"],
     ["--quantize", "promoted"]])
-def test_main_refuses_what_the_port_cannot_serve(argv, capsys):
-    """Refused before any stack is built, naming ROADMAP.md: --quantize
-    promoted, for the base stack and for distilled students alike."""
-    with pytest.raises(SystemExit) as e:
-        serve_mod.main(argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and argv[0] in err
+def test_main_refuses_what_the_port_cannot_serve(argv, tmp_path,
+                                                 monkeypatch):
+    """--quantize promoted resolves through the port's own quant gate
+    before any stack is built: under a verdict whose entries pass, the
+    service factory gets the concrete mode and head (the distilled entry
+    for --distilled-dir); under one whose entries are demoted, main exits
+    naming the port's gate file and the factory is never reached."""
+    from polyp_tpu_torch.ops import quant as tq
+
+    entries = {"promoted": {"mode": "w8a8_static", "quant_fp_head": 5,
+                            "quant_fp_tail": 0},
+               "promoted_distilled": {"mode": "w8a8_static",
+                                      "quant_fp_head": 0,
+                                      "quant_fp_tail": 0}}
+    built = []
+
+    def factory(args):
+        built.append((args.quantize, args.quant_fp_head, args.quant_fp_tail))
+        raise KeyboardInterrupt  # stop before any stack
+
+    monkeypatch.setattr(serve_mod, "service_from_args", factory)
+    gate = tmp_path / "quant_gate.json"
+    monkeypatch.setattr(tq, "GATE_PATH", gate)
+    key = "promoted_distilled" if "--distilled-dir" in argv else "promoted"
+    for passing in (True, False):
+        gate.write_text(json.dumps({k: dict(v, gate_pass=passing)
+                                    for k, v in entries.items()}))
+        if passing:
+            with pytest.raises(KeyboardInterrupt):
+                serve_mod.main(argv)
+            assert built.pop() == tuple(entries[key].values())
+        else:
+            with pytest.raises(SystemExit) as e:
+                serve_mod.main(argv)
+            assert str(gate) in str(e.value) and not built
