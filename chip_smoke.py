@@ -91,7 +91,10 @@ caught:
    clients, coalesced vs solo; and generate_to_dir on distilled_bf16_tiny,
    the host seconds an image beyond the sampling, serial vs overlapped,
    with the PNG encoder that ran (`make -C native libpolyp_png.so` is
-   tried first; a failure is printed and PIL encodes);
+   tried first; a failure is printed and PIL encodes); and a prompt
+   holding a token past the base text table (BAD_TOKEN, as a DreamBooth
+   bundle registers it) answered HTTP 400 before the next request is
+   served;
 7. trains (training_phase, "LoRA training"): SD LoRA at full width
    through train_sd_lora over a Loader of 48 synthetic 256px images
    (batch 8, rank 8, α 8, dropout 0, the `attention` preset, lr 1e-4,
@@ -199,7 +202,21 @@ caught:
    GEGLU on this path); and every flash, GEGLU (bf16 and both int8
    forms), dense and GroupNorm call of the phase against its plain
    version at its shape;
-13. prints the kernel table (all eight kernel entries, with launches on
+13. runs the data-parallel group on the one card (multigpu_phase,
+   "multi-GPU"; `[multigpu]` lines): (a) a world of one over NCCL, two
+   LoRA steps of phase 7's default run bit-equal to the same steps in
+   this process; (b) two ranks sharing cuda:0 over gloo (spawned after
+   the build), each building the stack and taking it from rank 0 by
+   broadcast (checksum), two steps on 4 of each batch's 8 rows (the loss
+   within MG_LOSS_REL, the trainables within MG_PARAM_REL_L2 of one
+   process, their checksums bit-equal across the ranks after each step,
+   flash 5 and GroupNorm 22 a rank's step) and the 8-image quota fan-out
+   (the same files as one process's, each within MG_FAN_OUT_MEAN_LEVELS);
+   then polyp_tpu_torch.parallel.dryrun.dryrun_multichip(2) at its tiny
+   shapes, and the reports of polyp_tpu_torch/tools/profile_census.py
+   (bf16, 10 iterations) and tools/roofline.py (batch 2) written to
+   chiprun_out/{profile_census,roofline}.json;
+14. prints the kernel table (all eight kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
    class, launches a scratch forward and launches a distill step) as one
    JSON line, the card line, and last the result line {"ok": true,
@@ -215,6 +232,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -316,30 +334,12 @@ GRAPH_REPLAYS = 5
 def time_ms(fn, iters: int = 20) -> float:
     """Device time of one call of `fn`: `iters` calls captured once in a
     CUDA graph (after warm-up calls on a side stream), the graph replayed
-    GRAPH_REPLAYS times between two CUDA events. The calls' host work
+    GRAPH_REPLAYS times between two CUDA events
+    (polyp_tpu_torch/utils/profiling.py::graph_ms). The calls' host work
     (argument checks, allocation, the launch itself) is not in it, so a
     kernel shorter than its wrapper is timed as the kernel."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(GRAPH_REPLAYS):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (iters * GRAPH_REPLAYS)
-    del graph
-    return ms
+    from polyp_tpu_torch.utils.profiling import graph_ms
+    return graph_ms(fn, iters, GRAPH_REPLAYS)
 
 
 def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1293,6 +1293,8 @@ SERVE_PROMPTS = ("a realistic photo of colon polyp",
 # the services' launch size (serve.py's default max_batch), and the closed
 # loop's clients and seconds for each of the coalesced and solo services
 SERVE_BATCH = 8
+# a token the base text table lacks (AD's DreamBooth token)
+BAD_TOKEN = "sks"
 LOAD_CLIENTS, LOAD_SECONDS = 8, 10.0
 
 
@@ -1373,8 +1375,10 @@ def serving_phase(stack, tiny, card: str, reset_counts, read_counts,
     out: dict = {"card": card}
 
     def launched(sampler, pad):
-        return lambda prompts, ids: sampler.generate_batch(prompts, ids,
-                                                           pad_to=pad)
+        def launch(prompts, ids):
+            return sampler.generate_batch(prompts, ids, pad_to=pad)
+        launch.check = sampler.check_prompt  # as serve.py's launcher
+        return launch
 
     def per_request(counts):
         return {k: v / SERVE_BATCH for k, v in counts.items()}
@@ -1420,6 +1424,24 @@ def serving_phase(stack, tiny, card: str, reset_counts, read_counts,
         solo_counts = read_counts()
         if status != 200 or solo["batched_samples"] != 1:
             raise AssertionError(f"solo request {status}: {solo}")
+        # a prompt whose token lies past the text table (a DreamBooth
+        # class's token, registered in the shared tokenizer when another
+        # model's bundle is attached): answered 400 on the host, and the
+        # service serves the next request
+        saved = copy.deepcopy(vars(stack.tokenizer))
+        stack.tokenizer.add_tokens([BAD_TOKEN])
+        try:
+            bad = http_json(url + "/generate", {
+                "prompt": f"a colonoscopy image of a {BAD_TOKEN} polyp",
+                "num_images": 1, "seed": 1})
+            after = http_json(url + "/generate", asks[0])
+        finally:
+            vars(stack.tokenizer).clear()
+            vars(stack.tokenizer).update(saved)
+        if bad[0] != 400 or BAD_TOKEN not in bad[1].get("error", "") \
+                or after[0] != 200:
+            raise AssertionError(f"a prompt past the token table: "
+                                 f"{bad[:2]}, then {after[0]}")
     finally:
         server.shutdown()
         service.close()
@@ -1436,6 +1458,12 @@ def serving_phase(stack, tiny, card: str, reset_counts, read_counts,
         "solo_vs_coalesced_pixels_differing": differ,
         "solo_vs_coalesced_max_abs": int(np.abs(a.astype(int)
                                                 - b.astype(int)).max())}
+    out["base"]["token_past_the_table"] = {"status": bad[0],
+                                           "error": bad[1]["error"],
+                                           "next_request_status": after[0]}
+    print(f"[serving] a prompt holding {BAD_TOKEN!r} (past the text "
+          f"table): HTTP {bad[0]} {bad[1]['error']!r}; the next request: "
+          f"HTTP {after[0]}", flush=True)
     print(f"[serving] base service (UniPC, 25 steps, CFG 7.5, max_batch 8): "
           f"8 concurrent requests in {launches} launch(es), "
           f"{coalesced_s:.2f} s; a solo request vs its coalesced twin: "
@@ -3611,6 +3639,271 @@ def quant_gate_phase(stack, dev: torch.device, card: str, reset_counts,
     return out
 
 
+# the multi-GPU phase: the data-parallel group (polyp_tpu_torch/parallel/)
+# on the one card, as a world of one over NCCL and as two ranks sharing
+# the card over gloo. Two LoRA steps of the training phase's default run
+# (256px, global batch 8); the ranks' steps against the one-process steps:
+# the loss relative to it, and the trainables after the steps by relative
+# L2 (bf16 at batch 4 a rank picks other cuDNN and cuBLAS algorithms than
+# at batch 8, and Adam turns the gradients' rounding differences into
+# small moves); a wrong slice, draw, reduction or broadcast gives O(1)
+MG_LOSS_REL = 1e-3
+MG_PARAM_REL_L2 = 1e-2
+# the quota fan-out: 8 images (UniPC, 25 steps, CFG 7.5, 256px) as one
+# generate_to_dir batch, on two ranks of 4 rows against one process at
+# batch 8: each image's mean |Δ| in levels of 255 (the launches' batch
+# sizes differ, so the images differ by bf16 rounding carried through 25
+# guided steps, not bit for bit); a wrong latent, row order or file gives
+# tens of levels
+MG_IMAGES = 8
+MG_FAN_OUT_MEAN_LEVELS = 4.0
+
+
+def dp_lora_steps(stack, dev: torch.device, mesh=None) -> dict:
+    """Two LoRA steps of the training phase's default run (rank 8, α 8,
+    the `attention` preset, lr 1e-4, 256px, global batch 8, draws of steps
+    (0, 0) and (0, 1)) on `mesh` (None: this process alone): the losses,
+    the trainables' checksum after each step, the flash and GroupNorm
+    launches of each step, the trainables after the steps (fp32 on the
+    host) and the steps' seconds."""
+    import numpy as np
+
+    from polyp_tpu_torch.cli.sd_common import make_components
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.lora import LoRAConfig, init_lora
+    from polyp_tpu_torch.ops.flash_attention import flash_attention
+    from polyp_tpu_torch.ops.fused_gn import fused_group_norm
+    from polyp_tpu_torch.parallel import checksum, replicate_to
+    from polyp_tpu_torch.train import sd_finetune as sf
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves
+
+    cfg = DiffusionConfig(image_size=TRAIN_PX, train_batch_size=TRAIN_BATCH,
+                          num_epochs=1, learning_rate=1e-4, lora_rank=8,
+                          lora_alpha=8, lora_dropout=0.0,
+                          lora_preset="attention").with_schedule(
+                              TRAIN_IMAGES // TRAIN_BATCH)
+    lcfg = LoRAConfig(cfg.lora_rank, cfg.lora_alpha, cfg.lora_dropout,
+                      cfg.modules_lora)
+    bundle = sf.init_trainable(init_lora(stack.unet, lcfg,
+                                         torch.Generator(dev).manual_seed(0)))
+    state = sf.create_sd_train_state(cfg, bundle)
+    replicate_to(state.trainable, mesh)
+    frozen = make_components(stack, bundle)
+    schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
+                                        0.012)
+    ids = torch.as_tensor(stack.tokenizer([PROMPT]), device=dev)
+    out = {"losses": [], "checksums": [], "launches": [], "step_s": []}
+    for step in range(2):
+        images = torch.from_numpy(np.random.default_rng(step).integers(
+            0, 256, (TRAIN_BATCH, TRAIN_PX, TRAIN_PX, 3),
+            dtype=np.uint8)).to(dev)
+        if mesh is not None:
+            images = mesh.local(images)
+        torch.cuda.synchronize()
+        flash, gn = flash_attention.launches, fused_group_norm.launches
+        start = time.perf_counter()
+        state, loss = sf.sd_lora_train_step(
+            state, frozen, schedule, images, ids, None,
+            sf.step_draws(0, 0, step, dev), lcfg, mesh=mesh)
+        out["losses"].append(loss.item())
+        out["step_s"].append(time.perf_counter() - start)
+        out["launches"].append({
+            "flash_attention": flash_attention.launches - flash,
+            "fused_group_norm": fused_group_norm.launches - gn})
+        out["checksums"].append(checksum(state.trainable))
+    out["trainable"] = torch.cat([t.detach().float().reshape(-1).cpu()
+                                  for t in tree_leaves(state.trainable)])
+    out["start"] = torch.cat([t.detach().float().reshape(-1).cpu()
+                              for t in tree_leaves(bundle)])
+    return out
+
+
+def mg_rank(mesh, out_dir: str) -> dict:
+    """One of the two ranks sharing the card: the full-width stack built
+    from seed 0 and broadcast from rank 0 (its checksum checked), two
+    data-parallel LoRA steps on its 4 rows of each batch of 8, and the
+    quota fan-out of MG_IMAGES images through generate_to_dir (rank 0
+    writes)."""
+    from polyp_tpu_torch.cli.common import load_sd_stack, replicate_stack
+    from polyp_tpu_torch.cli.sd_common import make_sampler
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.pipeline import generate_to_dir
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+    stack = replicate_stack(load_sd_stack(None, dtype=torch.bfloat16, seed=0,
+                                          device=dev), mesh)
+    torch.cuda.synchronize()
+    out = {"stack_s": time.perf_counter() - start}
+    out.update(dp_lora_steps(stack, dev, mesh))
+    sampler = make_sampler(stack, DiffusionConfig(image_size=256), mesh=mesh)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out["written"] = generate_to_dir(sampler.for_prompt(PROMPT), MG_IMAGES,
+                                     out_dir, MG_IMAGES, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    out["fan_out_s"] = time.perf_counter() - start
+    return out
+
+
+def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
+    """The data-parallel group on the one card. (a) A world of one over
+    NCCL: two data-parallel LoRA steps at full width, bit-equal to the
+    same two steps in this process. (b) Two ranks sharing the card over
+    gloo, spawned (the kernels are built): each broadcasts and checks the
+    stack, takes two steps on its half of each batch (losses, trainables,
+    cross-rank checksums and launches a step held as MG_* says) and fans
+    the quota out (the files against one process's); then
+    dryrun_multichip(2) at its tiny shapes, and the two tools' reports
+    (tools/profile_census.py bf16, 10 iterations; tools/roofline.py at
+    batch 2) under chiprun_out/."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from polyp_tpu_torch.cli.sd_common import make_sampler
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.parallel import current_mesh, init_group
+    from polyp_tpu_torch.parallel.dryrun import dryrun_multichip
+    from polyp_tpu_torch.parallel.launch import spawn_group
+    from polyp_tpu_torch.pipeline import generate_to_dir
+    from polyp_tpu_torch.tools import profile_census, roofline
+
+    out: dict = {"card": card}
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name], clock[0] = now - clock[0], now
+
+    # (a) a world of one on NCCL against the same steps in-process
+    one = dp_lora_steps(stack, dev)
+    init_group("nccl", 0, 1, f"file://{tmp / 'nccl_store'}", dev)
+    try:
+        mesh = current_mesh()
+        world = dp_lora_steps(stack, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    same = (world["losses"] == one["losses"]
+            and torch.equal(world["trainable"], one["trainable"]))
+    out["nccl_world_of_one"] = {
+        "mesh": mesh.shape, "losses": world["losses"],
+        "one_process_losses": one["losses"], "bit_equal": same,
+        "step_s": world["step_s"], "one_process_step_s": one["step_s"],
+        "launches": world["launches"]}
+    print(f"[multigpu] a world of one over NCCL: two DP LoRA steps at "
+          f"256px, batch 8: losses {world['losses']} vs in-process "
+          f"{one['losses']}, bit-equal {same}; s a step {world['step_s']} "
+          f"vs {one['step_s']} on {card}", flush=True)
+    if not same:
+        raise AssertionError("the NCCL world of one differs from the "
+                             "in-process steps")
+    lap("nccl_world_of_one")
+
+    # (b) two gloo ranks on the card, against one process
+    fan_one = tmp / "mg_one"
+    generate_to_dir(make_sampler(stack, DiffusionConfig(image_size=256))
+                    .for_prompt(PROMPT), MG_IMAGES, fan_one, MG_IMAGES,
+                    seed=0)
+    lap("one_process_fan_out")
+    torch.cuda.empty_cache()
+    fan_group = tmp / "mg_group"
+    ranks = spawn_group(mg_rank, 2, (str(fan_group),), backend="gloo",
+                        device="cuda", share_device=True, timeout=600)
+    lap("gloo_ranks")
+    for step in range(2):
+        sums = {r["checksums"][step] for r in ranks}
+        if len(sums) != 1:
+            raise AssertionError(f"the ranks' trainables differ after step "
+                                 f"{step}")
+    loss_rel = max(abs(g - w) / abs(w) for r in ranks
+                   for g, w in zip(r["losses"], one["losses"]))
+    param_rel = rel_l2(ranks[0]["trainable"], one["trainable"])
+    moved = one["trainable"] - one["start"]
+    update_rel = rel_l2(ranks[0]["trainable"] - ranks[0]["start"], moved)
+    want_launches = {"flash_attention": STEP_FLASH,
+                     "fused_group_norm": ENCODE_GN}
+    names = sorted(p.name for p in fan_one.iterdir())
+    group_names = sorted(p.name for p in fan_group.iterdir())
+    levels = []
+    for name in names:
+        a = png_pixels((fan_one / name).read_bytes()).astype(np.int16)
+        b = png_pixels((fan_group / name).read_bytes()).astype(np.int16)
+        levels.append({"file": name,
+                       "max_abs": int(np.abs(a - b).max()),
+                       "mean_abs": float(np.abs(a - b).mean())})
+    checks = {"loss_rel": loss_rel, "param_rel_l2": param_rel,
+              "update_rel_l2": update_rel, "files": group_names,
+              "fan_out_levels": levels,
+              "launches_per_step": [r["launches"] for r in ranks]}
+    out["gloo_two_ranks"] = {
+        **checks, "losses": [r["losses"] for r in ranks],
+        "one_process_losses": one["losses"],
+        "step_s": [r["step_s"] for r in ranks],
+        "stack_s": [r["stack_s"] for r in ranks],
+        "fan_out_s": [r["fan_out_s"] for r in ranks],
+        "tolerances": {"loss_rel": MG_LOSS_REL,
+                       "param_rel_l2": MG_PARAM_REL_L2,
+                       "fan_out_mean_levels": MG_FAN_OUT_MEAN_LEVELS}}
+    print(f"[multigpu] two gloo ranks on cuda:0, batch 8 as 4 + 4: loss "
+          f"{loss_rel:.2e} relative from one process (tol {MG_LOSS_REL}), "
+          f"trainables rel L2 {param_rel:.2e} (tol {MG_PARAM_REL_L2}; the "
+          f"update alone {update_rel:.2e}), checksums bit-equal across "
+          f"the ranks after each step; launches a step "
+          f"{checks['launches_per_step']}; s a step "
+          f"{out['gloo_two_ranks']['step_s']} on {card}", flush=True)
+    print(f"[multigpu] fan-out of {MG_IMAGES} images (UniPC 25, CFG 7.5, "
+          f"256px) on two ranks vs one process: files {group_names}; max "
+          f"|Δ| levels {[x['max_abs'] for x in levels]}, mean |Δ| "
+          f"{[round(x['mean_abs'], 3) for x in levels]} (tol mean "
+          f"{MG_FAN_OUT_MEAN_LEVELS}); rank seconds "
+          f"{out['gloo_two_ranks']['fan_out_s']}", flush=True)
+    if not loss_rel <= MG_LOSS_REL or not param_rel <= MG_PARAM_REL_L2:
+        raise AssertionError(f"the gloo ranks' steps differ from one "
+                             f"process: {checks}")
+    if any(step != want_launches for r in ranks for step in r["launches"]):
+        raise AssertionError(f"launches a rank's step "
+                             f"{checks['launches_per_step']}, want "
+                             f"{want_launches}")
+    if group_names != names or len(names) != MG_IMAGES or any(
+            r["written"] != MG_IMAGES for r in ranks):
+        raise AssertionError(f"fan-out files {group_names} vs {names}")
+    if any(x["mean_abs"] > MG_FAN_OUT_MEAN_LEVELS for x in levels):
+        raise AssertionError(f"fan-out images differ: {levels}")
+
+    out["dryrun"] = dryrun_multichip(2, device="cuda", timeout=600)
+    print(f"[multigpu] dryrun_multichip(2) on cuda:0 over gloo: phases vs "
+          f"one process {out['dryrun']['errors']}", flush=True)
+    lap("dryrun")
+
+    reports = ROOT / "chiprun_out"
+    reports.mkdir(exist_ok=True)
+    census = profile_census.census("bf16", iters=10,
+                                   logdir=str(tmp / "census"))
+    (reports / "profile_census.json").write_text(json.dumps(census,
+                                                            indent=1))
+    out["profile_census"] = {k: census[k] for k in (
+        "families", "device_ms_per_step", "host_ms_per_step", "card")}
+    lap("profile_census")
+    rl = roofline.run(batch=2, steps=10, iters=5)
+    (reports / "roofline.json").write_text(json.dumps(rl, indent=1))
+    out["roofline"] = {k: rl[k] for k in ("floors_ms",
+                                         "ceiling_samples_per_s",
+                                         "measured", "card")}
+    print(f"[multigpu] reports: chiprun_out/profile_census.json (bf16 UNet "
+          f"step at batch 16: {census['device_ms_per_step']:.3f} ms device; "
+          f"families {census['families']}), chiprun_out/roofline.json "
+          f"(batch 2: ceilings {rl['ceiling_samples_per_s']}, measured "
+          f"{rl['measured']})", flush=True)
+    lap("roofline")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3843,6 +4136,8 @@ def main() -> int:
         gating = quant_gate_phase(stack, dev, card, reset_counts,
                                   read_counts, tmp, tmp / "distill" / "sd")
         phase("quant gate")
+        multigpu = multigpu_phase(stack, dev, card, tmp)
+        phase("multi-GPU")
 
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
@@ -3972,6 +4267,7 @@ def main() -> int:
               "training": training, "augmentation_loop": loop,
               "scratch": scratch, "sd_clis": sd_clis,
               "distill": distilling, "quant_gate": gating,
+              "multigpu": multigpu,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

@@ -1,9 +1,11 @@
 """Shared CLI plumbing: the twin of polyp_tpu/cli/common.py (the corpus
-layout `DataLayout`, `add_common_flags`, `get_tracker_from`,
-`print_banner`) and SD stack loading (`load_sd_stack`).
+layout `DataLayout`, `add_common_flags`, `get_mesh_from`,
+`get_tracker_from`, `print_banner`) and SD stack loading (`load_sd_stack`).
 
-The CLIs run on the card unless `--device cpu` is given. The reference's
-`--mesh` flag comes with the multi-GPU slice (ROADMAP.md Queue 1).
+The CLIs run on the card unless `--device cpu` is given. `--mesh data=N`
+(or `data=-1`) runs a training CLI data-parallel over the ranks of a
+`torchrun --nproc_per_node=N` launch, one process a card
+(parallel/mesh.py); without it a CLI runs on one device.
 
 The stack comes from a local diffusers checkpoint (`pretrained_dir`,
 models/importers.py::load_sd_checkpoint) or from a seeded random
@@ -79,11 +81,59 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; the CLIs run on the card "
                              "unless given a CPU")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="device mesh spec, e.g. 'data=8' (pure DP) or "
+                             "'data=4,model=2' (DP × Megatron-TP on the "
+                             "attention/FF kernels); 'data=-1' = all devices. "
+                             "Default: single-device, like the reference "
+                             "(classification.sh:8, gres gpu:1). The port "
+                             "runs the 'data' axis over the ranks of a "
+                             "torchrun launch (one process a card); a "
+                             "'model' axis above 1 is not ported yet")
 
 
-def get_tracker_from(args):
-    from polyp_tpu_torch.track import get_tracker
-    return get_tracker(args.tracker_root)
+def get_mesh_from(args):
+    """The data-parallel mesh named by --mesh (None when unset): starts the
+    torchrun launch's process group first (parallel/mesh.py::
+    init_distributed, nccl on the card, gloo on the CPU), so 'data=-1'
+    spans every rank. On the card each rank takes card LOCAL_RANK, and
+    `args.device` becomes that card."""
+    from polyp_tpu_torch.parallel import init_distributed, mesh_from_spec
+    spec = getattr(args, "mesh", None)
+    if spec:
+        init_distributed(device=args.device)
+        if torch.device(args.device).type == "cuda" and \
+                torch.distributed.is_initialized():
+            args.device = f"cuda:{torch.cuda.current_device()}"
+    mesh = mesh_from_spec(spec)
+    if mesh is not None:
+        print(f"[polyp-tpu-torch] mesh: {mesh.shape} over {mesh.size} "
+              f"ranks (rank {mesh.rank})")
+    return mesh
+
+
+def get_tracker_from(args, mesh=None):
+    """The run tracker; under a data-parallel `mesh` only rank 0 records
+    (the other ranks get a NullTracker)."""
+    from polyp_tpu_torch.parallel import is_writer
+    from polyp_tpu_torch.track import NullTracker, get_tracker
+    return get_tracker(args.tracker_root) if is_writer(mesh) else NullTracker()
+
+
+def replicate_stack(stack: "SDStack", mesh) -> "SDStack":
+    """Rank 0's weights of the stack's three modules on every rank of
+    `mesh` (a broadcast; the seeded initialisation should agree already),
+    checked by checksum. A no-op without a mesh."""
+    from polyp_tpu_torch.parallel import replicate_to, replicated
+    if mesh is None:
+        return stack
+    for part in PARTS:
+        module = getattr(stack, part)
+        replicate_to(module, mesh)
+        if not replicated(module, mesh):
+            raise RuntimeError(f"the ranks' {part} weights differ after the "
+                               "broadcast")
+    return stack
 
 
 def print_banner(msg: str) -> None:

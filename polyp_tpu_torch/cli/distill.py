@@ -1,5 +1,6 @@
 """Progressive distillation of the scratch-trained per-class DDPMs: the twin
-of polyp_tpu/cli/distill.py on one card (`polyp-distill-torch`).
+of polyp_tpu/cli/distill.py (`polyp-distill-torch`; `--mesh data=N` under
+torchrun: each phase's steps data-parallel over N cards, rank 0 writing).
 
 Each class's `models/model_{cls}` (a polyp-train-scratch-torch output:
 the fp32 masters of the pixel UNet) is distilled phase by phase
@@ -31,10 +32,11 @@ from pathlib import Path
 import torch
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, class_split, get_tracker_from,
-    print_banner)
+    DataLayout, add_common_flags, class_split, get_mesh_from,
+    get_tracker_from, print_banner)
 from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.diffusion import DiffusionSchedule
+from polyp_tpu_torch.parallel import barrier, is_writer
 from polyp_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 from polyp_tpu_torch.utils.rng import stream_generator
 
@@ -95,7 +97,9 @@ def main(argv=None) -> dict:
         **({"output_dir": args.output_dir} if args.output_dir else {}))
     layout = DataLayout(Path(args.data_root))
     classes, class_map = class_split(args.one_vs_rest)
-    tracker = get_tracker_from(args)
+    mesh = get_mesh_from(args)
+    device = torch.device(args.device)
+    tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
 
     model = (tiny_scratch_unet if args.tiny else polyp_scratch_unet)(
@@ -124,14 +128,18 @@ def main(argv=None) -> dict:
                                            args.cache_dir)
             loader = Loader(data.images, data.labels,
                             config.train_batch_size, seed=config.seed,
-                            device=device)
+                            device=device, mesh=mesh,
+                            process_shard=mesh is not None)
 
             def batches(_loader=loader):
                 for i, (images, _, _) in enumerate(_loader):
+                    # drawn for the global batch, this rank's rows kept
                     flip = torch.rand(
-                        images.shape[0], device=device,
+                        config.train_batch_size, device=device,
                         generator=stream_generator(
                             config.seed, "distill", i, device=device))
+                    if mesh is not None:
+                        flip = mesh.local(flip)
                     yield augment_diffusion_batch(images, flip < 0.5)
 
             start = time.perf_counter()
@@ -143,20 +151,22 @@ def main(argv=None) -> dict:
                 student_prediction_type=args.student_prediction_type,
                 reparam_steps=args.reparam_steps,
                 log=lambda k, v, s, _c=cls: tracker.log_metric(
-                    f"{k}_{_c}", v, s))
+                    f"{k}_{_c}", v, s), mesh=mesh)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             distill_s = time.perf_counter() - start
 
             target = Path(config.output_dir) / "models" / f"distilled_{cls}"
-            save_pytree(target, {"params": result.params})
-            (target.parent / f"distilled_{cls}_meta.json").write_text(
-                json.dumps({"num_steps": result.num_steps,
-                            "prediction_type": result.prediction_type,
-                            "sampler": "ddim",
-                            "sampler_kwargs": dict(TRAILING),
-                            "num_train_timesteps":
-                                config.num_train_timesteps}))
+            if is_writer(mesh):
+                save_pytree(target, {"params": result.params})
+                (target.parent / f"distilled_{cls}_meta.json").write_text(
+                    json.dumps({"num_steps": result.num_steps,
+                                "prediction_type": result.prediction_type,
+                                "sampler": "ddim",
+                                "sampler_kwargs": dict(TRAILING),
+                                "num_train_timesteps":
+                                    config.num_train_timesteps}))
+            barrier(mesh)
             tracker.log_artifact(str(target), f"distilled/model_{cls}")
             for ph in result.phases:
                 tail = ph.losses[-20:]
@@ -174,11 +184,12 @@ def main(argv=None) -> dict:
                         prediction_type=result.prediction_type),
                     config.image_size, sampler="ddim",
                     num_steps=result.num_steps,
-                    sampler_kwargs=dict(TRAILING))
+                    sampler_kwargs=dict(TRAILING), mesh=mesh)
                 sample_dir = Path(config.output_dir) / "samples" / cls
                 start = time.perf_counter()
                 generate_to_dir(sampler, args.generate, sample_dir,
-                                config.eval_batch_size, config.seed)
+                                config.eval_batch_size, config.seed,
+                                mesh=mesh)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 generate_s = time.perf_counter() - start

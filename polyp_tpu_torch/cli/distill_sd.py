@@ -1,5 +1,7 @@
 """Progressive distillation of the per-class SD models: the twin of
-polyp_tpu/cli/distill_sd.py on one card (`polyp-distill-sd-torch`).
+polyp_tpu/cli/distill_sd.py (`polyp-distill-sd-torch`; `--mesh data=N`
+under torchrun: each phase's steps data-parallel over N cards, rank 0
+writing).
 
 Each class's fine-tuned model (the stack with the class's `lora_{cls}`
 bundle from polyp-lora-per-class-torch or polyp-lora-all-classes-torch)
@@ -44,10 +46,11 @@ import torch
 from torch import nn
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, class_split, get_tracker_from,
-    load_sd_stack, print_banner)
+    DataLayout, add_common_flags, class_split, get_mesh_from,
+    get_tracker_from, load_sd_stack, print_banner, replicate_stack)
 from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.diffusion.schedule import DiffusionSchedule
+from polyp_tpu_torch.parallel import barrier, is_writer
 from polyp_tpu_torch.pipeline import StableDiffusionSampler
 from polyp_tpu_torch.utils.checkpoint import save_pytree
 from polyp_tpu_torch.utils.rng import stream_generator
@@ -114,7 +117,6 @@ def main(argv=None) -> dict:
     from polyp_tpu_torch.train.distill import distill_progressive
     from polyp_tpu_torch.train.dreambooth import resume_prompt
 
-    device = torch.device(args.device)
     config = DiffusionConfig(
         image_size=args.image_size, train_batch_size=args.train_batch_size,
         num_train_timesteps=args.num_train_timesteps,
@@ -124,11 +126,25 @@ def main(argv=None) -> dict:
         **({"output_dir": args.output_dir} if args.output_dir else {}))
     layout = DataLayout(Path(args.data_root))
     classes, class_map = class_split(args.one_vs_rest)
-    tracker = get_tracker_from(args)
+    mesh = get_mesh_from(args)
+    device = torch.device(args.device)
+    writer = is_writer(mesh)
+    tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
 
-    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny, device=device)
+    stack = replicate_stack(load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                                          device=device), mesh)
     schedule = sd_schedule(config.num_train_timesteps)
+
+    def global_rows(n: int, generator: torch.Generator, *shape: int
+                    ) -> torch.Tensor:
+        """A draw for the group's global batch (n rows a rank), this
+        rank's rows kept: the one-process draw without a mesh."""
+        wide = n * (1 if mesh is None else mesh.size)
+        x = torch.rand(wide, device=device, generator=generator) \
+            if not shape else torch.randn((wide, *shape), device=device,
+                                          generator=generator)
+        return x if mesh is None else mesh.local(x)
 
     @torch.no_grad()
     def encode_latents(images: torch.Tensor,
@@ -136,8 +152,8 @@ def main(argv=None) -> dict:
         """The class's images in SD latent space, as the fine-tune
         encoded them (train/sd_finetune.py)."""
         posterior = DiagonalGaussian(stack.vae.encode_moments(images))
-        noise = torch.randn(posterior.mean.shape, generator=generator,
-                            device=generator.device)
+        noise = global_rows(images.shape[0], generator,
+                            *posterior.mean.shape[1:])
         return posterior.sample(noise) * SD_VAE_SCALING
 
     out: dict = {}
@@ -180,14 +196,13 @@ def main(argv=None) -> dict:
                                            args.cache_dir)
             loader = Loader(data.images, data.labels,
                             config.train_batch_size, seed=config.seed,
-                            device=device)
+                            device=device, mesh=mesh,
+                            process_shard=mesh is not None)
 
             def batches(_loader=loader):
                 for i, (images, _, _) in enumerate(_loader):
-                    flip = torch.rand(
-                        images.shape[0], device=device,
-                        generator=stream_generator(
-                            config.seed, "distill-sd", i, device=device))
+                    flip = global_rows(images.shape[0], stream_generator(
+                        config.seed, "distill-sd", i, device=device))
                     yield encode_latents(
                         augment_diffusion_batch(images, flip < 0.5),
                         stream_generator(config.seed, "latent", i,
@@ -204,7 +219,7 @@ def main(argv=None) -> dict:
                 guidance_scale=config.guidance_scale,
                 cond=cond, uncond=uncond,
                 log=lambda k, v, s, _c=cls: tracker.log_metric(
-                    f"{k}_{_c}", v, s))
+                    f"{k}_{_c}", v, s), mesh=mesh)
             _sync(device)
             distill_s = time.perf_counter() - start
             del teacher_params
@@ -212,19 +227,22 @@ def main(argv=None) -> dict:
             start = time.perf_counter()
             models = Path(config.output_dir) / "models"
             target = models / f"distilled_{cls}"
-            save_pytree(target, {"params": result.params})
-            # the trained cond embedding travels with the student: a
-            # DreamBooth class's token exists only in a grown vocabulary
-            np.save(models / f"distilled_{cls}_cond.npy",
-                    cond.cpu().numpy().astype(np.float32))
-            (models / f"distilled_{cls}_meta.json").write_text(json.dumps({
-                "num_steps": result.num_steps,
-                "prediction_type": result.prediction_type,
-                "sampler": "ddim", "sampler_kwargs": dict(TRAILING),
-                "guidance": "folded",
-                "guidance_scale": config.guidance_scale,
-                "prompt": prompt, "image_size": config.image_size,
-                "num_train_timesteps": config.num_train_timesteps}))
+            if writer:
+                save_pytree(target, {"params": result.params})
+                # the trained cond embedding travels with the student: a
+                # DreamBooth class's token exists only in a grown vocabulary
+                np.save(models / f"distilled_{cls}_cond.npy",
+                        cond.cpu().numpy().astype(np.float32))
+                (models / f"distilled_{cls}_meta.json").write_text(
+                    json.dumps({
+                        "num_steps": result.num_steps,
+                        "prediction_type": result.prediction_type,
+                        "sampler": "ddim", "sampler_kwargs": dict(TRAILING),
+                        "guidance": "folded",
+                        "guidance_scale": config.guidance_scale,
+                        "prompt": prompt, "image_size": config.image_size,
+                        "num_train_timesteps": config.num_train_timesteps}))
+            barrier(mesh)
             save_s = time.perf_counter() - start
             tracker.log_artifact(str(target), f"distilled/model_{cls}")
             for ph in result.phases:
@@ -238,12 +256,13 @@ def main(argv=None) -> dict:
                     num_steps=result.num_steps,
                     prediction_type=result.prediction_type,
                     image_size=config.image_size,
-                    num_train_timesteps=config.num_train_timesteps)
+                    num_train_timesteps=config.num_train_timesteps,
+                    mesh=mesh)
                 sample_dir = Path(config.output_dir) / "samples" / cls
                 start = time.perf_counter()
                 generate_to_dir(sampler.for_prompt(prompt), args.generate,
                                 sample_dir, config.eval_batch_size,
-                                config.seed)
+                                config.seed, mesh=mesh)
                 _sync(device)
                 generate_s = time.perf_counter() - start
                 print(f"  wrote {args.generate} {result.num_steps}-step "
@@ -321,19 +340,21 @@ def make_student_sampler(stack, unet: nn.Module, *, num_steps: int,
                          quantize: str | None = None,
                          quant_fp_head: int = 0, quant_fp_tail: int = 0,
                          decoder: nn.Module | None = None,
-                         fused_mha: bool = False) -> StableDiffusionSampler:
+                         fused_mha: bool = False,
+                         mesh=None) -> StableDiffusionSampler:
     """A StableDiffusionSampler over the student `unet` and the VAE, text
     encoder and tokenizer of `stack` (cli/common.py::SDStack): trailing
     DDIM at `num_steps`, `guidance_scale=None`, the SD-v1 schedule with the
     student's `prediction_type` (reference :284-303). `decoder`: a
-    TinyDecoder replacing the VAE decode."""
+    TinyDecoder replacing the VAE decode; `mesh`: fan batches out over a
+    data-parallel group."""
     return StableDiffusionSampler(
         unet, stack.vae, stack.text, stack.tokenizer,
         sd_schedule(num_train_timesteps, prediction_type),
         image_size=image_size, num_steps=num_steps, guidance_scale=None,
         sampler="ddim", quantize=quantize, quant_fp_head=quant_fp_head,
         quant_fp_tail=quant_fp_tail, sampler_kwargs=dict(TRAILING),
-        decoder=decoder, fused_mha=fused_mha)
+        decoder=decoder, fused_mha=fused_mha, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Downstream augmentation eval CLI: the twin of
-polyp_tpu/cli/eval_augmentation.py on one card. Retrain the classifier on
+polyp_tpu/cli/eval_augmentation.py (`--mesh data=N` under torchrun:
+data-parallel over N cards, rank 0 writing). Retrain the classifier on
 real + generated samples and log the test metrics into the generator's
 run (eval/harness.py).
 
@@ -15,10 +16,12 @@ import json
 from pathlib import Path
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, get_tracker_from, print_banner)
+    DataLayout, add_common_flags, get_mesh_from, get_tracker_from,
+    print_banner)
 from polyp_tpu_torch.configs import ClassificationConfig
 from polyp_tpu_torch.eval.harness import (
     AugmentedDataDirs, run_augmentation_eval)
+from polyp_tpu_torch.parallel import barrier, is_writer
 from polyp_tpu_torch.utils.plotting import plot_confusion_matrix
 
 
@@ -45,10 +48,12 @@ def main(argv=None) -> dict:
         str(layout.val_images), str(layout.val_csv),
         str(layout.test_images), str(layout.test_csv),
         str(Path(args.path_model) / "samples"))
-    tracker = get_tracker_from(args)
+    mesh = get_mesh_from(args)
+    writer = is_writer(mesh)
+    tracker = get_tracker_from(args, mesh)
     if args.experiment_name:
         tracker.set_experiment(args.experiment_name)
-    (Path(args.path_model) / "params.json").write_text(json.dumps({
+    params = json.dumps({
         "image_size": config.image_size, "batch_size": config.batch_size,
         "num_epochs": config.num_epochs, "patience": config.patience,
         "learning_rate": config.learning_rate,
@@ -56,12 +61,14 @@ def main(argv=None) -> dict:
         "hidden_features": config.hidden_features, "dropout": config.dropout,
         "weighted_sampling": config.weighted_sampling,
         "ad_vs_rest": args.ad_vs_rest,
-    }, indent=2))
+    }, indent=2)
+    if writer:
+        (Path(args.path_model) / "params.json").write_text(params)
 
     print_banner("Augmented retrain + eval")
     metrics = run_augmentation_eval(config, dirs, tracker, args.run_id,
                                     args.ad_vs_rest, args.cache_dir,
-                                    device=args.device)
+                                    device=args.device, mesh=mesh)
     out = {k: round(metrics[k], 4)
            for k in ("accuracy", "precision", "recall", "f1_score")}
     if metrics.get("frechet") and metrics["frechet"]["per_class"]:
@@ -69,10 +76,12 @@ def main(argv=None) -> dict:
                           for c, v in metrics["frechet"]["per_class"].items()}
         out["frechet_extractor"] = metrics["frechet"]["extractor"]
     print(json.dumps(out))
-    cm_path = plot_confusion_matrix(
-        metrics["confusion_matrix"], metrics["labels"],
-        str(Path(args.path_model) / "confusion_matrix_augmented.png"))
-    print(f"confusion matrix at {cm_path}")
+    if writer:
+        cm_path = plot_confusion_matrix(
+            metrics["confusion_matrix"], metrics["labels"],
+            str(Path(args.path_model) / "confusion_matrix_augmented.png"))
+        print(f"confusion matrix at {cm_path}")
+    barrier(mesh)
     return metrics
 
 

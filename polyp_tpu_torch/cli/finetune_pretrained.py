@@ -1,6 +1,7 @@
 """Pretrained SD latent fine-tune CLI: the twin of
 polyp_tpu/cli/finetune_pretrained.py (the reference's
-train_from_pretrained.py) on one card.
+train_from_pretrained.py); `--mesh data=N` under torchrun trains and
+samples data-parallel over N cards, rank 0 writing.
 
 LoRA r=4 α=4 (no dropout) on the attention projections, 256 px, over
 every training image with the fixed prompt "a realistic photo of colon
@@ -23,13 +24,14 @@ from pathlib import Path
 import numpy as np
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, get_tracker_from, load_sd_stack,
-    print_banner)
+    DataLayout, add_common_flags, get_mesh_from, get_tracker_from,
+    load_sd_stack, print_banner, replicate_stack)
 from polyp_tpu_torch.cli.sd_common import (
     make_components, make_sampler, merged_stack)
 from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.diffusion import DiffusionSchedule
 from polyp_tpu_torch.lora.surgery import LoRAConfig, init_lora, save_lora
+from polyp_tpu_torch.parallel import is_writer, replicate_to
 from polyp_tpu_torch.pipeline import generate_to_dir
 from polyp_tpu_torch.train.sd_finetune import (
     create_sd_train_state, init_trainable, train_sd_lora)
@@ -70,15 +72,17 @@ def main(argv=None) -> dict:
                              output_dir=args.output_dir,
                              experiment_name="generator_model")
     layout = DataLayout(Path(args.data_root))
-    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
-                          device=args.device)
+    mesh = get_mesh_from(args)
+    stack = replicate_stack(load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                                          device=args.device), mesh)
     device = next(stack.unet.parameters()).device
 
     data = ArrayDataset.from_table(
         ClassificationTable.from_csv(layout.train_images, layout.train_csv),
         config.image_size, args.cache_dir)
     loader = Loader(data.images, data.labels, config.train_batch_size,
-                    seed=config.seed, device=device)
+                    seed=config.seed, device=device, mesh=mesh,
+                    process_shard=mesh is not None)
     cfg = config.with_schedule(len(loader))
 
     lcfg = LoRAConfig(cfg.lora_rank, cfg.lora_alpha, 0.0, cfg.modules_lora)
@@ -86,13 +90,14 @@ def main(argv=None) -> dict:
         cfg.seed, "lora_init", 0, device=device))
     trainable = init_trainable(adapter)
     state = create_sd_train_state(cfg, trainable)
+    replicate_to(state.trainable, mesh)
     frozen = make_components(stack, trainable)
     schedule = DiffusionSchedule.create(cfg.num_train_timesteps,
                                         "scaled_linear", 0.00085, 0.012)
     prompt_ids = np.asarray(stack.tokenizer([PROMPT]))
     print(PROMPT)
 
-    tracker = get_tracker_from(args)
+    tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or cfg.experiment_name)
     print_banner("Starting training")
     with tracker.start_run(run_name=Path(cfg.output_dir).name):
@@ -101,12 +106,13 @@ def main(argv=None) -> dict:
             log=lambda k, v, s: tracker.log_metric(k, v, s))
 
         out = Path(cfg.output_dir)
-        save_lora(out / "lora_weights", state.trainable["unet_lora"])
+        if is_writer(mesh):
+            save_lora(out / "lora_weights", state.trainable["unet_lora"])
         merged = merged_stack(stack, frozen, state.trainable, lcfg)
-        sampler = make_sampler(merged, cfg)
+        sampler = make_sampler(merged, cfg, mesh=mesh)
         epoch_dir = out / "samples" / f"{cfg.num_epochs - 1:04d}"
         generate_to_dir(sampler.for_prompt(PROMPT), cfg.eval_batch_size,
-                        epoch_dir, cfg.eval_batch_size, cfg.seed)
+                        epoch_dir, cfg.eval_batch_size, cfg.seed, mesh=mesh)
         tracker.log_artifact(str(out / "lora_weights"), "lora")
         print(f"  Images saved at {epoch_dir}")
     return {"loss_hist": result.loss_hist, "steps": state.step,

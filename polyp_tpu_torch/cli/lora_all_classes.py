@@ -18,8 +18,8 @@ import argparse
 from pathlib import Path
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, class_split, get_tracker_from,
-    load_sd_stack)
+    DataLayout, add_common_flags, class_split, get_mesh_from,
+    get_tracker_from, load_sd_stack, replicate_stack)
 from polyp_tpu_torch.cli.sd_common import SDFlags, train_class
 from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.eval.quota import (
@@ -79,9 +79,10 @@ def main(argv=None) -> dict:
                                         args.one_vs_rest)
     print(f"Quotas: {quotas}")
 
-    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
-                          device=args.device)
-    tracker = get_tracker_from(args)
+    mesh = get_mesh_from(args)
+    stack = replicate_stack(load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                                          device=args.device), mesh)
+    tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
     out: dict = {"quotas": quotas, "classes": {}}
     with tracker.start_run(run_name=folder.name):
@@ -91,7 +92,7 @@ def main(argv=None) -> dict:
             out["classes"][cls] = train_class(
                 stack, config, layout, folder, cls, class_map, quotas[cls],
                 flags, tracker, args.cache_dir, generate=generate,
-                ckpt_every=args.ckpt_every)
+                ckpt_every=args.ckpt_every, mesh=mesh)
     return out
 
 

@@ -1,5 +1,5 @@
 """Per-class SD LoRA CLI, the flagship workflow: the twin of
-polyp_tpu/cli/lora_per_class.py on one card.
+polyp_tpu/cli/lora_per_class.py.
 
 One LoRA bundle a class, with filesystem-state resume: a class whose
 `{folder}/lora_{cls}` exists is not trained again, and its
@@ -8,6 +8,9 @@ One LoRA bundle a class, with filesystem-state resume: a class whose
 Usage (on the card; `--device cpu` for the CPU):
   polyp-lora-per-class-torch --folder runs/lora --classes_to_train AD HP ASS \\
       --num_imgs_to_generate 465 619 628 --run_id <id> [--dreambooth] ...
+Data-parallel over N cards (one process a card; rank 0 writes):
+  torchrun --nproc_per_node=N -m polyp_tpu_torch.cli.lora_per_class \\
+      --mesh data=-1 --folder runs/lora ...
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import argparse
 from pathlib import Path
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, get_tracker_from, load_sd_stack)
+    DataLayout, add_common_flags, get_mesh_from, get_tracker_from,
+    load_sd_stack, replicate_stack)
 from polyp_tpu_torch.cli.sd_common import SDFlags, resume_class, train_class
 from polyp_tpu_torch.configs import DiffusionConfig
 
@@ -66,9 +70,10 @@ def main(argv=None) -> dict:
     class_map = {cls: ["HP", "ASS"] if cls == "REST" else [cls]
                  for cls in args.classes_to_train}
 
-    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
-                          device=args.device)
-    tracker = get_tracker_from(args)
+    mesh = get_mesh_from(args)
+    stack = replicate_stack(load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                                          device=args.device), mesh)
+    tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
     out: dict = {"classes": {}}
     with tracker.start_run(run_id=args.run_id) as run:
@@ -76,13 +81,13 @@ def main(argv=None) -> dict:
         for cls, quota in zip(args.classes_to_train,
                               args.num_imgs_to_generate):
             result = resume_class(stack, config, folder, cls, quota, flags,
-                                  tracker)
+                                  tracker, mesh=mesh)
             trained = result is None
             if trained:
                 result = train_class(stack, config, layout, folder, cls,
                                      class_map, quota, flags, tracker,
                                      args.cache_dir,
-                                     ckpt_every=args.ckpt_every)
+                                     ckpt_every=args.ckpt_every, mesh=mesh)
             out["classes"][cls] = {"trained": trained, **result}
     return out
 

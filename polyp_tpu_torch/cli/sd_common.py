@@ -37,6 +37,7 @@ from polyp_tpu_torch.configs import LORA_MODULE_PRESETS, DiffusionConfig
 from polyp_tpu_torch.diffusion import DiffusionSchedule
 from polyp_tpu_torch.lora.surgery import (
     LoRAConfig, init_lora, load_lora, merge_lora, merged_module, save_lora)
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.pipeline import (
     StableDiffusionSampler, count_samples, generate_to_dir, top_up_samples)
 from polyp_tpu_torch.train.dreambooth import (
@@ -127,11 +128,12 @@ def merged_stack(stack: SDStack, frozen: SDComponents, trainable: dict,
 
 
 def make_sampler(stack: SDStack, config: DiffusionConfig,
-                 decoder=None) -> StableDiffusionSampler:
+                 decoder=None, mesh: pmesh.DataMesh | None = None
+                 ) -> StableDiffusionSampler:
     """A StableDiffusionSampler over `stack` on the SD-v1 schedule
     (scaled_linear, 0.00085 to 0.012) with `config`'s image size, steps,
     guidance, sampler and quantization. `decoder`: a TinyDecoder replacing
-    the VAE decode."""
+    the VAE decode; `mesh`: fan batches out over a data-parallel group."""
     schedule = DiffusionSchedule.create(config.num_train_timesteps,
                                         "scaled_linear", 0.00085, 0.012)
     return StableDiffusionSampler(
@@ -139,7 +141,7 @@ def make_sampler(stack: SDStack, config: DiffusionConfig,
         image_size=config.image_size, num_steps=config.num_inference_steps,
         guidance_scale=config.guidance_scale, sampler=config.sampler,
         quantize=config.quantize, quant_fp_head=config.quant_fp_head,
-        quant_fp_tail=config.quant_fp_tail, decoder=decoder)
+        quant_fp_tail=config.quant_fp_tail, decoder=decoder, mesh=mesh)
 
 
 def _device(stack: SDStack) -> torch.device:
@@ -222,24 +224,27 @@ def restore_class_params(stack: SDStack, config: DiffusionConfig,
 
 def resume_class(stack: SDStack, config: DiffusionConfig, folder: Path,
                  cls: str, quota: int, flags: SDFlags,
-                 tracker=None) -> dict | None:
+                 tracker=None, mesh: pmesh.DataMesh | None = None
+                 ) -> dict | None:
     """The resume branch: where `{folder}/lora_{cls}` exists, reload it and
     top `samples/{cls}` up to `quota` (the missing tail, with the seeds
     and file names of the first run); returns {"images": added,
-    "generate_s"}, or None where the class has no bundle (train it)."""
+    "generate_s"}, or None where the class has no bundle (train it).
+    Under `mesh` every rank reads rank 0's bundle and count."""
+    pmesh.barrier(mesh)  # rank 0's files are whole before anyone reads
     merged = restore_class_params(stack, config, folder, cls)
     if merged is None:
         return None
     print_banner(f"Model for {cls} class already trained")
     out_dir = Path(folder) / "samples" / cls
     added, seconds = 0, 0.0
-    if count_samples(out_dir) < quota:
-        sampler = make_sampler(merged, config)
+    if pmesh.broadcast_object(count_samples(out_dir), mesh) < quota:
+        sampler = make_sampler(merged, config, mesh=mesh)
         start = time.perf_counter()
         added = top_up_samples(
             sampler.for_prompt(resume_prompt(cls, flags.unconditional)),
             quota, out_dir, config.eval_batch_size, config.seed,
-            progress=lambda a, b: print(f"Generated {a}/{b}"))
+            progress=lambda a, b: print(f"Generated {a}/{b}"), mesh=mesh)
         _sync(_device(stack))
         seconds = time.perf_counter() - start
         print(f"Generated {added} images for class {cls} successfully!")
@@ -249,13 +254,15 @@ def resume_class(stack: SDStack, config: DiffusionConfig, folder: Path,
 def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
                 folder: Path, cls: str, class_map: dict, quota: int,
                 flags: SDFlags, tracker=None, cache_dir: str | None = None,
-                generate: int | None = None, ckpt_every: int = 0) -> dict:
+                generate: int | None = None, ckpt_every: int = 0,
+                mesh: pmesh.DataMesh | None = None) -> dict:
     """The train branch: dataset → LoRA bundle → train_sd_lora → the
     bundle saved → `generate` (default `quota`) samples. `ckpt_every` > 0
     snapshots the train state every N epochs under `{folder}/ckpt_{cls}`
     (train/resume.py), so a killed class resumes from its last snapshot.
-    Returns {"images", "steps", "train_s", "generate_s"} (host seconds
-    around synchronised work)."""
+    Under `mesh` the steps and the quota are the group's and rank 0
+    writes. Returns {"images", "steps", "train_s", "generate_s"} (host
+    seconds around synchronised work)."""
     from polyp_tpu_torch.data.cache import ArrayDataset
     from polyp_tpu_torch.data.pipeline import Loader
     from polyp_tpu_torch.data.tables import DiffusionTable
@@ -269,8 +276,10 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
     data = ArrayDataset.from_table(table, config.image_size, cache_dir)
     print(cls, class_map[cls], len(data))
     loader = Loader(data.images, data.labels, config.train_batch_size,
-                    seed=config.seed, device=device)
+                    seed=config.seed, device=device, mesh=mesh,
+                    process_shard=mesh is not None)
     cfg = config.with_schedule(max(len(loader), 1))
+    writer = pmesh.is_writer(mesh)
 
     def generator(stream: int) -> torch.Generator:
         return stream_generator(cfg.seed, "lora_init", stream, device=device)
@@ -309,7 +318,7 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
     prompt = dreambooth_prompt(cls, flags.unconditional,
                                flags.class_condition, flags.dreambooth)
     print(f"Prompt: {prompt!r}")
-    if tracker:
+    if tracker and writer:
         tracker.log_param(f"prompt_{cls}", prompt)
         tracker.log_params({
             "criterion": "MSELoss", "optimizer": "AdamW",
@@ -327,6 +336,9 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
     trainable = init_trainable(adapter, text_lora, proj, special_rows,
                                unfrozen)
     state = create_sd_train_state(cfg, trainable)
+    pmesh.replicate_to(state.trainable, mesh)
+    if not pmesh.replicated(state.trainable, mesh):
+        raise RuntimeError("the ranks' trainables differ after the broadcast")
     frozen = make_components(stack, trainable, token_table=table_grown)
     schedule = DiffusionSchedule.create(cfg.num_train_timesteps,
                                         "scaled_linear", 0.00085, 0.012)
@@ -334,7 +346,7 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
     if ckpt_every > 0:
         from polyp_tpu_torch.train.resume import EpochCheckpointer
         checkpointer = EpochCheckpointer(folder / f"ckpt_{cls}",
-                                         every=ckpt_every)
+                                         every=ckpt_every, mesh=mesh)
     start = time.perf_counter()
     state, result = train_sd_lora(
         cfg, state, frozen, schedule, loader,
@@ -351,21 +363,23 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
     bundle = dict(state.trainable)
     if special_ids is not None:
         bundle["special_ids"] = special_ids
-    save_lora(save_path, bundle)
+    if writer:
+        save_lora(save_path, bundle)
+    pmesh.barrier(mesh)
     merged = merged_stack(stack, frozen, state.trainable, lcfg,
                           text_lora_cfg, special_ids)
     n_generate = quota if generate is None else generate
     generate_s = 0.0
     if n_generate > 0:
-        sampler = make_sampler(merged, cfg)
+        sampler = make_sampler(merged, cfg, mesh=mesh)
         start = time.perf_counter()
         generate_to_dir(sampler.for_prompt(prompt), n_generate,
                         folder / "samples" / cls, cfg.eval_batch_size,
                         cfg.seed, progress=lambda a, b: print(
-                            f"Generated {a}/{b} images"))
+                            f"Generated {a}/{b} images"), mesh=mesh)
         _sync(device)
         generate_s = time.perf_counter() - start
-    if tracker:
+    if tracker and writer:
         from polyp_tpu_torch.utils.plotting import plot_loss
 
         tracker.log_artifact(str(save_path), f"models/lora_{cls}")
@@ -383,6 +397,7 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
             value = fid_mod.frechet_from_arrays(data.images, fake, extractor)
             tracker.log_param("frechet_extractor", extractor.name)
             tracker.log_metric(f"frechet_{cls}", round(value, 4))
+    pmesh.barrier(mesh)
     print(f"Training for class {cls} finished and images generated\n")
     return {"images": n_generate, "steps": state.step, "train_s": train_s,
             "generate_s": generate_s}

@@ -1,5 +1,5 @@
 """Baseline classifier CLI: the twin of polyp_tpu/cli/train_classifier.py
-on one card. Datasets (optional weighted sampling and loss) → training
+(`--mesh data=N` under torchrun: data-parallel over N cards). Datasets (optional weighted sampling and loss) → training
 with early stopping → the loss plot → test metrics and the confusion
 matrix → a row of the experiment register.
 
@@ -20,13 +20,15 @@ from pathlib import Path
 import numpy as np
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, get_tracker_from, print_banner)
+    DataLayout, add_common_flags, get_mesh_from, get_tracker_from,
+    print_banner)
 from polyp_tpu_torch.configs import ClassificationConfig
 from polyp_tpu_torch.data.cache import ArrayDataset
 from polyp_tpu_torch.data.pipeline import Loader, weighted_sample_weights
 from polyp_tpu_torch.data.tables import ClassificationTable
 from polyp_tpu_torch.eval.metrics import balanced_class_weights
 from polyp_tpu_torch.eval.register import append_run
+from polyp_tpu_torch.parallel import barrier, is_writer
 from polyp_tpu_torch.train.classifier import (
     create_classifier_state, evaluate_classifier, train_classifier)
 from polyp_tpu_torch.utils.checkpoint import save_pytree
@@ -111,14 +113,20 @@ def main(argv=None) -> dict:
         class_weights = np.asarray([cw[i] for i in sorted(cw)], np.float32)
         print("class weights:", cw)
 
+    # data-parallel: each rank takes its rows of every global batch, and
+    # the step's BatchNorm statistics and loss are the group's
+    mesh = get_mesh_from(args)
+    writer = is_writer(mesh)
     train_loader = Loader(train.images, train.labels, config.batch_size,
                           seed=config.seed, drop_last=True, weights=weights,
-                          device=args.device)
+                          device=args.device, mesh=mesh,
+                          process_shard=mesh is not None)
     val_loader = Loader(val.images, val.labels, config.batch_size,
-                        shuffle=False, device=args.device)
+                        shuffle=False, device=args.device, mesh=mesh)
     test_loader = Loader(test.images, test.labels, config.batch_size,
-                         shuffle=False, device=args.device)
-    state = create_classifier_state(config, train.num_classes, args.device)
+                         shuffle=False, device=args.device, mesh=mesh)
+    state = create_classifier_state(config, train.num_classes,
+                                    args.device).on_mesh(mesh)
 
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     model_name = f"classifier_{timestamp}"
@@ -139,13 +147,13 @@ def main(argv=None) -> dict:
         "other_techniques": techniques or "None",
     }
     print(params)
-    tracker = get_tracker_from(args)
+    tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
     checkpointer = None
     if args.ckpt_every > 0:
         from polyp_tpu_torch.train.resume import EpochCheckpointer
         checkpointer = EpochCheckpointer(out_dir / "ckpt",
-                                         every=args.ckpt_every)
+                                         every=args.ckpt_every, mesh=mesh)
 
     print_banner("Training")
     with tracker.start_run(run_name=model_name) as run:
@@ -156,13 +164,15 @@ def main(argv=None) -> dict:
             checkpointer=checkpointer)
         tracker.log_metric("best_val_accuracy", round(result.best_val_acc, 4))
         run_id = run.run_id
-        ckpt_path = out_dir / f"{model_name}.pt"
-        save_pytree(ckpt_path, {"params": result.best_params,
-                                "batch_stats": result.best_batch_stats})
-        print(f"best checkpoint saved at {ckpt_path}")
-        loss_path = plot_loss(result.train_loss_hist, result.val_loss_hist,
-                              f"./results/loss_{timestamp}.png")
-        tracker.log_artifact(loss_path, "results")
+        if writer:
+            ckpt_path = out_dir / f"{model_name}.pt"
+            save_pytree(ckpt_path, {"params": result.best_params,
+                                    "batch_stats": result.best_batch_stats})
+            print(f"best checkpoint saved at {ckpt_path}")
+            loss_path = plot_loss(result.train_loss_hist,
+                                  result.val_loss_hist,
+                                  f"./results/loss_{timestamp}.png")
+            tracker.log_artifact(loss_path, "results")
 
         print_banner("Evaluating")
         best = state.with_params(result.best_params, result.best_batch_stats)
@@ -170,19 +180,22 @@ def main(argv=None) -> dict:
         for key in ("precision", "recall", "f1_score"):
             tracker.log_metric(key, round(metrics[key], 4))
         tracker.log_metric("test_accuracy", round(metrics["accuracy"], 4))
-        cm_path = plot_confusion_matrix(
-            metrics["confusion_matrix"], metrics["labels"],
-            f"./results/confusion_matrix_{timestamp}.png")
-        tracker.log_artifact(cm_path, "results")
-        report_path = Path(f"./results/metrics_report_{timestamp}.json")
-        report_path.parent.mkdir(parents=True, exist_ok=True)
-        report_path.write_text(json.dumps(metrics["report"], indent=2))
-        tracker.log_artifact(str(report_path), "results")
+        if writer:
+            cm_path = plot_confusion_matrix(
+                metrics["confusion_matrix"], metrics["labels"],
+                f"./results/confusion_matrix_{timestamp}.png")
+            tracker.log_artifact(cm_path, "results")
+            report_path = Path(f"./results/metrics_report_{timestamp}.json")
+            report_path.parent.mkdir(parents=True, exist_ok=True)
+            report_path.write_text(json.dumps(metrics["report"], indent=2))
+            tracker.log_artifact(str(report_path), "results")
 
     print({k: round(metrics[k], 4)
            for k in ("accuracy", "precision", "recall", "f1_score")})
-    append_run(args.register, model_name, params, metrics["f1_score"])
-    print(f"run registered at {args.register} (run_id {run_id})")
+    if writer:
+        append_run(args.register, model_name, params, metrics["f1_score"])
+        print(f"run registered at {args.register} (run_id {run_id})")
+    barrier(mesh)
     return metrics
 
 

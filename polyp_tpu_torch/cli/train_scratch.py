@@ -1,5 +1,6 @@
 """Per-class scratch DDPM CLI: the twin of polyp_tpu/cli/train_scratch.py
-on one card.
+(`--mesh data=N` under torchrun: each class trained and its quota sampled
+data-parallel over N cards, rank 0 writing).
 
 Per class (AD, HP, ASS, or AD and REST with `--one_vs_rest`): the class's
 images (train + valid) → a pixel-space DDPM trained from scratch
@@ -28,12 +29,13 @@ from pathlib import Path
 import torch
 
 from polyp_tpu_torch.cli.common import (
-    DataLayout, add_common_flags, class_split, get_tracker_from,
-    init_weights_, print_banner)
+    DataLayout, add_common_flags, class_split, get_mesh_from,
+    get_tracker_from, init_weights_, print_banner)
 from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.diffusion import DiffusionSchedule
 from polyp_tpu_torch.eval.quota import (
     counts_per_class, default_distribution, get_num_images_to_generate)
+from polyp_tpu_torch.parallel import barrier, is_writer, replicate_to
 from polyp_tpu_torch.pipeline import PixelDiffusionSampler, generate_to_dir
 from polyp_tpu_torch.train.scratch_ddpm import (
     create_ddpm_state, train_scratch_ddpm)
@@ -122,7 +124,9 @@ def main(argv=None) -> dict:
                                         args.one_vs_rest)
     print(f"Images that will be generated:\n {quotas}")
 
-    tracker = get_tracker_from(args)
+    mesh = get_mesh_from(args)
+    device = torch.device(args.device)
+    tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
     states = {}
     with tracker.start_run(run_name=os.path.basename(config.output_dir)):
@@ -140,7 +144,8 @@ def main(argv=None) -> dict:
             data = ArrayDataset.from_table(table, config.image_size,
                                            args.cache_dir)
             loader = Loader(data.images, data.labels, config.train_batch_size,
-                            seed=config.seed, device=device)
+                            seed=config.seed, device=device, mesh=mesh,
+                            process_shard=mesh is not None)
             cfg = config.with_schedule(len(loader))
 
             tracker.log_params({
@@ -166,6 +171,7 @@ def main(argv=None) -> dict:
                 cross_attention_dim=ctx_dim, device=device)
             state = create_ddpm_state(
                 cfg, model, torch.Generator(device).manual_seed(cfg.seed))
+            replicate_to(state.params, mesh)
             schedule = DiffusionSchedule.create(cfg.num_train_timesteps)
 
             def final_epoch_hook(epoch, st, _cls=cls, _cfg=cfg,
@@ -178,14 +184,16 @@ def main(argv=None) -> dict:
                     num_steps=args.sample_steps, text_embeddings=_emb,
                     quantize=_cfg.quantize,
                     quant_fp_head=_cfg.quant_fp_head,
-                    quant_fp_tail=_cfg.quant_fp_tail)
+                    quant_fp_tail=_cfg.quant_fp_tail, mesh=mesh)
                 out = Path(_cfg.output_dir) / "samples" / _cls
                 generate_to_dir(sampler, quotas[_cls], out,
                                 _cfg.eval_batch_size, _cfg.seed,
                                 progress=lambda a, b: print(
-                                    f"   Saved {a}/{b}"))
+                                    f"   Saved {a}/{b}"), mesh=mesh)
                 ckpt = Path(_cfg.output_dir) / "models" / f"model_{_cls}"
-                save_pytree(ckpt, {"params": st.params})
+                if is_writer(mesh):
+                    save_pytree(ckpt, {"params": st.params})
+                barrier(mesh)
                 tracker.log_artifact(str(ckpt),
                                      f"diffusion_model/model_{_cls}")
 
@@ -194,7 +202,7 @@ def main(argv=None) -> dict:
                 from polyp_tpu_torch.train.resume import EpochCheckpointer
                 checkpointer = EpochCheckpointer(
                     Path(cfg.output_dir) / f"ckpt_{cls}",
-                    every=args.ckpt_every)
+                    every=args.ckpt_every, mesh=mesh)
 
             state, _ = train_scratch_ddpm(
                 cfg, state, schedule, loader, text_embeddings,

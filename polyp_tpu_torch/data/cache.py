@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -57,7 +58,11 @@ class ArrayDataset:
         labels = np.asarray(table.labels, dtype=np.int32)
         if cache_path is not None:
             cache_path.parent.mkdir(parents=True, exist_ok=True)
-            np.savez(cache_path, images=images, labels=labels)
+            # written whole, then renamed: the ranks of a data-parallel
+            # group build the same cache at once
+            tmp = cache_path.with_name(f"{os.getpid()}.{cache_path.name}")
+            np.savez(tmp, images=images, labels=labels)
+            os.replace(tmp, cache_path)
         return ArrayDataset(images, labels, dict(table.label2idx))
 
     @staticmethod

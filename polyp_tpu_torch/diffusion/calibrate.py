@@ -47,9 +47,13 @@ def cached_scales(cache_path: str | Path, compute: Callable[[], dict],
             pass  # unreadable cache → recompute
     scales = compute()
     cache_path.parent.mkdir(parents=True, exist_ok=True)
-    cache_path.write_text(json.dumps(
+    # written whole, then renamed: the ranks of a group may calibrate at
+    # once, and a reader never sees half a file
+    tmp = cache_path.with_name(f"{cache_path.name}.{os.getpid()}.tmp")
+    tmp.write_text(json.dumps(
         {"fingerprint": fingerprint, "format": CACHE_FORMAT,
          "scales": scales}))
+    os.replace(tmp, cache_path)
     return scales
 
 

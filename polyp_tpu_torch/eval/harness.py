@@ -23,6 +23,7 @@ from polyp_tpu_torch.data.cache import ArrayDataset
 from polyp_tpu_torch.data.pipeline import Loader, weighted_sample_weights
 from polyp_tpu_torch.data.tables import AugmentedTable
 from polyp_tpu_torch.eval.metrics import balanced_class_weights
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.track import Tracker
 from polyp_tpu_torch.train.classifier import (
     create_classifier_state, evaluate_classifier, train_classifier)
@@ -72,10 +73,13 @@ def run_augmentation_eval(config: ClassificationConfig,
                           run_id: str | None = None,
                           ad_vs_rest: bool = False,
                           cache_dir: str | None = None,
-                          device: torch.device | str = "cuda") -> dict:
+                          device: torch.device | str = "cuda",
+                          mesh: pmesh.DataMesh | None = None) -> dict:
     """Train on real + generated, evaluate on real; returns the metric
     dict (with `frechet` and `train_size`) and logs into the run `run_id`
-    when a tracker is given. Runs on the card unless `device` is a CPU."""
+    when a tracker is given. Runs on the card unless `device` is a CPU;
+    under `mesh` the classifier trains and evaluates data-parallel over
+    the group (train/classifier.py) and rank 0 alone logs."""
     train, val, test = build_augmented_datasets(dirs, config.image_size,
                                                 ad_vs_rest, cache_dir)
     weights = (weighted_sample_weights(train.labels)
@@ -87,12 +91,16 @@ def run_augmentation_eval(config: ClassificationConfig,
 
     train_loader = Loader(train.images, train.labels, config.batch_size,
                           seed=config.seed, drop_last=True, weights=weights,
-                          device=device)
+                          device=device, mesh=mesh,
+                          process_shard=mesh is not None)
     val_loader = Loader(val.images, val.labels, config.batch_size,
-                        seed=config.seed, shuffle=False, device=device)
+                        seed=config.seed, shuffle=False, device=device,
+                        mesh=mesh)
     test_loader = Loader(test.images, test.labels, config.batch_size,
-                         seed=config.seed, shuffle=False, device=device)
-    state = create_classifier_state(config, train.num_classes, device)
+                         seed=config.seed, shuffle=False, device=device,
+                         mesh=mesh)
+    state = create_classifier_state(config, train.num_classes,
+                                    device).on_mesh(mesh)
 
     frechet = None
     if Path(dirs.samples_root).exists():
@@ -109,7 +117,7 @@ def run_augmentation_eval(config: ClassificationConfig,
                                    result.best_batch_stats)
         return evaluate_classifier(best, test_loader, test.idx2label)
 
-    if tracker is not None and run_id is not None:
+    if tracker is not None and run_id is not None and pmesh.is_writer(mesh):
         with tracker.start_run(run_id=run_id):
             metrics = fit_and_score(
                 lambda k, v, s: tracker.log_metric(k, v, s))

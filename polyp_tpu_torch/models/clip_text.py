@@ -6,12 +6,19 @@ State-dict keys are transformers' `CLIPTextModel` keys
 sd14_text_encoder.json). Causal attention, quick-GELU MLPs, learned
 position embeddings, final LayerNorm (eps 1e-5). The causal attention takes
 the plain version, as the reference keeps it on XLA.
+
+`check_token_ids` refuses, on the host, token ids past the model's token
+table (a token added to a shared tokenizer for another model, such as a
+DreamBooth class's): on the card an embedding lookup past its table is a
+device-side assert that ends the process, where the reference's lookup
+clamps the id silently.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -134,5 +141,26 @@ class CLIPTextModel(nn.Module):
         self.config = config
         self.text_model = CLIPTextTransformer(config, dtype, device)
 
+    @property
+    def token_rows(self) -> int:
+        """Rows of the token table: the ids the model can look up."""
+        return self.text_model.embeddings.token_embedding.num_embeddings
+
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.text_model(input_ids)
+
+
+def check_token_ids(ids, rows: int, tokenizer=None) -> None:
+    """Raise ValueError when a token id of `ids` (host ints) lies outside
+    a token table of `rows` rows, naming the token (from the tokenizer's
+    added tokens, where it is one) and the table size."""
+    ids = np.asarray(ids)
+    bad = ids[(ids < 0) | (ids >= rows)]
+    if bad.size == 0:
+        return
+    first = int(bad.flat[0])
+    names = {v: k for k, v in getattr(tokenizer, "added_tokens", {}).items()}
+    raise ValueError(
+        f"prompt token {names.get(first, f'#{first}')!r} has id {first}, "
+        f"past the text model's token table of {rows} rows (a token added "
+        "for another model); this model cannot encode it")

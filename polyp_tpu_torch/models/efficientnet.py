@@ -28,7 +28,11 @@ What it pins against the reference:
   linearly with the block index, 0 at block 0), and the head's dropout
   sits between fc1 and fc2. Both take their keep masks from the caller
   (`draws`, train/classifier.py::ClassifierDraws), so a test can hand over
-  the reference's masks.
+  the reference's masks;
+* under a data-parallel group (`global_batch_stats(mesh)`), training
+  BatchNorm takes its statistics over the group's global batch, as the
+  reference's step jitted over a mesh sees it: Σx and Σx² summed over the
+  ranks by a differentiable all-reduce, kept in flax's E[x²] − E[x]² form.
 
 Precision on the card: cuDNN runs the fp32 convs in TF32 where
 `torch.backends.cudnn.allow_tf32` is on (its default). The classifier
@@ -40,6 +44,8 @@ a train step on the card to fp32 on the CPU).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -86,6 +92,22 @@ def _round_repeats(repeats: int, depth_mult: float) -> int:
     return int(math.ceil(depth_mult * repeats))
 
 
+_BATCH_GROUP: contextvars.ContextVar = contextvars.ContextVar(
+    "polyp_bn_group", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_stats(mesh):
+    """Training BatchNorms inside the region (this thread's context) take
+    their statistics over the rows of every rank of `mesh` (a
+    parallel.mesh.DataMesh; None: this process's rows)."""
+    token = _BATCH_GROUP.set(mesh)
+    try:
+        yield
+    finally:
+        _BATCH_GROUP.reset(token)
+
+
 class BatchNorm(nn.Module):
     """flax's BatchNorm over NCHW in fp32. In training it normalises with
     the batch mean and the biased variance as flax computes them (E[x²] −
@@ -112,8 +134,19 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        mean = x.mean((0, 2, 3))
-        var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+        mesh = _BATCH_GROUP.get()
+        if mesh is None:
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
+        else:
+            from polyp_tpu_torch.parallel.mesh import sum_over_group
+            count = x.shape[0] * x.shape[2] * x.shape[3] * mesh.size
+            sums = sum_over_group(torch.stack([x.sum((0, 2, 3)),
+                                               (x * x).sum((0, 2, 3))]),
+                                  mesh)
+            mean = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(self.decay).add_(mean,
                                                     alpha=1 - self.decay)

@@ -22,11 +22,18 @@ sizes that are not an exact power of two meet their skips (56 px: 7 → 4
 `conv_in`, `conv_out` and the time-embedding linears stay full precision
 under ops/quant.py's modes, as in the reference; every other conv and
 attention projection is a QConv2d / QLinear keyed by its module name.
+
+`dropout` > 0 gives every ResnetBlock2D flax's dropout before its second
+conv. It is applied only when a call hands over the keep masks
+(`dropout_keep(block_name, shape)`, from the step's draws, never from a
+hidden generator); a call without them is deterministic, as the
+reference's default `deterministic=True` call. No entry point of either
+package trains with dropout.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -99,16 +106,12 @@ class UNet2D(nn.Module):
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
                  device=None):
         super().__init__()
-        if dropout != 0.0:
-            raise NotImplementedError(
-                f"UNet2D dropout={dropout}: the port's ResnetBlock2D has no "
-                "dropout, and every entry point of the reference trains at "
-                "0.0 (ROADMAP.md Queue 3 lists the gap)")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.dtype = dtype
         ch = list(block_out_channels)
         temb = ch[0] * 4
         kw = dict(dtype=dtype, device=device)
+        rkw = dict(kw, dropout=dropout)
 
         def attention(c):
             return MaybeCrossAttention(c, cross_attention_dim, **kw)
@@ -124,7 +127,7 @@ class UNet2D(nn.Module):
             resnets, attns = [], []
             for j in range(layers_per_block):
                 resnets.append(ResnetBlock2D(c_prev if j == 0 else c_out,
-                                             c_out, temb, **kw))
+                                             c_out, temb, **rkw))
                 if attn:
                     attns.append(attention(c_out))
                 skip_ch.append(c_out)
@@ -136,8 +139,8 @@ class UNet2D(nn.Module):
             c_prev = c_out
 
         self.mid_block = UNetStage(
-            [ResnetBlock2D(ch[-1], ch[-1], temb, **kw),
-             ResnetBlock2D(ch[-1], ch[-1], temb, **kw)],
+            [ResnetBlock2D(ch[-1], ch[-1], temb, **rkw),
+             ResnetBlock2D(ch[-1], ch[-1], temb, **rkw)],
             [attention(ch[-1])])
 
         self.up_blocks = nn.ModuleList()
@@ -147,7 +150,7 @@ class UNet2D(nn.Module):
             resnets, attns = [], []
             for _ in range(layers_per_block + 1):
                 resnets.append(ResnetBlock2D(c_prev + skip_ch.pop(), c_out,
-                                             temb, **kw))
+                                             temb, **rkw))
                 if attn:
                     attns.append(attention(c_out))
                 c_prev = c_out
@@ -159,13 +162,23 @@ class UNet2D(nn.Module):
         for name, module in self.named_modules():
             if isinstance(module, (QConv2d, QLinear)):
                 module.path = name
+            elif isinstance(module, ResnetBlock2D):
+                module.block_name = name
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor | None = None
+                encoder_hidden_states: torch.Tensor | None = None,
+                dropout_keep: Callable[[str, tuple[int, ...]],
+                                       torch.Tensor] | None = None
                 ) -> torch.Tensor:
         """x: [N, C, H, W] images (any float dtype; cast on entry);
-        timesteps: [N] ints; encoder_hidden_states: [N, L, D] or None.
-        Returns fp32."""
+        timesteps: [N] ints; encoder_hidden_states: [N, L, D] or None;
+        dropout_keep(block_name, shape): the bool keep mask of a
+        ResnetBlock2D's dropout (None: deterministic). Returns fp32."""
+        def res(resnet, h):
+            keep = None if dropout_keep is None else (
+                lambda shape: dropout_keep(resnet.block_name, shape))
+            return resnet(h, temb, keep)
+
         temb = self.time_embedding(timesteps)
         ctx = (None if encoder_hidden_states is None
                else encoder_hidden_states.to(self.dtype))
@@ -173,7 +186,7 @@ class UNet2D(nn.Module):
         skips = [h]
         for block in self.down_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = res(resnet, h)
                 if block.attentions is not None:
                     h = block.attentions[j](h, ctx)
                 skips.append(h)
@@ -181,13 +194,13 @@ class UNet2D(nn.Module):
                 h = block.downsamplers[0](h)
                 skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
+        h = res(self.mid_block.resnets[0], h)
         h = self.mid_block.attentions[0](h, ctx)
-        h = self.mid_block.resnets[1](h, temb)
+        h = res(self.mid_block.resnets[1], h)
 
         for block in self.up_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=1), temb)
+                h = res(resnet, torch.cat([h, skips.pop()], dim=1))
                 if block.attentions is not None:
                     h = block.attentions[j](h, ctx)
             if block.upsamplers is not None:

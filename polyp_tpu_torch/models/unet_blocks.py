@@ -30,6 +30,7 @@ records each quantizable layer's input amax.
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -227,13 +228,19 @@ def _nearest_exact(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
 
 class ResnetBlock2D(nn.Module):
     """GN+SiLU+Conv ×2 with additive time embedding and a 1×1 shortcut when
-    the width changes."""
+    the width changes. With `dropout` > 0, a call given `keep` (a function
+    of the activation's shape returning its bool keep mask) drops the
+    second conv's input as flax's nn.Dropout does: kept units scaled by
+    1 / (1 − dropout), the rest zeroed. Without `keep` (inference, the
+    int8 paths) the dropout is the identity, as the reference's
+    deterministic call."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: int | None = None, groups: int = 32,
                  eps: float = 1e-5, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = GroupNorm(in_channels, groups, eps, "silu", device)
         self.conv1 = conv3x3(in_channels, out_channels, dtype, device,
                              cls=QConv2d)
@@ -247,12 +254,20 @@ class ResnetBlock2D(nn.Module):
             QConv2d(in_channels, out_channels, 1, dtype=dtype, device=device)
             if in_channels != out_channels else None)
 
-    def forward(self, x: torch.Tensor,
-                temb: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None,
+                keep: Callable[[tuple[int, ...]], torch.Tensor] | None = None
+                ) -> torch.Tensor:
         h = self.conv1(self.norm1(x, _handoff_scale(self.conv1, x)))
         if self.time_emb_proj is not None and temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h, _handoff_scale(self.conv2, h)))
+        if keep is None or self.dropout == 0.0:
+            h = self.conv2(self.norm2(h, _handoff_scale(self.conv2, h)))
+        else:
+            # training never quantizes: no int8 handoff into the dropout
+            h = self.norm2(h)
+            mask = keep(tuple(h.shape)).to(h.device)
+            h = self.conv2(torch.where(mask, h / (1.0 - self.dropout),
+                                       torch.zeros_like(h)))
         residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return h + residual
 

@@ -33,6 +33,17 @@ only; the VAE decode stays in the stack's dtype. `quant_fp_head` /
 hybrid-precision trajectory, `_precision_split`). w8a8_static calibrates
 its scales once per sampler on this stack's own CFG trajectory
 (diffusion/calibrate.py, disk-cached by weight fingerprint).
+
+Quota fan-out under a data-parallel group (`mesh`, parallel/mesh.py):
+every rank draws the whole batch's initial latents from the batch's seed,
+as one process does, pads them to a multiple of the group's size (the
+last row repeated), samples and decodes its own rows inside
+ops.conv.slot_invariant_region, and the rows are put back together on
+every rank (`parallel.gather_rows`); `generate_to_dir` writes on rank 0
+only, the same 1-based files one process writes. The stochastic samplers'
+per-step noise is drawn at the rank's rows, so under a group they do not
+repeat the one-process images (the deterministic ones do, to the
+convolutions' batch-size rounding).
 """
 
 from __future__ import annotations
@@ -46,11 +57,13 @@ import torch
 
 from polyp_tpu_torch.data.native import encode_png
 from polyp_tpu_torch.diffusion import DiffusionSchedule, sample, with_cfg
-from polyp_tpu_torch.diffusion.samplers import get_sampler
+from polyp_tpu_torch.diffusion.samplers import _gaussian, get_sampler
+from polyp_tpu_torch.models.clip_text import check_token_ids
 from polyp_tpu_torch.models.vae import SD_VAE_SCALING
 from polyp_tpu_torch.ops import quant
 from polyp_tpu_torch.ops.attention import fused_mha_region
 from polyp_tpu_torch.ops.conv import slot_invariant_region
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.utils.rng import batch_seed, request_generator
 
 # fn(batch_size, seed) -> float images in [-1, 1], NCHW
@@ -77,6 +90,30 @@ def _precision_segments(q_fn, fp_fn, num_steps: int,
     tail (diffusion/samplers._as_segments)."""
     head, tail = split
     return [(head, fp_fn), (num_steps - head - tail, q_fn), (tail, fp_fn)]
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """`x` padded to `n` rows by repeating its last row."""
+    if n <= x.shape[0]:
+        return x
+    return torch.cat([x, x[-1:].expand(n - x.shape[0], *x.shape[1:])])
+
+
+def _fan_out(mesh: pmesh.DataMesh, init: torch.Tensor, cond, run
+             ) -> torch.Tensor:
+    """The group's images of a batch whose initial latents are `init`
+    (all rows, drawn as one process draws them): `run(cond_rows,
+    init_rows)` samples and decodes this rank's rows of the batch padded
+    to a multiple of the group's size; the rows come back on every rank.
+    `cond` is a [1, ...] embedding shared by the batch, a [n, ...] one a
+    row, or None."""
+    n = init.shape[0]
+    pad = pmesh.padded_batch(n, mesh)
+    if cond is not None and cond.shape[0] > 1:
+        cond = mesh.local(_pad_rows(cond, pad))
+    with slot_invariant_region():
+        rows = run(cond, mesh.local(_pad_rows(init, pad)))
+    return pmesh.gather_rows(rows.float(), mesh)[:n]
 
 
 def images_uint8(images: torch.Tensor) -> torch.Tensor:
@@ -123,7 +160,8 @@ class PixelDiffusionSampler:
     ([1, L, D]) condition every sample; `quantize`, `quant_fp_head` and
     `quant_fp_tail` as StableDiffusionSampler's, w8a8_static calibrated
     once on the unconditioned (or text-conditioned) trajectory and cached
-    on disk by weight fingerprint; `sampler_kwargs` go to the sampler.
+    on disk by weight fingerprint; `sampler_kwargs` go to the sampler;
+    `mesh` fans each batch out over a data-parallel group.
     A call `sampler(batch_size, seed)` is a BatchSampler: fp32 NCHW images
     in about [-1, 1], the initial noise from a generator seeded `seed`."""
 
@@ -131,7 +169,8 @@ class PixelDiffusionSampler:
                  sampler: str = "ddpm", num_steps: int | None = None,
                  text_embeddings: torch.Tensor | None = None,
                  quantize: str | None = None, quant_fp_head: int = 0,
-                 quant_fp_tail: int = 0, sampler_kwargs: dict | None = None):
+                 quant_fp_tail: int = 0, sampler_kwargs: dict | None = None,
+                 mesh: pmesh.DataMesh | None = None):
         get_sampler(sampler)  # refuse an unknown sampler before any work
         if quantize not in (None, "w8a8", "w8a8_static"):
             raise ValueError(f"unknown quantization mode: {quantize!r}")
@@ -144,6 +183,7 @@ class PixelDiffusionSampler:
         self.quantize, self._split = _precision_split(
             self.num_steps, quantize, quant_fp_head, quant_fp_tail)
         self.device = next(model.parameters()).device
+        self.mesh = mesh
         self.text_embeddings = (None if text_embeddings is None
                                 else text_embeddings.to(self.device))
         self.quant_scales: dict | None = None
@@ -162,9 +202,19 @@ class PixelDiffusionSampler:
         """`batch_size` images, the initial noise (and a stochastic
         sampler's per-step noise) from a generator seeded `seed`."""
         generator = torch.Generator(self.device).manual_seed(seed)
+        shape = (batch_size, self.model.out_channels, self.image_size,
+                 self.image_size)
+        if self.mesh is None:
+            return self._sample(shape, generator)
+        return _fan_out(self.mesh, _gaussian(shape, generator, "fan-out"),
+                        None, lambda _, rows: self._sample(
+                            tuple(rows.shape), generator, rows))
+
+    def _sample(self, shape: tuple[int, ...], generator: torch.Generator,
+                init: torch.Tensor | None = None) -> torch.Tensor:
         emb = self.text_embeddings
         ctx = (None if emb is None
-               else emb.expand(batch_size, *emb.shape[-2:]))
+               else emb.expand(shape[0], *emb.shape[-2:]))
 
         def apply_in(mode):
             def fn(x, t):
@@ -177,10 +227,9 @@ class PixelDiffusionSampler:
         if self._split is not None:
             model_fn = _precision_segments(model_fn, apply_in(None),
                                            self.num_steps, self._split)
-        shape = (batch_size, self.model.out_channels, self.image_size,
-                 self.image_size)
         return sample(self.sampler, model_fn, self.schedule, shape,
-                      generator, self.num_steps, **self.sampler_kwargs)
+                      generator, self.num_steps, init=init,
+                      **self.sampler_kwargs)
 
 
 class StableDiffusionSampler:
@@ -193,7 +242,8 @@ class StableDiffusionSampler:
     `sampler_kwargs` go to the sampler (e.g. the trailing grid);
     `decoder`, a TinyDecoder, replaces the VAE decode and takes the scaled
     latents as they are (reference :295-299); `fused_mha` opts the UNet's
-    attentions into the fused MHA kernel."""
+    attentions into the fused MHA kernel; `mesh` fans each batch out over
+    a data-parallel group."""
 
     def __init__(self, unet, vae, text_model, tokenizer,
                  schedule: DiffusionSchedule, image_size: int = 256,
@@ -201,7 +251,8 @@ class StableDiffusionSampler:
                  sampler: str = "unipc", quantize: str | None = None,
                  quant_fp_head: int = 0, quant_fp_tail: int = 0,
                  sampler_kwargs: dict | None = None, decoder=None,
-                 fused_mha: bool = False):
+                 fused_mha: bool = False,
+                 mesh: pmesh.DataMesh | None = None):
         get_sampler(sampler)  # refuse an unknown sampler before any work
         if quantize not in (None, "w8a8", "w8a8_static"):
             raise ValueError(f"unknown quantization mode: {quantize!r}")
@@ -221,14 +272,24 @@ class StableDiffusionSampler:
         self.sampler_kwargs = dict(sampler_kwargs or {})
         self.decoder = decoder
         self.fused_mha = fused_mha
+        self.mesh = mesh
         self.device = next(unet.parameters()).device
         self._encode_cache: dict[str, torch.Tensor] = {}
+
+    def check_prompt(self, prompt: str) -> None:
+        """Raise ValueError when `prompt` holds a token the text model's
+        table lacks (models/clip_text.py::check_token_ids), on the host,
+        before any lookup; a prompt pinned to an embedding passes."""
+        if prompt not in self._encode_cache:
+            check_token_ids(self.tokenizer([prompt]),
+                            self.text_model.token_rows, self.tokenizer)
 
     @torch.no_grad()
     def encode_prompt(self, prompt: str) -> torch.Tensor:
         if prompt not in self._encode_cache:
-            ids = torch.as_tensor(self.tokenizer([prompt]), dtype=torch.long,
-                                  device=self.device)
+            ids = self.tokenizer([prompt])
+            check_token_ids(ids, self.text_model.token_rows, self.tokenizer)
+            ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
             self._encode_cache[prompt] = self.text_model(ids)
         return self._encode_cache[prompt]
 
@@ -245,9 +306,17 @@ class StableDiffusionSampler:
                  init: torch.Tensor | None = None) -> torch.Tensor:
         """Sampling + decode. `init` ([B, 4, s/8, s/8] fp32) replaces the
         initial noise drawn from `generator`. Returns fp32 NCHW images in
-        about [-1, 1]."""
-        return self.decode(self.denoise(cond, uncond, batch_size, generator,
-                                        init))
+        about [-1, 1]: under a mesh the group's, on every rank."""
+        if self.mesh is None:
+            return self.decode(self.denoise(cond, uncond, batch_size,
+                                            generator, init))
+        if init is None:
+            latent = self.image_size // 8
+            init = _gaussian((batch_size, 4, latent, latent), generator,
+                             "fan-out")
+        self._ensure_calibrated(cond, uncond)
+        return _fan_out(self.mesh, init, cond, lambda c, rows: self.decode(
+            self.denoise(c, uncond, rows.shape[0], generator, rows)))
 
     @torch.no_grad()
     def denoise(self, cond: torch.Tensor, uncond: torch.Tensor | None,
@@ -353,8 +422,10 @@ class StableDiffusionSampler:
         pair) at a fixed `pad_to`, whatever it is batched with. The
         stochastic ones (ddpm, ddim η > 0) draw one per-step noise for the
         whole launch from the first pair's stream, so the coalescing
-        contract excludes them, as in the reference (:357-361). Returns
-        fp32 NCHW images in about [-1, 1], len(prompts) rows."""
+        contract excludes them, as in the reference (:357-361). Under a
+        mesh the padded launch is rounded up to a multiple of the group's
+        size and split over the ranks. Returns fp32 NCHW images in about
+        [-1, 1], len(prompts) rows."""
         n = len(prompts)
         if n == 0:
             raise ValueError("generate_batch needs at least one prompt")
@@ -362,13 +433,9 @@ class StableDiffusionSampler:
             raise ValueError(f"{n} prompts but {len(sample_ids)} sample ids")
         cond = torch.cat([self.encode_prompt(p) for p in prompts])
         latents, stream = self.draw_latents(sample_ids)
-        pad = max(pad_to or n, n)
-        if pad > n:
-            cond = torch.cat([cond, cond[-1:].expand(pad - n,
-                                                     *cond.shape[1:])])
-            latents = torch.cat([latents, latents[-1:].expand(
-                pad - n, *latents.shape[1:])])
-        return self.generate_rows(cond, latents, stream)[:n]
+        pad = pmesh.padded_batch(max(pad_to or n, n), self.mesh)
+        return self.generate_rows(_pad_rows(cond, pad),
+                                  _pad_rows(latents, pad), stream)[:n]
 
     def for_prompt(self, prompt: str) -> BatchSampler:
         cond = self.encode_prompt(prompt)
@@ -396,7 +463,8 @@ def _write_batch(images: Callable[[], np.ndarray], out_dir: Path,
 def generate_to_dir(sampler_fn: BatchSampler, num_images: int,
                     out_dir: str | Path, eval_batch_size: int = 20,
                     seed: int = 0, start_index: int = 0, start_batch: int = 0,
-                    progress: Callable[[int, int], None] | None = None) -> int:
+                    progress: Callable[[int, int], None] | None = None,
+                    mesh: pmesh.DataMesh | None = None) -> int:
     """Quota loop: batch `i` is drawn with seed + i and written as 1-based
     PNG files. Returns images written.
 
@@ -405,9 +473,13 @@ def generate_to_dir(sampler_fn: BatchSampler, num_images: int,
     issues every kernel of a batch, so batch i is fetched, encoded and
     written by one worker thread (in order) while the host issues batch
     i+1; the native encoder's ctypes call and PIL's zlib release the GIL.
-    `progress(done, num_images)` follows each written batch."""
+    `progress(done, num_images)` follows each written batch. Under `mesh`
+    (the sampler's group) every rank samples and rank 0 alone fetches and
+    writes; the others wait for its files at the end."""
     out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    writer = pmesh.is_writer(mesh)
+    if writer:
+        out_dir.mkdir(parents=True, exist_ok=True)
     total = 0
     batch_id = start_batch
     pending = None            # the batch sampled last, not yet handed over
@@ -424,7 +496,8 @@ def generate_to_dir(sampler_fn: BatchSampler, num_images: int,
             if total < num_images:
                 bs = min(eval_batch_size, num_images - total)
                 images = sampler_fn(bs, batch_seed(seed, batch_id))
-                nxt = (fetch_uint8(images), start_index + total)
+                if writer:
+                    nxt = (fetch_uint8(images), start_index + total)
                 total += bs
                 batch_id += 1
             if pending is not None:
@@ -435,6 +508,7 @@ def generate_to_dir(sampler_fn: BatchSampler, num_images: int,
             pending = nxt
         if writing is not None:
             finish(writing)
+    pmesh.barrier(mesh)
     return total
 
 
@@ -447,15 +521,18 @@ def count_samples(out_dir: str | Path) -> int:
 
 def top_up_samples(sampler_fn: BatchSampler, quota: int, out_dir: str | Path,
                    eval_batch_size: int = 20, seed: int = 0,
-                   progress: Callable[[int, int], None] | None = None) -> int:
+                   progress: Callable[[int, int], None] | None = None,
+                   mesh: pmesh.DataMesh | None = None) -> int:
     """Idempotent top-up: generate only the missing tail, resuming the
     deterministic batch sequence. A partial last batch is regenerated in
-    full to keep the seed↔image mapping exact."""
-    existing = count_samples(out_dir)
+    full to keep the seed↔image mapping exact. Under `mesh` every rank
+    resumes from rank 0's count."""
+    existing = pmesh.broadcast_object(count_samples(out_dir), mesh)
     if existing >= quota:
         return 0
     resume_batch = existing // eval_batch_size
     resume_index = resume_batch * eval_batch_size
     return generate_to_dir(sampler_fn, quota - resume_index, out_dir,
                            eval_batch_size, seed, start_index=resume_index,
-                           start_batch=resume_batch, progress=progress)
+                           start_batch=resume_batch, progress=progress,
+                           mesh=mesh)

@@ -12,7 +12,7 @@ a diffusion sampler with cross-request micro-batching.
                                 expired, launches_by_model}}
 
 Status codes: 400 for a bad request (num_images out of range, an unknown
-model), 429 with `Retry-After: 1` when `max_pending` requests already wait,
+model, a prompt token the model's text table lacks), 429 with `Retry-After: 1` when `max_pending` requests already wait,
 503 when a request's queue-wait deadline passed before its launch, 500 for
 a sampler error, 404 for any other route.
 
@@ -77,7 +77,8 @@ from polyp_tpu_torch.data.native import encode_png
 from polyp_tpu_torch.pipeline import fetch_uint8
 
 # fn(prompts, sample_ids) -> float images in [-1, 1], NCHW, len(prompts)
-# rows; sample_ids holds one (seed, index) pair a prompt.
+# rows; sample_ids holds one (seed, index) pair a prompt. An optional
+# `fn.check(prompt)` raises ValueError for a prompt the model cannot take.
 # StableDiffusionSampler.generate_batch with pad_to=max_batch is the
 # product implementation.
 MultiPromptSampler = Callable[[Sequence[str], Sequence[tuple[int, int]]],
@@ -178,6 +179,11 @@ class GenerationService:
                              f"(serving: {sorted(self._samplers)})")
         if self._closed:
             raise RuntimeError("service is closed")
+        # a prompt the model cannot encode is refused here, before it can
+        # share (and fail) a launch with other requests
+        check = getattr(self._samplers[model], "check", None)
+        if check is not None:
+            check(prompt)
         with self._lock:
             if (self.max_pending is not None
                     and self._pending_count >= self.max_pending):
@@ -478,8 +484,10 @@ def service_from_args(args) -> GenerationService:
     prompt (the embedding it was trained on)."""
     def launcher(sampler):
         # pad_to=max_batch: every launch has the same shapes
-        return lambda prompts, ids: sampler.generate_batch(
-            prompts, ids, pad_to=args.max_batch)
+        def launch(prompts, ids):
+            return sampler.generate_batch(prompts, ids, pad_to=args.max_batch)
+        launch.check = sampler.check_prompt
+        return launch
 
     common = dict(batch_window_s=args.batch_window_ms / 1e3,
                   pipeline_depth=args.pipeline_depth,

@@ -63,6 +63,28 @@ class Tracker:
         raise NotImplementedError
 
 
+class NullTracker(Tracker):
+    """Records nothing: the tracker of a data-parallel group's ranks other
+    than rank 0, which alone writes the run's records."""
+
+    def set_experiment(self, name: str) -> None:
+        pass
+
+    @contextmanager
+    def start_run(self, run_name: str | None = None,
+                  run_id: str | None = None) -> Iterator[Run]:
+        yield Run(self, run_id or "")
+
+    def log_params(self, params: dict[str, Any]) -> None:
+        pass
+
+    def log_metric(self, key: str, value: float, step: int | None = None) -> None:
+        pass
+
+    def log_artifact(self, local_path: str, artifact_path: str | None = None) -> None:
+        pass
+
+
 class JsonlTracker(Tracker):
     def __init__(self, root: str | Path = "mlruns_local"):
         self.root = Path(root)

@@ -30,6 +30,18 @@ cannot reproduce threefry, so every draw of a step comes from one
 `ClassifierDraws` (`step_draws(seed, epoch, step, model, n, device)`: a
 generator seeded by the stream (seed, "train", epoch, step),
 utils/rng.py); the tests hand the step the reference's masks instead.
+
+Data parallelism (`ClassifierState.mesh`, parallel/mesh.py): the
+reference's step jitted over a mesh sees the global batch, so the port
+keeps its two global quantities. BatchNorm takes its statistics over the
+group's rows (models/efficientnet.py::global_batch_stats), and the
+weighted cross-entropy is the global Σw·nll / Σw: each rank's share
+Σ_rank w·nll / Σ_group w, whose gradients are summed over the group (a
+mean of per-rank weighted means would differ wherever class weights or
+`valid` masks differ between ranks). Draws are made for the global batch
+and sliced to the rank's rows (`ClassifierDraws.rows`). Validation and
+test metrics sum losses' numerators and denominators, correct counts and
+predictions over the group, so they equal the one-process numbers.
 """
 
 from __future__ import annotations
@@ -47,7 +59,8 @@ from polyp_tpu_torch.data.pipeline import Loader
 from polyp_tpu_torch.data.transforms import augment_classifier_batch
 from polyp_tpu_torch.eval import metrics as M
 from polyp_tpu_torch.models.efficientnet import (
-    PolypClassifier, init_classifier_)
+    PolypClassifier, global_batch_stats, init_classifier_)
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.utils.faults import maybe_crash
 from polyp_tpu_torch.utils.rng import stream_generator
 
@@ -63,6 +76,15 @@ class ClassifierDraws:
     flip: torch.Tensor
     drop_path: dict[str, torch.Tensor]
     dropout: torch.Tensor | None
+
+    def rows(self, mesh: pmesh.DataMesh | None) -> "ClassifierDraws":
+        """This rank's rows of draws made for the global batch."""
+        if mesh is None:
+            return self
+        return ClassifierDraws(
+            mesh.local(self.flip),
+            {k: mesh.local(v) for k, v in self.drop_path.items()},
+            None if self.dropout is None else mesh.local(self.dropout))
 
 
 def draw_step(model: PolypClassifier, n: int,
@@ -98,6 +120,7 @@ class ClassifierState:
     optimizer: torch.optim.Optimizer
     dtype: torch.dtype
     step: int = 0
+    mesh: pmesh.DataMesh | None = None
 
     @property
     def device(self) -> torch.device:
@@ -112,6 +135,13 @@ class ClassifierState:
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         self.step = int(tree["step"])
+
+    def on_mesh(self, mesh: pmesh.DataMesh | None) -> "ClassifierState":
+        """This state's steps made the group's: rank 0's weights and
+        statistics broadcast to every rank; returns the state."""
+        pmesh.replicate_to(self.model, mesh)
+        self.mesh = mesh
+        return self
 
     def host_params(self) -> tuple[dict, dict]:
         """CPU copies of the parameters and of the BatchNorm statistics."""
@@ -133,7 +163,8 @@ class ClassifierState:
         optimizer = OptaxAdam(model.parameters(), **{
             k: self.optimizer.defaults[k]
             for k in ("lr", "weight_decay", "betas", "eps")})
-        return ClassifierState(model, optimizer, self.dtype, self.step)
+        return ClassifierState(model, optimizer, self.dtype, self.step,
+                               self.mesh)
 
 
 class OptaxAdam(torch.optim.Optimizer):
@@ -227,16 +258,20 @@ def create_classifier_state(config: ClassificationConfig, num_classes: int,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   class_weights: torch.Tensor | None = None,
-                  valid: torch.Tensor | None = None) -> torch.Tensor:
+                  valid: torch.Tensor | None = None,
+                  mesh: pmesh.DataMesh | None = None) -> torch.Tensor:
     """Mean NLL with optional per-class weights and a `valid` row mask,
-    normalised by the sum of the rows' weights."""
+    normalised by the sum of the rows' weights. Under `mesh`: this rank's
+    share Σ_rank w·nll / Σ_group w of the global loss (the shares sum to
+    it, and so do their gradients)."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(1, labels.long()[:, None])[:, 0]
     w = (torch.ones_like(nll) if class_weights is None
          else class_weights.to(nll.device)[labels.long()])
     if valid is not None:
         w = w * valid.to(w.dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-8)
+    return (nll * w).sum() / torch.clamp(pmesh.all_sum(w.sum(), mesh),
+                                         min=1e-8)
 
 
 def train_step(state: ClassifierState, images_u8: torch.Tensor,
@@ -244,18 +279,23 @@ def train_step(state: ClassifierState, images_u8: torch.Tensor,
                class_weights: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update on a batch; returns (loss, correct count) as device
-    scalars."""
-    model = state.model
+    scalars. Under `state.mesh`, `images_u8` and `labels` are this rank's
+    rows, `draws` the global batch's, and both returns the group's."""
+    model, mesh = state.model, state.mesh
     model.train()
+    draws = draws.rows(mesh)
     x = augment_classifier_batch(images_u8, draws.flip, state.dtype)
-    logits = model(x, draws)
-    loss = cross_entropy(logits, labels, class_weights)
+    with global_batch_stats(mesh):
+        logits = model(x, draws)
+    loss = cross_entropy(logits, labels, class_weights, mesh=mesh)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    pmesh.allreduce_grads([p.grad for p in model.parameters()
+                           if p.grad is not None], mesh, average=False)
     state.optimizer.step()
     state.step += 1
     correct = (logits.detach().argmax(-1) == labels.long()).sum()
-    return loss.detach(), correct
+    return pmesh.all_sum(loss.detach(), mesh), pmesh.all_sum(correct, mesh)
 
 
 @torch.no_grad()
@@ -263,14 +303,17 @@ def eval_step(state: ClassifierState, images_u8: torch.Tensor,
               labels: torch.Tensor, valid: torch.Tensor,
               class_weights: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(loss over the valid rows, predictions, correct valid rows)."""
+    """(loss over the valid rows, predictions, correct valid rows); under
+    `state.mesh` the loss and the count are the group's, the predictions
+    this rank's rows'."""
     state.model.eval()
     x = augment_classifier_batch(images_u8, None, state.dtype)
     logits = state.model(x)
-    loss = cross_entropy(logits, labels, class_weights, valid)
+    loss = cross_entropy(logits, labels, class_weights, valid, state.mesh)
     preds = logits.argmax(-1)
     correct = ((preds == labels.long()) & valid).sum()
-    return loss, preds, correct
+    return (pmesh.all_sum(loss, state.mesh), preds,
+            pmesh.all_sum(correct, state.mesh))
 
 
 @dataclass
@@ -290,7 +333,7 @@ def _run_validation(state: ClassifierState, loader: Loader,
         loss, _, c = eval_step(state, images, labels, valid, class_weights)
         losses.append(loss.item())
         correct += int(c)
-        total += int(valid.sum())
+        total += int(pmesh.all_sum(valid.sum(), state.mesh))
     return float(np.mean(losses)), correct / max(total, 1)
 
 
@@ -349,8 +392,11 @@ def train_classifier(
     for epoch in range(start_epoch, config.num_epochs):
         losses = []
         for step, (images, labels, _) in enumerate(train_loader):
-            draws = step_draws(config.seed, epoch, step, state.model,
-                               images.shape[0], device)
+            # the global batch's draws (train_step keeps this rank's rows)
+            n = images.shape[0] * (1 if state.mesh is None
+                                   else state.mesh.size)
+            draws = step_draws(config.seed, epoch, step, state.model, n,
+                               device)
             loss, _ = train_step(state, images, labels, draws, cw)
             losses.append(loss)  # device scalars: one sync an epoch
         train_loss = torch.stack(losses).mean().item()
@@ -388,13 +434,18 @@ def evaluate_classifier(state: ClassifierState, test_loader: Loader,
                         idx2label: dict[int, str]) -> dict[str, Any]:
     """Test metrics over the valid rows, with labels decoded to strings:
     accuracy, weighted precision / recall / F1, the confusion matrix and
-    the per-class report, over the sorted true labels."""
+    the per-class report, over the sorted true labels; under
+    `state.mesh`, over every rank's rows."""
     all_preds, all_true = [], []
     for images, labels, valid in test_loader:
         _, preds, _ = eval_step(state, images, labels, valid)
         mask = valid.cpu().numpy()
         all_preds.extend(preds.cpu().numpy()[mask].tolist())
         all_true.extend(labels.cpu().numpy()[mask].tolist())
+    if state.mesh is not None:
+        ranks = pmesh.gather_objects((all_preds, all_true), state.mesh)
+        all_preds = [p for preds, _ in ranks for p in preds]
+        all_true = [t for _, true in ranks for t in true]
     pred_labels = [idx2label[i] for i in all_preds]
     true_labels = [idx2label[i] for i in all_true]
     order = sorted(set(true_labels))

@@ -44,6 +44,13 @@ split(key)`), from the named generator stream `distill_draws(role, phase,
 step)`: "warmup" (the reference's fold_in(PRNGKey(17), step)), "probe"
 (PRNGKey(41)) and "phase" (fold_in(PRNGKey(23 + phase), step)). Tests hand
 both packages the same draws.
+
+Data parallelism (`mesh`, parallel/mesh.py): each rank holds its rows of
+the global x₀ batch; the draws are made for the global batch and sliced
+(`parallel.rank_draws`), the gradients are averaged over the group before
+the optimizer and the loss is the group's mean, so the group's step is the
+one-process step on the whole batch; the warmup's closure sums its norms
+over the group.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from polyp_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     inference_timesteps,
 )
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.train.scratch_ddpm import cosine_warmup_schedule
 from polyp_tpu_torch.train.sd_finetune import SDOptimizer
 from polyp_tpu_torch.utils.rng import stream_generator
@@ -218,7 +226,8 @@ def make_distill_step(student_apply: Callable[[Params, torch.Tensor,
                                                torch.Tensor], torch.Tensor],
                       teacher_schedule: DiffusionSchedule,
                       student_schedule: DiffusionSchedule,
-                      grid: DistillGrid, reparam: bool = False):
+                      grid: DistillGrid, reparam: bool = False,
+                      mesh: pmesh.DataMesh | None = None):
     """The phase train step `step(state, teacher, x0, draws) → (state,
     loss)` (reference :163-222). `student_apply(masters, x, t)` runs the
     student on its fp32 masters under autograd; `teacher_apply(teacher, x,
@@ -226,7 +235,8 @@ def make_distill_step(student_apply: Callable[[Params, torch.Tensor,
     everything but the weights (the SD path folds CFG into the teacher and
     the cond embedding into both). With `reparam=True` the target is the
     teacher's own x̂₀ at the SAME t (the warmup of a head switch) instead of
-    the two-substep x̃₀. The update is in place on `state`."""
+    the two-substep x̃₀. The update is in place on `state`. Under `mesh`,
+    `x0` is this rank's rows and `draws` the global batch's."""
     on_device: dict = {}
 
     def tables(device):
@@ -239,6 +249,7 @@ def make_distill_step(student_apply: Callable[[Params, torch.Tensor,
     def step(state: DistillState, teacher: Any, x0: torch.Tensor,
              draws: DistillDraws) -> tuple[DistillState, torch.Tensor]:
         t_sched, s_sched, g = tables(x0.device)
+        draws = pmesh.rank_draws(draws, mesh)
         n = x0.shape[0]
         idx = draws.idx(n, g.num_steps)
         t = g.ts[idx]
@@ -260,11 +271,12 @@ def make_distill_step(student_apply: Callable[[Params, torch.Tensor,
             x0_pred = s_sched.to_x0_eps(out, x_t, t)[0]
             loss = torch.mean(w * torch.square(x0_pred.float() - target))
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        state.tx.update({k: torch.zeros_like(p) if gr is None else gr
-                         for (k, p), gr in zip(state.params.items(), grads)},
-                        state.opt_state, state.params)
+        grads = {k: torch.zeros_like(p) if gr is None else gr
+                 for (k, p), gr in zip(state.params.items(), grads)}
+        pmesh.allreduce_grads(list(grads.values()), mesh)
+        state.tx.update(grads, state.opt_state, state.params)
         state.step += 1
-        return state, loss.detach()
+        return state, pmesh.all_mean(loss.detach(), mesh)
 
     return step
 
@@ -424,6 +436,7 @@ def distill_progressive(
     cond: torch.Tensor | None = None,
     uncond: torch.Tensor | None = None,
     log: Callable[[str, float, int], None] | None = None,
+    mesh: pmesh.DataMesh | None = None,
 ) -> DistillResult:
     """Run halving phases start_steps → … → end_steps (reference :300-492;
     both powers-of-two multiples of each other, T % (2·start_steps) == 0).
@@ -439,7 +452,8 @@ def distill_progressive(
     `teacher_apply_fn` and `student_params`, have no caller and are not
     ported). The student of each phase becomes the next phase's teacher,
     and `reparam_steps` (−1: `steps_per_phase`) applies to phase 0
-    only."""
+    only. Under `mesh`, `batches()` gives this rank's rows of each global
+    batch and every step is the group's."""
     if start_steps < end_steps or start_steps % end_steps != 0:
         raise ValueError(f"start_steps={start_steps} must be a multiple "
                          f"of end_steps={end_steps}")
@@ -475,20 +489,22 @@ def distill_progressive(
                 {k: v.detach() for k, v in wstate.params.items()})
             warm_step = make_distill_step(applies.student, phase_teacher,
                                           teacher_sched, student_sched,
-                                          grid, reparam=True)
+                                          grid, reparam=True, mesh=mesh)
             wlosses = _run(wstate, warm_step, teacher, batches, warmup,
                            lambda i: distill_draws("warmup", 0, i, device))
             rel_err = _reparam_rel_err(
                 applies.student, phase_teacher, wstate.params, teacher,
                 teacher_sched, student_sched, grid.to(device),
-                next(iter(batches())), distill_draws("probe", 0, 0, device))
+                next(iter(batches())), distill_draws("probe", 0, 0, device),
+                mesh)
             if log:
                 log("reparam_loss", float(np.mean(wlosses[-20:])), 0)
                 log("reparam_rel_err", rel_err, 0)
             check_reparam_converged(wlosses, rel_err=rel_err)
 
         step = make_distill_step(applies.student, phase_teacher,
-                                 teacher_sched, student_sched, grid)
+                                 teacher_sched, student_sched, grid,
+                                 mesh=mesh)
         phase.losses = _run(state, step, teacher, batches, steps_per_phase,
                             lambda i, p=phase_idx: distill_draws(
                                 "phase", p, i, device))
@@ -510,11 +526,14 @@ def distill_progressive(
 def _reparam_rel_err(student_apply, teacher_apply, masters: Params,
                      teacher: Any, teacher_sched: DiffusionSchedule,
                      student_sched: DiffusionSchedule, grid: DistillGrid,
-                     x0: torch.Tensor, draws: DistillDraws) -> float:
+                     x0: torch.Tensor, draws: DistillDraws,
+                     mesh: pmesh.DataMesh | None = None) -> float:
     """The warmup's closure (reference :437-452): ‖x̂₀(student) −
-    x̂₀(teacher)‖ / ‖x̂₀(teacher)‖ on one batch over the phase grid."""
+    x̂₀(teacher)‖ / ‖x̂₀(teacher)‖ on one batch over the phase grid (the
+    group's global batch under `mesh`)."""
     t_sched, s_sched = teacher_sched.to(x0.device), student_sched.to(
         x0.device)
+    draws = pmesh.rank_draws(draws, mesh)
     idx = draws.idx(x0.shape[0], grid.num_steps)
     t = grid.ts[idx]
     x_t = t_sched.add_noise(x0, draws.noise(x0.shape), t)
@@ -522,5 +541,9 @@ def _reparam_rel_err(student_apply, teacher_apply, masters: Params,
                              t)[0].float()
     s_x0 = s_sched.to_x0_eps(student_apply(masters, x_t, t), x_t,
                              t)[0].float()
-    return float(torch.linalg.vector_norm(s_x0 - t_x0)
-                 / (torch.linalg.vector_norm(t_x0) + 1e-8))
+    if mesh is None:
+        return float(torch.linalg.vector_norm(s_x0 - t_x0)
+                     / (torch.linalg.vector_norm(t_x0) + 1e-8))
+    sq = pmesh.all_sum(torch.stack([torch.square(s_x0 - t_x0).sum(),
+                                    torch.square(t_x0).sum()]), mesh)
+    return float(sq[0].sqrt() / (sq[1].sqrt() + 1e-8))

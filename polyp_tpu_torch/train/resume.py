@@ -5,7 +5,9 @@ A snapshot is a nested dict of tensors and numbers (for the LoRA trainer
 `SDTrainState.tree()`: step, trainables, optimizer state) saved every
 `every` epochs as `{dir}/epoch_{n}.pt`, with `aux_{n}.json` (small trainer
 extras such as the loss history) and a `latest.json` pointer written last;
-older snapshots are pruned to `keep`.
+older snapshots are pruned to `keep`. Under a data-parallel group
+(`mesh`) rank 0 alone writes, the others wait for it, and every rank
+restores from the same files.
 """
 
 from __future__ import annotations
@@ -14,29 +16,35 @@ import json
 from pathlib import Path
 from typing import Any
 
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 
 
 class EpochCheckpointer:
 
-    def __init__(self, ckpt_dir: str | Path, every: int = 10, keep: int = 2):
+    def __init__(self, ckpt_dir: str | Path, every: int = 10, keep: int = 2,
+                 mesh: pmesh.DataMesh | None = None):
         self.dir = Path(ckpt_dir)
         self.every = max(every, 1)
         self.keep = max(keep, 1)
+        self.mesh = mesh
 
     def _latest_path(self) -> Path:
         return self.dir / "latest.json"
 
     def save(self, epoch: int, tree: Any, force: bool = False,
              aux: dict | None = None) -> bool:
-        """Snapshot `tree` after `epoch` when it is due (or `force`)."""
+        """Snapshot `tree` after `epoch` when it is due (or `force`); True
+        when it was, on every rank of the mesh."""
         if not force and (epoch + 1) % self.every != 0:
             return False
-        save_pytree(self.dir / f"epoch_{epoch}.pt", tree)
-        if aux is not None:
-            (self.dir / f"aux_{epoch}.json").write_text(json.dumps(aux))
-        self._latest_path().write_text(json.dumps({"epoch": epoch}))
-        self._prune()
+        if pmesh.is_writer(self.mesh):
+            save_pytree(self.dir / f"epoch_{epoch}.pt", tree)
+            if aux is not None:
+                (self.dir / f"aux_{epoch}.json").write_text(json.dumps(aux))
+            self._latest_path().write_text(json.dumps({"epoch": epoch}))
+            self._prune()
+        pmesh.barrier(self.mesh)
         return True
 
     def _prune(self) -> None:

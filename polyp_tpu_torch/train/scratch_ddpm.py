@@ -23,6 +23,11 @@ generator seeded by the stream (seed, "ddpm", epoch, step) (utils/rng.py):
 the flip mask, ε, the timesteps, in the roles of the reference's
 `split(key, 3)`, so a resumed run draws what an uninterrupted one would
 and a test can hand the step the reference's draws.
+
+Data parallelism (`mesh`, parallel/mesh.py) as the LoRA trainer's: draws
+for the global batch sliced to this rank's rows, the gradients averaged
+over the group before the optimizer (every micro-step, so accumulation
+averages the group's gradients), the loss the group's mean.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from polyp_tpu_torch.data.pipeline import Loader
 from polyp_tpu_torch.data.transforms import augment_diffusion_batch
 from polyp_tpu_torch.diffusion import DiffusionSchedule
 from polyp_tpu_torch.diffusion.losses import epsilon_mse_loss
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.utils.faults import maybe_crash
 from polyp_tpu_torch.utils.rng import stream_generator
 
@@ -162,15 +168,19 @@ def ddpm_loss_and_grads(state: DDPMState, schedule: DiffusionSchedule,
 
 def ddpm_train_step(state: DDPMState, schedule: DiffusionSchedule,
                     images_u8: torch.Tensor, draws,
-                    text_embeddings: torch.Tensor | None = None
+                    text_embeddings: torch.Tensor | None = None,
+                    mesh: pmesh.DataMesh | None = None
                     ) -> tuple[DDPMState, torch.Tensor]:
     """One (micro-)step: augment → q-sample → ε̂ → MSE → clipped update,
-    in place on `state` (returned, with the step's loss)."""
-    loss, grads = ddpm_loss_and_grads(state, schedule, images_u8, draws,
+    in place on `state` (returned, with the step's loss). Under `mesh`,
+    `images_u8` are this rank's rows and `draws` the global batch's."""
+    loss, grads = ddpm_loss_and_grads(state, schedule, images_u8,
+                                      pmesh.rank_draws(draws, mesh),
                                       text_embeddings)
+    pmesh.allreduce_grads(list(grads.values()), mesh)
     state.tx.update(grads, state.opt_state, state.params)
     state.step += 1
-    return state, loss
+    return state, pmesh.all_mean(loss, mesh)
 
 
 @dataclass
@@ -192,7 +202,9 @@ def train_scratch_ddpm(
     on with the batches and draws of an uninterrupted run;
     `maybe_crash("epoch", n)` follows each snapshot (utils/faults.py).
     `epoch_callback(epoch, state)` runs after each epoch and its snapshot
-    (the CLI's final-epoch sample-and-save hook)."""
+    (the CLI's final-epoch sample-and-save hook). Under the loader's mesh
+    every step is the group's."""
+
     result = DDPMTrainResult()
     if checkpointer is not None and start_epoch == 0:
         restored = checkpointer.restore(state.tree())
@@ -202,7 +214,7 @@ def train_scratch_ddpm(
             aux = checkpointer.restore_aux() or {}
             result.loss_hist = list(aux.get("loss_hist", []))
             loader.skip_epochs(start_epoch)
-    device = loader.device
+    device, mesh = loader.device, loader.mesh
     if text_embeddings is not None:
         text_embeddings = text_embeddings.to(device)
     for epoch in range(start_epoch, config.num_epochs):
@@ -211,7 +223,7 @@ def train_scratch_ddpm(
             state, loss = ddpm_train_step(
                 state, schedule, images,
                 ddpm_draws(config.seed, epoch, step, device),
-                text_embeddings)
+                text_embeddings, mesh)
             losses.append(loss)  # device scalars: one sync an epoch
         avg = torch.stack(losses).mean().item()
         result.loss_hist.append(avg)

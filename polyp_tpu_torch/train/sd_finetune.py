@@ -30,6 +30,13 @@ keep mask a targeted kernel) goes through one `StepDraws` object from
 
 The loss is the intended w_img·mse + w_text·cos, as in the reference (its
 docstring: weight_img=2.0 reproduces the original script's double count).
+
+Data parallelism (`mesh`, parallel/mesh.py): each rank holds its rows of
+the global batch; the step's draws are made for the global batch on every
+rank and sliced (`parallel.rank_draws`), the gradients are averaged over
+the group in one bucket before `SDOptimizer`, and the reported loss is the
+group's mean, so the group's step is the one-process step on the whole
+batch.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from polyp_tpu_torch.diffusion.losses import (
     epsilon_mse_loss, visual_influence_loss)
 from polyp_tpu_torch.lora.surgery import LoRAConfig, merge_lora
 from polyp_tpu_torch.models.vae import SD_VAE_SCALING, DiagonalGaussian
+from polyp_tpu_torch.parallel import mesh as pmesh
 from polyp_tpu_torch.train.dreambooth import embed_with_special_rows
 from polyp_tpu_torch.train.scratch_ddpm import cosine_warmup_schedule
 from polyp_tpu_torch.utils.checkpoint import tree_leaves, tree_map
@@ -377,15 +385,19 @@ def sd_lora_train_step(
         prompt_ids: torch.Tensor, special_ids: torch.Tensor | None,
         draws: StepDraws, unet_lora_cfg: LoRAConfig,
         text_lora_cfg: LoRAConfig | None = None, weight_img: float = 1.0,
-        weight_text: float = 0.1) -> tuple[SDTrainState, torch.Tensor]:
+        weight_text: float = 0.1, mesh: pmesh.DataMesh | None = None
+) -> tuple[SDTrainState, torch.Tensor]:
     """One (micro-)step: gradients of the bundle, then the optimizer,
-    in place on `state` (returned, with the step's loss)."""
+    in place on `state` (returned, with the step's loss). Under `mesh`,
+    `images_u8` are this rank's rows and `draws` the global batch's."""
     loss, grads = sd_lora_loss_and_grads(
-        state, frozen, schedule, images_u8, prompt_ids, special_ids, draws,
-        unet_lora_cfg, text_lora_cfg, weight_img, weight_text)
+        state, frozen, schedule, images_u8, prompt_ids, special_ids,
+        pmesh.rank_draws(draws, mesh), unet_lora_cfg, text_lora_cfg,
+        weight_img, weight_text)
+    pmesh.allreduce_grads(tree_leaves(grads), mesh)
     state.tx.update(grads, state.opt_state, state.trainable)
     state.step += 1
-    return state, loss
+    return state, pmesh.all_mean(loss, mesh)
 
 
 @dataclass
@@ -409,7 +421,8 @@ def train_sd_lora(
     uninterrupted run (a step's draws are a function of (seed, epoch,
     step)). `step_callback(epoch, step, state, loss)` runs after each
     step; `epoch_callback(epoch, state)` after each epoch and its
-    snapshot."""
+    snapshot. Under the loader's mesh every step is the group's (an
+    `EpochCheckpointer` given the mesh writes on rank 0 alone)."""
     result = SDTrainResult()
     if checkpointer is not None and start_epoch == 0:
         restored = checkpointer.restore(state.tree())
@@ -419,7 +432,7 @@ def train_sd_lora(
             aux = checkpointer.restore_aux() or {}
             result.loss_hist = list(aux.get("loss_hist", []))
             loader.skip_epochs(start_epoch)
-    device = loader.device
+    device, mesh = loader.device, loader.mesh
     ids = torch.as_tensor(prompt_ids, device=device)
     sids = (torch.as_tensor(special_ids, dtype=torch.long, device=device)
             if special_ids is not None else None)
@@ -429,7 +442,7 @@ def train_sd_lora(
             state, loss = sd_lora_train_step(
                 state, frozen, schedule, images, ids, sids,
                 step_draws(config.seed, epoch, step, device), unet_lora_cfg,
-                text_lora_cfg, config.weight_img, config.weight_text)
+                text_lora_cfg, config.weight_img, config.weight_text, mesh)
             losses.append(loss)
             if step_callback:
                 step_callback(epoch, step, state, loss)
@@ -443,3 +456,4 @@ def train_sd_lora(
         if epoch_callback:
             epoch_callback(epoch, state)
     return state, result
+

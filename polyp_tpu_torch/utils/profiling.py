@@ -4,6 +4,9 @@ polyp_tpu/utils/profiling.py on torch.
 * `trace(logdir)` — a torch.profiler region (CPU activity, and CUDA
   activity where a card is present) written to `logdir` as a Chrome trace
   (view it in Perfetto or chrome://tracing);
+* `graph_ms(fn)` — the device time of one call of `fn` on the card, from
+  calls captured in a CUDA graph and replayed between CUDA events (no
+  host work in it), the timer of tools/roofline.py;
 * `Throughput` — samples/s on the host clock between synchronisation
   points, the instrument behind tools/quant_sensitivity.py's throughput
   half of the quant gate;
@@ -36,6 +39,31 @@ def trace(logdir: str | Path) -> Iterator[torch.profiler.profile]:
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call of `fn`: `iters` calls captured once in a
+    CUDA graph (after warm-up calls on a side stream), the graph replayed
+    `replays` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 class Throughput:

@@ -304,6 +304,84 @@ def test_lora_train_step_runs_its_kernels(dev):
         assert torch.equal(v, before[k]), k
 
 
+def _dp_lora_steps(mesh, dev):
+    """Two LoRA steps of the tiny fp32 stack on `dev` at a global batch of
+    4 (this rank's rows under `mesh`): the losses, Adam's first moment,
+    the trainables' checksum and the GroupNorm launches a step."""
+    from polyp_tpu_torch.cli.common import load_sd_stack, replicate_stack
+    from polyp_tpu_torch.cli.sd_common import make_components
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.lora import LoRAConfig, init_lora
+    from polyp_tpu_torch.parallel import mesh as pmesh
+    from polyp_tpu_torch.train import sd_finetune as sf
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stack = replicate_stack(load_sd_stack(None, dtype=torch.float32,
+                                          tiny=True, seed=0, device=dev),
+                            mesh)
+    cfg = DiffusionConfig(num_epochs=1, learning_rate=1e-3).with_schedule(2)
+    lcfg = LoRAConfig(4, None, 0.0, cfg.modules_lora)
+    bundle = sf.init_trainable(init_lora(
+        stack.unet, lcfg, torch.Generator(dev).manual_seed(0)))
+    state = sf.create_sd_train_state(cfg, bundle)
+    frozen = make_components(stack, bundle)
+    schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
+                                        0.012)
+    ids = torch.as_tensor(stack.tokenizer(["a polyp"]), device=dev)
+    losses, gn = [], []
+    for step in range(2):
+        images = torch.randint(
+            0, 256, (4, 32, 32, 3), dtype=torch.uint8, device=dev,
+            generator=torch.Generator(dev).manual_seed(step))
+        if mesh is not None:
+            images = mesh.local(images)
+        before = fused_gn.fused_group_norm.launches
+        state, loss = sf.sd_lora_train_step(
+            state, frozen, schedule, images, ids, None,
+            sf.step_draws(0, 0, step, dev), lcfg, mesh=mesh)
+        gn.append(fused_gn.fused_group_norm.launches - before)
+        losses.append(loss.item())
+    return {"losses": losses, "gn": gn,
+            "mu": torch.cat([t.reshape(-1) for t in
+                             tree_leaves(state.opt_state["mu"])]).cpu(),
+            "checksum": pmesh.checksum(state.trainable)}
+
+
+def _dp_rank(mesh):
+    return _dp_lora_steps(mesh, torch.device("cuda", 0))
+
+
+def test_two_gloo_ranks_on_one_card_match_one_process(dev):
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    device), each on its half of the global batch: the group's losses
+    within 1e-4 relative and Adam's first moment within 1e-2 of its
+    largest of the one-process steps (the tiny random UNet amplifies the
+    half-batch reduction order, parallel/dryrun.py's TOLERANCES), the
+    trainables bit-equal across the ranks, and each rank's frozen VAE
+    encode launching the GroupNorm kernel once a GroupNorm a step."""
+    from polyp_tpu_torch.models.unet_blocks import GroupNorm
+    from polyp_tpu_torch.parallel.launch import spawn_group
+
+    _build.build()  # the ranks load this library
+    one = _dp_lora_steps(None, dev)
+    ranks = spawn_group(_dp_rank, 2, backend="gloo", device="cuda",
+                        share_device=True, timeout=300)
+    assert ranks[0]["checksum"] == ranks[1]["checksum"]
+    for got in ranks:
+        for g, w in zip(got["losses"], one["losses"]):
+            assert abs(g - w) <= 1e-4 * abs(w)
+        scale = one["mu"].abs().max()
+        assert (got["mu"] - one["mu"]).abs().max() <= 1e-2 * scale
+    from polyp_tpu_torch.models import tiny_vae
+    encoder_gn = sum(isinstance(m, GroupNorm)
+                     for m in tiny_vae(device="meta").encoder.modules())
+    assert one["gn"] == [encoder_gn] * 2
+    assert all(r["gn"] == [encoder_gn] * 2 for r in ranks)
+
+
 # ---------------------------------------------------------------------------
 # int8 (W8A8) kernels against their plain versions, which run on the CPU on
 # the same inputs (exact int32 sums; torch._int_mm's CUDA shape rules do not

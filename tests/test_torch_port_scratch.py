@@ -169,8 +169,18 @@ def test_parameter_counts_are_the_references():
 
 
 def test_dropout_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tunet.UNet2D(**UNETS["tiny"][0], dropout=0.1)
+    """A UNet2D with dropout refuses random dropout unless its keep masks
+    are handed over: a call without them is deterministic, the dropout-free
+    network on the same weights (tests/test_torch_port_parallel.py holds
+    the masked call to the reference's)."""
+    torch.manual_seed(0)
+    net = tunet.UNet2D(**UNETS["tiny"][0], dropout=0.1)
+    plain = tunet.UNet2D(**UNETS["tiny"][0])
+    plain.load_state_dict(net.state_dict())
+    x, t = torch.randn(2, 3, 16, 16), torch.tensor([3, 7])
+    with torch.no_grad():
+        torch.testing.assert_close(net.train()(x, t), plain(x, t),
+                                   rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
