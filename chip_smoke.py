@@ -212,13 +212,27 @@ caught:
    process, their checksums bit-equal across the ranks after each step,
    flash 5 and GroupNorm 22 a rank's step) and the 8-image quota fan-out
    (the same files as one process's, each within MG_FAN_OUT_MEAN_LEVELS);
-   then polyp_tpu_torch.parallel.dryrun.dryrun_multichip(2) at its tiny
-   shapes, and the reports of polyp_tpu_torch/tools/profile_census.py
+   (c) tensor parallelism, `--mesh data=1,model=2` on two ranks sharing
+   cuda:0 over gloo (tensor_parallel_part): a rank's CFG forward launches
+   exactly TP_FORWARD and TP_ALLREDUCES model-group all-reduces, within
+   TP_FORWARD_REL_L2 of this process's bf16 forward and REL_L2_TOLERANCE
+   of fp32; a DDIM-20 batch of 2 images through make_sampler(mesh=)
+   within TP_IMAGE_LEVELS of the one-process sampler's; w8a8_static and
+   dynamic w8a8 block by block within LAYER_REL_L2 (dynamic w8a8's FF
+   through the dense, no per-token GEGLU); the fused-MHA student's 5
+   launches of 4 heads; two LoRA steps with unfrozen projections and a
+   DreamBooth row within MG_* of this process, the whole trainables
+   bit-equal across the ranks and the gathered bundle loaded here; and
+   rows 1, 2, 4, 5 and 7 at the per-rank shapes against their plain
+   versions; then polyp_tpu_torch.parallel.dryrun.dryrun_multichip(4) at
+   its tiny shapes on the data=2 × model=2 mesh, and the reports of
+   polyp_tpu_torch/tools/profile_census.py
    (bf16, 10 iterations) and tools/roofline.py (batch 2) written to
    chiprun_out/{profile_census,roofline}.json;
 14. prints the kernel table (all eight kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
-   class, launches a scratch forward and launches a distill step) as one
+   class, launches a scratch forward, launches a distill step and
+   launches a tensor-parallel rank's forward) as one
    JSON line, the card line, and last the result line {"ok": true,
    "device": {...}}. Each phase's seconds are printed as it ends
    ("[time]").
@@ -517,10 +531,12 @@ DENSE_CASES = ((1024, 320, 320, False, "to_q"),
                (16, 1280, 1280, False, "mid"))
 
 
-def geglu_case(randn, n: int, c: int, per_image: int):
-    """x [n, per_image, C] and GEGLU weights w1 [8C, C], b1, w2 [C, 4C], b2
-    (bf16, scaled so the outputs are O(1))."""
-    h = 4 * c
+def geglu_case(randn, n: int, c: int, per_image: int,
+               hidden: int | None = None):
+    """x [n, per_image, C] and GEGLU weights w1 [2H, C], b1, w2 [C, H], b2
+    (bf16, scaled so the outputs are O(1)); H = `hidden`, default 4C (a
+    tensor-parallel rank's is 4C/k)."""
+    h = hidden or 4 * c
     x = randn(n, per_image, c)
     w1, b1 = randn(2 * h, c, scale=c ** -0.5), randn(2 * h, scale=0.1)
     w2, b2 = randn(c, h, scale=h ** -0.5), randn(c, scale=0.1)
@@ -681,12 +697,14 @@ Q8_BATCHES = (4, 32)
 
 
 def geglu_q8_row(randn, n: int, c: int, per_image: int, static: bool,
-                 others: bool = True) -> dict:
+                 others: bool = True, hidden: int | None = None,
+                 shape_tag: str = "") -> dict:
     """compare_q8() of row 4 (`static`, two calibrated scales) or row 6
     (per-token scales) on x [n, per_image, C] and GEGLU weights drawn by
-    geglu_case, beside (with `others`) two yardsticks timed here only: its
-    two products alone (`_int_mm` on int8 codes of x and of h) and the bf16
-    GEGLU (row 4) or the static form (row 6) on the same x and weights."""
+    geglu_case (H = `hidden`, default 4C), beside (with `others`) two
+    yardsticks timed here only: its two products alone (`_int_mm` on int8
+    codes of x and of h) and the bf16 GEGLU (row 4) or the static form
+    (row 6) on the same x and weights."""
     import torch.nn.functional as F
 
     from polyp_tpu_torch.ops import quant
@@ -694,9 +712,9 @@ def geglu_q8_row(randn, n: int, c: int, per_image: int, static: bool,
         fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt,
         reference_geglu_w8a8, reference_geglu_w8a8_pt)
 
-    h, tokens = 4 * c, n * per_image
-    x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image)
-    shape = f"[{tokens},{c}]x[{c},{2 * h}]"
+    h, tokens = hidden or 4 * c, n * per_image
+    x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image, h)
+    shape = f"{shape_tag}[{tokens},{c}]x[{c},{2 * h}]"
     ops = 6 * tokens * c * h
     q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2), b2)
     s1 = amax_scale(x)
@@ -3749,6 +3767,535 @@ def mg_rank(mesh, out_dir: str) -> dict:
     return out
 
 
+# (c) tensor parallelism: two ranks sharing the card over gloo, `--mesh
+# data=1,model=2`, against one process on the same full-width stack.
+# A UNet forward's row-parallel partial products are rounded to bf16 on
+# each rank and summed in bf16 over the two (Megatron's g), where one
+# process rounds once; the random UNet carries that rounding through its
+# depth as it carries any bf16 rounding (a bf16 forward is ~0.014 rel L2
+# from fp32). So the sharded forward is held to TP_FORWARD_REL_L2 of the
+# one-process bf16 forward (0.0114 measured on the H100) and, like any
+# card forward, to REL_L2_TOLERANCE of the fp32 forward on the CPU; the
+# 2 images of one guided DDIM batch to TP_IMAGE_LEVELS (mean |Δ| in
+# levels of 255). Each int8 block (Attention, FeedForward) of the
+# sharded forward is held to the whole block on the same input within
+# LAYER_REL_L2; under dynamic w8a8 the whole FF is run per layer (its two
+# QLinears), the path the sharded FF takes
+# (models/unet_blocks.py::FeedForward). A wrong slice, scale or
+# collective gives O(1).
+TP_FORWARD_REL_L2 = 2e-2
+TP_IMAGE_LEVELS = 4.0
+# per rank's CFG forward at 256 px (batch 2, 4 rows): the one-process
+# kernels at this rank's heads and hidden units, and g after every
+# transformer block's attn1, attn2 and FF (16 blocks)
+TP_FORWARD = launches_of(flash_attention=5, fused_geglu=16,
+                         fused_group_norm=61)
+TP_ALLREDUCES = 48
+# the same forward under each int8 mode: w8a8_static as one process runs
+# it (promoted_launches' int8 forward: the dense 174, the static int8
+# GEGLU 16, GroupNorm's int8 epilogue 60 of 61); dynamic w8a8's sharded
+# FF runs its two QLinears through the dense (16 FFs: 174 + 32) and never
+# the per-token GEGLU, and has no static epilogue
+TP_STATIC_FORWARD = launches_of(flash_attention=5, fused_group_norm=61,
+                                fused_group_norm_q8=60,
+                                fused_w8a8_dense=174, fused_geglu_w8a8=16)
+TP_DYNAMIC_FORWARD = launches_of(flash_attention=5, fused_group_norm=61,
+                                 fused_w8a8_dense=206)
+# the fused-MHA student's forward: the fused MHA replaces flash
+TP_STUDENT_FORWARD = launches_of(fused_mha=5, fused_geglu=16,
+                                 fused_group_norm=61)
+TP_STUDENT_BATCH = 16
+TP_HEADS = 4  # SD-v1-4's 8 heads over the model axis of 2
+
+
+def tp_lora_steps(stack, dev: torch.device, mesh=None, save=None) -> dict:
+    """Two LoRA steps of the multi-GPU cell (256 px, global batch 8, rank
+    8, lr 1e-4, the `attention` preset) with unfrozen attention
+    projections and a DreamBooth row (a token one past the text table,
+    at position 1 of the prompt), on `mesh` (None: this process): the
+    losses, the whole bundle after the steps (fp32, on the host), the
+    checksums of the whole trainables this rank holds and of the gathered
+    bundle, and the steps' seconds. `save`: rank 0 writes the gathered
+    bundle there."""
+    import numpy as np
+
+    from polyp_tpu_torch.cli.sd_common import (
+        UNFROZEN_MODULES, make_components)
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.lora import LoRAConfig, init_lora
+    from polyp_tpu_torch.lora.surgery import save_lora
+    from polyp_tpu_torch.parallel import mesh as pmesh
+    from polyp_tpu_torch.parallel import sharding
+    from polyp_tpu_torch.train import sd_finetune as sf
+    from polyp_tpu_torch.train.dreambooth import resize_token_embeddings
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves
+
+    cfg = DiffusionConfig(image_size=TRAIN_PX, train_batch_size=TRAIN_BATCH,
+                          num_epochs=1, learning_rate=1e-4, lora_rank=8,
+                          lora_alpha=8, lora_dropout=0.0,
+                          lora_preset="attention").with_schedule(
+                              TRAIN_IMAGES // TRAIN_BATCH)
+    lcfg = LoRAConfig(cfg.lora_rank, cfg.lora_alpha, cfg.lora_dropout,
+                      cfg.modules_lora)
+    gen = torch.Generator(dev).manual_seed(0)
+    table = stack.text.get_parameter(sf.TOKEN_TABLE)
+    rows = table.shape[0]
+    grown = resize_token_embeddings(table, rows + 1, gen)
+    unfrozen = stack.fp32_params("unet", [
+        n for n, _ in stack.unet.named_parameters()
+        if any(m in n for m in UNFROZEN_MODULES)])
+    bundle = pmesh.replicate_to(sf.init_trainable(
+        init_lora(stack.unet, lcfg, gen), special_rows=grown[-1:].float(),
+        unfrozen=unfrozen), mesh)
+    frozen = make_components(stack, bundle, token_table=grown)
+    layout = sf.trainable_layout(bundle, frozen, mesh)
+    state = sf.create_sd_train_state(cfg, bundle, layout, mesh)
+    frozen = frozen.on_mesh(mesh)
+    schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
+                                        0.012)
+    ids = torch.as_tensor(stack.tokenizer([PROMPT]), device=dev)
+    ids[0, 1] = rows
+    special = torch.tensor([rows], device=dev)
+    out = {"losses": [], "step_s": []}
+    for step in range(2):
+        images = torch.from_numpy(np.random.default_rng(step).integers(
+            0, 256, (TRAIN_BATCH, TRAIN_PX, TRAIN_PX, 3),
+            dtype=np.uint8)).to(dev)
+        if mesh is not None:
+            images = mesh.local(images)
+        sync(dev)
+        start = time.perf_counter()
+        state, loss = sf.sd_lora_train_step(
+            state, frozen, schedule, images, ids, special,
+            sf.step_draws(0, 0, step, dev), lcfg, mesh=mesh)
+        out["losses"].append(loss.item())
+        out["step_s"].append(time.perf_counter() - start)
+    whole = state.whole_trainable()
+    kinds = tree_leaves(layout) if layout is not None else [None] * len(
+        tree_leaves(state.trainable))
+    out["whole_leaves_checksum"] = pmesh.checksum(
+        [t for t, k in zip(tree_leaves(state.trainable), kinds)
+         if not isinstance(k, sharding.Split)])
+    out["gathered_checksum"] = pmesh.checksum(whole)
+    out["split_leaves"] = sum(isinstance(k, sharding.Split) for k in kinds)
+    out["trainable"] = torch.cat([t.detach().float().reshape(-1).cpu()
+                                  for t in tree_leaves(whole)])
+    out["start"] = torch.cat([t.detach().float().reshape(-1).cpu()
+                              for t in tree_leaves(bundle)])
+    if save is not None and pmesh.is_writer(mesh):
+        save_lora(save, whole)
+    pmesh.barrier(mesh)
+    return out
+
+
+def per_layer_ff(ff, x):
+    """A FeedForward through its two QLinears one by one (the path a
+    sharded FF takes under dynamic w8a8)."""
+    import torch.nn.functional as F
+
+    a, gate = ff.net[0].proj(x.to(ff.net[0].proj.weight.dtype)).chunk(
+        2, dim=-1)
+    return ff.net[2](a * F.gelu(gate))
+
+
+def tp_int8_blocks(tp_unet, whole_unet, args, mode: str, bank, t,
+                   reset_counts, read_counts) -> dict:
+    """One int8 forward of the sharded UNet (`mode`, `bank` at `t`),
+    counted, each Attention and FeedForward call captured with its input
+    and output and re-run by the whole UNet's block on that input under
+    the same mode (a whole FF per layer under dynamic w8a8): the worst
+    relative L2 and the launches."""
+    from polyp_tpu_torch.models.unet_blocks import Attention, FeedForward
+    from polyp_tpu_torch.ops import quant
+
+    calls = []
+
+    def capture(name):
+        def hook(module, inputs, output):
+            calls.append((name, inputs, output))
+        return hook
+
+    hooks = [m.register_forward_hook(capture(name))
+             for name, m in tp_unet.named_modules()
+             if isinstance(m, (Attention, FeedForward))]
+    try:
+        with torch.no_grad(), quant.override(mode, scales=bank, t=t):
+            reset_counts()
+            tp_unet(*args)
+            sync(args[0].device)
+            launches = read_counts()
+            worst, worst_name = 0.0, ""
+            for name, inputs, got in calls:
+                block = whole_unet.get_submodule(name)
+                want = (per_layer_ff(block, *inputs)
+                        if mode == "w8a8" and isinstance(block, FeedForward)
+                        else block(*inputs))
+                err = rel_l2(got, want)
+                if err > worst:
+                    worst, worst_name = err, name
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"blocks": len(calls), "block_max_rel_l2": worst,
+            "worst_block": worst_name, "launches": launches}
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
+            ) -> dict:
+    """One of the two ranks of `--mesh data=1,model=2` sharing the card:
+    the full-width stack from seed 0 (its UNet's bits checked equal
+    across the ranks); one sharded CFG forward (launches, all-reduces)
+    against the whole UNet's; a guided DDIM batch of 2 images through
+    make_sampler(mesh=) against the one-process sampler's; one int8
+    forward a mode, block by block; the fused-MHA student's forward at
+    batch 16; and the two LoRA steps of `tp_lora_steps`. `device="cpu"`
+    and `tiny` rehearse it on the CPU (fp32, the miniature stack)."""
+    import dataclasses
+
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.cli.distill_sd import make_student_sampler
+    from polyp_tpu_torch.cli.sd_common import make_sampler
+    from polyp_tpu_torch.configs import DiffusionConfig
+    from polyp_tpu_torch.models import unet_blocks
+    from polyp_tpu_torch.ops.attention import fused_mha_region
+    from polyp_tpu_torch.parallel import mesh as pmesh
+    from polyp_tpu_torch.pipeline import images_uint8
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    reset_counts, read_counts = kernel_counters()
+    start = time.perf_counter()
+    stack = load_sd_stack(None, dtype=dtype, seed=0, device=dev, tiny=tiny)
+    if not pmesh.replicated(stack.unet, mesh):
+        raise AssertionError("the ranks' UNets differ")
+    sync(dev)
+    out = {"stack_s": time.perf_counter() - start,
+           "mesh": (mesh.shape, mesh.rank, mesh.model_rank)}
+    cfg = DiffusionConfig(image_size=64 if tiny else 256,
+                          num_inference_steps=20, sampler="ddim",
+                          guidance_scale=7.5)
+    cuda = dev.type == "cuda"
+    held = torch.cuda.memory_allocated(dev) if cuda else 0
+    sampler = make_sampler(stack, cfg, mesh=mesh)
+    # GiB this rank holds: the whole stack, then the sampler's shards on
+    # top of it (the sampler keeps the whole UNet beside them)
+    out["memory_gib"] = {
+        "stack": held / 2**30,
+        "shards": (torch.cuda.memory_allocated(dev) - held) / 2**30
+        if cuda else 0.0}
+    one = make_sampler(stack, cfg)
+    cond, uncond = sampler.encode_prompt(PROMPT), sampler.encode_prompt("")
+    gen = torch.Generator(dev).manual_seed(0)
+    lat = cfg.image_size // 8
+    x = torch.randn(4, 4, lat, lat, generator=gen, device=dev).to(dtype)
+    t = torch.full((4,), 500, device=dev)
+    ctx = torch.cat([cond, cond, uncond, uncond])
+    with torch.no_grad():
+        reset_counts()
+        calls0 = pmesh.reduce_calls[0]
+        got = sampler.unet(x, t, ctx)
+        sync(dev)
+        out["forward_launches"] = read_counts()
+        out["forward_allreduces"] = pmesh.reduce_calls[0] - calls0
+    out["forward"] = {"inputs": (x.cpu(), t.cpu(), ctx.cpu()),
+                      "output": got.cpu()}
+
+    sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    pmesh.reduce_seconds[0], calls0 = 0.0, pmesh.reduce_calls[0]
+    start = time.perf_counter()
+    images = sampler.for_prompt(PROMPT)(2, 0)
+    sync(dev)
+    out["sample_s"] = time.perf_counter() - start
+    out["sample_allreduce_s"] = pmesh.reduce_seconds[0]
+    out["sample_allreduces"] = pmesh.reduce_calls[0] - calls0
+    if cuda:
+        out["memory_gib"]["sampling_peak"] = (
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+        torch.cuda.reset_peak_memory_stats(dev)
+    start = time.perf_counter()
+    want = one.for_prompt(PROMPT)(2, 0)
+    sync(dev)
+    out["one_process_sample_s"] = time.perf_counter() - start
+    if cuda:
+        # the one-process sampler in the same process: the same resident
+        # stack and shards, its own activations
+        out["memory_gib"]["one_process_sampling_peak"] = (
+            torch.cuda.max_memory_allocated(dev) / 2**30)
+    diff = (images_uint8(images).int() - images_uint8(want).int()).abs()
+    out["image_levels"] = {"max": int(diff.max()),
+                           "mean": [float(d.float().mean()) for d in diff]}
+
+    out["int8"] = {}
+    for mode in ("w8a8_static", "w8a8"):
+        q = make_sampler(stack, dataclasses.replace(cfg, quantize=mode),
+                         mesh=mesh)
+        q._ensure_calibrated(cond, uncond)
+        out["int8"][mode] = tp_int8_blocks(
+            q.unet, stack.unet, (x, t, ctx), mode, q._scale_bank, t,
+            reset_counts, read_counts)
+        if mode == "w8a8_static":
+            out["int8"][mode]["calibrated_layers"] = len(q.quant_scales)
+
+    student = make_student_sampler(stack, stack.unet, num_steps=8,
+                                   fused_mha=True, mesh=mesh)
+    xs = torch.randn(TP_STUDENT_BATCH, 4, lat, lat, generator=gen,
+                     device=dev).to(dtype)
+    ts = torch.full((TP_STUDENT_BATCH,), 500, device=dev)
+    cs = cond.expand(TP_STUDENT_BATCH, *cond.shape[1:])
+    seen = []
+    plain = unet_blocks.fused_mha_linear
+
+    def recording(*args, num_heads, head_dim):
+        seen.append((num_heads, tuple(args[5].shape)))
+        return plain(*args, num_heads=num_heads, head_dim=head_dim)
+
+    unet_blocks.fused_mha_linear = recording
+    try:
+        with torch.no_grad(), fused_mha_region(True):
+            reset_counts()
+            got = student.unet(xs, ts, cs)
+            sync(dev)
+            launches = read_counts()
+            n_seen = len(seen)
+            want = stack.unet(xs, ts, cs)
+    finally:
+        unet_blocks.fused_mha_linear = plain
+    out["student"] = {"launches": launches, "heads": seen[:n_seen],
+                      "rel_l2": rel_l2(got, want)}
+
+    out["lora"] = tp_lora_steps(stack, dev, mesh, save=str(
+        Path(tmp) / "tp_bundle"))
+    return out
+
+
+def tp_kernel_rows(dev: torch.device) -> list[dict]:
+    """Rows 1, 2, 4, 5 and 7 at the per-rank shapes of `--mesh
+    data=1,model=2` (SD-v1-4, 256 px, CFG batch 2: 4 rows; the student at
+    16): flash [4, 1024, 4, 40] and the train batch's [8, 1024, 4, 40];
+    the bf16 and static int8 GEGLU 4096×320 → 2·640 with 640 → 320 down;
+    the W8A8 dense to_q 4096×320 → 160 and to_out 4096×160 → 320; the
+    fused MHA at x [16, 1024, 320], 4 heads of 40, wo [320, 160]. Each
+    against its plain version, timed, with its bound and the library
+    call where there is one."""
+    from polyp_tpu_torch.ops.flash_attention import (
+        flash_attention, reference_attention)
+    from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
+    from polyp_tpu_torch.ops.fused_mha import (
+        fused_mha_linear, reference_mha_linear)
+
+    randn = randn_on(dev, seed=1)
+    rows = []
+    for n in (4, 8):
+        q, k, v = (randn(n, 1024, TP_HEADS, 40) for _ in range(3))
+        rows.append(compare(
+            "flash_attention", lambda: flash_attention(q, k, v),
+            lambda: reference_attention(q, k, v),
+            reference_attention(q.float(), k.float(), v.float()),
+            f"TP [{n},1024,{TP_HEADS},40]",
+            bound(4 * n * TP_HEADS * 1024 * 1024 * 40, "bf16",
+                  nbytes(q, k, v) + nbytes(q)),
+            library_fn=lambda: sdpa(q, k, v)))
+    c, hidden, tokens = 320, 640, 4096
+    x, w1, b1, w2, b2 = geglu_case(randn, 4, c, 1024, hidden)
+    b2 = torch.zeros_like(b2)  # a rank's FF adds b2 after g
+    args = (x, w1, b1, w2, b2)
+    rows.append(compare(
+        "fused_geglu", lambda: fused_geglu(*args),
+        lambda: reference_geglu(*args),
+        reference_geglu(*(a.float() for a in args)),
+        f"TP [{tokens},{c}]x[{c},{2 * hidden}]",
+        bound(6 * tokens * c * hidden, "bf16",
+              2 * nbytes(x) + nbytes(w1, b1, w2, b2))))
+    rows.append(geglu_q8_row(randn, 4, c, 1024, True, others=False,
+                             hidden=hidden, shape_tag="TP "))
+    rows.append(dense_row(randn, tokens, c, c // 2, False, "TP to_q"))
+    rows.append(dense_row(randn, tokens, c // 2, c, False, "TP to_out"))
+    b, d = TP_STUDENT_BATCH, 40
+    hd = TP_HEADS * d
+    xm = randn(b, 1024, c)
+    w = (randn(hd, c, scale=c ** -0.5), randn(hd, c, scale=c ** -0.5),
+         randn(hd, c, scale=c ** -0.5), randn(c, hd, scale=hd ** -0.5))
+
+    def unfused():
+        import torch.nn.functional as F
+
+        def heads(t):
+            return t.view(b, 1024, TP_HEADS, d)
+
+        o = sdpa(heads(F.linear(xm, w[0])), heads(F.linear(xm, w[1])),
+                 heads(F.linear(xm, w[2])))
+        return F.linear(o.reshape(b, 1024, hd), w[3])
+
+    ops = 2 * b * 1024 * 4 * c * hd + 4 * b * TP_HEADS * 1024 * 1024 * d
+    rows.append(compare(
+        "fused_mha",
+        lambda: fused_mha_linear(xm, xm, *w, num_heads=TP_HEADS,
+                                 head_dim=d),
+        lambda: reference_mha_linear(xm, xm, *w, num_heads=TP_HEADS,
+                                     head_dim=d),
+        reference_mha_linear(xm.float(), xm.float(),
+                             *(t.float() for t in w), num_heads=TP_HEADS,
+                             head_dim=d),
+        f"TP x[{b},1024,{c}] {TP_HEADS}x{d} wo[{c},{hd}]",
+        bound(ops, "bf16", nbytes(xm, *w) + 2 * b * 1024 * c),
+        library_fn=unfused))
+    for row in rows:
+        row["tensor_parallel"] = "model=2 rank"
+    return rows
+
+
+def tensor_parallel_part(stack, dev: torch.device, card: str,
+                         tmp: Path) -> dict:
+    """Part (c) of the multi-GPU phase: the two `tp_rank`s spawned over
+    gloo on the card, held as the TP_* constants say: the sharded CFG
+    forward against this process's bf16 forward on the card and fp32
+    forward on the CPU; the LoRA steps against this process's (losses,
+    gathered trainables, cross-rank checksums, the gathered bundle loaded
+    here); and the kernel rows at the per-rank shapes."""
+    from polyp_tpu_torch.lora.surgery import load_lora
+    from polyp_tpu_torch.models import sd14_unet
+    from polyp_tpu_torch.parallel.launch import spawn_group
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves
+
+    start = time.perf_counter()
+    one = tp_lora_steps(stack, dev)
+    torch.cuda.empty_cache()
+    ranks = spawn_group(tp_rank, 2, (str(tmp), "cuda"), backend="gloo",
+                        device="cuda", share_device=True, timeout=600,
+                        spec="data=1,model=2")
+    ranks_s = time.perf_counter() - start
+    r0 = ranks[0]
+    lora = {
+        "losses": [r["lora"]["losses"] for r in ranks],
+        "one_process_losses": one["losses"],
+        "loss_rel": max(abs(g - w) / abs(w) for r in ranks
+                        for g, w in zip(r["lora"]["losses"],
+                                        one["losses"])),
+        "param_rel_l2": rel_l2(r0["lora"]["trainable"], one["trainable"]),
+        "update_rel_l2": rel_l2(r0["lora"]["trainable"] - r0["lora"]["start"],
+                                one["trainable"] - one["start"]),
+        "step_s": [r["lora"]["step_s"] for r in ranks],
+        "one_process_step_s": one["step_s"],
+        "split_leaves": r0["lora"]["split_leaves"]}
+    x, t, ctx = r0["forward"]["inputs"]
+    unet_cpu = sd14_unet(torch.float32, device="meta").to_empty(device="cpu")
+    unet_cpu.load_state_dict(stack.unet.state_dict())
+    with torch.no_grad():
+        one_forward = stack.unet(x.to(dev), t.to(dev), ctx.to(dev)).cpu()
+        fp32_forward = unet_cpu(x.float(), t, ctx.float())
+    del unet_cpu
+    forward_rel = [rel_l2(r["forward"]["output"], one_forward)
+                   for r in ranks]
+    fp32_rel = {"sharded": [rel_l2(r["forward"]["output"], fp32_forward)
+                            for r in ranks],
+                "one_process": rel_l2(one_forward, fp32_forward)}
+    loaded = tree_leaves(load_lora(tmp / "tp_bundle"))
+    lora["bundle_loads"] = torch.equal(torch.cat(
+        [t.float().reshape(-1) for t in loaded]), r0["lora"]["trainable"])
+    for key in ("whole_leaves_checksum", "gathered_checksum"):
+        lora[f"{key}_equal"] = len({r["lora"][key] for r in ranks}) == 1
+    out = {"ranks_s": ranks_s, "lora": lora, "card": card,
+           "forward_rel_l2": forward_rel, "forward_vs_fp32_rel_l2": fp32_rel,
+           **{k: [r[k] for r in ranks] for k in (
+               "stack_s", "mesh", "forward_launches", "forward_allreduces",
+               "sample_s", "sample_allreduce_s",
+               "sample_allreduces", "one_process_sample_s",
+               "image_levels", "int8", "student", "memory_gib")}}
+    print(f"[multigpu] (c) model=2 over two gloo ranks on cuda:0: CFG "
+          f"forward rel L2 {forward_rel} vs one process (tol "
+          f"{TP_FORWARD_REL_L2}), vs fp32 on the CPU {fp32_rel} (tol "
+          f"{REL_L2_TOLERANCE}); launches a rank's forward "
+          f"{out['forward_launches']}, all-reduces "
+          f"{out['forward_allreduces']}; 20 DDIM steps of 2 images "
+          f"{out['sample_s']} s (one process {out['one_process_sample_s']}"
+          f" s), all-reduce host s {out['sample_allreduce_s']} over "
+          f"{out['sample_allreduces']} calls; images |Δ| levels "
+          f"{out['image_levels']} (tol mean {TP_IMAGE_LEVELS}); GiB a "
+          f"rank holds and its sampling peaks {out['memory_gib']} on {card}",
+          flush=True)
+    for mode in ("w8a8_static", "w8a8"):
+        print(f"[multigpu] (c) {mode}: blocks vs the whole blocks "
+              f"{[r['int8'][mode]['block_max_rel_l2'] for r in ranks]} "
+              f"(tol {LAYER_REL_L2}); launches "
+              f"{[r['int8'][mode]['launches'] for r in ranks]} on {card}",
+              flush=True)
+    print(f"[multigpu] (c) fused-MHA student forward, batch "
+          f"{TP_STUDENT_BATCH}: launches "
+          f"{[r['student']['launches'] for r in ranks]}, heads and wo "
+          f"{r0['student']['heads'][:1]}, rel L2 "
+          f"{[r['student']['rel_l2'] for r in ranks]} (tol "
+          f"{TP_FORWARD_REL_L2}) on {card}", flush=True)
+    print(f"[multigpu] (c) LoRA (unfrozen, DreamBooth) batch 8 on model=2: "
+          f"loss {lora['loss_rel']:.2e} relative (tol {MG_LOSS_REL}), "
+          f"trainables rel L2 {lora['param_rel_l2']:.2e} (tol "
+          f"{MG_PARAM_REL_L2}; the update {lora['update_rel_l2']:.2e}); "
+          f"whole trainables equal across ranks "
+          f"{lora['whole_leaves_checksum_equal']}; bundle loads "
+          f"{lora['bundle_loads']}; s a step {lora['step_s']} vs "
+          f"{lora['one_process_step_s']} on {card}", flush=True)
+
+    failures = []
+    if not (max(forward_rel) <= TP_FORWARD_REL_L2
+            and max(fp32_rel["sharded"]) <= REL_L2_TOLERANCE):
+        failures.append(f"forward rel L2 {forward_rel}, vs fp32 {fp32_rel}")
+    for r in ranks:
+        if r["forward_launches"] != TP_FORWARD or \
+                r["forward_allreduces"] != TP_ALLREDUCES:
+            failures.append(f"forward launches {r['forward_launches']}, "
+                            f"all-reduces {r['forward_allreduces']}")
+        if max(r["image_levels"]["mean"]) > TP_IMAGE_LEVELS:
+            failures.append(f"images {r['image_levels']}")
+        for mode, got in r["int8"].items():
+            if not got["block_max_rel_l2"] <= LAYER_REL_L2:
+                failures.append(f"{mode} block {got['worst_block']} "
+                                f"{got['block_max_rel_l2']}")
+        static, dynamic = (r["int8"]["w8a8_static"]["launches"],
+                           r["int8"]["w8a8"]["launches"])
+        if static != TP_STATIC_FORWARD or dynamic != TP_DYNAMIC_FORWARD:
+            failures.append(f"int8 launches {static} {dynamic}")
+        st = r["student"]
+        if (st["launches"] != TP_STUDENT_FORWARD
+                or any(h != TP_HEADS for h, _ in st["heads"])
+                or not st["rel_l2"] <= TP_FORWARD_REL_L2):
+            failures.append(f"student {st}")
+    if not (lora["loss_rel"] <= MG_LOSS_REL
+            and lora["param_rel_l2"] <= MG_PARAM_REL_L2
+            and lora["bundle_loads"] and lora["split_leaves"] > 0
+            and lora["whole_leaves_checksum_equal"]
+            and lora["gathered_checksum_equal"]):
+        failures.append(f"LoRA {lora}")
+    if failures:
+        raise AssertionError(f"tensor parallelism: {failures}")
+    with torch.no_grad():
+        out["kernel_checks"] = tp_kernel_rows(dev)
+    out["part_s"] = time.perf_counter() - start
+    print(f"[multigpu] (c) {out['part_s']:.1f} s in all (the ranks "
+          f"{ranks_s:.1f} s, their stacks {out['stack_s']} s) on {card}",
+          flush=True)
+    out["launches_per_rank_forward"] = {
+        **r0["forward_launches"],
+        **{k: v for k, v in r0["int8"]["w8a8_static"]["launches"].items()
+           if k in ("fused_w8a8_dense", "fused_geglu_w8a8",
+                    "fused_group_norm_q8")},
+        "fused_geglu_w8a8_pt": r0["int8"]["w8a8"]["launches"][
+            "fused_geglu_w8a8_pt"],
+        "fused_w8a8_dense_dynamic": r0["int8"]["w8a8"]["launches"][
+            "fused_w8a8_dense"],
+        "fused_mha": r0["student"]["launches"]["fused_mha"]}
+    return out
+
+
 def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
     """The data-parallel group on the one card. (a) A world of one over
     NCCL: two data-parallel LoRA steps at full width, bit-equal to the
@@ -3756,10 +4303,12 @@ def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
     gloo, spawned (the kernels are built): each broadcasts and checks the
     stack, takes two steps on its half of each batch (losses, trainables,
     cross-rank checksums and launches a step held as MG_* says) and fans
-    the quota out (the files against one process's); then
-    dryrun_multichip(2) at its tiny shapes, and the two tools' reports
-    (tools/profile_census.py bf16, 10 iterations; tools/roofline.py at
-    batch 2) under chiprun_out/."""
+    the quota out (the files against one process's). (c) Tensor
+    parallelism, `--mesh data=1,model=2`, two ranks sharing the card over
+    gloo (`tensor_parallel_part`). Then dryrun_multichip(4) at its tiny
+    shapes on the reference's data=2 × model=2 mesh, and the two tools'
+    reports (tools/profile_census.py bf16, 10 iterations;
+    tools/roofline.py at batch 2) in the output directory."""
     import numpy as np
     import torch.distributed as dist
 
@@ -3875,9 +4424,15 @@ def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
     if any(x["mean_abs"] > MG_FAN_OUT_MEAN_LEVELS for x in levels):
         raise AssertionError(f"fan-out images differ: {levels}")
 
-    out["dryrun"] = dryrun_multichip(2, device="cuda", timeout=600)
-    print(f"[multigpu] dryrun_multichip(2) on cuda:0 over gloo: phases vs "
-          f"one process {out['dryrun']['errors']}", flush=True)
+    lap("gloo_checks")
+    out["tensor_parallel"] = tensor_parallel_part(stack, dev, card, tmp)
+    lap("tensor_parallel")
+
+    out["dryrun"] = dryrun_multichip(4, device="cuda", timeout=600)
+    print(f"[multigpu] dryrun_multichip(4) on cuda:0 over gloo, mesh "
+          f"{out['dryrun']['mesh']}: phases vs one process "
+          f"{out['dryrun']['errors']} (tolerances "
+          f"{out['dryrun']['tolerances']})", flush=True)
     lap("dryrun")
 
     reports = ROOT / "chiprun_out"
@@ -3904,6 +4459,38 @@ def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
     return out
 
 
+def kernel_counters():
+    """(reset, read) of every kernel's launch count: each wrapper's
+    counter, read after the path that runs it; the GN epilogue has a
+    counter of its own."""
+    from polyp_tpu_torch.ops.flash_attention import flash_attention
+    from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
+    from polyp_tpu_torch.ops.fused_geglu import (
+        fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt)
+    from polyp_tpu_torch.ops.fused_gn import fused_group_norm
+    from polyp_tpu_torch.ops.fused_mha import fused_mha
+
+    counters = {
+        "flash_attention": (flash_attention, "launches"),
+        "fused_geglu": (fused_geglu, "launches"),
+        "fused_group_norm": (fused_group_norm, "launches"),
+        "fused_w8a8_dense": (fused_w8a8_dense, "launches"),
+        "fused_geglu_w8a8": (fused_geglu_w8a8, "launches"),
+        "fused_geglu_w8a8_pt": (fused_geglu_w8a8_pt, "launches"),
+        "fused_group_norm_q8": (fused_group_norm, "q8_launches"),
+        "fused_mha": (fused_mha, "launches")}
+
+    def reset_counts():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read_counts():
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+
+    return reset_counts, read_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3913,14 +4500,8 @@ def main() -> int:
     from polyp_tpu_torch import _build
     from polyp_tpu_torch.cli.common import load_sd_stack
     from polyp_tpu_torch.diffusion import DiffusionSchedule
-    from polyp_tpu_torch.ops.flash_attention import flash_attention
-    from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
-    from polyp_tpu_torch.ops.fused_geglu import (
-        fused_geglu, fused_geglu_w8a8, fused_geglu_w8a8_pt)
-    from polyp_tpu_torch.ops.fused_gn import fused_group_norm
     from polyp_tpu_torch.cli.distill_sd import make_student_sampler
     from polyp_tpu_torch.models.tiny_decoder import load_tiny_decoder
-    from polyp_tpu_torch.ops.fused_mha import fused_mha
     from polyp_tpu_torch.pipeline import StableDiffusionSampler
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3964,25 +4545,7 @@ def main() -> int:
         print(f"[regs] {name}: {res}", flush=True)
     phase("card and build")
 
-    # each row's launch count: its wrapper's counter, read after the path
-    # that runs it; the GN epilogue has a counter of its own
-    counters = {
-        "flash_attention": (flash_attention, "launches"),
-        "fused_geglu": (fused_geglu, "launches"),
-        "fused_group_norm": (fused_group_norm, "launches"),
-        "fused_w8a8_dense": (fused_w8a8_dense, "launches"),
-        "fused_geglu_w8a8": (fused_geglu_w8a8, "launches"),
-        "fused_geglu_w8a8_pt": (fused_geglu_w8a8_pt, "launches"),
-        "fused_group_norm_q8": (fused_group_norm, "q8_launches"),
-        "fused_mha": (fused_mha, "launches")}
-
-    def reset_counts():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def read_counts():
-        return {name: getattr(fn, attr)
-                for name, (fn, attr) in counters.items()}
+    reset_counts, read_counts = kernel_counters()
 
     with torch.no_grad():
         rows = check_kernels(dev)
@@ -4233,7 +4796,9 @@ def main() -> int:
                       "polyp_tpu/ops/fused_mha.py:241")}
     rows += (loop["kernel_checks"] + scratch["kernel_checks"]
              + sd_clis["kernel_checks"] + distilling["kernel_checks"]
-             + gating["kernel_checks"])
+             + gating["kernel_checks"]
+             + multigpu["tensor_parallel"]["kernel_checks"])
+    per_tp_forward = multigpu["tensor_parallel"]["launches_per_rank_forward"]
     table = []
     per_train_step = training["default"]["launches_per_step"]
     per_loop_class = {c: v["launches"] for c, v in loop["classes"].items()}
@@ -4259,7 +4824,8 @@ def main() -> int:
                           "sd": SD_DISTILL_STEP[name],
                           "sd_reparam": REPARAM_STEP[name],
                           "scratch": SCRATCH_DISTILL_STEP[name],
-                          "vae": VAE_DISTILL_STEP[name]}})
+                          "vae": VAE_DISTILL_STEP[name]},
+                      "launches_per_tp_rank_forward": per_tp_forward[name]})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,

@@ -5,7 +5,9 @@ layout `DataLayout`, `add_common_flags`, `get_mesh_from`,
 The CLIs run on the card unless `--device cpu` is given. `--mesh data=N`
 (or `data=-1`) runs a training CLI data-parallel over the ranks of a
 `torchrun --nproc_per_node=N` launch, one process a card
-(parallel/mesh.py); without it a CLI runs on one device.
+(parallel/mesh.py); `--mesh data=N,model=k` over N·k ranks adds Megatron
+tensor parallelism on the model axis (parallel/sharding.py) to the SD
+LoRA training and sampling; without it a CLI runs on one device.
 
 The stack comes from a local diffusers checkpoint (`pretrained_dir`,
 models/importers.py::load_sd_checkpoint) or from a seeded random
@@ -87,13 +89,13 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
                              "attention/FF kernels); 'data=-1' = all devices. "
                              "Default: single-device, like the reference "
                              "(classification.sh:8, gres gpu:1). The port "
-                             "runs the 'data' axis over the ranks of a "
-                             "torchrun launch (one process a card); a "
-                             "'model' axis above 1 is not ported yet")
+                             "runs the mesh over the ranks of a torchrun "
+                             "launch, one process a card, data × model "
+                             "ranks (rank = d·model + m)")
 
 
 def get_mesh_from(args):
-    """The data-parallel mesh named by --mesh (None when unset): starts the
+    """The mesh named by --mesh (None when unset): starts the
     torchrun launch's process group first (parallel/mesh.py::
     init_distributed, nccl on the card, gloo on the CPU), so 'data=-1'
     spans every rank. On the card each rank takes card LOCAL_RANK, and
@@ -107,8 +109,8 @@ def get_mesh_from(args):
             args.device = f"cuda:{torch.cuda.current_device()}"
     mesh = mesh_from_spec(spec)
     if mesh is not None:
-        print(f"[polyp-tpu-torch] mesh: {mesh.shape} over {mesh.size} "
-              f"ranks (rank {mesh.rank})")
+        print(f"[polyp-tpu-torch] mesh: {mesh.shape} over "
+              f"{mesh.size * mesh.model_size} ranks (rank {mesh.world_rank})")
     return mesh
 
 

@@ -293,8 +293,8 @@ def load_student_sampler(stack, output_dir: str | Path, cls: str, *,
                          quantize: str | None = None,
                          quant_fp_head: int = 0, quant_fp_tail: int = 0,
                          quant_promoted: bool = False,
-                         decoder: nn.Module | None = None
-                         ) -> StableDiffusionSampler:
+                         decoder: nn.Module | None = None,
+                         mesh=None) -> StableDiffusionSampler:
     """A polyp-distill-sd-torch output (`models/distilled_{cls}` and its
     meta.json) as a ready sampler over `stack`'s VAE, text encoder and
     tokenizer: the serving path for students (polyp-serve-torch
@@ -306,7 +306,8 @@ def load_student_sampler(stack, output_dir: str | Path, cls: str, *,
     `quant_promoted` (a DiffusionConfig's, which expanded "promoted" with
     the full-trajectory verdict), resolves to the distilled verdict
     (reference :257-265): a full-trajectory bf16 head would cover a
-    4-8-step grid and drop the quantization (pipeline._precision_split)."""
+    4-8-step grid and drop the quantization (pipeline._precision_split).
+    `mesh`: as `make_student_sampler`'s."""
     from polyp_tpu_torch.ops.quant import resolve_quantize_arg
     from polyp_tpu_torch.utils.checkpoint import load_pytree
 
@@ -324,7 +325,7 @@ def load_student_sampler(stack, output_dir: str | Path, cls: str, *,
         prediction_type=meta["prediction_type"], image_size=image_size,
         num_train_timesteps=meta["num_train_timesteps"], quantize=quantize,
         quant_fp_head=quant_fp_head, quant_fp_tail=quant_fp_tail,
-        decoder=decoder)
+        decoder=decoder, mesh=mesh)
     cond = models / f"distilled_{cls}_cond.npy"
     if cond.exists():
         sampler.register_prompt_embedding(
@@ -346,8 +347,9 @@ def make_student_sampler(stack, unet: nn.Module, *, num_steps: int,
     encoder and tokenizer of `stack` (cli/common.py::SDStack): trailing
     DDIM at `num_steps`, `guidance_scale=None`, the SD-v1 schedule with the
     student's `prediction_type` (reference :284-303). `decoder`: a
-    TinyDecoder replacing the VAE decode; `mesh`: fan batches out over a
-    data-parallel group."""
+    TinyDecoder replacing the VAE decode; `mesh`: fan batches out over its
+    data group and, with a model axis, shard the student over its model
+    group (a copy: `unet` stays whole)."""
     return StableDiffusionSampler(
         unet, stack.vae, stack.text, stack.tokenizer,
         sd_schedule(num_train_timesteps, prediction_type),

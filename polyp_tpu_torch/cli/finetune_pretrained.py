@@ -1,7 +1,9 @@
 """Pretrained SD latent fine-tune CLI: the twin of
 polyp_tpu/cli/finetune_pretrained.py (the reference's
 train_from_pretrained.py); `--mesh data=N` under torchrun trains and
-samples data-parallel over N cards, rank 0 writing.
+samples data-parallel over N cards, rank 0 writing; `--mesh
+data=N,model=k` adds tensor parallelism over k cards, as the reference
+shards the frozen UNet and CLIP (:73-78).
 
 LoRA r=4 α=4 (no dropout) on the attention projections, 256 px, over
 every training image with the fixed prompt "a realistic photo of colon
@@ -34,7 +36,7 @@ from polyp_tpu_torch.lora.surgery import LoRAConfig, init_lora, save_lora
 from polyp_tpu_torch.parallel import is_writer, replicate_to
 from polyp_tpu_torch.pipeline import generate_to_dir
 from polyp_tpu_torch.train.sd_finetune import (
-    create_sd_train_state, init_trainable, train_sd_lora)
+    create_sd_train_state, init_trainable, train_sd_lora, trainable_layout)
 from polyp_tpu_torch.utils.rng import stream_generator
 
 PROMPT = "a realistic photo of colon polyp"  # the reference's :169
@@ -88,10 +90,10 @@ def main(argv=None) -> dict:
     lcfg = LoRAConfig(cfg.lora_rank, cfg.lora_alpha, 0.0, cfg.modules_lora)
     adapter = init_lora(stack.unet, lcfg, stream_generator(
         cfg.seed, "lora_init", 0, device=device))
-    trainable = init_trainable(adapter)
-    state = create_sd_train_state(cfg, trainable)
-    replicate_to(state.trainable, mesh)
+    trainable = replicate_to(init_trainable(adapter), mesh)
     frozen = make_components(stack, trainable)
+    state = create_sd_train_state(
+        cfg, trainable, trainable_layout(trainable, frozen, mesh), mesh)
     schedule = DiffusionSchedule.create(cfg.num_train_timesteps,
                                         "scaled_linear", 0.00085, 0.012)
     prompt_ids = np.asarray(stack.tokenizer([PROMPT]))
@@ -102,13 +104,14 @@ def main(argv=None) -> dict:
     print_banner("Starting training")
     with tracker.start_run(run_name=Path(cfg.output_dir).name):
         state, result = train_sd_lora(
-            cfg, state, frozen, schedule, loader, prompt_ids, lcfg,
-            log=lambda k, v, s: tracker.log_metric(k, v, s))
+            cfg, state, frozen.on_mesh(mesh), schedule, loader, prompt_ids,
+            lcfg, log=lambda k, v, s: tracker.log_metric(k, v, s))
 
         out = Path(cfg.output_dir)
+        trained = state.whole_trainable()
         if is_writer(mesh):
-            save_lora(out / "lora_weights", state.trainable["unet_lora"])
-        merged = merged_stack(stack, frozen, state.trainable, lcfg)
+            save_lora(out / "lora_weights", trained["unet_lora"])
+        merged = merged_stack(stack, frozen, trained, lcfg)
         sampler = make_sampler(merged, cfg, mesh=mesh)
         epoch_dir = out / "samples" / f"{cfg.num_epochs - 1:04d}"
         generate_to_dir(sampler.for_prompt(PROMPT), cfg.eval_batch_size,

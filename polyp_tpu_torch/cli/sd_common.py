@@ -45,7 +45,7 @@ from polyp_tpu_torch.train.dreambooth import (
     embed_with_special_rows, resize_token_embeddings, resume_prompt)
 from polyp_tpu_torch.train.sd_finetune import (
     TOKEN_TABLE, SDComponents, create_sd_train_state, init_proj_params,
-    init_trainable, module_dtype, train_sd_lora)
+    init_trainable, module_dtype, train_sd_lora, trainable_layout)
 from polyp_tpu_torch.utils.checkpoint import tree_map
 from polyp_tpu_torch.utils.rng import stream_generator
 
@@ -333,13 +333,13 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
             "target_modules_lora": list(cfg.modules_lora),
         })
 
-    trainable = init_trainable(adapter, text_lora, proj, special_rows,
-                               unfrozen)
-    state = create_sd_train_state(cfg, trainable)
-    pmesh.replicate_to(state.trainable, mesh)
-    if not pmesh.replicated(state.trainable, mesh):
-        raise RuntimeError("the ranks' trainables differ after the broadcast")
+    trainable = pmesh.replicate_to(init_trainable(
+        adapter, text_lora, proj, special_rows, unfrozen), mesh)
     frozen = make_components(stack, trainable, token_table=table_grown)
+    state = create_sd_train_state(
+        cfg, trainable, trainable_layout(trainable, frozen, mesh), mesh)
+    if not pmesh.replicated(state.whole_trainable(), mesh):
+        raise RuntimeError("the ranks' trainables differ after the broadcast")
     schedule = DiffusionSchedule.create(cfg.num_train_timesteps,
                                         "scaled_linear", 0.00085, 0.012)
     checkpointer = None
@@ -349,7 +349,7 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
                                          every=ckpt_every, mesh=mesh)
     start = time.perf_counter()
     state, result = train_sd_lora(
-        cfg, state, frozen, schedule, loader,
+        cfg, state, frozen.on_mesh(mesh), schedule, loader,
         np.asarray(stack.tokenizer([prompt])), lcfg, text_lora_cfg,
         special_ids,
         log=((lambda k, v, s: tracker.log_metric(f"{k}_{cls}", v, s))
@@ -360,14 +360,15 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
 
     # the whole trainable bundle, with the DreamBooth token's id
     save_path = folder / f"lora_{cls}"
-    bundle = dict(state.trainable)
+    trained = state.whole_trainable()
+    bundle = dict(trained)
     if special_ids is not None:
         bundle["special_ids"] = special_ids
     if writer:
         save_lora(save_path, bundle)
     pmesh.barrier(mesh)
-    merged = merged_stack(stack, frozen, state.trainable, lcfg,
-                          text_lora_cfg, special_ids)
+    merged = merged_stack(stack, frozen, trained, lcfg, text_lora_cfg,
+                          special_ids)
     n_generate = quota if generate is None else generate
     generate_s = 0.0
     if n_generate > 0:

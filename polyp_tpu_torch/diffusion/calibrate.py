@@ -8,6 +8,13 @@ the scale of each timestep (tables, interpolated between the points).
 The result is keyed by the port's module names, so the disk cache lives
 under a directory of its own (`default_scales_cache`) and never reads the
 reference's, whose keys differ (importers.scales_from_jax maps them).
+
+A UNet sharded over a mesh's model axis (parallel/sharding.py) calibrates
+as one: its row-parallel layers record the model group's amax (ops/
+quant.py::record_amax), so the tables are the one-process tables to
+rounding. The sampler calibrates its whole UNet instead, before sharding,
+which gives them bit for bit, a cache key every rank shares, and no
+collective to wait on.
 """
 
 from __future__ import annotations

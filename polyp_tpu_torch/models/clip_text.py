@@ -12,6 +12,12 @@ table (a token added to a shared tokenizer for another model, such as a
 DreamBooth class's): on the card an embedding lookup past its table is a
 device-side assert that ends the process, where the reference's lookup
 clamps the id silently.
+
+Tensor parallelism (parallel/sharding.py) splits `CLIPAttention` (q/k/v_proj
+column-parallel, out_proj row-parallel) and `CLIPMLP` (fc1 column, fc2 row)
+as the UNet's blocks are split (models/unet_blocks.py): f at the block's
+input, g after the row-parallel product, the bias after g. The LoRA
+trainer shards CLIP; the sampler keeps it whole, as the reference does.
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from polyp_tpu_torch.models.unet_blocks import LayerNorm
+from polyp_tpu_torch.models.unet_blocks import LayerNorm, row_parallel
 from polyp_tpu_torch.ops import dot_product_attention
+from polyp_tpu_torch.parallel.mesh import copy_to_model
 
 
 @dataclass(frozen=True)
@@ -49,6 +56,8 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 class CLIPAttention(nn.Module):
 
+    tp = None  # the mesh, when shard_params split this block
+
     def __init__(self, width: int, heads: int, dtype, device):
         super().__init__()
         self.heads = heads
@@ -60,15 +69,21 @@ class CLIPAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, c = x.shape
-        shape = (n, t, self.heads, c // self.heads)
+        d = c // self.heads
+        heads = self.q_proj.weight.shape[0] // d  # this rank's
+        x = copy_to_model(x, self.tp)
+        shape = (n, t, heads, d)
         out = dot_product_attention(self.q_proj(x).view(shape),
                                     self.k_proj(x).view(shape),
                                     self.v_proj(x).view(shape),
                                     is_causal=True)
-        return self.out_proj(out.reshape(n, t, c))
+        return row_parallel(self.out_proj, out.reshape(n, t, heads * d),
+                            self.tp)
 
 
 class CLIPMLP(nn.Module):
+
+    tp = None  # the mesh, when shard_params split this block
 
     def __init__(self, width: int, hidden: int, dtype, device):
         super().__init__()
@@ -76,7 +91,8 @@ class CLIPMLP(nn.Module):
         self.fc2 = nn.Linear(hidden, width, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(quick_gelu(self.fc1(x)))
+        x = copy_to_model(x, self.tp)
+        return row_parallel(self.fc2, quick_gelu(self.fc1(x)), self.tp)
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -25,6 +25,17 @@ w8a8_static a GroupNorm whose consumer is a quantized conv emits int8
 itself (producer-side handoff), and FeedForward takes the static int8
 GEGLU kernel; under dynamic w8a8 it takes the per-token one. Calibration
 records each quantizable layer's input amax.
+
+Tensor parallelism (parallel/sharding.py): an `Attention` or
+`FeedForward` that `shard_params` split holds the mesh as `tp` and its
+layers' weights as this rank's slices. It runs heads/k heads (or H/k
+hidden units) through the same kernels, passes its input through
+Megatron's f (`parallel.copy_to_model`), sums the row-parallel partial
+product over the model group (g, `parallel.reduce_from_model`) and only
+then adds the output bias, once. A row-parallel `QLinear` (`row_tp`) takes
+its int8 weight and dynamic activation scales as the model group's max,
+and records the group's amax under calibration, so every scale is the
+one-process scale. Layers keep `in_features` / `out_features` whole.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from polyp_tpu_torch.ops.fused_geglu import (
 )
 from polyp_tpu_torch.ops.fused_gn import fused_group_norm
 from polyp_tpu_torch.ops.fused_mha import fused_mha_linear
+from polyp_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 
 def sinusoidal_time_embedding(timesteps: torch.Tensor, dim: int,
@@ -128,21 +140,39 @@ class LayerNorm(nn.LayerNorm):
 class QLinear(nn.Linear):
     """nn.Linear that honours the quantization mode: int8 through the W8A8
     dense kernel (static or dynamic activation scale) when the mode
-    quantizes its layer, its input amax recorded under calibration."""
+    quantizes its layer, its input amax recorded under calibration.
+    `bias=False` in a call leaves the bias out (a row-parallel layer adds
+    it after the model group's sum)."""
 
     path: str | None = None
+    row_tp = None  # the mesh, when this layer is row-parallel
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
         cin, cout = self.in_features, self.out_features
+        b = self.bias if bias else None
         if quant.calibrating() and min(cin, cout) >= quant.MIN_QUANT_CHANNELS:
-            quant.record_amax(self.path, x)
+            quant.record_amax(self.path, x, self.row_tp)
         elif quant.quantizable(cin, cout, self.path):
             scale = quant.static_scale(self.path, x.device)
             return fused_w8a8_dense(
-                x, *quant.module_weight_q8(self), self.bias,
-                quant.dynamic_scale(x) if scale is None else scale,
-                out_dtype=self.weight.dtype)
-        return super().forward(x)
+                x, *quant.module_weight_q8(self), b,
+                quant.dynamic_scale(x, self.row_tp) if scale is None
+                else scale, out_dtype=self.weight.dtype)
+        return F.linear(x, self.weight, b)
+
+
+def row_parallel(linear: nn.Linear, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel layer's output: without a mesh `linear(x)`; under
+    one, this rank's partial product summed over the model group (g), then
+    the whole bias, once."""
+    if tp is None:
+        return linear(x)
+    if isinstance(linear, QLinear):
+        y = linear(x, bias=False)
+    else:
+        y = F.linear(x, linear.weight)
+    y = reduce_from_model(y, tp)
+    return y if linear.bias is None else y + linear.bias.to(y.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -281,7 +311,11 @@ class Attention(nn.Module):
     attention, output projection — in the fused MHA kernel on the modules'
     own [out, in] weights, and adds the output bias (the reference's fused
     branch, unet_blocks.py:297-303); any other call runs the projections
-    and ops.dot_product_attention."""
+    and ops.dot_product_attention. Under tensor parallelism (`tp`) each
+    path runs this rank's heads/k heads and g sums the out-projection's
+    partial products (module docstring)."""
+
+    tp = None  # the mesh, when shard_params split this block
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: int | None = None, qkv_bias: bool = False,
@@ -299,21 +333,24 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor,
                 context: torch.Tensor | None = None) -> torch.Tensor:
         dtype = self.to_q.weight.dtype
-        x = x.to(dtype)
-        ctx = x if context is None else context.to(dtype)
-        if use_fused_mha(x, ctx, self.heads, self.head_dim,
+        x = copy_to_model(x.to(dtype), self.tp)
+        ctx = x if context is None else copy_to_model(context.to(dtype),
+                                                      self.tp)
+        heads = self.to_q.weight.shape[0] // self.head_dim  # this rank's
+        out = self.to_out[0]
+        if use_fused_mha(x, ctx, heads, self.head_dim,
                          self.to_q.bias is not None, is_self=context is None):
-            out = self.to_out[0]
-            return fused_mha_linear(
+            y = fused_mha_linear(
                 x, ctx, self.to_q.weight, self.to_k.weight, self.to_v.weight,
-                out.weight, num_heads=self.heads,
-                head_dim=self.head_dim) + out.bias.to(dtype)
+                out.weight, num_heads=heads, head_dim=self.head_dim)
+            return reduce_from_model(y, self.tp) + out.bias.to(dtype)
         n, tq, tk = x.shape[0], x.shape[1], ctx.shape[1]
-        q = self.to_q(x).view(n, tq, self.heads, self.head_dim)
-        k = self.to_k(ctx).view(n, tk, self.heads, self.head_dim)
-        v = self.to_v(ctx).view(n, tk, self.heads, self.head_dim)
-        out = dot_product_attention(q, k, v)
-        return self.to_out[0](out.reshape(n, tq, self.heads * self.head_dim))
+        q = self.to_q(x).view(n, tq, heads, self.head_dim)
+        k = self.to_k(ctx).view(n, tk, heads, self.head_dim)
+        v = self.to_v(ctx).view(n, tk, heads, self.head_dim)
+        o = dot_product_attention(q, k, v)
+        return row_parallel(out, o.reshape(n, tq, heads * self.head_dim),
+                            self.tp)
 
 
 class SpatialSelfAttention(Attention):
@@ -350,7 +387,19 @@ class FeedForward(nn.Module):
     int8 GEGLU kernel and dynamic w8a8 the per-token one; anything else
     (calibration, a layer left out) runs the two QLinears one by one. The
     kernels mask any token count, so the mid-block FF at 64 tokens takes
-    them too."""
+    them too.
+
+    Under tensor parallelism (`tp`) the kernels take this rank's H/k
+    hidden units (W1 as [a_m; gate_m]) and a zero b2; g sums the partial
+    outputs and b2 is added once after it. Dynamic w8a8 is the exception:
+    the per-token GEGLU quantizes h in groups of `block_h(C, H)` units
+    that would straddle the ranks' slices (at C = 640, k = 2 a group of
+    512 across 1,280 units), so under k > 1 its FF runs the two QLinears
+    through the W8A8 dense kernel, with the model group's max as the
+    second one's scale: the per-layer path the reference runs under a
+    mesh (polyp_tpu/models/unet_blocks.py:391)."""
+
+    tp = None  # the mesh, when shard_params split this block
 
     def __init__(self, dim: int, mult: int = 4,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -362,23 +411,30 @@ class FeedForward(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        proj, out = self.net[0].proj, self.net[2]
-        x = x.to(proj.weight.dtype)
+        proj, out, tp = self.net[0].proj, self.net[2], self.tp
+        x = copy_to_model(x.to(proj.weight.dtype), tp)
+        # under tp the kernels add a zero b2; the whole b2 comes after g
+        b2 = out.bias if tp is None else torch.zeros_like(out.bias)
         mode = quant.quantization()
         if mode is None:
             fn = reference_geglu if torch.is_grad_enabled() else fused_geglu
-            return fn(x, proj.weight, proj.bias, out.weight, out.bias)
-        if all(quant.quantizable(m.in_features, m.out_features, m.path)
-               for m in (proj, out)):
+            y = fn(x, proj.weight, proj.bias, out.weight, b2)
+        elif all(quant.quantizable(m.in_features, m.out_features, m.path)
+                 for m in (proj, out)) and not (mode == "w8a8" and tp):
             weights = (*quant.module_weight_q8(proj), proj.bias,
-                       *quant.module_weight_q8(out), out.bias)
+                       *quant.module_weight_q8(out), b2)
             if mode == "w8a8":
-                return fused_geglu_w8a8_pt(x, *weights)
-            return fused_geglu_w8a8(
-                x, *weights, quant.static_scale(proj.path, x.device),
-                quant.static_scale(out.path, x.device))
-        a, gate = proj(x).chunk(2, dim=-1)
-        return out(a * F.gelu(gate))
+                y = fused_geglu_w8a8_pt(x, *weights)
+            else:
+                y = fused_geglu_w8a8(
+                    x, *weights, quant.static_scale(proj.path, x.device),
+                    quant.static_scale(out.path, x.device))
+        else:
+            a, gate = proj(x).chunk(2, dim=-1)
+            return row_parallel(out, a * F.gelu(gate), tp)
+        if tp is None:
+            return y
+        return reduce_from_model(y, tp) + out.bias.to(y.dtype)
 
 
 class BasicTransformerBlock(nn.Module):

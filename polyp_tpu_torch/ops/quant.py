@@ -28,6 +28,12 @@ Weights are quantized once per module and cached (`module_weight_q8`),
 re-quantized only when the weight changes — the port's form of XLA
 hoisting the loop-invariant weight quantize out of each sampling scan.
 
+Under tensor parallelism a row-parallel layer holds a slice of its input
+features, so each of its amaxes (a weight row's, a dynamic activation's, a
+calibration record's) is taken over the slice and then as the model
+group's max (`parallel.model_max`): the scales, and so the codes, are the
+one-process ones.
+
 `--quantize promoted` resolves through `promoted_config` /
 `resolve_quantize_arg` (reference :85-134) to the verdict in
 `quant_gate.json` beside this module, which the port measures on its own
@@ -49,6 +55,8 @@ from typing import Any, Literal, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from polyp_tpu_torch.parallel.mesh import model_max
 
 Mode = Literal["w8a8", "w8a8_static", "w8a8_calib"] | None
 
@@ -250,12 +258,13 @@ def static_scale(path: str | None,
     return at_t[row]
 
 
-def record_amax(path: str | None, x: torch.Tensor) -> None:
-    """Calibration hook: fold max|x| into the region's stats for `path`."""
+def record_amax(path: str | None, x: torch.Tensor, mesh=None) -> None:
+    """Calibration hook: fold max|x| into the region's stats for `path`
+    (the model group's max when `mesh` is given: x is a slice)."""
     state = _STATE.get()
     if state is None or path is None:
         return
-    amax = x.detach().abs().amax().float()
+    amax = model_max(x.detach().abs().amax().float(), mesh)
     prev = state.stats.get(path)
     state.stats[path] = amax if prev is None else torch.maximum(prev, amax)
 
@@ -302,24 +311,28 @@ def _inference_only(*tensors: torch.Tensor | None) -> None:
             "run under torch.no_grad()")
 
 
-def quantize_weight(w: torch.Tensor, reduce_dims: Sequence[int]
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, reduce_dims: Sequence[int],
+                    mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-output-channel int8 quantization. `reduce_dims` are the
     non-output dims ((1,) for a torch Linear [out, in], (1, 2, 3) for an
     OIHW conv). Returns (int8 weights, fp32 scales with the reduced dims
-    kept)."""
+    kept). `mesh`: `w` is a row-parallel slice of its input features, and
+    each row's amax is the model group's."""
     _inference_only(w)
     w32 = w.float()
-    amax = w32.abs().amax(dim=tuple(reduce_dims), keepdim=True)
+    amax = model_max(w32.abs().amax(dim=tuple(reduce_dims), keepdim=True),
+                     mesh)
     scale = amax.clamp(min=1e-12) / 127.0
     wq = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return wq, scale
 
 
-def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
+def dynamic_scale(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The per-tensor scale of dynamic w8a8: max(|x|max, 1e-12) / 127, as a
-    0-d fp32 tensor on x's device (no host sync)."""
-    return x.detach().abs().amax().float().clamp(min=1e-12) / 127.0
+    0-d fp32 tensor on x's device (no host sync); the model group's max
+    when `mesh` is given (x is a slice)."""
+    amax = model_max(x.detach().abs().amax().float(), mesh)
+    return amax.clamp(min=1e-12) / 127.0
 
 
 def quantize_activation(x: torch.Tensor, scale: torch.Tensor | None = None
@@ -333,11 +346,12 @@ def quantize_activation(x: torch.Tensor, scale: torch.Tensor | None = None
     return xq.to(torch.int8), scale
 
 
-def weight_q8_matrix(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def weight_q8_matrix(w: torch.Tensor, mesh=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """`quantize_weight` of a Linear [out, in] or OIHW conv weight, as a
     matrix [out, in·kh·kw] (conv columns ordered (kh, kw, in), the patch
     order of `conv_patches`) and [out] fp32 scales."""
-    wq, sw = quantize_weight(w, tuple(range(1, w.ndim)))
+    wq, sw = quantize_weight(w, tuple(range(1, w.ndim)), mesh)
     if w.ndim == 4:
         wq = wq.permute(0, 2, 3, 1)
     return wq.reshape(w.shape[0], -1).contiguous(), sw.reshape(-1)
@@ -346,12 +360,14 @@ def weight_q8_matrix(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def module_weight_q8(module: torch.nn.Module
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """`weight_q8_matrix` of a module's weight, computed once and reused
-    until the weight changes (its storage or version)."""
+    until the weight changes (its storage or version); a row-parallel
+    layer's scales are its model group's (`row_tp`)."""
     w = module.weight
     key = (w.data_ptr(), w._version, w.device, w.dtype)
     hit = getattr(module, "_q8_weight", None)
     if hit is None or hit[0] != key:
-        hit = module._q8_weight = (key, *weight_q8_matrix(w))
+        hit = module._q8_weight = (key, *weight_q8_matrix(
+            w, getattr(module, "row_tp", None)))
     return hit[1], hit[2]
 
 

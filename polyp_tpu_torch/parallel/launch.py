@@ -1,6 +1,7 @@
-"""Spawn a data-parallel group in this process's children: `spawn_group(fn,
+"""Spawn a process group in this process's children: `spawn_group(fn,
 world_size)` runs `fn(mesh, *args)` on each of `world_size` ranks and
-returns their results in rank order.
+returns their results in rank order. The mesh is the data mesh over every
+rank, or the one `spec` names ("data=2,model=2", parallel/mesh.py).
 
 The ranks are started by multiprocessing's spawn method (never fork: a
 parent that has touched CUDA cannot fork a child that uses it), meet over a
@@ -41,17 +42,19 @@ def _to_cpu(obj: Any) -> Any:
 
 def _rank_main(fn: Callable, rank: int, world_size: int, store: str,
                backend: str, device: str, share_device: bool, out: str,
-               threads: int, args: tuple) -> None:
+               threads: int, args: tuple, spec: str | None) -> None:
     import torch.distributed as dist
 
-    from polyp_tpu_torch.parallel.mesh import current_mesh, init_group
+    from polyp_tpu_torch.parallel.mesh import (
+        current_mesh, init_group, mesh_from_spec)
 
     torch.set_num_threads(threads)
     try:
         init_group(backend, rank, world_size, f"file://{store}", device,
                    local_rank=0 if share_device else rank)
         try:
-            result = fn(current_mesh(), *args)
+            mesh = mesh_from_spec(spec) if spec else current_mesh()
+            result = fn(mesh, *args)
             torch.save({"ok": _to_cpu(result)}, out)
         finally:
             dist.destroy_process_group()
@@ -62,10 +65,11 @@ def _rank_main(fn: Callable, rank: int, world_size: int, store: str,
 
 def spawn_group(fn: Callable[..., Any], world_size: int, args: tuple = (),
                 backend: str = "gloo", device: str = "cpu",
-                share_device: bool = False, timeout: float = 600.0
-                ) -> list[Any]:
+                share_device: bool = False, timeout: float = 600.0,
+                spec: str | None = None) -> list[Any]:
     """`fn(mesh, *args)` on `world_size` spawned ranks (`fn` and `args`
-    picklable, `fn` importable by name); their results in rank order."""
+    picklable, `fn` importable by name); their results in rank order.
+    `spec` names the mesh (default: data over every rank)."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="polyp-group-") as tmp:
         store = str(Path(tmp) / "store")
@@ -75,7 +79,7 @@ def spawn_group(fn: Callable[..., Any], world_size: int, args: tuple = (),
         threads = max(1, torch.get_num_threads() // world_size)
         procs = [ctx.Process(target=_rank_main, args=(
             fn, r, world_size, store, backend, device, share_device,
-            outs[r], threads, args), daemon=True)
+            outs[r], threads, args, spec), daemon=True)
             for r in range(world_size)]
         for p in procs:
             p.start()
@@ -104,6 +108,6 @@ def spawn_group(fn: Callable[..., Any], world_size: int, args: tuple = (),
                 errors.append(f"rank {r} (exit code {p.exitcode}):\n"
                               + got.get("error", "no result"))
         if errors:
-            raise RuntimeError("data-parallel group failed:\n"
+            raise RuntimeError("process group failed:\n"
                                + "\n".join(errors))
         return results

@@ -1,11 +1,16 @@
-"""Data-parallel groups on torch.distributed: the twin of
+"""Process meshes on torch.distributed: the twin of
 polyp_tpu/parallel/mesh.py.
 
-A "mesh" here is the data-parallel process group, one process a card,
+A "mesh" here is a `data × model` grid of ranks, one process a card,
 launched by `torchrun --nproc_per_node=N` (or spawned, parallel/launch.py).
-The JAX package jits one program over a device mesh and lets XLA insert the
-collectives; the port runs one process a rank and writes its few
-collectives by hand:
+Ranks are laid out as the reference's `make_mesh` reshapes its devices,
+row-major over (data, model): rank = d·k + m for k = model. A model group
+is then k consecutive ranks (NVLink neighbours on one node), a data group
+the ranks that share a model rank. The JAX package jits one program over a
+device mesh and lets XLA insert the collectives; the port runs one process
+a rank and writes its few collectives by hand.
+
+Over the data group (`DataMesh.size`, `rank`, `group`):
 
 * every rank holds the whole model (`replicate_to` broadcasts rank 0's
   weights; `replicated` checks that the ranks hold the same bits);
@@ -16,11 +21,18 @@ collectives by hand:
   group's step computes the one-process step on the whole batch;
 * gradients are averaged in one flattened bucket before the optimizer
   (`allreduce_grads`), and a step's loss is the group's mean (`all_mean`);
-* sampled rows are put back together on every rank (`gather_rows`) and
-  rank 0 alone writes files (`is_writer`).
+* sampled rows are put back together on every rank (`gather_rows`).
 
-Only the `data` axis exists. The Megatron `model` axis of
-polyp_tpu/parallel/sharding.py is refused by name (`MODEL_AXIS_ITEM`).
+Over the world: global rank 0 alone writes files (`is_writer`), and
+`replicate_to`, `replicated`, `barrier` and `broadcast_object` span every
+rank.
+
+Over the model group (`model_size`, `model_rank`, `model_group`), the
+Megatron tensor parallelism of parallel/sharding.py: the region operators
+`copy_to_model` (f: identity forward, all-reduce backward, at the input of
+a column-parallel block) and `reduce_from_model` (g: all-reduce forward,
+identity backward, after a row-parallel product), `model_max` (the int8
+scales of a row-parallel input) and `model_sum_` (gradients).
 
 Collectives are all-reduce and broadcast only, the two that the gloo
 backend carries for CUDA tensors; `gather_rows` is an all-reduce of
@@ -30,6 +42,7 @@ zero-padded rows, exact since every other rank adds zeros.
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Iterable, Sequence
@@ -38,24 +51,47 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-MODEL_AXIS_ITEM = "ROADMAP.md Queue 1 item 13b (tensor parallelism)"
-
 
 @dataclass(frozen=True)
 class DataMesh:
-    """The data-parallel group: `size` ranks, this process being `rank`.
-    `group` is the process group (None: the default one). A mesh made
-    without torch.distributed initialised has `distributed=False`, and its
-    collectives are the identity (one rank) or refused (more)."""
+    """A `data × model` mesh seen from one rank. `size` ranks on the data
+    axis, this process being data rank `rank`, `group` its data group
+    (None: the default one, when the model axis is 1); `model_size`,
+    `model_rank` and `model_group` the same on the model axis. A mesh
+    made without torch.distributed initialised has `distributed=False`,
+    and its collectives are the identity (one rank) or refused (more).
+    Copies of a module that holds the mesh share it (`__deepcopy__`)."""
 
     size: int
     rank: int = 0
     group: Any = None
     distributed: bool = False
+    model_size: int = 1
+    model_rank: int = 0
+    model_group: Any = None
+
+    def __deepcopy__(self, memo) -> "DataMesh":
+        return self  # immutable, and a process group cannot be copied
+
+    @property
+    def world_rank(self) -> int:
+        return self.rank * self.model_size + self.model_rank
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"data": self.size}
+        if self.model_size == 1:
+            return {"data": self.size}
+        return {"data": self.size, "model": self.model_size}
+
+    def model_ranks(self) -> list[int]:
+        """The world ranks of this rank's model group, in model order."""
+        k = self.model_size
+        return [self.rank * k + m for m in range(k)]
+
+    def data_ranks(self) -> list[int]:
+        """The world ranks of this rank's data group, in data order."""
+        k = self.model_size
+        return [d * k + self.model_rank for d in range(self.size)]
 
     def local(self, x):
         """This rank's rows of `x` (a global batch along dim 0)."""
@@ -70,11 +106,16 @@ def _collective(mesh: DataMesh | None) -> bool:
     if mesh is None:
         return False
     if not mesh.distributed:
-        if mesh.size > 1:
-            raise RuntimeError(f"a mesh of {mesh.size} ranks needs "
-                               "torch.distributed initialised")
+        if mesh.size * mesh.model_size > 1:
+            raise RuntimeError(f"a mesh of {mesh.size * mesh.model_size} "
+                               "ranks needs torch.distributed initialised")
         return False
     return True
+
+
+def _model_collective(mesh: DataMesh | None) -> bool:
+    """Does `mesh` run collectives over a model group of 2 or more?"""
+    return mesh is not None and mesh.model_size > 1 and _collective(mesh)
 
 
 def process_count() -> int:
@@ -130,13 +171,48 @@ def current_mesh() -> DataMesh:
     return DataMesh(dist.get_world_size(), dist.get_rank(), None, True)
 
 
+# the groups of each (data, model) layout over the running default group:
+# dist.new_group is collective, so every rank makes every group once, in
+# the same order, and later meshes of the same layout reuse them
+_GROUPS: dict[tuple, tuple[list, list]] = {}
+
+
+def _groups(n: int, k: int) -> tuple[list, list]:
+    """([data group of model rank m for m < k], [model group of data rank
+    d for d < n]) over the running default group, made on first use."""
+    key = (id(dist.group.WORLD), n, k)
+    if key not in _GROUPS:
+        data = [dist.new_group([d * k + m for d in range(n)])
+                for m in range(k)]
+        model = [dist.new_group([d * k + m for m in range(k)])
+                 for d in range(n)]
+        _GROUPS.clear()  # groups of an earlier default group are gone
+        _GROUPS[key] = (data, model)
+    return _GROUPS[key]
+
+
+def make_mesh(data: int, model: int = 1) -> DataMesh:
+    """This rank's view of a `data × model` mesh over the running group
+    (rank = d·model + m); without torch.distributed, rank 0 of a mesh
+    that runs no collectives."""
+    if not dist.is_initialized():
+        return DataMesh(data, model_size=model)
+    world = dist.get_rank()
+    d, m = divmod(world, model)
+    if model == 1:
+        return DataMesh(data, d, None, True)
+    data_groups, model_groups = _groups(data, model)
+    return DataMesh(data, d, data_groups[m], True, model, m,
+                    model_groups[d])
+
+
 def mesh_from_spec(spec: str | None, world_size: int | None = None
                    ) -> DataMesh | None:
     """Parse a CLI mesh spec with the reference's grammar ("data=8",
-    "data=4,model=2"; None / empty: no mesh; "data=-1": every rank) into
-    the data mesh over the running group. `data` must equal the world size
-    (`world_size`, default the running group's); a `model` axis above 1
-    is refused until tensor parallelism lands."""
+    "data=4,model=2"; None / empty: no mesh; "data=-1": fill with every
+    rank) into this rank's view of the mesh over the running group.
+    data × model must equal the world size (`world_size`, default the
+    running group's)."""
     if not spec:
         return None
     ranks = process_count() if world_size is None else world_size
@@ -164,17 +240,13 @@ def mesh_from_spec(spec: str | None, world_size: int | None = None
     if unknown:
         raise ValueError(f"mesh axes {unknown} in {spec!r}: the port's "
                          "mesh has the axes 'data' and 'model'")
-    if axes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {spec!r}: the 'model' axis (tensor parallelism) is "
-            f"not ported yet; see {MODEL_AXIS_ITEM}. Use 'data=N'")
-    n = axes.get("data", 1)
-    if n != ranks:
-        raise ValueError(f"mesh {dict(axes)} needs {n} ranks, got a world "
-                         f"of {ranks}; launch one process a card "
-                         f"(torchrun --nproc_per_node={n}) or use data=-1")
-    mesh = current_mesh()
-    return DataMesh(n, mesh.rank, mesh.group, mesh.distributed)
+    n, k = axes.get("data", 1), axes.get("model", 1)
+    if n * k != ranks:
+        raise ValueError(f"mesh {dict(axes)} needs {n * k} ranks, got a "
+                         f"world of {ranks}; launch one process a card "
+                         f"(torchrun --nproc_per_node={n * k}) or use "
+                         "data=-1")
+    return make_mesh(n, k)
 
 
 def validate_batch_for_mesh(batch_size: int, mesh: DataMesh | None,
@@ -198,8 +270,8 @@ def padded_batch(batch_size: int, mesh: DataMesh | None) -> int:
 
 
 def is_writer(mesh: DataMesh | None) -> bool:
-    """Does this process write files (rank 0, or no group)?"""
-    return mesh is None or mesh.rank == 0
+    """Does this process write files (global rank 0, or no group)?"""
+    return mesh is None or mesh.world_rank == 0
 
 
 def shard_batch(batch: Any, mesh: DataMesh | None) -> Any:
@@ -228,11 +300,12 @@ def _tensors(tree: Any) -> list[torch.Tensor]:
 
 @torch.no_grad()
 def replicate_to(tree: Any, mesh: DataMesh | None) -> Any:
-    """Rank 0's values of every tensor of `tree` (a module, or a nested
-    dict / list of tensors) on every rank, in place; returns `tree`."""
+    """Global rank 0's values of every tensor of `tree` (a module, or a
+    nested dict / list of tensors) on every rank, in place; returns
+    `tree`."""
     if _collective(mesh):
         for t in _tensors(tree):
-            dist.broadcast(t.data, src=0, group=mesh.group)
+            dist.broadcast(t.data, src=0)
     return tree
 
 
@@ -259,19 +332,19 @@ def checksum(tree: Any) -> int:
 
 def replicated(tree: Any, mesh: DataMesh | None) -> bool:
     """Do all ranks hold the same bits in `tree`? (`checksum` compared
-    over the group; True without one.)"""
+    over the world; True without a group.)"""
     if not _collective(mesh):
         return True
-    sums = [None] * mesh.size
-    dist.all_gather_object(sums, checksum(tree), group=mesh.group)
+    sums = [None] * dist.get_world_size()
+    dist.all_gather_object(sums, checksum(tree))
     return len(set(sums)) == 1
 
 
 def allreduce_grads(grads: Sequence[torch.Tensor], mesh: DataMesh | None,
                     average: bool = True) -> Sequence[torch.Tensor]:
-    """Sum (`average`: mean) the gradient tensors `grads` over the group,
-    in place, one flattened bucket a dtype; returns `grads`."""
-    if not _collective(mesh):
+    """Sum (`average`: mean) the gradient tensors `grads` over the data
+    group, in place, one flattened bucket a dtype; returns `grads`."""
+    if not _collective(mesh) or mesh.size == 1:
         return grads
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for g in grads:
@@ -335,17 +408,129 @@ def gather_objects(obj: Any, mesh: DataMesh | None) -> list:
 
 
 def broadcast_object(obj: Any, mesh: DataMesh | None) -> Any:
-    """Rank 0's `obj` on every rank."""
+    """Global rank 0's `obj` on every rank."""
     if not _collective(mesh):
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    dist.broadcast_object_list(box, src=0)
     return box[0]
 
 
 def barrier(mesh: DataMesh | None) -> None:
+    """Every rank of the world waits for the others."""
     if _collective(mesh):
-        dist.barrier(group=mesh.group)
+        dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# the model group: Megatron's region operators and reductions
+# ---------------------------------------------------------------------------
+
+def _all_reduce_model(x: torch.Tensor, mesh: DataMesh,
+                      op=dist.ReduceOp.SUM) -> torch.Tensor:
+    dist.all_reduce(x, op=op, group=mesh.model_group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    """f: the identity forward; the backward sums the gradient over the
+    model group (each rank's column-parallel block saw the whole input)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_model(grad.contiguous().clone(), ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """g: the forward sums the row-parallel partial products over the
+    model group; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce_model(x.contiguous().clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """Megatron's f at the input of a column-parallel block."""
+    if not _model_collective(mesh):
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+# host seconds spent in g's forward all-reduce (the tensor-parallel
+# forward's communication), and its count; callers may reset both
+reduce_seconds = [0.0]
+reduce_calls = [0]
+
+
+def reduce_from_model(x: torch.Tensor,
+                      mesh: DataMesh | None) -> torch.Tensor:
+    """Megatron's g after a row-parallel product: the model group's sum."""
+    if not _model_collective(mesh):
+        return x
+    start = time.perf_counter()
+    out = _ReduceFromModel.apply(x, mesh)
+    reduce_seconds[0] += time.perf_counter() - start
+    reduce_calls[0] += 1
+    return out
+
+
+def model_max(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """The model group's elementwise max of `x` (a new tensor; the int8
+    scale of an input that each rank holds a slice of)."""
+    if not _model_collective(mesh):
+        return x
+    return _all_reduce_model(x.detach().clone(), mesh, dist.ReduceOp.MAX)
+
+
+def all_model_sum(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """The model group's sum of `x` (a new tensor; not differentiable)."""
+    if not _model_collective(mesh):
+        return x
+    return _all_reduce_model(x.detach().clone(), mesh)
+
+
+def model_sum_(tensors: Sequence[torch.Tensor],
+               mesh: DataMesh | None) -> None:
+    """Sum the tensors over the model group, in place, one flattened
+    bucket a dtype (gradients of whole trainables that each rank computed
+    over its slice)."""
+    if not _model_collective(mesh) or not tensors:
+        return
+    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = _all_reduce_model(torch.cat([t.reshape(-1) for t in group]),
+                                 mesh)
+        for t, part in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(part.view_as(t))
+
+
+def model_gather_exact(full: torch.Tensor, mesh: DataMesh | None
+                       ) -> torch.Tensor:
+    """`full`, in which this rank filled its own slice and left zeros
+    elsewhere, summed over the model group on its integer bits, in place:
+    every rank then holds every rank's slice, bit for bit (a float sum
+    would turn −0.0 into +0.0)."""
+    if not _model_collective(mesh):
+        return full
+    size = full.element_size()
+    bits = full.view(_INT_VIEW[size])
+    wide = bits if size >= 4 else bits.to(torch.int32)
+    _all_reduce_model(wide, mesh)
+    if wide is not bits:
+        bits.copy_(wide.to(bits.dtype))
+    return full
 
 
 class RankDraws:

@@ -64,6 +64,7 @@ from polyp_tpu_torch.ops import quant
 from polyp_tpu_torch.ops.attention import fused_mha_region
 from polyp_tpu_torch.ops.conv import slot_invariant_region
 from polyp_tpu_torch.parallel import mesh as pmesh
+from polyp_tpu_torch.parallel import sharding
 from polyp_tpu_torch.utils.rng import batch_seed, request_generator
 
 # fn(batch_size, seed) -> float images in [-1, 1], NCHW
@@ -243,7 +244,8 @@ class StableDiffusionSampler:
     `decoder`, a TinyDecoder, replaces the VAE decode and takes the scaled
     latents as they are (reference :295-299); `fused_mha` opts the UNet's
     attentions into the fused MHA kernel; `mesh` fans each batch out over
-    a data-parallel group."""
+    its data group, and with a model axis shards the UNet over its model
+    group."""
 
     def __init__(self, unet, vae, text_model, tokenizer,
                  schedule: DiffusionSchedule, image_size: int = 256,
@@ -260,7 +262,11 @@ class StableDiffusionSampler:
             num_steps, quantize, quant_fp_head, quant_fp_tail)
         self.quant_scales: dict | None = None
         self._scale_bank: quant.ScaleBank | None = None
-        self.unet = unet
+        if sharding.sharded(unet) is not None:
+            raise ValueError("StableDiffusionSampler takes a whole UNet and "
+                             "shards its own copy under a model axis")
+        self.whole_unet = unet
+        self.unet = sharding.sharded_copy(unet, mesh)
         self.vae = vae
         self.text_model = text_model
         self.tokenizer = tokenizer
@@ -367,7 +373,7 @@ class StableDiffusionSampler:
         points = min(8, self.num_steps)
         folded = self.guidance_scale is None
         self.quant_scales = ensure_scales(
-            self.unet, self.schedule, (2, 4, latent, latent), cond[:1],
+            self.whole_unet, self.schedule, (2, 4, latent, latent), cond[:1],
             None if folded else uncond[:1], num_steps=points,
             guidance_scale=self.guidance_scale,
             fingerprint_extras=(self.image_size,

@@ -355,10 +355,15 @@ class Applies:
 
 def make_applies(model: nn.Module, guidance_scale: float | None = None,
                  cond: torch.Tensor | None = None,
-                 uncond: torch.Tensor | None = None) -> Applies:
+                 uncond: torch.Tensor | None = None,
+                 teacher_fn: Callable[..., torch.Tensor] | None = None
+                 ) -> Applies:
     """`model`'s calls on weight dicts (`functional_call`) for a run with
     guidance folded at `guidance_scale` over the [1, L, D] embeddings
-    `cond` and `uncond`, or without guidance (an unconditional model)."""
+    `cond` and `uncond`, or without guidance (an unconditional model).
+    `teacher_fn(x, t[, ctx])` replaces the phase-0 teacher's model (a
+    foreign teacher; its weights argument is ignored), folded the same
+    way."""
     dtypes = {k: p.dtype for k, p in model.named_parameters()}
 
     def cast(params: Params) -> Params:
@@ -370,13 +375,17 @@ def make_applies(model: nn.Module, guidance_scale: float | None = None,
     def ctx(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         return e.expand(x.shape[0], *e.shape[-2:])
 
+    def first(weights: Params, *args) -> torch.Tensor:
+        return run(weights, *args) if teacher_fn is None else teacher_fn(
+            *args)
+
     if guidance_scale is None:
-        return Applies(cast, run, run, lambda m, x, t: run(cast(m), x, t))
+        return Applies(cast, first, run, lambda m, x, t: run(cast(m), x, t))
 
     def teacher(weights, x, t):
         x2, t2 = torch.cat([x, x]), torch.cat([t, t])
         e2 = torch.cat([ctx(x, uncond), ctx(x, cond)])
-        out_u, out_c = run(weights, x2, t2, e2).chunk(2)
+        out_u, out_c = first(weights, x2, t2, e2).chunk(2)
         return out_u + guidance_scale * (out_c - out_u)
 
     return Applies(cast, teacher,
@@ -384,15 +393,18 @@ def make_applies(model: nn.Module, guidance_scale: float | None = None,
                    lambda m, x, t: run(cast(m), x, t, ctx(x, cond)))
 
 
-def _phase_optimizer(learning_rate: float, horizon: int) -> SDOptimizer:
-    """clip_by_global_norm(1.0) + adamw(weight_decay=1e-2) on
+def _phase_optimizer(learning_rate: float, horizon: int,
+                     weight_decay: float = 1e-2) -> SDOptimizer:
+    """clip_by_global_norm(1.0) + adamw(weight_decay) on
     warmup_cosine_decay_schedule(0, lr, max(h // 20, 1), max(h, 2), 0)
     (reference :384-389)."""
     return SDOptimizer(cosine_warmup_schedule(
-        learning_rate, max(horizon // 20, 1), max(horizon, 2)))
+        learning_rate, max(horizon // 20, 1), max(horizon, 2)),
+        weight_decay=weight_decay)
 
 
-def _warmup_optimizer(learning_rate: float, warmup: int) -> SDOptimizer:
+def _warmup_optimizer(learning_rate: float, warmup: int,
+                      weight_decay: float = 1e-2) -> SDOptimizer:
     """The reparam warmup's own optimizer: a linear ramp from 0 over
     max(warmup // 20, 1) updates, then the constant rate
     (optax.join_schedules of linear and constant, reference :396-414). A
@@ -403,7 +415,7 @@ def _warmup_optimizer(learning_rate: float, warmup: int) -> SDOptimizer:
     def schedule(count: int) -> float:
         return learning_rate * min(count, ramp) / ramp
 
-    return SDOptimizer(schedule)
+    return SDOptimizer(schedule, weight_decay=weight_decay)
 
 
 def _run(state: DistillState, step, teacher, batches, n_steps: int,
@@ -423,18 +435,21 @@ def _run(state: DistillState, step, teacher, batches, n_steps: int,
 
 def distill_progressive(
     model: nn.Module,
-    teacher_params: Params,
+    teacher_params: Params | None,
     schedule: DiffusionSchedule,
     batches: Callable[[], Iterable[torch.Tensor]],
     start_steps: int,
     end_steps: int,
     steps_per_phase: int,
     learning_rate: float = 1e-4,
+    weight_decay: float = 1e-2,
     student_prediction_type: str = "epsilon",
     reparam_steps: int = -1,
     guidance_scale: float | None = None,
     cond: torch.Tensor | None = None,
     uncond: torch.Tensor | None = None,
+    teacher_fn: Callable[..., torch.Tensor] | None = None,
+    student_params: Params | None = None,
     log: Callable[[str, float, int], None] | None = None,
     mesh: pmesh.DataMesh | None = None,
 ) -> DistillResult:
@@ -448,23 +463,32 @@ def distill_progressive(
     model space, consumed once a phase and cycled. With `guidance_scale`,
     `cond` and `uncond` ([1, L, D]) the phase-0 teacher runs CFG while the
     student consumes `cond` only. The student starts from a copy of
-    `teacher_params` (the reference's foreign-teacher arguments,
-    `teacher_apply_fn` and `student_params`, have no caller and are not
-    ported). The student of each phase becomes the next phase's teacher,
-    and `reparam_steps` (−1: `steps_per_phase`) applies to phase 0
-    only. Under `mesh`, `batches()` gives this rank's rows of each global
-    batch and every step is the group's."""
+    `teacher_params`. A foreign teacher (the reference's
+    `teacher_apply_fn`): `teacher_fn(x, t[, ctx])` is the phase-0 teacher
+    (run under `torch.no_grad()`, CFG-folded as the model would be; an
+    analytic denoiser, a model of another architecture), which shares no
+    weights with the student, and the student starts from
+    `student_params` (`teacher_params` may then be None). The student of
+    each phase becomes the next phase's teacher, and `reparam_steps` (−1:
+    `steps_per_phase`) applies to phase 0 only. `weight_decay` is AdamW's,
+    in the warmup and the phases. Under `mesh`, `batches()` gives this
+    rank's rows of each global batch and every step is the group's."""
     if start_steps < end_steps or start_steps % end_steps != 0:
         raise ValueError(f"start_steps={start_steps} must be a multiple "
                          f"of end_steps={end_steps}")
+    if student_params is None and teacher_params is None:
+        raise ValueError("the student starts from student_params or, "
+                         "without them, from teacher_params")
     if reparam_steps < 0:
         reparam_steps = steps_per_phase
-    applies = make_applies(model, guidance_scale, cond, uncond)
+    applies = make_applies(model, guidance_scale, cond, uncond, teacher_fn)
     device = next(model.parameters()).device
     with torch.no_grad():
-        teacher = applies.cast(teacher_params)
-    result = DistillResult(params=teacher_params, num_steps=start_steps,
-                           prediction_type=student_prediction_type)
+        teacher = (None if teacher_params is None
+                   else applies.cast(teacher_params))
+    result = DistillResult(
+        params=teacher_params if student_params is None else student_params,
+        num_steps=start_steps, prediction_type=student_prediction_type)
     teacher_sched = schedule
     student_sched = replace(schedule,
                             prediction_type=student_prediction_type)
@@ -481,10 +505,10 @@ def distill_progressive(
             phase_idx == 0
             and student_prediction_type != schedule.prediction_type) else 0
         state = init_distill_state(result.params, _phase_optimizer(
-            learning_rate, steps_per_phase))
+            learning_rate, steps_per_phase, weight_decay))
         if warmup:
-            wstate = replace(state, tx=_warmup_optimizer(learning_rate,
-                                                         warmup))
+            wstate = replace(state, tx=_warmup_optimizer(
+                learning_rate, warmup, weight_decay))
             wstate.opt_state = wstate.tx.init(
                 {k: v.detach() for k, v in wstate.params.items()})
             warm_step = make_distill_step(applies.student, phase_teacher,

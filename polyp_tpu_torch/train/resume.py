@@ -32,11 +32,15 @@ class EpochCheckpointer:
     def _latest_path(self) -> Path:
         return self.dir / "latest.json"
 
+    def due(self, epoch: int) -> bool:
+        """Is a snapshot due after `epoch`?"""
+        return (epoch + 1) % self.every == 0
+
     def save(self, epoch: int, tree: Any, force: bool = False,
              aux: dict | None = None) -> bool:
         """Snapshot `tree` after `epoch` when it is due (or `force`); True
         when it was, on every rank of the mesh."""
-        if not force and (epoch + 1) % self.every != 0:
+        if not force and not self.due(epoch):
             return False
         if pmesh.is_writer(self.mesh):
             save_pytree(self.dir / f"epoch_{epoch}.pt", tree)

@@ -58,6 +58,7 @@ from polyp_tpu_torch.diffusion.losses import (
 from polyp_tpu_torch.lora.surgery import LoRAConfig, merge_lora
 from polyp_tpu_torch.models.vae import SD_VAE_SCALING, DiagonalGaussian
 from polyp_tpu_torch.parallel import mesh as pmesh
+from polyp_tpu_torch.parallel import sharding
 from polyp_tpu_torch.train.dreambooth import embed_with_special_rows
 from polyp_tpu_torch.train.scratch_ddpm import cosine_warmup_schedule
 from polyp_tpu_torch.utils.checkpoint import tree_leaves, tree_map
@@ -99,6 +100,24 @@ class SDComponents:
     def text_apply(self, params: dict[str, torch.Tensor],
                    ids: torch.Tensor) -> torch.Tensor:
         return functional_call(self.text, params, (ids,))
+
+    def on_mesh(self, mesh: pmesh.DataMesh | None) -> "SDComponents":
+        """These components cut to this rank's shards under `mesh`'s
+        model axis: copies of the UNet and CLIP (sharing every whole
+        tensor) and the fp32 kernels' slices; themselves on a model axis
+        of 1. The VAE stays whole."""
+        if mesh is None or mesh.model_size == 1:
+            return self
+        k = mesh.model_size
+        return replace(
+            self, unet=sharding.sharded_copy(self.unet, mesh),
+            text=sharding.sharded_copy(self.text, mesh),
+            unet_params=sharding.shard_tensors(
+                self.unet_params,
+                sharding.unet_param_sharding(self.unet, k), mesh),
+            text_params=sharding.shard_tensors(
+                self.text_params,
+                sharding.unet_param_sharding(self.text, k), mesh))
 
 
 class StepDraws:
@@ -169,9 +188,25 @@ class SDOptimizer:
     WEIGHT_DECAY = 1e-2
 
     def __init__(self, schedule: Callable[[int], float],
-                 accumulation_steps: int = 1):
+                 accumulation_steps: int = 1,
+                 weight_decay: float = WEIGHT_DECAY):
         self.schedule = schedule
         self.k = max(int(accumulation_steps), 1)
+        self.weight_decay = weight_decay
+        # tensor parallelism: which leaves are this rank's slices (their
+        # squares enter the global norm summed over the model group)
+        self.shards: list[bool] | None = None
+        self.mesh: pmesh.DataMesh | None = None
+
+    def global_norm(self, g: list[torch.Tensor]) -> torch.Tensor:
+        """‖g‖ over every leaf: under tensor parallelism the shards'
+        squares summed over the model group, the whole leaves' once."""
+        sq = torch.stack(torch._foreach_norm(g)).square()
+        if self.shards is None or not any(self.shards):
+            return sq.sum().sqrt()
+        mask = torch.tensor(self.shards, device=sq.device)
+        part = pmesh.all_model_sum(sq[mask].sum(), self.mesh)
+        return (sq[~mask].sum() + part).sqrt()
 
     def init(self, params: dict) -> dict:
         state = {"count": 0, "mu": tree_map(torch.zeros_like, params),
@@ -203,7 +238,7 @@ class SDOptimizer:
         p = tree_leaves(params)
         mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
         f32 = dict(dtype=torch.float32, device=p[0].device)
-        norm = torch.stack(torch._foreach_norm(g)).square().sum().sqrt()
+        norm = self.global_norm(g)
         clipped = norm >= self.MAX_NORM  # then g / ‖g‖ · MAX_NORM
         g = torch._foreach_div(g, torch.where(clipped, norm, 1.0))
         torch._foreach_mul_(g, torch.where(clipped, self.MAX_NORM, 1.0))
@@ -222,7 +257,7 @@ class SDOptimizer:
         torch._foreach_sqrt_(v)
         torch._foreach_add_(v, self.EPS)
         torch._foreach_div_(u, v)
-        torch._foreach_add_(u, torch._foreach_mul(p, self.WEIGHT_DECAY))
+        torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
         torch._foreach_mul_(u, -torch.tensor(
             self.schedule(state["count"]), **f32))
         torch._foreach_add_(p, u)
@@ -263,46 +298,102 @@ def init_proj_params(generator: torch.Generator, latent_channels: int = 4,
             "bias": torch.zeros(text_width, device=generator.device)}
 
 
+# the optimizer state's entries shaped as the trainables
+_MOMENTS = ("mu", "nu", "acc")
+
+
 @dataclass
 class SDTrainState:
+    """The trainables (this rank's shards under tensor parallelism, as
+    `layout` says), the optimizer and its state."""
+
     step: int
     trainable: dict
     opt_state: dict
     tx: SDOptimizer
+    layout: Any = None
+    mesh: pmesh.DataMesh | None = None
+
+    def whole_trainable(self) -> dict:
+        """The whole bundle (gathered over the model group)."""
+        return sharding.gather_tree(self.trainable, self.layout, self.mesh)
 
     def tree(self) -> dict:
-        """What a checkpoint holds."""
-        return {"step": self.step, "trainable": self.trainable,
-                "opt_state": self.opt_state}
+        """What a checkpoint holds: the whole bundle and moments, as one
+        process holds them."""
+        opt = dict(self.opt_state)
+        for key in _MOMENTS:
+            if key in opt:
+                opt[key] = sharding.gather_tree(opt[key], self.layout,
+                                                self.mesh)
+        return {"step": self.step, "trainable": self.whole_trainable(),
+                "opt_state": opt}
 
     @torch.no_grad()
     def restore(self, tree: dict) -> None:
         """Take a checkpoint's values in place (the trainables stay the
-        tensors that require grad)."""
-        for p, v in zip(tree_leaves(self.trainable),
-                        tree_leaves(tree["trainable"])):
+        tensors that require grad), cut to this rank's shards."""
+        values = sharding.shard_tree(tree["trainable"], self.layout,
+                                     self.mesh)
+        for p, v in zip(tree_leaves(self.trainable), tree_leaves(values)):
             p.copy_(v)
         self.step = int(tree["step"])
-        self.opt_state = tree["opt_state"]
+        opt = dict(tree["opt_state"])
+        for key in _MOMENTS:
+            if key in opt:
+                opt[key] = sharding.shard_tree(opt[key], self.layout,
+                                               self.mesh)
+        self.opt_state = opt
 
 
-def create_sd_train_state(config: DiffusionConfig,
-                          trainable: dict) -> SDTrainState:
+def create_sd_train_state(config: DiffusionConfig, trainable: dict,
+                          layout: Any = None,
+                          mesh: pmesh.DataMesh | None = None
+                          ) -> SDTrainState:
     """The state over fp32 copies of `trainable` (never views of what the
-    caller holds, so nothing of the stack can be trained in place)."""
-    own = tree_map(lambda t: t.detach().float().clone().requires_grad_(),
-                   trainable)
+    caller holds, so nothing of the stack can be trained in place); with a
+    `layout` (sharding.trainable_sharding) and a `mesh` with a model axis,
+    over this rank's shards of global rank 0's bundle."""
+    if mesh is None or mesh.model_size == 1:
+        layout = None
+    own = tree_map(lambda t: t.detach().float().clone(), trainable)
+    own = tree_map(lambda t: t.requires_grad_(),
+                   sharding.shard_tree(own, layout, mesh))
     tx = make_sd_optimizer(config)
-    return SDTrainState(0, own, tx.init(tree_map(torch.detach, own)), tx)
+    if layout is not None:
+        tx.shards = [isinstance(s, sharding.Split)
+                     for s in tree_leaves(layout)]
+        tx.mesh = mesh
+    return SDTrainState(0, own, tx.init(tree_map(torch.detach, own)), tx,
+                        layout, mesh)
+
+
+def trainable_layout(trainable: dict, frozen: SDComponents,
+                     mesh: pmesh.DataMesh | None) -> Any:
+    """The bundle's tensor-parallel layout over `frozen`'s (whole)
+    modules, or None without a model axis."""
+    if mesh is None or mesh.model_size == 1:
+        return None
+    return sharding.trainable_sharding(trainable, frozen.unet, frozen.text,
+                                       mesh.model_size)
 
 
 def _keep_masks(draws: StepDraws, stream: str, adapter: dict,
-                cfg: LoRAConfig) -> dict | None:
+                cfg: LoRAConfig, layout: dict | None = None,
+                mesh: pmesh.DataMesh | None = None) -> dict | None:
+    """One [in, 1] keep mask a module, drawn for the whole layer; a row
+    target's is sliced as its A is under tensor parallelism."""
     if cfg.dropout <= 0.0:
         return None
     keep = 1.0 - cfg.dropout
-    return {name: draws.keep_mask(stream, name, f["lora_A"].shape[0], keep)
-            for name, f in adapter.items()}
+    out = {}
+    for name, f in adapter.items():
+        split = None if layout is None else layout[name]["lora_A"]
+        k = mesh.model_size if isinstance(split, sharding.Split) else 1
+        mask = draws.keep_mask(stream, name, f["lora_A"].shape[0] * k, keep)
+        out[name] = sharding.take(mask, split, mesh.model_rank if k > 1
+                                  else 0, k)
+    return out
 
 
 def module_dtype(module: nn.Module) -> torch.dtype:
@@ -331,10 +422,13 @@ def sd_lora_loss_and_grads(
     timesteps = draws.timesteps(n, schedule.num_train_timesteps)
     noisy = schedule.add_noise(latents, noise, timesteps)
     ids = prompt_ids.to(images_u8.device).expand(n, prompt_ids.shape[-1])
+    layout = state.layout or {}
     unet_masks = _keep_masks(draws, "unet", trainable["unet_lora"],
-                             unet_lora_cfg)
+                             unet_lora_cfg, layout.get("unet_lora"),
+                             state.mesh)
     text_masks = (_keep_masks(draws, "text", trainable["text_lora"],
-                              text_lora_cfg)
+                              text_lora_cfg, layout.get("text_lora"),
+                              state.mesh)
                   if "text_lora" in trainable else None)
 
     with torch.enable_grad():
@@ -389,12 +483,19 @@ def sd_lora_train_step(
 ) -> tuple[SDTrainState, torch.Tensor]:
     """One (micro-)step: gradients of the bundle, then the optimizer,
     in place on `state` (returned, with the step's loss). Under `mesh`,
-    `images_u8` are this rank's rows and `draws` the global batch's."""
+    `images_u8` are this rank's rows and `draws` the global batch's; with
+    a model axis, `state` and `frozen` hold this rank's shards
+    (`create_sd_train_state(..., layout, mesh)`, `SDComponents.on_mesh`)."""
     loss, grads = sd_lora_loss_and_grads(
         state, frozen, schedule, images_u8, prompt_ids, special_ids,
         pmesh.rank_draws(draws, mesh), unet_lora_cfg, text_lora_cfg,
         weight_img, weight_text)
-    pmesh.allreduce_grads(tree_leaves(grads), mesh)
+    leaves = tree_leaves(grads)
+    if state.layout is not None:
+        pmesh.model_sum_([g for g, s in zip(leaves,
+                                            tree_leaves(state.layout))
+                          if s == sharding.PARTIAL], state.mesh)
+    pmesh.allreduce_grads(leaves, mesh)
     state.tx.update(grads, state.opt_state, state.trainable)
     state.step += 1
     return state, pmesh.all_mean(loss, mesh)
@@ -450,8 +551,10 @@ def train_sd_lora(
         result.loss_hist.append(avg)
         if log:
             log("train_loss", avg, epoch)
-        if checkpointer is not None and checkpointer.save(
-                epoch, state.tree(), aux={"loss_hist": result.loss_hist}):
+        # under a model axis state.tree() gathers the shards: only when due
+        if checkpointer is not None and checkpointer.due(epoch) and \
+                checkpointer.save(epoch, state.tree(),
+                                  aux={"loss_hist": result.loss_hist}):
             maybe_crash("epoch", epoch)  # a no-op unless a test arms it
         if epoch_callback:
             epoch_callback(epoch, state)

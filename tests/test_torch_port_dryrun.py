@@ -7,6 +7,11 @@ on the data mesh, and holds each to the same phase in one process within
 the module's TOLERANCES (explained there); the trained parameters must be
 bit-equal across the ranks. The dry run raises on any failure; each phase
 is then checked here against its tolerance and for finiteness.
+
+From 4 ranks the mesh is the reference's `data=2 × model=2`, held to
+MODEL_AXIS_TOLERANCES; with Megatron's g skipped in the ranks
+(polyp_tpu_torch/tools/dryrun_fault.py) every phase that runs the
+sharded UNet must leave its limit.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import pytest
 import torch
 
 from polyp_tpu_torch.parallel import dryrun
+from polyp_tpu_torch.tools import dryrun_fault
 
 PHASES = ["lora_loss", "lora_grad", "fan_out", "generate_batch", "folded",
           "promoted_hybrid", "distilled_w8a8", "classifier_loss",
@@ -58,3 +64,32 @@ def test_compare_refuses_a_phase_past_its_tolerance():
         dryrun.compare({"fan_out": torch.zeros(3, 3)}, single)
     assert dryrun.compare({"fan_out": torch.zeros(2, 3)}, single) == {
         "fan_out": 0.0}
+
+
+# the phases that run the model axis's sharded UNet
+SHARDED = ["lora_grad", "fan_out", "generate_batch", "folded",
+           "promoted_hybrid", "distilled_w8a8"]
+
+
+def _limit(phase):
+    return dryrun.MODEL_AXIS_TOLERANCES.get(
+        phase, dryrun.MODEL_AXIS_TOLERANCES["images"])
+
+
+def test_the_2x2_mesh_holds_every_phase_to_one_process():
+    report = dryrun.dryrun_multichip(4, device="cpu", timeout=600)
+    assert report["mesh"] == "data=2,model=2"
+    assert report["tolerances"] == dryrun.MODEL_AXIS_TOLERANCES
+    for phase in PHASES:
+        assert 0.0 <= report["errors"][phase] <= _limit(phase), phase
+
+
+@pytest.fixture(scope="module")
+def skipped_g():
+    return dryrun_fault.readings(4, "cpu", "skip_g", timeout=600)
+
+
+@pytest.mark.parametrize("phase", SHARDED)
+def test_a_skipped_g_leaves_the_model_axis_limit(skipped_g, phase):
+    assert skipped_g["errors"][phase] > _limit(phase), (
+        phase, skipped_g["errors"][phase])

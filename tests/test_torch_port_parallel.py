@@ -2,8 +2,9 @@
 polyp_tpu's device mesh on the CPU.
 
 * `mesh_from_spec`'s grammar and its errors, against polyp_tpu's on the
-  conftest's fake CPU devices; the port's own refusals (a `model` axis
-  above 1, `data` other than the world size).
+  conftest's fake CPU devices: the `data × model` shape of the reference's
+  mesh, its rank layout (rank = d·model + m), and the port's own refusal
+  of `data × model` other than the world size.
 * The Loader's row sharding and per-process striding: the reference's two
   cases (tests/test_parallel_wiring.py's cross-process mesh and
   no-mesh-striding tests).
@@ -417,6 +418,10 @@ GOOD_SPECS = [("data=8", 8), ("data=-1", 8), ("data=-1", 2), ("data=2", 2),
               ("data=-1,model=1", 4), ("data=1", 1)]
 BAD_SPECS = ["data", "data=x", "=4", "data=0", "data=-2",
              "data=-1,model=-1", "data=-1,model=3"]
+# data × model other than the world of 8: the reference takes the first
+# N devices of a larger world (and refuses more than it has); the port,
+# one process a rank, refuses both
+WRONG_WORLD = ["data=4,model=4", "data=3,model=2", "model=4", "data=2,model=2"]
 
 
 @pytest.mark.parametrize("spec,world", GOOD_SPECS)
@@ -447,8 +452,43 @@ def test_mesh_spec_errors_are_the_references(spec):
 
 @pytest.mark.parametrize("spec", ["data=4,model=2", "model=8",
                                   "data=-1,model=2"])
-def test_a_model_axis_is_refused_naming_the_roadmap_item(spec):
-    with pytest.raises(NotImplementedError, match="item 13b"):
+def test_a_model_axis_gives_the_references_mesh_shape(spec):
+    """At a world of 8 the port's mesh has the reference's (data, model)
+    axis sizes, and its ranks the reference's device order: make_mesh
+    reshapes the devices row-major over (data, model), so rank r holds
+    the device at [r // model, r % model]."""
+    import jax
+
+    from polyp_tpu.parallel import mesh_from_spec as jspec
+
+    want = jspec(spec, jax.devices()[:8])
+    got = pmesh.mesh_from_spec(spec, world_size=8)
+    n, k = want.shape.get("data", 1), want.shape.get("model", 1)
+    assert (got.size, got.model_size) == (n, k)
+    devices = np.asarray(want.devices).reshape(n, k)
+    ids = {d.id: i for i, d in enumerate(jax.devices()[:8])}
+    for d in range(n):
+        row = pmesh.DataMesh(n, d, model_size=k, model_rank=0)
+        assert row.model_ranks() == [ids[dev.id] for dev in devices[d]]
+    for m in range(k):
+        col = pmesh.DataMesh(n, 0, model_size=k, model_rank=m)
+        assert col.data_ranks() == [ids[dev.id] for dev in devices[:, m]]
+
+
+def test_mesh_from_spec_lays_ranks_out_as_the_reference():
+    got = pmesh.mesh_from_spec("data=2,model=2", world_size=4)
+    assert got.shape == {"data": 2, "model": 2}
+    assert (got.rank, got.model_rank, got.world_rank) == (0, 0, 0)
+    for r in range(4):
+        mesh = pmesh.DataMesh(2, r // 2, model_size=2, model_rank=r % 2)
+        assert mesh.world_rank == r
+        assert mesh.model_ranks() == [r // 2 * 2, r // 2 * 2 + 1]
+        assert mesh.data_ranks() == [r % 2, 2 + r % 2]
+
+
+@pytest.mark.parametrize("spec", WRONG_WORLD)
+def test_data_times_model_must_equal_the_world(spec):
+    with pytest.raises(ValueError, match="got a world of 8"):
         pmesh.mesh_from_spec(spec, world_size=8)
 
 
@@ -461,7 +501,8 @@ def test_data_must_equal_the_world_size():
 
 def test_cli_mesh_flag_outside_a_launch(monkeypatch):
     """--mesh as the CLIs parse it, without torchrun: WORLD_SIZE unset is
-    a world of one (no group started); the model axis is refused."""
+    a world of one (no group started), where a model axis of 2 needs two
+    ranks."""
     import argparse
 
     from polyp_tpu_torch.cli.common import add_common_flags, get_mesh_from
@@ -473,7 +514,7 @@ def test_cli_mesh_flag_outside_a_launch(monkeypatch):
     assert get_mesh_from(args) == pmesh.DataMesh(1)
     assert not torch.distributed.is_initialized() and args.device == "cpu"
     assert get_mesh_from(parser.parse_args(["--device", "cpu"])) is None
-    with pytest.raises(NotImplementedError, match="13b"):
+    with pytest.raises(ValueError, match="needs 2 ranks, got a world of 1"):
         get_mesh_from(parser.parse_args(["--device", "cpu", "--mesh",
                                          "data=1,model=2"]))
 
