@@ -213,7 +213,13 @@ caught:
    flash 5 and GroupNorm 22 a rank's step) and the 8-image quota fan-out
    (the same files as one process's, each within MG_FAN_OUT_MEAN_LEVELS);
    (c) tensor parallelism, `--mesh data=1,model=2` on two ranks sharing
-   cuda:0 over gloo (tensor_parallel_part): a rank's CFG forward launches
+   cuda:0 over gloo (tensor_parallel_part), each on the CLIs' sharded path
+   (load_sd_stack(mesh=): the UNet and CLIP cut at load, the sampler and
+   the LoRA steps on that stack as it is): a rank's resident GiB after the
+   load within TP_RESIDENT_SLACK_GIB above the whole stack less half its
+   split bytes, its sampling peak below the one-process twin's (a whole
+   stack of its own from the same seed), its LoRA-step peak printed, and
+   its w8a8_static calibration key the twin's; a rank's CFG forward launches
    exactly TP_FORWARD and TP_ALLREDUCES model-group all-reduces, within
    TP_FORWARD_REL_L2 of this process's bf16 forward and REL_L2_TOLERANCE
    of fp32; a DDIM-20 batch of 2 images through make_sampler(mesh=)
@@ -229,7 +235,12 @@ caught:
    polyp_tpu_torch/tools/profile_census.py
    (bf16, 10 iterations) and tools/roofline.py (batch 2) written to
    chiprun_out/{profile_census,roofline}.json;
-14. prints the kernel table (all eight kernel entries, with launches on
+14. runs polyp_tpu_torch.tools.roofline's main in --few-step, --train and
+   --distill at few iterations (roofline_modes_phase, "roofline modes";
+   `[roofline]` lines; chiprun_out/roofline_{few_step,train,distill}.json):
+   every counted FLOP and byte total above 0, and no training step's
+   measured images/s above its ceiling;
+15. prints the kernel table (all eight kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
    class, launches a scratch forward, launches a distill step and
    launches a tensor-parallel rank's forward) as one
@@ -3667,6 +3678,11 @@ def quant_gate_phase(stack, dev: torch.device, card: str, reset_counts,
 # small moves); a wrong slice, draw, reduction or broadcast gives O(1)
 MG_LOSS_REL = 1e-3
 MG_PARAM_REL_L2 = 1e-2
+# the update alone (the trainables after the steps less before them): the
+# reading a wrong update moves, since the starting values dominate the
+# whole trainables' L2; rounding reads 1.9e-2 data-parallel and 4.6e-2
+# under model=2 on the H100, a shard updated wrongly or not at all O(1)
+MG_UPDATE_REL_L2 = 0.2
 # the quota fan-out: 8 images (UniPC, 25 steps, CFG 7.5, 256px) as one
 # generate_to_dir batch, on two ranks of 4 rows against one process at
 # batch 8: each image's mean |Δ| in levels of 255 (the launches' batch
@@ -3806,6 +3822,43 @@ TP_STUDENT_FORWARD = launches_of(fused_mha=5, fused_geglu=16,
                                  fused_group_norm=61)
 TP_STUDENT_BATCH = 16
 TP_HEADS = 4  # SD-v1-4's 8 heads over the model axis of 2
+# a rank's stack is sharded at load (load_sd_stack(mesh=)): what it keeps
+# resident after the load is the whole stack less (1 - 1/k) of the split
+# bytes (parallel/sharding.py), to within this many GiB (memory_allocated
+# counts the allocator's whole blocks: `allocator_rounding` prints the
+# excess)
+TP_RESIDENT_SLACK_GIB = 0.02
+
+
+def allocator_rounding(dev: torch.device) -> int:
+    """Bytes the caching allocator's live blocks hold beyond what their
+    tensors asked for (memory_allocated counts whole blocks), from its
+    snapshot; 0 off the card."""
+    if dev.type != "cuda":
+        return 0
+    return sum(b["size"] - b.get("requested_size", b["size"])
+               for seg in torch.cuda.memory_snapshot()
+               for b in seg["blocks"] if b["state"] == "active_allocated")
+
+
+def tp_stack_bytes(tiny: bool, dtype: torch.dtype, k: int) -> dict:
+    """The whole stack's bytes (parameters and buffers of the UNet, VAE
+    and CLIP text model) and the bytes of the tensors a model axis of k
+    splits (the UNet's and CLIP's, parallel/sharding.py's rules), from
+    meta modules."""
+    from polyp_tpu_torch.cli.common import build_modules
+    from polyp_tpu_torch.parallel import sharding
+
+    whole = split = 0
+    for i, module in enumerate(build_modules(tiny, dtype, "meta")):
+        plan = ({} if i == 1 else sharding.unet_param_sharding(module, k))
+        for name, t in list(module.named_parameters()) + list(
+                module.named_buffers()):
+            n = t.numel() * t.element_size()
+            whole += n
+            split += n if plan.get(name) is not None else 0
+    return {"whole": whole, "split": split,
+            "resident": whole - split + split // k}
 
 
 def tp_lora_steps(stack, dev: torch.device, mesh=None, save=None) -> dict:
@@ -3842,15 +3895,21 @@ def tp_lora_steps(stack, dev: torch.device, mesh=None, save=None) -> dict:
     table = stack.text.get_parameter(sf.TOKEN_TABLE)
     rows = table.shape[0]
     grown = resize_token_embeddings(table, rows + 1, gen)
+    # whole, as the CLIs' train_class takes them: the trainer cuts its
+    # shards of rank 0's bundle
     unfrozen = stack.fp32_params("unet", [
         n for n, _ in stack.unet.named_parameters()
-        if any(m in n for m in UNFROZEN_MODULES)])
+        if any(m in n for m in UNFROZEN_MODULES)], whole=True)
     bundle = pmesh.replicate_to(sf.init_trainable(
         init_lora(stack.unet, lcfg, gen), special_rows=grown[-1:].float(),
         unfrozen=unfrozen), mesh)
     frozen = make_components(stack, bundle, token_table=grown)
     layout = sf.trainable_layout(bundle, frozen, mesh)
     state = sf.create_sd_train_state(cfg, bundle, layout, mesh)
+    start_trainable = torch.cat([t.detach().float().reshape(-1).cpu()
+                                 for t in tree_leaves(bundle)])
+    del bundle, unfrozen  # the trainer holds its own (shards)
+    # over a stack sharded at load, the components as they are
     frozen = frozen.on_mesh(mesh)
     schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
                                         0.012)
@@ -3881,8 +3940,7 @@ def tp_lora_steps(stack, dev: torch.device, mesh=None, save=None) -> dict:
     out["split_leaves"] = sum(isinstance(k, sharding.Split) for k in kinds)
     out["trainable"] = torch.cat([t.detach().float().reshape(-1).cpu()
                                   for t in tree_leaves(whole)])
-    out["start"] = torch.cat([t.detach().float().reshape(-1).cpu()
-                              for t in tree_leaves(bundle)])
+    out["start"] = start_trainable
     if save is not None and pmesh.is_writer(mesh):
         save_lora(save, whole)
     pmesh.barrier(mesh)
@@ -3948,15 +4006,20 @@ def sync(dev: torch.device) -> None:
 
 def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
             ) -> dict:
-    """One of the two ranks of `--mesh data=1,model=2` sharing the card:
-    the full-width stack from seed 0 (its UNet's bits checked equal
-    across the ranks); one sharded CFG forward (launches, all-reduces)
-    against the whole UNet's; a guided DDIM batch of 2 images through
-    make_sampler(mesh=) against the one-process sampler's; one int8
-    forward a mode, block by block; the fused-MHA student's forward at
-    batch 16; and the two LoRA steps of `tp_lora_steps`. `device="cpu"`
-    and `tiny` rehearse it on the CPU (fp32, the miniature stack)."""
+    """One of the two ranks of `--mesh data=1,model=2` sharing the card,
+    on the CLIs' sharded path: the full-width stack from seed 0 broadcast,
+    checked and sharded at load (load_sd_stack(mesh=)), and the GiB it
+    keeps resident; one sharded CFG forward (launches, all-reduces); a
+    guided DDIM batch of 2 images through make_sampler(mesh=), which runs
+    the sharded UNet as it is, and its peak; against the one-process twin,
+    a whole stack of its own from the same seed (its own peak, less what
+    this rank holds); one int8 forward a mode, block by block against the
+    twin's blocks; the fused-MHA student's forward at batch 16; and the
+    two LoRA steps of `tp_lora_steps` on the sharded stack, and their
+    peak. `device="cpu"` and `tiny` rehearse it on the CPU (fp32, the
+    miniature stack)."""
     import dataclasses
+    import gc
 
     from polyp_tpu_torch.cli.common import load_sd_stack
     from polyp_tpu_torch.cli.distill_sd import make_student_sampler
@@ -3965,6 +4028,7 @@ def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
     from polyp_tpu_torch.models import unet_blocks
     from polyp_tpu_torch.ops.attention import fused_mha_region
     from polyp_tpu_torch.parallel import mesh as pmesh
+    from polyp_tpu_torch.parallel import sharding
     from polyp_tpu_torch.pipeline import images_uint8
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3972,27 +4036,47 @@ def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
     dev = torch.device(device, 0) if device == "cuda" else torch.device(
         device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    cuda = dev.type == "cuda"
     reset_counts, read_counts = kernel_counters()
+    gib = 2 ** 30
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated(dev) if cuda else 0
+
+    def peak_since_reset() -> int:
+        return torch.cuda.max_memory_allocated(dev) if cuda else 0
+
+    def reset_peak() -> None:
+        sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    # a cache of this part's own: the sharded sampler calibrates (a
+    # gathered copy for the call), and the twin reads what it wrote
+    os.environ["POLYP_TORCH_QUANT_CACHE"] = str(Path(tmp) / "tp_quant_cache")
+    base = allocated()
     start = time.perf_counter()
-    stack = load_sd_stack(None, dtype=dtype, seed=0, device=dev, tiny=tiny)
-    if not pmesh.replicated(stack.unet, mesh):
-        raise AssertionError("the ranks' UNets differ")
+    # the CLIs' load: broadcast, checked, UNet and CLIP cut in place
+    stack = load_sd_stack(None, dtype=dtype, seed=0, device=dev, tiny=tiny,
+                          mesh=mesh)
     sync(dev)
     out = {"stack_s": time.perf_counter() - start,
            "mesh": (mesh.shape, mesh.rank, mesh.model_rank)}
+    want = tp_stack_bytes(tiny, dtype, mesh.model_size)
+    out["memory_gib"] = {
+        "resident": (allocated() - base) / gib,
+        "resident_formula": want["resident"] / gib,
+        "whole_stack": want["whole"] / gib, "split": want["split"] / gib,
+        "allocator_rounding": allocator_rounding(dev) / gib}
+    out["sharded"] = [sharding.sharded(m) is mesh
+                      for m in (stack.unet, stack.text)] + [
+        sharding.sharded(stack.vae) is None]
     cfg = DiffusionConfig(image_size=64 if tiny else 256,
                           num_inference_steps=20, sampler="ddim",
                           guidance_scale=7.5)
-    cuda = dev.type == "cuda"
-    held = torch.cuda.memory_allocated(dev) if cuda else 0
     sampler = make_sampler(stack, cfg, mesh=mesh)
-    # GiB this rank holds: the whole stack, then the sampler's shards on
-    # top of it (the sampler keeps the whole UNet beside them)
-    out["memory_gib"] = {
-        "stack": held / 2**30,
-        "shards": (torch.cuda.memory_allocated(dev) - held) / 2**30
-        if cuda else 0.0}
-    one = make_sampler(stack, cfg)
+    out["sampler_runs_the_stack_unet"] = (sampler.unet is stack.unet
+                                          and sampler.whole_unet is None)
     cond, uncond = sampler.encode_prompt(PROMPT), sampler.encode_prompt("")
     gen = torch.Generator(dev).manual_seed(0)
     lat = cfg.image_size // 8
@@ -4009,9 +4093,8 @@ def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
     out["forward"] = {"inputs": (x.cpu(), t.cpu(), ctx.cpu()),
                       "output": got.cpu()}
 
-    sync(dev)
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
+    held = allocated()
+    reset_peak()
     pmesh.reduce_seconds[0], calls0 = 0.0, pmesh.reduce_calls[0]
     start = time.perf_counter()
     images = sampler.for_prompt(PROMPT)(2, 0)
@@ -4019,20 +4102,23 @@ def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
     out["sample_s"] = time.perf_counter() - start
     out["sample_allreduce_s"] = pmesh.reduce_seconds[0]
     out["sample_allreduces"] = pmesh.reduce_calls[0] - calls0
-    if cuda:
-        out["memory_gib"]["sampling_peak"] = (
-            torch.cuda.max_memory_allocated(dev) / 2**30)
-        torch.cuda.reset_peak_memory_stats(dev)
+    out["memory_gib"]["sampling_peak"] = (peak_since_reset() - base) / gib
+
+    # the one-process twin: a whole stack of its own from the same seed;
+    # its peak is what it adds to what this rank held before it
+    before_twin = allocated()
+    whole = load_sd_stack(None, dtype=dtype, seed=0, device=dev, tiny=tiny)
+    one = make_sampler(whole, cfg)
+    one.encode_prompt(PROMPT), one.encode_prompt("")
+    reset_peak()
     start = time.perf_counter()
-    want = one.for_prompt(PROMPT)(2, 0)
+    twin = one.for_prompt(PROMPT)(2, 0)
     sync(dev)
     out["one_process_sample_s"] = time.perf_counter() - start
-    if cuda:
-        # the one-process sampler in the same process: the same resident
-        # stack and shards, its own activations
-        out["memory_gib"]["one_process_sampling_peak"] = (
-            torch.cuda.max_memory_allocated(dev) / 2**30)
-    diff = (images_uint8(images).int() - images_uint8(want).int()).abs()
+    out["memory_gib"]["one_process_sampling_peak"] = (
+        peak_since_reset() - before_twin) / gib
+    out["memory_gib"]["held_before_sampling"] = (held - base) / gib
+    diff = (images_uint8(images).int() - images_uint8(twin).int()).abs()
     out["image_levels"] = {"max": int(diff.max()),
                            "mean": [float(d.float().mean()) for d in diff]}
 
@@ -4042,10 +4128,18 @@ def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
                          mesh=mesh)
         q._ensure_calibrated(cond, uncond)
         out["int8"][mode] = tp_int8_blocks(
-            q.unet, stack.unet, (x, t, ctx), mode, q._scale_bank, t,
+            q.unet, whole.unet, (x, t, ctx), mode, q._scale_bank, t,
             reset_counts, read_counts)
         if mode == "w8a8_static":
             out["int8"][mode]["calibrated_layers"] = len(q.quant_scales)
+            out["int8"][mode]["calibration_key"] = q.calibration_key
+            # the twin's key of the same weights: it reads the tables the
+            # ranks wrote under it
+            one_q = make_sampler(whole, dataclasses.replace(
+                cfg, quantize=mode))
+            one_q._ensure_calibrated(cond, uncond)
+            out["int8"][mode]["one_process_key"] = one_q.calibration_key
+        del q
 
     student = make_student_sampler(stack, stack.unet, num_steps=8,
                                    fused_mha=True, mesh=mesh)
@@ -4068,14 +4162,21 @@ def tp_rank(mesh, tmp: str, device: str = "cuda", tiny: bool = False
             sync(dev)
             launches = read_counts()
             n_seen = len(seen)
-            want = stack.unet(xs, ts, cs)
+            want = whole.unet(xs, ts, cs)
     finally:
         unet_blocks.fused_mha_linear = plain
     out["student"] = {"launches": launches, "heads": seen[:n_seen],
-                      "rel_l2": rel_l2(got, want)}
+                      "rel_l2": rel_l2(got, want),
+                      "runs_the_stack_unet": student.unet is stack.unet}
+    del whole, one, one_q, student, got, want, twin
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
 
+    reset_peak()
     out["lora"] = tp_lora_steps(stack, dev, mesh, save=str(
         Path(tmp) / "tp_bundle"))
+    out["memory_gib"]["lora_step_peak"] = (peak_since_reset() - base) / gib
     return out
 
 
@@ -4211,7 +4312,20 @@ def tensor_parallel_part(stack, dev: torch.device, card: str,
                "stack_s", "mesh", "forward_launches", "forward_allreduces",
                "sample_s", "sample_allreduce_s",
                "sample_allreduces", "one_process_sample_s",
-               "image_levels", "int8", "student", "memory_gib")}}
+               "image_levels", "int8", "student", "memory_gib", "sharded",
+               "sampler_runs_the_stack_unet")}}
+    for r in ranks:
+        m = r["memory_gib"]
+        print(f"[multigpu] (c) rank {r['mesh'][2]} GiB: resident after the "
+              f"sharded load {m['resident']:.4f} (the whole stack "
+              f"{m['whole_stack']:.4f} less half its split "
+              f"{m['split']:.4f}: {m['resident_formula']:.4f}, tol "
+              f"+{TP_RESIDENT_SLACK_GIB}; the allocator's rounding "
+              f"{m['allocator_rounding']:.4f}); sampling peak "
+              f"{m['sampling_peak']:.4f} vs the one-process twin's "
+              f"{m['one_process_sampling_peak']:.4f} in a stack of its "
+              f"own; LoRA-step peak {m['lora_step_peak']:.4f} on {card}",
+              flush=True)
     print(f"[multigpu] (c) model=2 over two gloo ranks on cuda:0: CFG "
           f"forward rel L2 {forward_rel} vs one process (tol "
           f"{TP_FORWARD_REL_L2}), vs fp32 on the CPU {fp32_rel} (tol "
@@ -4239,7 +4353,8 @@ def tensor_parallel_part(stack, dev: torch.device, card: str,
     print(f"[multigpu] (c) LoRA (unfrozen, DreamBooth) batch 8 on model=2: "
           f"loss {lora['loss_rel']:.2e} relative (tol {MG_LOSS_REL}), "
           f"trainables rel L2 {lora['param_rel_l2']:.2e} (tol "
-          f"{MG_PARAM_REL_L2}; the update {lora['update_rel_l2']:.2e}); "
+          f"{MG_PARAM_REL_L2}; the update {lora['update_rel_l2']:.2e}, tol "
+          f"{MG_UPDATE_REL_L2}); "
           f"whole trainables equal across ranks "
           f"{lora['whole_leaves_checksum_equal']}; bundle loads "
           f"{lora['bundle_loads']}; s a step {lora['step_s']} vs "
@@ -4249,6 +4364,20 @@ def tensor_parallel_part(stack, dev: torch.device, card: str,
     if not (max(forward_rel) <= TP_FORWARD_REL_L2
             and max(fp32_rel["sharded"]) <= REL_L2_TOLERANCE):
         failures.append(f"forward rel L2 {forward_rel}, vs fp32 {fp32_rel}")
+    for r in ranks:
+        m = r["memory_gib"]
+        if not (m["resident"] <= m["resident_formula"]
+                + TP_RESIDENT_SLACK_GIB
+                and m["sampling_peak"] < m["one_process_sampling_peak"]):
+            failures.append(f"memory {m}")
+        if not (all(r["sharded"]) and r["sampler_runs_the_stack_unet"]
+                and r["student"]["runs_the_stack_unet"]):
+            failures.append(f"sharded {r['sharded']}, sampler "
+                            f"{r['sampler_runs_the_stack_unet']}")
+        static = r["int8"]["w8a8_static"]
+        if static["calibration_key"] != static["one_process_key"]:
+            failures.append(f"calibration key {static['calibration_key']} "
+                            f"vs one process's {static['one_process_key']}")
     for r in ranks:
         if r["forward_launches"] != TP_FORWARD or \
                 r["forward_allreduces"] != TP_ALLREDUCES:
@@ -4271,6 +4400,7 @@ def tensor_parallel_part(stack, dev: torch.device, card: str,
             failures.append(f"student {st}")
     if not (lora["loss_rel"] <= MG_LOSS_REL
             and lora["param_rel_l2"] <= MG_PARAM_REL_L2
+            and lora["update_rel_l2"] <= MG_UPDATE_REL_L2
             and lora["bundle_loads"] and lora["split_leaves"] > 0
             and lora["whole_leaves_checksum_equal"]
             and lora["gathered_checksum_equal"]):
@@ -4397,11 +4527,13 @@ def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
         "fan_out_s": [r["fan_out_s"] for r in ranks],
         "tolerances": {"loss_rel": MG_LOSS_REL,
                        "param_rel_l2": MG_PARAM_REL_L2,
+                       "update_rel_l2": MG_UPDATE_REL_L2,
                        "fan_out_mean_levels": MG_FAN_OUT_MEAN_LEVELS}}
     print(f"[multigpu] two gloo ranks on cuda:0, batch 8 as 4 + 4: loss "
           f"{loss_rel:.2e} relative from one process (tol {MG_LOSS_REL}), "
           f"trainables rel L2 {param_rel:.2e} (tol {MG_PARAM_REL_L2}; the "
-          f"update alone {update_rel:.2e}), checksums bit-equal across "
+          f"update alone {update_rel:.2e}, tol {MG_UPDATE_REL_L2}), "
+          f"checksums bit-equal across "
           f"the ranks after each step; launches a step "
           f"{checks['launches_per_step']}; s a step "
           f"{out['gloo_two_ranks']['step_s']} on {card}", flush=True)
@@ -4411,7 +4543,8 @@ def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
           f"{[round(x['mean_abs'], 3) for x in levels]} (tol mean "
           f"{MG_FAN_OUT_MEAN_LEVELS}); rank seconds "
           f"{out['gloo_two_ranks']['fan_out_s']}", flush=True)
-    if not loss_rel <= MG_LOSS_REL or not param_rel <= MG_PARAM_REL_L2:
+    if not (loss_rel <= MG_LOSS_REL and param_rel <= MG_PARAM_REL_L2
+            and update_rel <= MG_UPDATE_REL_L2):
         raise AssertionError(f"the gloo ranks' steps differ from one "
                              f"process: {checks}")
     if any(step != want_launches for r in ranks for step in r["launches"]):
@@ -4456,6 +4589,69 @@ def multigpu_phase(stack, dev: torch.device, card: str, tmp: Path) -> dict:
           f"{rl['measured']})", flush=True)
     lap("roofline")
     out["seconds"] = seconds
+    return out
+
+
+ROOFLINE_MODES = {
+    "few_step": ["--few-step", "--iters", "3"],
+    "train": ["--train", "--iters", "3", "--train-steps", "3"],
+    "distill": ["--distill", "--iters", "3", "--train-steps", "3"]}
+
+
+def roofline_modes_phase(card: str) -> dict:
+    """tools/roofline.py's main in its few-step, train and distill modes
+    at few iterations, each report written to chiprun_out: counted FLOPs
+    and bytes above 0, and every training step's measured images/s at or
+    below its ceiling (at most 100% of it)."""
+    from polyp_tpu_torch.tools import roofline
+
+    reports = ROOT / "chiprun_out"
+    reports.mkdir(exist_ok=True)
+    out, failures = {}, []
+    for mode, argv in ROOFLINE_MODES.items():
+        start = time.perf_counter()
+        path = reports / f"roofline_{mode}.json"
+        report = roofline.main(argv + ["--out", str(path)])
+        torch.cuda.empty_cache()
+        seconds = time.perf_counter() - start
+        if mode == "few_step":
+            steps = {"unet_1x_step": report["unet_1x_step"]}
+            ceilings = {n: c["samples_per_s_analytic"]
+                        for n, c in report["fewstep_ceilings"].items()}
+            print(f"[roofline] --few-step, batch {report['batch']}: 1x step "
+                  f"{report['unet_1x_step']['flops']:.4e} FLOPs, "
+                  f"{report['unet_1x_step']['bytes']:.4e} bytes; floors "
+                  f"{report['floors_ms']}; ceilings samples/s {ceilings}; "
+                  f"{seconds:.1f} s on {card}", flush=True)
+            if not all(c > 0 for c in ceilings.values()):
+                failures.append(f"few-step ceilings {ceilings}")
+        else:
+            steps = {k: v for k, v in report.items() if k.endswith("_step")}
+            for name, st in steps.items():
+                print(f"[roofline] --{mode} {name}, batch {st['batch']}: "
+                      f"{st['flops']:.4e} FLOPs (by pass {st['by_pass']}), "
+                      f"{st['bytes']:.4e} bytes (optimizer "
+                      f"{st['optimizer_bytes']:.4e}); floors ms "
+                      f"{st['floors_ms']}; ceiling "
+                      f"{st['ceiling_images_per_s']:.2f} images/s, "
+                      f"measured {st['measured_images_per_s']:.2f} "
+                      f"({st['pct_of_ceiling']:.2f}% of it; s a step "
+                      f"{st['step_s']:.4f})"
+                      + (f"; {st['minutes_per_2000step_phase']:.2f} min a "
+                         f"2,000-step phase" if mode == "distill" else "")
+                      + f"; {seconds:.1f} s on {card}", flush=True)
+                if not st["pct_of_ceiling"] <= 100:
+                    failures.append(f"{mode} {name}: "
+                                    f"{st['pct_of_ceiling']}% of its ceiling")
+        for name, st in steps.items():
+            if not (st["flops"] > 0 and st["bytes"] > 0):
+                failures.append(f"{mode} {name}: counts {st['flops']} "
+                                f"FLOPs, {st['bytes']} bytes")
+        out[mode] = {"seconds": seconds, "steps": {
+            name: {k: st[k] for k in st if k not in ("by_op",)}
+            for name, st in steps.items()}}
+    if failures:
+        raise AssertionError(f"roofline modes: {failures}")
     return out
 
 
@@ -4701,6 +4897,8 @@ def main() -> int:
         phase("quant gate")
         multigpu = multigpu_phase(stack, dev, card, tmp)
         phase("multi-GPU")
+        roofline_modes = roofline_modes_phase(card)
+        phase("roofline modes")
 
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
@@ -4833,7 +5031,7 @@ def main() -> int:
               "training": training, "augmentation_loop": loop,
               "scratch": scratch, "sd_clis": sd_clis,
               "distill": distilling, "quant_gate": gating,
-              "multigpu": multigpu,
+              "multigpu": multigpu, "roofline_modes": roofline_modes,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

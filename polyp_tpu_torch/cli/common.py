@@ -21,6 +21,15 @@ kept in bf16, from the stack's own source: the checkpoint's values, or
 the seeded draws again (a replay of the initialisation, which consumes the
 generator in the same order). The LoRA trainer merges its adapter into
 those fp32 weights (lora/surgery.py).
+
+Under a model axis (`load_sd_stack(mesh=)`, the CLIs' `--mesh
+data=N,model=k`) the stack is broadcast from rank 0, checked, and its
+UNet and CLIP text model are cut in place to this rank's shards
+(parallel/sharding.py; the VAE and the tokenizer stay whole, the
+reference's placements, polyp_tpu/cli/sd_common.py:293-297): a rank holds
+the whole stack less (1 − 1/k) of the split bytes. `fp32_params` of such
+a stack gives this rank's slice of each split kernel, cut from the source
+one tensor at a time.
 """
 
 from __future__ import annotations
@@ -161,15 +170,33 @@ class SDStack:
     tiny: bool = False
 
     @torch.no_grad()
-    def fp32_params(self, part: str, names: Iterable[str]
-                    ) -> dict[str, torch.Tensor]:
+    def fp32_params(self, part: str, names: Iterable[str],
+                    whole: bool = False) -> dict[str, torch.Tensor]:
         """Fresh fp32 tensors (never views of the stack's parameters) of
         the parameters `names` of `part` ("unet", "vae" or "text"), on
-        that module's device, exactly as the source holds them."""
+        that module's device, exactly as the source holds them. Of a
+        module sharded over a model axis: this rank's slice of each split
+        parameter, or with `whole` the whole tensors (what a trainer
+        cuts to its own shards)."""
+        from polyp_tpu_torch.parallel import sharding
+
         names = list(names)
         module = getattr(self, part)
+        mesh = sharding.sharded(module)
+        plan = ({} if mesh is None else
+                sharding.unet_param_sharding(module, mesh.model_size))
+
+        def cut(name: str, t: torch.Tensor) -> torch.Tensor:
+            if whole or plan.get(name) is None:
+                return t
+            return sharding.take(t, plan[name], mesh.model_rank,
+                                 mesh.model_size)
+
         params = dict(module.named_parameters())
         if all(params[n].dtype == torch.float32 for n in names):
+            if whole:
+                return {n: v.clone() for n, v in sharding.gather_params(
+                    module, names).items()}
             return {n: params[n].detach().clone() for n in names}
         device = next(module.parameters()).device
         if self.pretrained_dir is not None:
@@ -182,8 +209,11 @@ class SDStack:
                                 SD_WEIGHT_FILES[part][1])
             sd = (read_safetensors(path, names)
                   if path.suffix == ".safetensors" else load_state_dict(path))
-            return {n: sd[n].to(device, torch.float32) for n in names}
-        return _replay_init(self.tiny, self.seed, part, set(names), device)
+            # cut on the host, so only the slice is copied to the card
+            return {n: cut(n, sd[n]).to(device, torch.float32)
+                    for n in names}
+        return _replay_init(self.tiny, self.seed, part, set(names), device,
+                            cut)
 
 
 def build_modules(tiny: bool, dtype: torch.dtype, device) -> tuple:
@@ -236,18 +266,20 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
 
 @torch.no_grad()
 def _replay_init(tiny: bool, seed: int, part: str, names: set[str],
-                 device) -> dict[str, torch.Tensor]:
+                 device, cut=None) -> dict[str, torch.Tensor]:
     """The fp32 values `load_sd_stack` drew for `names` of `part`: the
     same generator walked over meta copies of the modules in the same
-    order."""
+    order, one tensor at a time, each kept as `cut(name, value)` (a
+    rank's slice) when given."""
     gen = torch.Generator(device).manual_seed(seed)
     out = {}
     for which, module in zip(PARTS, build_modules(tiny, torch.float32,
                                                    "meta")):
         for name, p, value in _init_values(module, gen):
             if which == part and name in names:
-                out[name] = (torch.full(p.shape, value, device=device)
-                             if isinstance(value, float) else value)
+                value = (torch.full(p.shape, value, device=device)
+                         if isinstance(value, float) else value)
+                out[name] = value if cut is None else cut(name, value)
         if which == part:
             return out
     raise KeyError(part)
@@ -256,16 +288,21 @@ def _replay_init(tiny: bool, seed: int, part: str, names: set[str],
 def load_sd_stack(pretrained_dir: str | None = None,
                   dtype: torch.dtype = torch.bfloat16, tiny: bool = False,
                   device: torch.device | str = "cuda",
-                  seed: int = 0) -> SDStack:
+                  seed: int = 0, mesh=None) -> SDStack:
     """SD-v1-4 components (UNet, VAE, CLIP text encoder, tokenizer) on
     `device`: imported from a local diffusers layout when `pretrained_dir`
     is given (a directory that is not there raises), else randomly
     initialised from `seed`. `tiny=True` swaps in the miniature stack and a
     hash tokenizer, as the reference does. The stack is built on the card
     unless the caller passes `device="cpu"`; with no card it raises rather
-    than move to the CPU on its own."""
+    than move to the CPU on its own. Under `mesh` the stack is rank 0's on
+    every rank (`replicate_stack`), and under a model axis its UNet and
+    CLIP text model are cut in place to this rank's shards
+    (parallel/sharding.py::shard_params; the whole tensors are dropped);
+    the VAE and the tokenizer stay whole."""
     from polyp_tpu_torch.models import (
         SD14_TEXT_CONFIG, TINY_TEXT_CONFIG, HashTokenizer, load_tokenizer)
+    from polyp_tpu_torch.parallel import sharding
 
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -294,7 +331,11 @@ def load_sd_stack(pretrained_dir: str | None = None,
                                   max_length=TINY_TEXT_CONFIG.max_length)
     else:
         tokenizer = load_tokenizer(tokenizer_dir, SD14_TEXT_CONFIG.max_length)
-    return SDStack(*(m.eval() for m in modules), tokenizer=tokenizer,
-                   pretrained_dir=(None if pretrained_dir is None
-                                   else str(pretrained_dir)),
-                   seed=seed, tiny=tiny)
+    stack = replicate_stack(SDStack(
+        *(m.eval() for m in modules), tokenizer=tokenizer,
+        pretrained_dir=None if pretrained_dir is None else str(
+            pretrained_dir), seed=seed, tiny=tiny), mesh)
+    for module in (stack.unet, stack.text):
+        # checked equal across the ranks: each cuts its own copy
+        sharding.shard_params(module, mesh)
+    return stack

@@ -1,7 +1,11 @@
 """Progressive distillation of the per-class SD models: the twin of
 polyp_tpu/cli/distill_sd.py (`polyp-distill-sd-torch`; `--mesh data=N`
 under torchrun: each phase's steps data-parallel over N cards, rank 0
-writing).
+writing). Under `--mesh data=N,model=k` the phases still train the whole
+student on every rank (the reference's training is data-parallel too),
+so a rank keeps the whole stack; the student is cut in place to the
+rank's shards for `--generate`, as `load_student_sampler` cuts a saved
+one (the reference's sampler shards it, its :226,273,299).
 
 Each class's fine-tuned model (the stack with the class's `lora_{cls}`
 bundle from polyp-lora-per-class-torch or polyp-lora-all-classes-torch)
@@ -50,7 +54,7 @@ from polyp_tpu_torch.cli.common import (
     get_tracker_from, load_sd_stack, print_banner, replicate_stack)
 from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.diffusion.schedule import DiffusionSchedule
-from polyp_tpu_torch.parallel import barrier, is_writer
+from polyp_tpu_torch.parallel import barrier, is_writer, sharding
 from polyp_tpu_torch.pipeline import StableDiffusionSampler
 from polyp_tpu_torch.utils.checkpoint import save_pytree
 from polyp_tpu_torch.utils.rng import stream_generator
@@ -251,8 +255,14 @@ def main(argv=None) -> dict:
 
             generate_s = 0.0
             if args.generate > 0:
+                # under a model axis the student is cut in place to this
+                # rank's shards and its whole weights dropped (they are on
+                # disk): the sampler runs it as it is
+                student = sharding.shard_params(
+                    student_unet(stack.unet, result.params), mesh)
+                result.params = None
                 sampler = make_student_sampler(
-                    merged, student_unet(stack.unet, result.params),
+                    merged, student,
                     num_steps=result.num_steps,
                     prediction_type=result.prediction_type,
                     image_size=config.image_size,
@@ -318,9 +328,11 @@ def load_student_sampler(stack, output_dir: str | Path, cls: str, *,
     meta = json.loads((models / f"distilled_{cls}_meta.json").read_text())
     params = load_pytree(models / f"distilled_{cls}")["params"]
     device = next(stack.unet.parameters()).device
+    student = sharding.shard_params(student_unet(
+        stack.unet, {k: v.to(device) for k, v in params.items()}), mesh)
+    del params
     sampler = make_student_sampler(
-        stack, student_unet(stack.unet, {k: v.to(device)
-                                         for k, v in params.items()}),
+        stack, student,
         num_steps=meta["num_steps"],
         prediction_type=meta["prediction_type"], image_size=image_size,
         num_train_timesteps=meta["num_train_timesteps"], quantize=quantize,
@@ -348,8 +360,9 @@ def make_student_sampler(stack, unet: nn.Module, *, num_steps: int,
     DDIM at `num_steps`, `guidance_scale=None`, the SD-v1 schedule with the
     student's `prediction_type` (reference :284-303). `decoder`: a
     TinyDecoder replacing the VAE decode; `mesh`: fan batches out over its
-    data group and, with a model axis, shard the student over its model
-    group (a copy: `unet` stays whole)."""
+    data group and, with a model axis, run the student over its model
+    group (a UNet sharded over `mesh` as it is, as this module's callers
+    pass it; a whole one through a sharded copy, `unet` staying whole)."""
     return StableDiffusionSampler(
         unet, stack.vae, stack.text, stack.tokenizer,
         sd_schedule(num_train_timesteps, prediction_type),

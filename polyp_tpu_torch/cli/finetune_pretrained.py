@@ -3,7 +3,8 @@ polyp_tpu/cli/finetune_pretrained.py (the reference's
 train_from_pretrained.py); `--mesh data=N` under torchrun trains and
 samples data-parallel over N cards, rank 0 writing; `--mesh
 data=N,model=k` adds tensor parallelism over k cards, as the reference
-shards the frozen UNet and CLIP (:73-78).
+shards the frozen UNet and CLIP (:73-78): the stack is sharded at load,
+and a rank holds only its shards.
 
 LoRA r=4 α=4 (no dropout) on the attention projections, 256 px, over
 every training image with the fixed prompt "a realistic photo of colon
@@ -27,7 +28,7 @@ import numpy as np
 
 from polyp_tpu_torch.cli.common import (
     DataLayout, add_common_flags, get_mesh_from, get_tracker_from,
-    load_sd_stack, print_banner, replicate_stack)
+    load_sd_stack, print_banner)
 from polyp_tpu_torch.cli.sd_common import (
     make_components, make_sampler, merged_stack)
 from polyp_tpu_torch.configs import DiffusionConfig
@@ -75,8 +76,8 @@ def main(argv=None) -> dict:
                              experiment_name="generator_model")
     layout = DataLayout(Path(args.data_root))
     mesh = get_mesh_from(args)
-    stack = replicate_stack(load_sd_stack(args.pretrained_dir, tiny=args.tiny,
-                                          device=args.device), mesh)
+    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                                         device=args.device, mesh=mesh)
     device = next(stack.unet.parameters()).device
 
     data = ArrayDataset.from_table(
@@ -108,10 +109,12 @@ def main(argv=None) -> dict:
             lcfg, log=lambda k, v, s: tracker.log_metric(k, v, s))
 
         out = Path(cfg.output_dir)
-        trained = state.whole_trainable()
+        adapter = state.whole_trainable()["unet_lora"]
         if is_writer(mesh):
-            save_lora(out / "lora_weights", trained["unet_lora"])
-        merged = merged_stack(stack, frozen, trained, lcfg)
+            save_lora(out / "lora_weights", adapter)
+        del adapter
+        # over the sharded stack the merge takes the trainer's own shards
+        merged = merged_stack(stack, frozen, state.trainable, lcfg)
         sampler = make_sampler(merged, cfg, mesh=mesh)
         epoch_dir = out / "samples" / f"{cfg.num_epochs - 1:04d}"
         generate_to_dir(sampler.for_prompt(PROMPT), cfg.eval_batch_size,

@@ -19,7 +19,7 @@ from pathlib import Path
 
 from polyp_tpu_torch.cli.common import (
     DataLayout, add_common_flags, class_split, get_mesh_from,
-    get_tracker_from, load_sd_stack, replicate_stack)
+    get_tracker_from, load_sd_stack)
 from polyp_tpu_torch.cli.sd_common import SDFlags, train_class
 from polyp_tpu_torch.configs import DiffusionConfig
 from polyp_tpu_torch.eval.quota import (
@@ -80,8 +80,8 @@ def main(argv=None) -> dict:
     print(f"Quotas: {quotas}")
 
     mesh = get_mesh_from(args)
-    stack = replicate_stack(load_sd_stack(args.pretrained_dir, tiny=args.tiny,
-                                          device=args.device), mesh)
+    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                                         device=args.device, mesh=mesh)
     tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
     out: dict = {"quotas": quotas, "classes": {}}

@@ -20,7 +20,7 @@ from pathlib import Path
 
 from polyp_tpu_torch.cli.common import (
     DataLayout, add_common_flags, get_mesh_from, get_tracker_from,
-    load_sd_stack, replicate_stack)
+    load_sd_stack)
 from polyp_tpu_torch.cli.sd_common import SDFlags, resume_class, train_class
 from polyp_tpu_torch.configs import DiffusionConfig
 
@@ -71,8 +71,8 @@ def main(argv=None) -> dict:
                  for cls in args.classes_to_train}
 
     mesh = get_mesh_from(args)
-    stack = replicate_stack(load_sd_stack(args.pretrained_dir, tiny=args.tiny,
-                                          device=args.device), mesh)
+    stack = load_sd_stack(args.pretrained_dir, tiny=args.tiny,
+                                         device=args.device, mesh=mesh)
     tracker = get_tracker_from(args, mesh)
     tracker.set_experiment(args.experiment_name or config.experiment_name)
     out: dict = {"classes": {}}

@@ -21,6 +21,14 @@ polyp_tpu/cli/sd_common.py (:94-371).
   merged kernels (and the grown token table), so the stack's own weights
   stay bit for bit. `unfrozen` weights are fp32 copies, never views of
   the stack.
+
+Under a model axis the CLIs' stack is sharded at load (cli/common.py::
+load_sd_stack(mesh=)), and everything here works shard-wise: the fp32
+kernels are this rank's slices, the trainer holds its shards, the merge
+takes the trainer's own shards (never the gathered bundle) and gives a
+merged UNet and CLIP sharded over the same mesh, which the sampler runs
+as they are. Only the saved bundle is whole (gathered, bit-equal across
+the ranks).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from polyp_tpu_torch.diffusion import DiffusionSchedule
 from polyp_tpu_torch.lora.surgery import (
     LoRAConfig, init_lora, load_lora, merge_lora, merged_module, save_lora)
 from polyp_tpu_torch.parallel import mesh as pmesh
+from polyp_tpu_torch.parallel import sharding
 from polyp_tpu_torch.pipeline import (
     StableDiffusionSampler, count_samples, generate_to_dir, top_up_samples)
 from polyp_tpu_torch.train.dreambooth import (
@@ -103,7 +112,11 @@ def merged_stack(stack: SDStack, frozen: SDComponents, trainable: dict,
     """`stack` with a trained bundle attached, for sampling: the UNet
     adapter merged (over the `unfrozen` weights where there are some), the
     DreamBooth rows scattered into the token table, the text adapter
-    merged. No dropout."""
+    merged. No dropout. `trainable` is in the stack's layout: whole over a
+    whole stack; over a sharded stack this rank's shards (a trainer's
+    `state.trainable`, or a bundle cut as `attach_bundle` cuts it),
+    merged into `frozen`'s slices of the kernels into a UNet and CLIP
+    sharded over the same mesh."""
     kernels = frozen.unet_params
     unet_weights = {}
     if "unfrozen" in trainable:
@@ -189,6 +202,10 @@ def attach_bundle(stack: SDStack, config: DiffusionConfig, cls: str,
             stack.text.get_parameter(TOKEN_TABLE), current + 1,
             torch.Generator(device).manual_seed(0))
         special_ids = torch.tensor([current], device=device)
+    mesh = sharding.sharded(stack.unet)
+    if mesh is not None:  # this rank's shards, in the trainer's layout
+        bundle = sharding.shard_tree(bundle, sharding.trainable_sharding(
+            bundle, stack.unet, stack.text, mesh.model_size), mesh)
     frozen = make_components(stack, bundle, token_table=table)
     tcfg = _text_lora_config(config) if "text_lora" in bundle else None
     return merged_stack(stack, frozen, bundle, lcfg, tcfg, special_ids)
@@ -299,9 +316,10 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
             if flags.add_visual_influence else None)
     unfrozen = None
     if flags.unfreeze_layers:
+        # whole: the trainer cuts its own shards of rank 0's bundle
         unfrozen = stack.fp32_params("unet", [
             n for n, _ in stack.unet.named_parameters()
-            if any(m in n for m in UNFROZEN_MODULES)])
+            if any(m in n for m in UNFROZEN_MODULES)], whole=True)
     table_grown, special_rows, special_ids = None, None, None
     if flags.dreambooth:
         token = SPECIAL_TOKENS[cls]
@@ -340,6 +358,8 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
         cfg, trainable, trainable_layout(trainable, frozen, mesh), mesh)
     if not pmesh.replicated(state.whole_trainable(), mesh):
         raise RuntimeError("the ranks' trainables differ after the broadcast")
+    # the trainer holds its own copies (its shards under a model axis)
+    del trainable, adapter, text_lora, unfrozen
     schedule = DiffusionSchedule.create(cfg.num_train_timesteps,
                                         "scaled_linear", 0.00085, 0.012)
     checkpointer = None
@@ -358,17 +378,19 @@ def train_class(stack: SDStack, config: DiffusionConfig, layout: DataLayout,
     _sync(device)
     train_s = time.perf_counter() - start
 
-    # the whole trainable bundle, with the DreamBooth token's id
+    # the whole trainable bundle (gathered under a model axis), with the
+    # DreamBooth token's id
     save_path = folder / f"lora_{cls}"
-    trained = state.whole_trainable()
-    bundle = dict(trained)
+    bundle = dict(state.whole_trainable())
     if special_ids is not None:
         bundle["special_ids"] = special_ids
     if writer:
         save_lora(save_path, bundle)
+    del bundle
     pmesh.barrier(mesh)
-    merged = merged_stack(stack, frozen, trained, lcfg, text_lora_cfg,
-                          special_ids)
+    # the trainer's own trainables: over a sharded stack, its shards
+    merged = merged_stack(stack, frozen, state.trainable, lcfg,
+                          text_lora_cfg, special_ids)
     n_generate = quota if generate is None else generate
     generate_s = 0.0
     if n_generate > 0:

@@ -9,12 +9,17 @@ The result is keyed by the port's module names, so the disk cache lives
 under a directory of its own (`default_scales_cache`) and never reads the
 reference's, whose keys differ (importers.scales_from_jax maps them).
 
-A UNet sharded over a mesh's model axis (parallel/sharding.py) calibrates
-as one: its row-parallel layers record the model group's amax (ops/
-quant.py::record_amax), so the tables are the one-process tables to
-rounding. The sampler calibrates its whole UNet instead, before sharding,
-which gives them bit for bit, a cache key every rank shares, and no
-collective to wait on.
+A UNet sharded over a mesh's model axis (parallel/sharding.py) can run
+`calibrate_unet_scales` as it is: its row-parallel layers record the
+model group's amax (ops/quant.py::record_amax), so the tables are the
+one-process tables to rounding. `ensure_scales` gives them bit for bit
+instead: its key is one process's key of the same whole weights (each
+split parameter gathered and summed alone, `sharding.whole_param_sums`),
+the model group takes one branch (a rank that reads its tables while
+another calibrates through collectives would hang the group), and on a
+miss every rank calibrates a whole copy gathered for that call alone
+(`sharding.gathered_copy`) and drops it: only that call's peak holds the
+whole UNet.
 """
 
 from __future__ import annotations
@@ -38,11 +43,9 @@ CACHE_FORMAT = 2
 MARGIN = 1.05
 
 
-def cached_scales(cache_path: str | Path, compute: Callable[[], dict],
-                  fingerprint: str) -> dict:
-    """Disk cache for calibration, keyed by a caller-supplied fingerprint
-    (weights/config digest): reuse a matching file, else compute and
-    write."""
+def read_cached(cache_path: str | Path, fingerprint: str) -> dict | None:
+    """The scales a cache file holds under `fingerprint`, or None (no
+    file, another key or format, unreadable)."""
     cache_path = Path(cache_path)
     if cache_path.exists():
         try:
@@ -52,7 +55,24 @@ def cached_scales(cache_path: str | Path, compute: Callable[[], dict],
                 return payload["scales"]
         except (OSError, ValueError):
             pass  # unreadable cache → recompute
-    scales = compute()
+    return None
+
+
+def cached_scales(cache_path: str | Path, compute: Callable[[], dict],
+                  fingerprint: str) -> dict:
+    """Disk cache for calibration, keyed by a caller-supplied fingerprint
+    (weights/config digest): reuse a matching file, else compute and
+    write."""
+    scales = read_cached(cache_path, fingerprint)
+    if scales is None:
+        scales = compute()
+        write_cached(cache_path, fingerprint, scales)
+    return scales
+
+
+def write_cached(cache_path: str | Path, fingerprint: str,
+                 scales: dict) -> None:
+    cache_path = Path(cache_path)
     cache_path.parent.mkdir(parents=True, exist_ok=True)
     # written whole, then renamed: the ranks of a group may calibrate at
     # once, and a reader never sees half a file
@@ -61,20 +81,23 @@ def cached_scales(cache_path: str | Path, compute: Callable[[], dict],
         {"fingerprint": fingerprint, "format": CACHE_FORMAT,
          "scales": scales}))
     os.replace(tmp, cache_path)
-    return scales
 
 
 def params_fingerprint(module: torch.nn.Module, *extra: object) -> str:
     """Cheap content fingerprint of a module's parameters: names, shapes and
     one fp32 sum per parameter, fetched in one device transfer. Not a
-    cryptographic hash."""
+    cryptographic hash. A module sharded over a model axis gets one
+    process's key of its whole weights, on every rank of the group."""
+    from polyp_tpu_torch.parallel.sharding import whole_param_sums
+
     h = hashlib.sha256()
-    params = list(module.named_parameters())
-    for name, p in params:
-        h.update(name.encode())
-        h.update(str(tuple(p.shape)).encode())
     with torch.no_grad():
-        sums = torch.stack([p.float().sum() for _, p in params]).cpu()
+        params = whole_param_sums(module)
+    for name, shape, _ in params:
+        h.update(name.encode())
+        h.update(str(shape).encode())
+    with torch.no_grad():
+        sums = torch.stack([s for _, _, s in params]).cpu()
     h.update(np.ascontiguousarray(sums.numpy(), np.float32).tobytes())
     for e in extra:
         h.update(str(e).encode())
@@ -95,15 +118,36 @@ def ensure_scales(unet: torch.nn.Module, schedule: DiffusionSchedule,
                   cond: torch.Tensor | None = None,
                   uncond: torch.Tensor | None = None, *,
                   num_steps: int = 8, guidance_scale: float | None = 7.5,
-                  fingerprint_extras: tuple = ()) -> dict:
-    """Fingerprint the UNet's weights → reuse the disk cache → calibrate on
-    a miss."""
+                  fingerprint_extras: tuple = ()) -> tuple[dict, str]:
+    """Fingerprint the UNet's weights → reuse the disk cache → calibrate
+    on a miss: the scales and the cache key. A sharded UNet's model group
+    takes the miss together where any of its ranks misses, and calibrates
+    a gathered whole copy (module docstring)."""
+    from polyp_tpu_torch.parallel import mesh as pmesh
+    from polyp_tpu_torch.parallel import sharding
+
     fp = params_fingerprint(unet, *fingerprint_extras)
-    return cached_scales(
-        default_scales_cache(fp),
-        lambda: calibrate_unet_scales(unet, schedule, latent_shape, cond,
-                                      uncond, num_steps=num_steps,
-                                      guidance_scale=guidance_scale), fp)
+    path = default_scales_cache(fp)
+
+    def compute(module):
+        return calibrate_unet_scales(module, schedule, latent_shape, cond,
+                                     uncond, num_steps=num_steps,
+                                     guidance_scale=guidance_scale)
+
+    mesh = sharding.sharded(unet)
+    if mesh is None:
+        return cached_scales(path, lambda: compute(unet), fp), fp
+    scales = read_cached(path, fp)
+    device = next(unet.parameters()).device
+    missed = pmesh.model_max(torch.tensor(
+        [float(scales is None)], device=device), mesh)
+    if not bool(missed.item()):
+        return scales, fp
+    whole = sharding.gathered_copy(unet)
+    scales = compute(whole)
+    del whole
+    write_cached(path, fp, scales)
+    return scales, fp
 
 
 def _calib_forward(unet, x, t, ctx) -> tuple[torch.Tensor, dict[str, float]]:

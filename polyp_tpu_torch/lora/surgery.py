@@ -25,7 +25,10 @@ with the factors in the reference's layout, so `lora_from_jax`
   caller, as the reference's kernel-space dropout.
 * `merged_module`: a copy of a module that shares every parameter tensor
   with it except the merged ones, for sampling with an adapter without
-  writing into the frozen module.
+  writing into the frozen module. On a tensor-parallel rank the kernels,
+  the adapter's factors and so the merged weights are this rank's slices
+  (parallel/sharding.py::lora_param_sharding), and the merge is the same
+  arithmetic on them.
 """
 
 from __future__ import annotations
@@ -129,9 +132,16 @@ def merged_module(module: nn.Module,
     """A copy of `module` whose parameters and buffers are `module`'s own
     tensors (shared, not copied), except `weights` ({parameter name:
     tensor}), which take their place in the copy. `module` is left as it
-    was."""
+    was. A module sharded over a mesh (parallel/sharding.py) gives a copy
+    sharded over the same mesh: `weights` then hold this rank's slices."""
     memo = {id(t): t for t in itertools.chain(module.parameters(),
                                               module.buffers())}
+    for sub in module.modules():  # cached int8 codes: shared too
+        memo.update((id(t), t) for t in getattr(sub, "_q8_weight", ())
+                    if isinstance(t, torch.Tensor))
+    mesh = getattr(module, "_tp_mesh", None)
+    if mesh is not None:
+        memo[id(mesh)] = mesh  # shared, as the tensors are
     out = copy.deepcopy(module, memo)
     for name, value in weights.items():
         owner, leaf = name.rsplit(".", 1)

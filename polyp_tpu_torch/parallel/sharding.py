@@ -39,12 +39,20 @@ tensors) and `shard_tree` / `gather_tree`
 whole form, which is what every file holds, and rank m's shards. A
 module keeps its layers' `in_features` / `out_features` whole; the weight
 holds the slice.
+
+A rank holds only its shards: `shard_params` cuts a module in place and
+nothing else keeps the whole tensors, so a stack sharded at load
+(cli/common.py::load_sd_stack(mesh=)) holds the whole stack less (1 − 1/k)
+of its split bytes. What needs the whole weights takes them one tensor at
+a time (`whole_param_sums`, the calibration cache's key) or for one call
+(`gathered_copy`, which calibration frees after it). `sharded_copy` is for
+a caller that keeps a whole module by its own choice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Iterable
 
 import torch
 from torch import nn
@@ -282,13 +290,14 @@ def sharded(module: nn.Module) -> pmesh.DataMesh | None:
 def shard_params(module: nn.Module, mesh: pmesh.DataMesh | None
                  ) -> nn.Module:
     """Cut `module` (a UNet or a CLIP text model) in place to this rank's
-    shards under `mesh`'s model axis, from global rank 0's whole weights:
-    each split layer's weight (and a column layer's bias) becomes a new
-    parameter holding the slice, each split block learns the mesh (its
-    forward then runs the collectives), and a row-parallel layer learns
-    it too (its int8 scales are the model group's). A no-op on a model
-    axis of 1 and on a module already sharded over `mesh`. Returns
-    `module`."""
+    shards under `mesh`'s model axis, from this rank's own whole weights,
+    which the caller has made equal across the ranks (cli/common.py::
+    replicate_stack, mesh.replicate_to): each split layer's weight (and a
+    column layer's bias) becomes a new parameter holding the slice, and
+    the whole one is dropped; each split block learns the mesh (its forward
+    then runs the collectives), and a row-parallel layer learns it too
+    (its int8 scales are the model group's). A no-op on a model axis of 1
+    and on a module already sharded over `mesh`. Returns `module`."""
     if mesh is None or mesh.model_size == 1 or sharded(module) is mesh:
         return module
     if sharded(module) is not None:
@@ -302,9 +311,10 @@ def shard_params(module: nn.Module, mesh: pmesh.DataMesh | None
         layer, leaf = name.rsplit(".", 1)
         owner = module.get_submodule(layer)
         old = getattr(owner, leaf)
-        piece = take(_whole_from_rank0(old, mesh), split, mesh.model_rank, k)
+        piece = take(old.detach(), split, mesh.model_rank, k)
         setattr(owner, leaf, nn.Parameter(piece,
                                           requires_grad=old.requires_grad))
+        owner.__dict__.pop("_q8_weight", None)  # the whole weight's codes
         if split.dim == 1:
             owner.row_tp = mesh
     for name, split in blocks.items():
@@ -322,21 +332,67 @@ def shard_params(module: nn.Module, mesh: pmesh.DataMesh | None
 def sharded_copy(module: nn.Module, mesh: pmesh.DataMesh | None
                  ) -> nn.Module:
     """A copy of `module` sharded over `mesh` (`shard_params`), sharing
-    every whole tensor with `module`, which is left as it was; `module`
-    itself on a model axis of 1 or when it is sharded already."""
+    every whole tensor with `module`, which is left as it was and keeps
+    its whole weights: for a caller that holds a whole module by its own
+    choice. `module` itself on a model axis of 1 or when it is sharded
+    already."""
     if mesh is None or mesh.model_size == 1 or sharded(module) is not None:
         return module
     from polyp_tpu_torch.lora.surgery import merged_module
     return shard_params(merged_module(module, {}), mesh)
 
 
-def gather_params(module: nn.Module) -> dict[str, torch.Tensor]:
-    """The whole parameters of a module (sharded or not) by name, on every
-    rank of its model group: what a one-process module holds, bit for
-    bit."""
+def gather_params(module: nn.Module, names: Iterable[str] | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """The whole parameters of a module (sharded or not) by name (all, or
+    `names`), on every rank of its model group: what a one-process module
+    holds, bit for bit."""
     mesh = sharded(module)
     params = {k: v.detach() for k, v in module.named_parameters()}
+    if names is not None:
+        params = {k: params[k] for k in names}
     if mesh is None:
         return params
     plan = unet_param_sharding(module, mesh.model_size)
     return gather_tree(params, {k: plan[k] for k in params}, mesh)
+
+
+def whole_param_sums(module: nn.Module
+                     ) -> list[tuple[str, tuple[int, ...], torch.Tensor]]:
+    """(name, whole shape, fp32 sum of the whole tensor) of every
+    parameter, in `named_parameters` order: on a sharded module each split
+    parameter is gathered alone, summed and dropped, so every rank of the
+    model group gets one process's values, bit for bit, and never holds
+    more than one whole tensor."""
+    mesh = sharded(module)
+    plan = ({} if mesh is None
+            else unet_param_sharding(module, mesh.model_size))
+    out = []
+    for name, p in module.named_parameters():
+        t = p.detach()
+        if plan.get(name) is not None:
+            t = _gather(t, plan[name], mesh)
+        out.append((name, tuple(t.shape), t.float().sum()))
+    return out
+
+
+def gathered_copy(module: nn.Module) -> nn.Module:
+    """A whole copy of a sharded module on every rank of its model group,
+    for one call (calibration): it shares every whole tensor with
+    `module`, holds each split parameter gathered, and runs as one
+    process's module (no mesh, no collectives). Drop it after use; the
+    rank's resident state is `module`'s shards. `module` itself when it
+    is not sharded."""
+    from polyp_tpu_torch.lora.surgery import merged_module
+
+    mesh = sharded(module)
+    if mesh is None:
+        return module
+    plan = unet_param_sharding(module, mesh.model_size)
+    out = merged_module(module, {
+        name: _gather(p.detach(), plan[name], mesh)
+        for name, p in module.named_parameters() if plan[name] is not None})
+    for sub in out.modules():  # the class defaults: no mesh
+        for attr in ("tp", "row_tp", "_tp_mesh"):
+            sub.__dict__.pop(attr, None)
+    return out

@@ -191,7 +191,7 @@ class PixelDiffusionSampler:
         self._scale_bank: quant.ScaleBank | None = None
         if self.quantize == "w8a8_static":
             from polyp_tpu_torch.diffusion.calibrate import ensure_scales
-            self.quant_scales = ensure_scales(
+            self.quant_scales, _ = ensure_scales(
                 model, schedule,
                 (2, model.out_channels, image_size, image_size),
                 self.text_embeddings, fingerprint_extras=(
@@ -244,8 +244,10 @@ class StableDiffusionSampler:
     `decoder`, a TinyDecoder, replaces the VAE decode and takes the scaled
     latents as they are (reference :295-299); `fused_mha` opts the UNet's
     attentions into the fused MHA kernel; `mesh` fans each batch out over
-    its data group, and with a model axis shards the UNet over its model
-    group."""
+    its data group, and with a model axis runs the UNet over its model
+    group: a UNet sharded over `mesh` as it is (a rank then holds only its
+    shards), a whole one through a sharded copy beside it (the caller
+    keeps the whole module)."""
 
     def __init__(self, unet, vae, text_model, tokenizer,
                  schedule: DiffusionSchedule, image_size: int = 256,
@@ -262,11 +264,17 @@ class StableDiffusionSampler:
             num_steps, quantize, quant_fp_head, quant_fp_tail)
         self.quant_scales: dict | None = None
         self._scale_bank: quant.ScaleBank | None = None
-        if sharding.sharded(unet) is not None:
-            raise ValueError("StableDiffusionSampler takes a whole UNet and "
-                             "shards its own copy under a model axis")
-        self.whole_unet = unet
-        self.unet = sharding.sharded_copy(unet, mesh)
+        own = sharding.sharded(unet)
+        if own is not None and own is not mesh:
+            raise ValueError("the UNet is sharded over another mesh than "
+                             "the sampler's")
+        # a whole UNet the caller keeps: calibrated as it is (one device's
+        # tables, bit for bit), run through a sharded copy under a model
+        # axis; a sharded one: run as it is, calibrated on a gathered copy
+        self.whole_unet = unet if own is None else None
+        self.unet = unet if own is not None else sharding.sharded_copy(
+            unet, mesh)
+        self.calibration_key: str | None = None
         self.vae = vae
         self.text_model = text_model
         self.tokenizer = tokenizer
@@ -365,15 +373,18 @@ class StableDiffusionSampler:
         None (bench.py:216-229). Reused for every prompt and cached on disk
         by weight fingerprint; the guidance mode and the point count are in
         the fingerprint, so a folded sampler never gets the CFG tables of
-        the same weights, nor a 4-point one the 8-point tables."""
+        the same weights, nor a 4-point one the 8-point tables. A UNet
+        sharded over the sampler's mesh gets one process's key and tables
+        on every rank (diffusion/calibrate.py::ensure_scales)."""
         if self.quantize != "w8a8_static" or self._scale_bank is not None:
             return
         from polyp_tpu_torch.diffusion.calibrate import ensure_scales
         latent = self.image_size // 8
         points = min(8, self.num_steps)
         folded = self.guidance_scale is None
-        self.quant_scales = ensure_scales(
-            self.whole_unet, self.schedule, (2, 4, latent, latent), cond[:1],
+        unet = self.unet if self.whole_unet is None else self.whole_unet
+        self.quant_scales, self.calibration_key = ensure_scales(
+            unet, self.schedule, (2, 4, latent, latent), cond[:1],
             None if folded else uncond[:1], num_steps=points,
             guidance_scale=self.guidance_scale,
             fingerprint_extras=(self.image_size,

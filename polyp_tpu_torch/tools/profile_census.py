@@ -151,7 +151,7 @@ def static_scales(unet, latent: int, ctx: torch.Tensor) -> dict:
     sched = DiffusionSchedule.create(1000, "scaled_linear", 0.00085, 0.012)
     return ensure_scales(unet, sched, (2, 4, latent, latent), ctx[:1],
                          torch.zeros_like(ctx[:1]),
-                         fingerprint_extras=(latent * 8, 1000, "census"))
+                         fingerprint_extras=(latent * 8, 1000, "census"))[0]
 
 
 @torch.no_grad()

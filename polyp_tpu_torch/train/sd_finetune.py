@@ -102,12 +102,23 @@ class SDComponents:
         return functional_call(self.text, params, (ids,))
 
     def on_mesh(self, mesh: pmesh.DataMesh | None) -> "SDComponents":
-        """These components cut to this rank's shards under `mesh`'s
-        model axis: copies of the UNet and CLIP (sharing every whole
-        tensor) and the fp32 kernels' slices; themselves on a model axis
+        """These components on this rank's shards under `mesh`'s model
+        axis. Over a stack sharded at load (cli/common.py::
+        load_sd_stack(mesh=)) the UNet and CLIP are sharded over `mesh`
+        already and the fp32 kernels are this rank's slices
+        (SDStack.fp32_params): nothing is left to copy or cut, and the
+        components come back as they are. Over whole modules (a caller
+        that keeps them): copies of the UNet and CLIP, sharing every whole
+        tensor, and the fp32 kernels' slices. Themselves on a model axis
         of 1. The VAE stays whole."""
         if mesh is None or mesh.model_size == 1:
             return self
+        meshes = (sharding.sharded(self.unet), sharding.sharded(self.text))
+        if all(m is mesh for m in meshes):
+            return self
+        if any(m is not None for m in meshes):
+            raise ValueError("the UNet and CLIP text model must both be "
+                             "whole or both sharded over this mesh")
         k = mesh.model_size
         return replace(
             self, unet=sharding.sharded_copy(self.unet, mesh),
@@ -370,8 +381,9 @@ def create_sd_train_state(config: DiffusionConfig, trainable: dict,
 
 def trainable_layout(trainable: dict, frozen: SDComponents,
                      mesh: pmesh.DataMesh | None) -> Any:
-    """The bundle's tensor-parallel layout over `frozen`'s (whole)
-    modules, or None without a model axis."""
+    """The bundle's tensor-parallel layout over `frozen`'s modules (whole
+    or sharded: a sharded module keeps its layers' whole widths), or None
+    without a model axis."""
     if mesh is None or mesh.model_size == 1:
         return None
     return sharding.trainable_sharding(trainable, frozen.unet, frozen.text,

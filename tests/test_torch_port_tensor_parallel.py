@@ -26,6 +26,14 @@ sharded mesh on the CPU.
   not divide their heads or width, the GEGLU's per-half split against
   the whole FF, and shard → assemble as the identity.
 
+* The CLIs' own path under `data=2 × model=2` (`_cli_path`, one more
+  rank function of the same group): the seeded tiny stack sharded at load
+  (load_sd_stack(mesh=)), two LoRA steps with every flag, the merge on the
+  trainer's own shards, a w8a8_static batch; the bytes a rank's objects
+  keep against one process's with each split tensor at 1/k, the merged
+  weights handed whole to one process's sampler, and one process's
+  calibration key and tables.
+
 Tolerances: losses 1e-5 relative; parameters after two updates within
 1e-2 · lr of the reference's (Adam: a relative gradient difference ε
 moves an element by ε · lr); the whole trainables bit-equal across the
@@ -53,6 +61,7 @@ The spawned ranks import this module: its top level imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -245,11 +254,176 @@ def _w8a8(mesh, p):
             "dynamic": {k: v for k, v in dynamic.items() if k != "calls"}}
 
 
+def _storage_bytes(*roots) -> dict[int, int]:
+    """{storage address: bytes} of every tensor reachable from `roots`
+    through modules, dataclasses, dicts and sequences (callables, meshes
+    and generators not followed): what those objects keep resident."""
+    from polyp_tpu_torch.parallel.mesh import DataMesh
+
+    leaves = (str, bytes, int, float, bool, torch.device, torch.dtype,
+              DataMesh, torch.Generator, type, np.ndarray)
+    seen, out, todo = set(), {}, list(roots)
+    while todo:
+        o = todo.pop()
+        if o is None or id(o) in seen or isinstance(o, leaves) or (
+                callable(o) and not isinstance(o, torch.nn.Module)):
+            continue
+        seen.add(id(o))
+        if isinstance(o, torch.Tensor):
+            storage = o.untyped_storage()
+            out[storage.data_ptr()] = storage.nbytes()
+        elif isinstance(o, dict):
+            todo.extend(o.values())
+        elif isinstance(o, (list, tuple, set, frozenset)):
+            todo.extend(o)
+        elif hasattr(o, "__dict__"):
+            todo.extend(vars(o).values())
+    return out
+
+
+def _shapes(*modules) -> list[dict]:
+    return [{n: tuple(p.shape) for n, p in m.named_parameters()}
+            for m in modules]
+
+
+def _cli_objects(mesh, p):
+    """The CLIs' path (cli/sd_common.py::train_class under `--mesh
+    data=2,model=2`; None: one process) on the seeded tiny stack:
+    load_sd_stack(mesh=) → the bundle (UNet LoRA on attention and FF,
+    dropout, text LoRA, a DreamBooth row, unfrozen attention projections)
+    → make_components → on_mesh → two sd_lora_train_steps → merged_stack
+    on the trainer's own state → make_sampler → one w8a8_static batch:
+    the stack, components, trainer state, sampler and batch."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.cli.sd_common import (
+        UNFROZEN_MODULES, make_components, make_sampler, merged_stack)
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.lora.surgery import init_lora
+    from polyp_tpu_torch.train import sd_finetune as tsf
+    from polyp_tpu_torch.train.dreambooth import resize_token_embeddings
+    from polyp_tpu_torch.utils.rng import stream_generator
+
+    stack = load_sd_stack(None, dtype=torch.float32, tiny=True,
+                          device="cpu", seed=0, mesh=mesh)
+
+    def gen(i):
+        return stream_generator(0, "lora_init", i, device="cpu")
+
+    table = stack.text.get_parameter(tsf.TOKEN_TABLE)
+    rows = table.shape[0]
+    grown = resize_token_embeddings(table, rows + 1, gen(3))
+    trainable = pmesh.replicate_to(tsf.init_trainable(
+        init_lora(stack.unet, p["lcfg"], gen(0)),
+        init_lora(stack.text, p["tcfg"], gen(1)),
+        special_rows=grown[-1:].clone(),
+        unfrozen=stack.fp32_params("unet", [
+            n for n, _ in stack.unet.named_parameters()
+            if any(m in n for m in UNFROZEN_MODULES)], whole=True)), mesh)
+    frozen = make_components(stack, trainable, token_table=grown)
+    state = tsf.create_sd_train_state(
+        p["cfg"], trainable, tsf.trainable_layout(trainable, frozen, mesh),
+        mesh)
+    del trainable
+    frozen = frozen.on_mesh(mesh)
+    ids = torch.as_tensor(stack.tokenizer([PROMPT]))
+    ids[0, 1] = rows
+    special = torch.tensor([rows])
+    schedule = DiffusionSchedule.create(**FAN_SCHEDULE)
+    losses = []
+    for step, images in enumerate(p["images"]):
+        state, loss = tsf.sd_lora_train_step(
+            state, frozen, schedule,
+            images if mesh is None else mesh.local(images), ids, special,
+            tsf.step_draws(0, 0, step, "cpu"), p["lcfg"], p["tcfg"],
+            mesh=mesh)
+        losses.append(loss.item())
+    merged = merged_stack(stack, frozen, state.trainable, p["lcfg"],
+                          p["tcfg"], special)
+    sampler = make_sampler(merged, p["sampler"], mesh=mesh)
+    images = sampler.for_prompt(PROMPT)(4, 3)
+    return dict(stack=stack, frozen=frozen, state=state, merged=merged,
+                sampler=sampler, images=images, losses=losses)
+
+
+def _cli_path(mesh, p):
+    """`_cli_objects` on this rank, with `sharding.sharded_copy` refused:
+    the bytes its objects keep (and with one whole split kernel more),
+    the split modules' parameter shapes, the batch, the merged weights
+    gathered, the calibration key and tables, and the tables again after
+    model rank 1 alone lost its cache file (the group must take the miss
+    together)."""
+    import os
+
+    from polyp_tpu_torch.cli.sd_common import make_sampler
+    from polyp_tpu_torch.diffusion import calibrate as tcal
+
+    os.environ["POLYP_TORCH_QUANT_CACHE"] = os.path.join(
+        p["cache"], f"cli{mesh.world_rank}")
+    allowed = sharding.sharded_copy
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the CLIs' path reached sharded_copy")
+
+    sharding.sharded_copy = refused
+    try:
+        o = _cli_objects(mesh, p)
+        stack, sampler = o["stack"], o["sampler"]
+        roots = (stack, o["frozen"], o["state"], sampler)
+        extra = stack.fp32_params("unet", [p["whole_kernel"]], whole=True)
+        if mesh.model_rank == 1:
+            os.remove(tcal.default_scales_cache(sampler.calibration_key))
+        again = make_sampler(o["merged"], p["sampler"], mesh=mesh)
+        cond = sampler.encode_prompt(PROMPT)
+        again._ensure_calibrated(cond, sampler.encode_prompt(""))
+    finally:
+        sharding.sharded_copy = allowed
+    return {**_fp32_slices(mesh, p),
+            "bundle": o["state"].whole_trainable(),
+            "bytes": sum(_storage_bytes(*roots).values()),
+            "bytes_with_a_whole_kernel": sum(_storage_bytes(
+                *roots, extra).values()),
+            "shapes": _shapes(stack.unet, stack.text, sampler.unet,
+                              sampler.text_model),
+            "sharded": [sharding.sharded(m) is mesh for m in (
+                stack.unet, stack.text, o["frozen"].unet, o["frozen"].text,
+                sampler.unet, sampler.text_model)],
+            "vae_whole": sharding.sharded(stack.vae) is None,
+            "sampler_keeps_no_whole_unet": sampler.whole_unet is None,
+            "images": o["images"], "losses": o["losses"],
+            "merged_unet": sharding.gather_params(sampler.unet),
+            "merged_text": sharding.gather_params(sampler.text_model),
+            "key": sampler.calibration_key,
+            "cond": cond, "uncond": sampler.encode_prompt(""),
+            "tables": sampler.quant_scales,
+            "tables_after_one_miss": again.quant_scales}
+
+
+def _fp32_slices(mesh, p):
+    """A bf16 stack loaded sharded from the seed (replayed) and from a
+    diffusers checkpoint: `fp32_params` of the split parameters
+    (`p["fp32_names"]`), this rank's slices, and whether each rounds to
+    the stack's own shard."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+
+    fp32, rounds = {}, True
+    for source, root in (("replay", None), ("checkpoint", p["ckpt"])):
+        low = load_sd_stack(root, dtype=torch.bfloat16, tiny=True,
+                            device="cpu", seed=0, mesh=mesh)
+        fp32[source] = {part: low.fp32_params(part, names)
+                        for part, names in p["fp32_names"].items()}
+        rounds &= all(
+            torch.equal(v.to(torch.bfloat16),
+                        getattr(low, part).get_parameter(n))
+            for part, got in fp32[source].items() for n, v in got.items())
+    return {"fp32": fp32, "fp32_rounds_to_the_shards": rounds}
+
+
 def _group(mesh, payloads):
     return {"lora": _steps(mesh, payloads["lora"]),
             "finetune": _steps(mesh, payloads["finetune"]),
             "fan_out": _fan_out(mesh, payloads["fan_out"]),
             "w8a8": _w8a8(mesh, payloads["w8a8"]),
+            "cli": _cli_path(mesh, payloads["cli"]),
             "mesh": (mesh.shape, mesh.rank, mesh.model_rank)}
 
 
@@ -448,6 +622,67 @@ def _fan_init(batch, seed):
                      "fan-out")
 
 
+def _cli_case(cache):
+    """The CLI path's payload: the train config (global batch 4 at 32 px,
+    two steps), its LoRA configs, the images, the w8a8_static sampler's
+    config (16 px, three DDIM steps, CFG 7.5), the ranks' cache root, the
+    name of a split kernel for the negative control, and a diffusers
+    checkpoint of the reference's tiny weights with the split parameters'
+    names of its UNet and CLIP (the fp32 slices' check)."""
+    from polyp_tpu_torch.cli.common import build_modules
+    from polyp_tpu_torch.configs import LORA_MODULE_PRESETS, DiffusionConfig
+    from polyp_tpu_torch.lora.surgery import LoRAConfig
+    from test_torch_port_lora import write_diffusers_dir
+
+    cfg = DiffusionConfig(image_size=32, train_batch_size=4, num_epochs=1,
+                          learning_rate=LR, lora_rank=4, lora_dropout=0.1,
+                          lora_preset="attention_mlp").with_schedule(2)
+    rng = np.random.default_rng(56)
+    unet, _, text = build_modules(True, torch.float32, "meta")
+    plan = sharding.unet_param_sharding(unet, K)
+    ckpt = cache.parent / "sd"
+    ckpt.mkdir(parents=True)
+    return dict(
+        cfg=cfg, lcfg=LoRAConfig(4, None, 0.1, cfg.modules_lora),
+        tcfg=LoRAConfig(4, None, 0.0, LORA_MODULE_PRESETS["text_encoder"]),
+        images=[torch.from_numpy(rng.integers(0, 256, (4, 32, 32, 3),
+                                              dtype=np.uint8))
+                for _ in range(2)],
+        sampler=DiffusionConfig(image_size=16, num_inference_steps=3,
+                                sampler="ddim", guidance_scale=7.5,
+                                quantize="w8a8_static",
+                                num_train_timesteps=50),
+        cache=str(cache),
+        whole_kernel=next(n for n, v in plan.items() if v is not None),
+        ckpt=str(write_diffusers_dir(ckpt, "safetensors")),
+        fp32_names={part: [n for n, v in sharding.unet_param_sharding(
+            module, K).items() if v is not None]
+            for part, module in (("unet", unet), ("text", text))})
+
+
+@contextlib.contextmanager
+def _quant_cache(path):
+    """This process's calibration cache at `path` for the block."""
+    import os
+
+    before = os.environ.get("POLYP_TORCH_QUANT_CACHE")
+    os.environ["POLYP_TORCH_QUANT_CACHE"] = str(path)
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["POLYP_TORCH_QUANT_CACHE"]
+        else:
+            os.environ["POLYP_TORCH_QUANT_CACHE"] = before
+
+
+def _one_process(p):
+    """`_cli_objects` in this process (its calibration cache under the
+    payload's cache root)."""
+    with _quant_cache(f"{p['cache']}/one"):
+        return _cli_objects(None, p)
+
+
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     """The references, and the 4-rank group's results (spawned once)."""
@@ -460,10 +695,12 @@ def group(tmp_path_factory):
     payloads = {k: v[0] for k, v in cases.items()}
     payloads["fan_out"] = dict(stack=stack, out_dir=str(tmp / "group"))
     payloads["w8a8"], quant_reference = _quant_case(tmp / "quant_cache")
+    payloads["cli"] = _cli_case(tmp / "cli_cache")
     with ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(launch.spawn_group, _group, WORLD, (payloads,),
                             timeout=300, spec=SPEC)
         refs = {k: v[1]() for k, v in cases.items()}
+        refs["cli"] = _one_process(payloads["cli"])
         refs["fan_out"] = _fan_out_reference(_fan_init)
         refs["w8a8"] = quant_reference
         return {"refs": refs, "ranks": ranks.result(), "stack": stack,
@@ -674,6 +911,335 @@ def test_tp_dynamic_w8a8_ff_runs_per_layer(group):
         assert got["finite"] and got["per_token_calls"] == 0
         assert r["w8a8"]["per_token_calls"] == 0  # w8a8_static: none
         assert got["worst_rel_l2"] <= 1e-5
+
+
+def _split_storages(one: dict, k: int) -> set[int]:
+    """Storage addresses of the one-process objects' tensors that a rank
+    holds 1/k of: the split parameters of the stack's UNet and CLIP and of
+    the merged ones, their cached int8 codes (and a column layer's weight
+    scales: a row-parallel layer's are the model group's, whole), the
+    split fp32 kernels, and the split trainables with their moments."""
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves
+
+    stack, frozen, state, sampler = (one[key] for key in (
+        "stack", "frozen", "state", "sampler"))
+    split = set()
+
+    def mark(t):
+        split.add(t.untyped_storage().data_ptr())
+
+    for module in (stack.unet, stack.text, sampler.unet, sampler.text_model):
+        plan = sharding.unet_param_sharding(module, k)
+        for name, param in module.named_parameters():
+            if plan[name] is not None:
+                mark(param)
+        for name, sub in module.named_modules():
+            codes, cut = sub.__dict__.get("_q8_weight"), plan.get(
+                f"{name}.weight")
+            if codes is not None and cut is not None:
+                mark(codes[1])
+                if cut.dim == 0:
+                    mark(codes[2])
+    for part, params in (("unet", frozen.unet_params),
+                         ("text", frozen.text_params)):
+        plan = sharding.unet_param_sharding(getattr(stack, part), k)
+        for name, t in params.items():
+            if plan.get(name) is not None:
+                mark(t)
+    layout = tree_leaves(sharding.trainable_sharding(
+        state.trainable, stack.unet, stack.text, k))
+    for tree in (state.trainable, state.opt_state["mu"],
+                 state.opt_state["nu"]):
+        for t, cut in zip(tree_leaves(tree), layout):
+            if isinstance(cut, sharding.Split):
+                mark(t)
+    return split
+
+
+def test_cli_path_rank_holds_only_its_shards(group):
+    """A rank on the CLIs' path keeps exactly one process's bytes (stack,
+    components, trainer state, sampler, after a w8a8_static batch) with
+    each split tensor counted at 1/k; with one whole split kernel more
+    it fails that count. Every split parameter has its shard's shape."""
+    one = group["refs"]["cli"]
+    held = _storage_bytes(one["stack"], one["frozen"], one["state"],
+                          one["sampler"])
+    split = _split_storages(one, K)
+    assert split and split <= set(held)
+    want = sum(b // K if ptr in split else b for ptr, b in held.items())
+    assert want < sum(held.values())
+    modules = (one["stack"].unet, one["stack"].text, one["sampler"].unet,
+               one["sampler"].text_model)
+    shapes = []
+    for module, whole in zip(modules, _shapes(*modules)):
+        plan = sharding.unet_param_sharding(module, K)
+        shapes.append({n: tuple(d // K if plan[n] is not None
+                                and i == plan[n].dim else d
+                                for i, d in enumerate(shape))
+                       for n, shape in whole.items()})
+    for r in group["ranks"]:
+        got = r["cli"]
+        assert got["bytes"] == want
+        assert got["bytes_with_a_whole_kernel"] > want
+        assert got["shapes"] == shapes
+
+
+def test_cli_path_keeps_no_whole_copy(group):
+    """The stack's UNet and CLIP, the components' and the merged ones are
+    sharded over the group's mesh (sharded_copy, refused on the ranks, was
+    never reached), the VAE is whole, and the sampler keeps no whole UNet;
+    the whole merged weights are bit-equal across the ranks."""
+    for r in group["ranks"]:
+        got = r["cli"]
+        assert all(got["sharded"]) and len(got["sharded"]) == 6
+        assert got["vae_whole"] and got["sampler_keeps_no_whole_unet"]
+    assert len({pmesh.checksum([r["cli"]["merged_unet"],
+                                r["cli"]["merged_text"]])
+                for r in group["ranks"]}) == 1
+
+
+def _flat(tree, prefix=()):
+    """{key path: tensor} of a nested dict."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k: v for key, sub in tree.items()
+            for k, v in _flat(sub, prefix + (key,)).items()}
+
+
+def _to_jax(template, convert, tensors: dict):
+    """`tensors` (in the port's names and layouts) as the reference's tree
+    shaped as `template`: `convert` (models/importers.py, the reference
+    → the port) of a tree of element indices says where each element of
+    each port tensor comes from; every element is placed exactly once."""
+    import jax
+
+    leaves, treedef = jax.tree_util.tree_flatten(template)
+    sizes = [int(np.size(leaf)) for leaf in leaves]
+    offsets = np.cumsum([0] + sizes)
+    assert offsets[-1] < 2 ** 24  # indices exact in float32
+    index = convert(jax.tree_util.tree_unflatten(treedef, [
+        np.arange(o, o + n, dtype=np.float32).reshape(np.shape(leaf))
+        for o, n, leaf in zip(offsets, sizes, leaves)]))
+    flat = np.zeros(offsets[-1], np.float32)
+    placed = np.zeros(offsets[-1], np.int64)
+    values = _flat(tensors)
+    for key, where in _flat(index).items():
+        at = where.numpy().astype(np.int64).reshape(-1)
+        flat[at] = values[key].detach().numpy().reshape(-1)
+        placed[at] += 1
+    assert (placed == 1).all()
+    return jax.tree_util.tree_unflatten(treedef, [
+        flat[o:o + n].reshape(np.shape(leaf))
+        for o, n, leaf in zip(offsets, sizes, leaves)])
+
+
+def _merge_bound(key, bundle, part, eps):
+    """How far a merged parameter `key` may move when every trained
+    element moves by at most `eps`: `eps` for a trained weight
+    (`unfrozen`, the DreamBooth table), and for a LoRA target
+    scale · r · eps · (max|A| + max|B| + eps), the product's terms
+    (scale 1: alpha = rank); 0 for the rest."""
+    module = key.rsplit(".", 1)[0]
+    lora = bundle[f"{part}_lora"]
+    bound = eps if key in bundle.get("unfrozen", {}) and part == "unet" \
+        else 0.0
+    if key.endswith(".weight") and module in lora:
+        a, b = lora[module]["lora_A"], lora[module]["lora_B"]
+        bound += a.shape[1] * eps * (a.abs().max().item()
+                                     + b.abs().max().item() + eps)
+    return bound
+
+
+def test_cli_path_losses_and_merge_match_one_process(group):
+    """The ranks' path against the same path in one process: the losses
+    (1e-5 relative, the group's loss tolerance), the trained bundle
+    gathered (each element within 1e-2 · lr, the group's bound on the
+    trainables), and the merged UNet and CLIP gathered: a merged weight
+    within that bound carried through the merge (`_merge_bound`), the
+    DreamBooth table's trained row within it, every other parameter bit
+    for bit."""
+    from polyp_tpu_torch.train.sd_finetune import TOKEN_TABLE
+    from polyp_tpu_torch.utils.checkpoint import tree_leaves
+
+    one = group["refs"]["cli"]
+    eps = 1e-2 * LR
+    want_bundle = one["state"].whole_trainable()
+    merged = {"unet": dict(one["merged"].unet.named_parameters()),
+              "text": dict(one["merged"].text.named_parameters())}
+    moved = 0.0
+    for r in group["ranks"]:
+        got = r["cli"]
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-5)
+        assert list(got["bundle"]) == list(want_bundle)
+        for g, w in zip(tree_leaves(got["bundle"]),
+                        tree_leaves(want_bundle)):
+            assert g.shape == w.shape
+            assert (g - w.detach()).abs().max().item() <= eps
+        for part in ("unet", "text"):
+            have = got[f"merged_{part}"]
+            assert set(have) == set(merged[part])
+            for key, w in merged[part].items():
+                w = w.detach()
+                bound = (eps if key == TOKEN_TABLE else
+                         _merge_bound(key, want_bundle, part, eps))
+                if bound == 0.0:
+                    assert torch.equal(have[key], w), key
+                else:
+                    err = (have[key] - w).abs().max().item()
+                    assert err <= bound, (key, err, bound)
+                    moved = max(moved, err)
+    assert moved > 0  # the bound is not met by the same bits
+
+
+def test_cli_path_merge_matches_the_references_merge(group):
+    """Each rank's merged UNet and CLIP (its shard-wise merge, gathered)
+    against polyp_tpu's merge of the same trained bundle (rank 0's,
+    gathered) over the same fp32 weights: merge_lora over the `unfrozen`
+    weights, embed_with_special_rows into the grown table, merge_lora of
+    the text adapter (its cli/sd_common.py:326-345); 1e-6 of each
+    kernel's scale, one fp32 product and sum (test_torch_port_lora's
+    bound)."""
+    import jax
+    import jax.numpy as jnp
+
+    from polyp_tpu.lora import surgery as jsurg
+    from polyp_tpu.train import dreambooth as jdb
+    from polyp_tpu_torch.models import importers as timp
+    from polyp_tpu_torch.train.sd_finetune import TOKEN_TABLE
+    from test_torch_port_lora import jax_tiny_stack
+
+    one, payload = group["refs"]["cli"], group["payloads"]["cli"]
+    bundle = group["ranks"][0]["cli"]["bundle"]
+    _, up, _, _, _, tp = jax_tiny_stack()
+    table = one["frozen"].text_params[TOKEN_TABLE]
+    rows = table.shape[0] - 1
+    key = jax.random.PRNGKey(0)
+    tp = jdb.resize_token_embeddings(tp, rows + 1, key)
+    lc, tc = (jsurg.LoRAConfig(c.rank, c.alpha, 0.0, c.target_modules)
+              for c in (payload["lcfg"], payload["tcfg"]))
+    base = {"unet": {n: p.detach() for n, p in
+                     one["stack"].unet.named_parameters()},
+            "text": {n: p.detach() for n, p in
+                     one["stack"].text.named_parameters()}}
+    base["text"][TOKEN_TABLE] = table
+    junet = _to_jax(up, timp.unet_from_jax,
+                    {**base["unet"], **bundle["unfrozen"]})
+    jtext = jax.tree_util.tree_map(jnp.asarray, _to_jax(
+        tp, timp.clip_text_from_jax, base["text"]))
+    jtext = jdb.embed_with_special_rows(
+        jtext, jnp.asarray(bundle["special_rows"].detach().numpy()),
+        jnp.asarray([rows], jnp.int32))
+    want = {
+        "unet": timp.unet_from_jax(jax.tree_util.tree_map(
+            np.asarray, jsurg.merge_lora(junet, _to_jax(
+                jsurg.init_lora(up, lc, key), timp.lora_from_jax,
+                bundle["unet_lora"]), lc))),
+        "text": timp.clip_text_from_jax(jax.tree_util.tree_map(
+            np.asarray, jsurg.merge_lora(jtext, _to_jax(
+                jsurg.init_lora(tp, tc, key), timp.lora_from_jax,
+                bundle["text_lora"]), tc)))}
+    for r in group["ranks"]:
+        for part in ("unet", "text"):
+            got = r["cli"][f"merged_{part}"]
+            assert set(got) == set(want[part])
+            for name, w in want[part].items():
+                scale = base[part][name].abs().max().item()
+                np.testing.assert_allclose(got[name].numpy(), w.numpy(),
+                                           rtol=0, atol=1e-6 * scale,
+                                           err_msg=name)
+
+
+@pytest.mark.parametrize("source", ["replay", "checkpoint"])
+def test_cli_path_fp32_params_are_the_whole_tensors_slices(group, source):
+    """`SDStack.fp32_params` of a stack sharded at load, from the seeded
+    replay and from a diffusers checkpoint: on each rank, each split
+    parameter's fp32 value is its model rank's slice of one process's
+    fp32 tensor, bit for bit, and rounds to the rank's own bf16 shard."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+
+    payload = group["payloads"]["cli"]
+    whole = (group["refs"]["cli"]["stack"] if source == "replay" else
+             load_sd_stack(payload["ckpt"], dtype=torch.float32, tiny=True,
+                           device="cpu"))
+    for r in group["ranks"]:
+        _, _, model_rank = r["mesh"]
+        got = r["cli"]["fp32"][source]
+        assert r["cli"]["fp32_rounds_to_the_shards"]
+        for part, names in payload["fp32_names"].items():
+            module = getattr(whole, part)
+            plan = sharding.unet_param_sharding(module, K)
+            assert set(got[part]) == set(names) and names
+            for name in names:
+                want = sharding.take(module.get_parameter(name).detach(),
+                                     plan[name], model_rank, K)
+                assert got[part][name].dtype == torch.float32
+                assert torch.equal(got[part][name], want), (part, name)
+
+
+@pytest.fixture(scope="module")
+def cli_whole_sampler(group, tmp_path_factory):
+    """One process's w8a8_static sampler over the tiny stack with the
+    ranks' merged weights handed whole (gathered), and its images of the
+    group's batch launched as the data ranks launch it. The sampler takes
+    rank 0's prompt embeddings (from its sharded CLIP): at 16 px the
+    mid-block's GroupNorms see two values a group, so the 3e-7 by which
+    the sharded CLIP's rounding moves the embedding moves this trajectory
+    by up to 13% of a table (a perturbation of 1e-6 by 0.4%); the
+    embeddings are held to the whole CLIP's on their own."""
+    from dataclasses import replace
+
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.cli.sd_common import make_sampler
+    from polyp_tpu_torch.lora.surgery import merged_module
+    from polyp_tpu_torch.parallel.dryrun import launched_as_ranks
+
+    got = group["ranks"][0]["cli"]
+    stack = load_sd_stack(None, dtype=torch.float32, tiny=True,
+                          device="cpu", seed=0)
+    merged = replace(stack, unet=merged_module(stack.unet,
+                                               got["merged_unet"]),
+                     text=merged_module(stack.text, got["merged_text"]))
+    with _quant_cache(tmp_path_factory.mktemp("cli_whole")):
+        sampler = make_sampler(merged, group["payloads"]["cli"]["sampler"])
+        embeddings = {p: sampler.encode_prompt(p) for p in (PROMPT, "")}
+        sampler.register_prompt_embedding(PROMPT, got["cond"])
+        sampler.register_prompt_embedding("", got["uncond"])
+        images = launched_as_ranks(sampler, got["cond"], _fan_init(4, 3), 2)
+    return sampler, images, embeddings
+
+
+def test_cli_path_images_match_the_whole_merged_weights(group,
+                                                        cli_whole_sampler):
+    """The group's batch against the whole merged weights' (fan-out
+    bounds), and each rank's prompt embeddings from its sharded merged
+    CLIP against the whole one's (1e-5 relative L2)."""
+    _, want, embeddings = cli_whole_sampler
+    top = want.abs().max().item()
+    for r in group["ranks"]:
+        assert r["cli"]["images"].shape == (4, 3, 16, 16)
+        _assert_images_close(r["cli"]["images"], want, top)
+        for key, prompt in (("cond", PROMPT), ("uncond", "")):
+            w = embeddings[prompt]
+            assert (r["cli"][key] - w).norm() <= 1e-5 * w.norm()
+
+
+def test_cli_path_calibration_key_and_tables_match_one_device(
+        group, cli_whole_sampler):
+    """Every rank's cache key is one process's key of the same whole
+    weights; its tables are one device's (1e-6, as the sampler's tables
+    above), and the same bit for bit when one rank of each model group
+    misses its cache and the other hits."""
+    sampler, _, _ = cli_whole_sampler
+    want = sampler.quant_scales
+    assert len(want) > 0
+    for r in group["ranks"]:
+        got = r["cli"]
+        assert got["key"] == sampler.calibration_key
+        assert set(got["tables"]) == set(want)
+        for k, w in want.items():
+            np.testing.assert_allclose(got["tables"][k], w, rtol=1e-6,
+                                       err_msg=k)
+        assert got["tables_after_one_miss"] == got["tables"]
 
 
 # ---------------------------------------------------------------------------
