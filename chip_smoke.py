@@ -240,7 +240,29 @@ caught:
    `[roofline]` lines; chiprun_out/roofline_{few_step,train,distill}.json):
    every counted FLOP and byte total above 0, and no training step's
    measured images/s above its ceiling;
-15. prints the kernel table (all eight kernel entries, with launches on
+15. runs the port's benchmark entry point (bench_phase, "bench";
+   `[bench]` lines): `python -m polyp_tpu_torch.cli.bench --steps 5
+   --train --train-diffusion` (the default line with every companion) and
+   `--distilled 8 --batch 16 --quantize-vae` as subprocesses, each exiting
+   0 with a last line that parses, every rate finite and positive, no
+   `*_error` and no `watchdog_error`, and exactly the keys the reference's
+   bench.py main prints for those flags under the port's gate verdict
+   (`reference_bench_keys`) plus `card`; in this process
+   bench_distill_train(chain=2, repeats=1); and one VAE decode at full
+   width, batch 16, under w8a8, launching exactly VAE_DECODE_W8A8, with
+   every GroupNorm and dense call recorded (ShapeRecorder) and held to its
+   plain version at its shape (recorded_rows), the int8 and bf16 decodes
+   timed and compared by relative L2;
+16. runs polyp_tpu_torch.tools.distill_ab at its defaults
+   (distill_ab_phase, "distill A/B"; `[distill_ab]` lines): --sd in this
+   process, every count set to 0 just before it and read just after, and
+   the unconditional mode beside it as a process of its own (no other
+   phase shares the card with them); every row a finite rel RMSE, a
+   v-student refused only by the reparam guard's own message
+   (GUARD_MESSAGES); each feed-forward call of --sd's fp32 model without
+   autograd launched the GEGLU's fp32 form, which is then held to the
+   plain version in float64 at every shape it ran (TOLERANCE);
+17. prints the kernel table (all nine kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
    class, launches a scratch forward, launches a distill step and
    launches a tensor-parallel rank's forward) as one
@@ -281,14 +303,18 @@ SD14_UNET_PARAMS = 859_520_964
 # and the GEGLU also rounds its hidden activation to bf16 before the second
 # product, as the TPU kernel does. A wrong tile or mask gives O(1) errors.
 TOLERANCE = {"flash_attention": 2e-2, "fused_geglu": 6e-2,
-             "fused_group_norm": 6e-2, "fused_mha": 2e-2}
+             "fused_group_norm": 6e-2, "fused_mha": 2e-2,
+             "fused_geglu_f32": 1e-4}
 # ... except the fused MHA block, whose tolerance is relative to max |y|:
 # its outputs are small here (max |y| about 0.4: attention over 1024
 # near-uniform keys averages V down), and it rounds Q (after the scale),
 # K, V, the probabilities, each head's output and the result to bf16
 # (2^-9 relative each), as the plain bf16 version does. A wrong tile,
 # mask or head column gives O(1) of max |y|.
-RELATIVE_TO_MAX = {"fused_mha"}
+# The GEGLU's fp32 form is held to the plain version in float64, relative
+# to max |y|: fp32 sums over C and H inputs are off by ~1e-6 of it, a wrong
+# tile or gate by O(1).
+RELATIVE_TO_MAX = {"fused_mha", "fused_geglu_f32"}
 # int8 kernels vs their plain version's fp32 result on the same inputs: the
 # kernels round their output to bf16 (2^-9 relative), and an int8 code of an
 # intermediate (the GEGLU's h) may break a rounding tie the other way. A
@@ -407,7 +433,8 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
             shape: str, cost: dict, library_fn=None, **others) -> dict:
-    """A bf16 kernel vs its plain version's fp32 result; times the kernel,
+    """A bf16 kernel vs its plain version's fp32 result (the GEGLU's fp32
+    form vs float64); times the kernel,
     the plain version, `library_fn` (one PyTorch call computing the same
     function, timed only here) and any `others`; `cost` is bound()'s."""
     out = kernel_fn()
@@ -2937,7 +2964,7 @@ SCRATCH_DISTILL_GENERATE, VAE_DISTILL_STEPS = 4, 20
 # run 71 GroupNorms each; the VAE step is the teacher's decode
 KERNEL_NAMES = ("flash_attention", "fused_geglu", "fused_group_norm",
                 "fused_w8a8_dense", "fused_geglu_w8a8", "fused_geglu_w8a8_pt",
-                "fused_group_norm_q8", "fused_mha")
+                "fused_group_norm_q8", "fused_mha", "fused_geglu_f32")
 
 
 def launches_of(**counts) -> dict:
@@ -4655,10 +4682,295 @@ def roofline_modes_phase(card: str) -> dict:
     return out
 
 
+# chip_smoke's two runs of the port's bench (`python -m
+# polyp_tpu_torch.cli.bench`): the default line with every companion at 5
+# steps (50, cut to keep the script inside its budget), and the distilled
+# 8-step batch-16 run with the int8 VAE decode
+BENCH_RUNS = {"default": ["--steps", "5", "--train", "--train-diffusion"],
+              "distilled_q8vae": ["--distilled", "8", "--batch", "16",
+                                  "--quantize-vae"]}
+BENCH_TIMEOUT_S = 600
+# the int8 VAE decode checked in process: full width, the distilled batch
+DECODE_BATCH = 16
+# its launches: every GroupNorm (as a bf16 decode, VAE_DECODE) and the
+# dense for the convs that quantize (PERF.md §6), nothing else
+VAE_DECODE_W8A8 = launches_of(fused_group_norm=30, fused_w8a8_dense=6)
+
+
+def reference_bench_keys(run: str, promo: dict | None, dpromo: dict | None,
+                         tiny_rel_l2: bool) -> set[str]:
+    """The keys the reference's bench.py main prints for BENCH_RUNS[run]
+    (bench.py:622-878, with ./models/tiny_decoder present: its meta's
+    rel_l2 rides as `tinydec_rel_l2`) under the gate verdict `promo` /
+    `dpromo` (ops/quant.py::promoted_config), plus the port's `card`."""
+    if run == "distilled_q8vae":
+        return {"metric", "value", "unit", "vs_baseline", "baseline_threads",
+                "distilled_steps", "unet_scan_sec", "vae_decode_sec",
+                "vae_share", "vae_q_rel_l2", "card"}
+    keys = {"metric", "value", "unit", "vs_baseline", "baseline_threads",
+            "vs_baseline_16core_bound", "card",
+            "distilled_value", "distilled_steps", "distilled_batch",
+            "distilled_vae_share", "distilled_4step_value",
+            "distilled_4step_batch", "distilled_4step_vae_share",
+            "distilled_tinydec_value", "distilled_tinydec_vae_share",
+            "distilled_4step_tinydec_value",
+            "distilled_4step_tinydec_vae_share",
+            "classifier_train_images_per_sec",
+            "sd_lora_train_images_per_sec"}
+    keys |= ({"quant_batch", "bf16_value", "bf16_batch"} if promo
+             else {"w8a8_static_value", "w8a8_batch"})
+    if dpromo:
+        keys |= {"distilled_quantize", "distilled_quant_rel_l2",
+                 "distilled_4step_quant_rel_l2"}
+    if tiny_rel_l2:
+        keys.add("tinydec_rel_l2")
+    return keys
+
+
+def bench_rates(line: dict) -> dict:
+    """The rates of a bench line: `value`, every `*_value` and every
+    `*_images_per_sec`."""
+    return {k: v for k, v in line.items()
+            if k == "value" or k.endswith(("_value", "_images_per_sec"))}
+
+
+def bench_phase(stack, dev: torch.device, card: str, reset_counts,
+                read_counts, tmp: Path) -> dict:
+    """The port's bench (polyp_tpu_torch/cli/bench.py) on the card (phase
+    15 of the module docstring)."""
+    from polyp_tpu_torch.cli import bench
+    from polyp_tpu_torch.models.tiny_decoder import DEFAULT_DIR
+    from polyp_tpu_torch.ops import quant
+
+    out: dict = {"card": card}
+    promo = quant.promoted_config()
+    dpromo = quant.promoted_config(distilled=True)
+    tiny_rel = "rel_l2" in json.loads((DEFAULT_DIR / "meta.json").read_text())
+    env = dict(os.environ, POLYP_TORCH_QUANT_CACHE=str(tmp / "bench_cache"))
+    for run, argv in BENCH_RUNS.items():
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "polyp_tpu_torch.cli.bench", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+        seconds = time.perf_counter() - start
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"bench {run} exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        line = json.loads(lines[-1])
+        want = reference_bench_keys(run, promo, dpromo, tiny_rel)
+        errors = [k for k in line if k.endswith("error")]
+        rates = bench_rates(line)
+        bad = {k: v for k, v in rates.items()
+               if not (isinstance(v, (int, float)) and math.isfinite(v)
+                       and v > 0)}
+        print(f"[bench] {run} ({' '.join(argv)}): {seconds:.1f} s on "
+              f"{line.get('card')}: {json.dumps(line)}", flush=True)
+        if errors or bad or set(line) != want or not rates:
+            raise AssertionError(
+                f"bench {run}: errors {errors}, bad rates {bad}, keys "
+                f"missing {sorted(want - set(line))}, extra "
+                f"{sorted(set(line) - want)}")
+        out[run] = {"argv": argv, "seconds": seconds, "line": line}
+
+    # the full-size distill step in this process, at a short chain
+    start = time.perf_counter()
+    result = bench.bench_distill_train(chain=2, repeats=1)
+    torch.cuda.empty_cache()
+    rate = result["distill_train_images_per_sec"]
+    print(f"[bench] bench_distill_train(chain=2, repeats=1) in process: "
+          f"{result}; {time.perf_counter() - start:.1f} s on {card}",
+          flush=True)
+    if not (math.isfinite(rate) and rate > 0):
+        raise AssertionError(f"bench_distill_train rate {rate}")
+    out["distill_train"] = result
+
+    # the int8 VAE decode at full width: every GroupNorm and dense call
+    # held to its plain version at its own shape
+    gen = torch.Generator(dev).manual_seed(5)
+    z = torch.randn((DECODE_BATCH, 4, 32, 32), generator=gen, device=dev)
+    z = (z * 0.18215).to(torch.bfloat16)
+    decode = bench.make_decoder(stack.vae)
+    reset_counts()
+    with ShapeRecorder({"fused_group_norm": gn_key,
+                        "fused_w8a8_dense": dense_key}) as rec:
+        q8 = decode(z, "w8a8")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches != VAE_DECODE_W8A8:
+        raise AssertionError(f"the int8 VAE decode launched {launches}, "
+                             f"want {VAE_DECODE_W8A8}")
+    bf16 = decode(z, None)
+    rel = rel_l2(q8, bf16)
+
+    def best_s(mode):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            decode(z, mode)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        return min(times)
+
+    seconds = {"w8a8": best_s("w8a8"), "bf16": best_s(None)}
+    print(f"[bench] int8 VAE decode, batch {DECODE_BATCH}, 256 px: "
+          f"{seconds['w8a8']:.4f} s against bf16 {seconds['bf16']:.4f} s "
+          f"({seconds['w8a8'] / seconds['bf16']:.2f}x), rel L2 {rel:.4f}; "
+          f"launches {launches}; GroupNorm shapes "
+          f"{len(rec.seen['fused_group_norm'])}, dense shapes "
+          f"{len(rec.seen['fused_w8a8_dense'])} on {card}", flush=True)
+    if not (math.isfinite(rel) and 0 < rel < 1):
+        raise AssertionError(f"int8 VAE decode rel L2 {rel}")
+    rows = recorded_rows(rec.seen, dev)
+    out["int8_vae_decode"] = {"seconds": seconds, "rel_l2": rel,
+                              "launches": launches}
+    out["kernel_checks"] = rows
+    return out
+
+
+# tools/distill_ab at its defaults: --sd in this process (its tiny
+# conditional UNet's feed-forwards take the GEGLU's fp32 form without
+# autograd), the unconditional mode beside it as a process of its own;
+# nothing else runs on the card meanwhile
+DISTILL_AB_TIMEOUT_S = 600
+DISTILL_AB_ROWS = ("teacher_4step", "epsilon", "v_prediction")
+_AB_ROW = re.compile(r"^(teacher-4step|epsilon|v_prediction)\b.*?"
+                     r"(?:rel RMSE: ([0-9.eE+-]+|nan|inf)|(REFUSED))")
+# the messages of train/distill.py::check_reparam_converged: a REFUSED row
+# without one is not the guard's
+GUARD_MESSAGES = ("reparam warmup did not close the head switch",
+                  "reparam warmup has not converged")
+
+
+def distill_ab_rows(stdout: str) -> dict:
+    """distill_ab's printed rows → {"teacher_4step", "epsilon",
+    "v_prediction"}: each a rel RMSE, or None for a head the reparam guard
+    refused (its REFUSED line carries one of GUARD_MESSAGES; any other
+    REFUSED line raises)."""
+    rows = {}
+    for line in stdout.splitlines():
+        m = _AB_ROW.match(line)
+        if not m:
+            continue
+        if m.group(3) and not any(g in line for g in GUARD_MESSAGES):
+            raise AssertionError(f"distill_ab: a refusal that is not the "
+                                 f"reparam guard's: {line}")
+        key = "teacher_4step" if m.group(1) == "teacher-4step" \
+            else m.group(1)
+        rows[key] = None if m.group(3) else float(m.group(2))
+    return rows
+
+
+def check_ab_rows(mode: str, rows: dict, stdout: str) -> None:
+    """Every row printed, the teacher's and the ε-student's measured, every
+    measured one a finite positive rel RMSE."""
+    measured = [v for v in rows.values() if v is not None]
+    if (set(rows) != set(DISTILL_AB_ROWS) or rows["teacher_4step"] is None
+            or rows["epsilon"] is None
+            or not all(math.isfinite(v) and v > 0 for v in measured)):
+        raise AssertionError(f"distill_ab {mode}: rows {rows}: "
+                             f"{stdout[-3000:]}")
+
+
+def geglu_f32_key(x, w1, b1, w2, b2) -> tuple:
+    """(x's shape, dtype, H) of a GEGLU call."""
+    return tuple(x.shape), x.dtype, w2.shape[1]
+
+
+def geglu_f32_rows(seen: Counter, dev: torch.device) -> list[dict]:
+    """compare() of the GEGLU's fp32 form at every shape recorded under
+    geglu_f32_key, on fp32 inputs drawn as gemm_rows draws them, against
+    the plain version in float64, each row with the path's launches."""
+    from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
+
+    randn = randn_on(dev, seed=0)
+    rows = []
+    for (shape, dtype, h), calls in sorted(seen.items(), key=str):
+        if dtype != torch.float32:
+            raise AssertionError(f"distill_ab's GEGLU ran in {dtype}")
+        *lead, c = shape
+        n, per_image = lead[0], math.prod(lead[1:])
+        case = geglu_case(randn, n, c, per_image, h)
+        args = (case[0].float().reshape(shape),
+                *(t.float() for t in case[1:]))
+        tokens = n * per_image
+        rows.append({**compare(
+            "fused_geglu_f32", lambda: fused_geglu(*args),
+            lambda: reference_geglu(*args),
+            reference_geglu(*(t.double() for t in args)),
+            f"[{tokens},{c}]x[{c},{2 * h}]",
+            bound(6 * tokens * c * h, "fp32",
+                  nbytes(*args) + nbytes(args[0]))),
+            "path_launches": calls})
+    return rows
+
+
+def distill_ab_phase(dev: torch.device, card: str, reset_counts,
+                     read_counts) -> dict:
+    """polyp_tpu_torch.tools.distill_ab on the card (phase 16 of the
+    module docstring)."""
+    from polyp_tpu_torch.tools import distill_ab
+
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "polyp_tpu_torch.tools.distill_ab"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        printed = io.StringIO()
+        reset_counts()
+        with ShapeRecorder({"fused_geglu": geglu_f32_key}) as rec, \
+                contextlib.redirect_stdout(printed):
+            sd_rows = distill_ab.main(["--sd"])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        sd_s = time.perf_counter() - start
+        stdout, stderr = proc.communicate(timeout=DISTILL_AB_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    both_s = time.perf_counter() - start
+    out = {"card": card, "sd_seconds": sd_s, "seconds": both_s,
+           "launches": launches}
+    for mode, text in (("sd", printed.getvalue()), ("unconditional",
+                                                    stdout)):
+        for line in text.strip().splitlines():
+            print(f"[distill_ab] {mode}: {line}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"distill_ab unconditional exited "
+                             f"{proc.returncode}: {stdout[-2000:]}"
+                             f"{stderr[-3000:]}")
+    # a refused head is the guard's (its message printed), as in the rows
+    # the run returned
+    shown = distill_ab_rows(printed.getvalue())
+    if ({k for k, v in shown.items() if v is None}
+            != {k for k, v in sd_rows.items() if v is None}):
+        raise AssertionError(f"distill_ab --sd printed {shown}, returned "
+                             f"{sd_rows}")
+    out["rows"] = {"sd": sd_rows, "unconditional": distill_ab_rows(stdout)}
+    for mode, rows in out["rows"].items():
+        check_ab_rows(mode, rows, stdout if mode == "unconditional"
+                      else printed.getvalue())
+    # the --sd run's feed-forwards without autograd (the teacher's sampling
+    # and targets) each launched the fp32 GEGLU
+    calls = sum(rec.seen["fused_geglu"].values())
+    if (calls == 0 or launches["fused_geglu_f32"] != calls
+            or launches["fused_geglu"] != 0):
+        raise AssertionError(f"distill_ab --sd: {calls} GEGLU calls, "
+                             f"launches {launches}")
+    print(f"[distill_ab] on {card}: --sd in {sd_s:.1f} s, both modes "
+          f"{both_s:.1f} s; rows {out['rows']}; --sd launches {launches}",
+          flush=True)
+    out["kernel_checks"] = geglu_f32_rows(rec.seen["fused_geglu"], dev)
+    return out
+
+
 def kernel_counters():
     """(reset, read) of every kernel's launch count: each wrapper's
-    counter, read after the path that runs it; the GN epilogue has a
-    counter of its own."""
+    counter, read after the path that runs it; the GN epilogue and the
+    GEGLU's fp32 form have counters of their own."""
     from polyp_tpu_torch.ops.flash_attention import flash_attention
     from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
     from polyp_tpu_torch.ops.fused_geglu import (
@@ -4674,7 +4986,8 @@ def kernel_counters():
         "fused_geglu_w8a8": (fused_geglu_w8a8, "launches"),
         "fused_geglu_w8a8_pt": (fused_geglu_w8a8_pt, "launches"),
         "fused_group_norm_q8": (fused_group_norm, "q8_launches"),
-        "fused_mha": (fused_mha, "launches")}
+        "fused_mha": (fused_mha, "launches"),
+        "fused_geglu_f32": (fused_geglu, "f32_launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -4899,6 +5212,11 @@ def main() -> int:
         phase("multi-GPU")
         roofline_modes = roofline_modes_phase(card)
         phase("roofline modes")
+        benching = bench_phase(stack, dev, card, reset_counts, read_counts,
+                               tmp)
+        phase("bench")
+        ab = distill_ab_phase(dev, card, reset_counts, read_counts)
+        phase("distill A/B")
 
     for name, path in paths.items():
         split = (f"; UNet only {path['unet_s']:.3f} s, decode only "
@@ -4991,11 +5309,18 @@ def main() -> int:
                                 "polyp_tpu_torch/csrc/fused_gn.cu",
                                 "polyp_tpu/ops/fused_gn.py:136"),
         "fused_mha": ("distilled_bf16", "polyp_tpu_torch/csrc/fused_mha.cu",
-                      "polyp_tpu/ops/fused_mha.py:241")}
+                      "polyp_tpu/ops/fused_mha.py:241"),
+        "fused_geglu_f32": ("distill_ab --sd",
+                            "polyp_tpu_torch/csrc/fused_geglu.cu",
+                            "polyp_tpu/ops/fused_geglu.py:139")}
+    # each kernel's launches on the main path that runs it
+    path_launches = {name: path["launches"] for name, path in paths.items()}
+    path_launches["distill_ab --sd"] = ab["launches"]
     rows += (loop["kernel_checks"] + scratch["kernel_checks"]
              + sd_clis["kernel_checks"] + distilling["kernel_checks"]
              + gating["kernel_checks"]
-             + multigpu["tensor_parallel"]["kernel_checks"])
+             + multigpu["tensor_parallel"]["kernel_checks"]
+             + benching["kernel_checks"] + ab["kernel_checks"])
     per_tp_forward = multigpu["tensor_parallel"]["launches_per_rank_forward"]
     table = []
     per_train_step = training["default"]["launches_per_step"]
@@ -5005,7 +5330,7 @@ def main() -> int:
         head = mine[0]  # first row: the main path's headline shape
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces,
-                      "launches": paths[path]["launches"][name],
+                      "launches": path_launches[path][name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
                       "ms": head["ms"], "plain_ms": head["plain_ms"],
                       "bound_ms": head["bound_ms"],
@@ -5032,6 +5357,7 @@ def main() -> int:
               "scratch": scratch, "sd_clis": sd_clis,
               "distill": distilling, "quant_gate": gating,
               "multigpu": multigpu, "roofline_modes": roofline_modes,
+              "bench": benching, "distill_ab": ab,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

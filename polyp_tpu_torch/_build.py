@@ -34,6 +34,8 @@ SIGNATURES = {
     "polyp_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, workspace, out, t, c, h, stream
     "polyp_fused_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the same, all fp32 (workspace: fp32 h [t, h])
+    "polyp_fused_geglu_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, gamma, beta, y, n, c, hw, groups, eps, silu, is_bf16, act_scale,
     # stream
     "polyp_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
@@ -129,6 +131,8 @@ def library() -> ctypes.CDLL:
     # t, c, h -> bf16 elements of the GEGLU's h workspace [t, h]
     lib.polyp_fused_geglu_workspace.argtypes = [_I, _I, _I]
     lib.polyp_fused_geglu_workspace.restype = ctypes.c_longlong
+    lib.polyp_fused_geglu_f32_workspace.argtypes = [_I, _I, _I]
+    lib.polyp_fused_geglu_f32_workspace.restype = ctypes.c_longlong
     # t, c, h, block_h (0: static form) -> bytes of int8 GEGLU workspace
     lib.polyp_geglu_w8a8_workspace.argtypes = [_I, _I, _I, _I]
     lib.polyp_geglu_w8a8_workspace.restype = ctypes.c_longlong

@@ -35,6 +35,14 @@
 // here is 2.5-10x smaller and read once. Sums run in a fixed order (so
 // runs repeat bit for bit), but not the TPU's hidden-tile order. Any T; C
 // and H multiples of 8 (TMA's 16-byte strides).
+//
+// fp32 form (polyp_fused_geglu_f32), for the fp32 models the TPU kernel also
+// took (the tiny UNets of the distillation A/B): the same two launches on
+// CUDA cores, h kept in fp32 as the plain version keeps it for fp32 inputs.
+// Each block computes a 64 x 64 output tile from 16-wide K slices staged in
+// shared memory, 4 x 4 outputs a thread (two accumulator sets for a and gate
+// in the first launch), each sum in K order. Simple, not tuned: those
+// models' FFs are a few MFLOP. Any T, C and H.
 
 #include "gemm_core.cuh"
 
@@ -210,3 +218,95 @@ extern "C" int polyp_fused_geglu(const void* x, const void* w1, const void* b1, 
                                                : launch_down_at<64>(hs, w2, b2, out, t, c, h, s);
 }
 
+
+namespace {
+
+namespace f32 {
+
+constexpr int kTile = 64, kSlice = 16, kThreads = 256, kPer = kTile / 16;
+
+// kGated: out[T, N] = (x W[:N]^T + b[:N]) * gelu(x W[N:]^T + b[N:]) (launch 1,
+// W is w1 [2N, K]); else out[T, N] = x W^T + b (launch 2, W is w2 [N, K]).
+template <bool kGated>
+__global__ void __launch_bounds__(kThreads)
+    geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ b, float* __restrict__ out, int m, int n, int k) {
+  constexpr int kAcc = kGated ? 2 : 1;
+  __shared__ float xs[kSlice][kTile + 4];  // [k][row]
+  __shared__ float ws[kAcc][kSlice][kTile + 4];  // [k][column]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  float acc[kAcc][kPer][kPer] = {};
+  for (int k0 = 0; k0 < k; k0 += kSlice) {
+    for (int i = threadIdx.x; i < kTile * kSlice; i += kThreads) {
+      const int r = i / kSlice, kk = i % kSlice, gk = k0 + kk;
+      xs[kk][r] = (m0 + r < m && gk < k) ? x[static_cast<long long>(m0 + r) * k + gk] : 0.f;
+#pragma unroll
+      for (int g = 0; g < kAcc; ++g) {
+        ws[g][kk][r] = (n0 + r < n && gk < k)
+                           ? w[static_cast<long long>(g * n + n0 + r) * k + gk]
+                           : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSlice; ++kk) {
+      float xr[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) xr[i] = xs[kk][ty + 16 * i];
+#pragma unroll
+      for (int g = 0; g < kAcc; ++g) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const float wv = ws[g][kk][tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) acc[g][i][j] = fmaf(xr[i], wv, acc[g][i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (row >= m || col >= n) continue;
+      float v = acc[0][i][j] + b[col];
+      if constexpr (kGated) v = gelu_gate(v, acc[kAcc - 1][i][j] + b[n + col]);
+      out[static_cast<long long>(row) * n + col] = v;
+    }
+  }
+}
+
+}  // namespace f32
+
+}  // namespace
+
+// fp32 elements of the h workspace [T, H] that polyp_fused_geglu_f32 needs.
+extern "C" long long polyp_fused_geglu_f32_workspace(int t, int c, int h) {
+  (void)c;
+  return static_cast<long long>(t) * h;
+}
+
+// The fp32 form: x and out [T, C], w1 [2H, C], b1 [2H], w2 [C, H], b2 [C],
+// all fp32; ws holds h [T, H].
+extern "C" int polyp_fused_geglu_f32(const void* x, const void* w1, const void* b1,
+                                     const void* w2, const void* b2, void* ws, void* out,
+                                     int t, int c, int h, void* stream) {
+  if (t == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* hs = static_cast<float*>(ws);
+  const dim3 block(f32::kThreads);
+  const int row_tiles = (t + f32::kTile - 1) / f32::kTile;
+  f32::geglu_f32_kernel<true><<<dim3((h + f32::kTile - 1) / f32::kTile, row_tiles), block, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), hs, t, h, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  f32::geglu_f32_kernel<false><<<dim3((c + f32::kTile - 1) / f32::kTile, row_tiles), block, 0, s>>>(
+      hs, static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<float*>(out), t, c, h);
+  return cudaGetLastError();
+}

@@ -382,10 +382,11 @@ class _GEGLUProj(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU feed-forward (diffusers keys `net.0.proj`, `net.2`), the
     reference's three-way dispatch (:389-428): full precision takes the
-    fused GEGLU kernel's wrapper without autograd (the plain version under
-    autograd); with both layers quantized, w8a8_static takes the static
-    int8 GEGLU kernel and dynamic w8a8 the per-token one; anything else
-    (calibration, a layer left out) runs the two QLinears one by one. The
+    fused GEGLU kernel's wrapper without autograd (its bf16 form, or its
+    fp32 form for an fp32 model; the plain version under autograd); with
+    both layers quantized, w8a8_static takes the static int8 GEGLU kernel
+    and dynamic w8a8 the per-token one; anything else (calibration, a
+    layer left out) runs the two QLinears one by one. The
     kernels mask any token count, so the mid-block FF at 64 tokens takes
     them too.
 

@@ -6,7 +6,9 @@ its plain version on CPU tensors:
 * `fused_geglu` — `csrc/fused_geglu.cu` on the GEMM core
   `csrc/gemm_core.cuh`, replacing the Pallas kernel `fused_geglu`
   (polyp_tpu/ops/fused_geglu.py:139); plain `reference_geglu`. bf16, any
-  token count, C and H multiples of 8.
+  token count, C and H multiples of 8; fp32 inputs and weights (the fp32
+  models the Pallas kernel also took) take the same file's fp32 form,
+  counted apart (`fused_geglu.f32_launches`), any C and H.
 * `fused_geglu_w8a8` — `csrc/fused_geglu_w8a8.cu` (static form) on the
   GEMM core, replacing `fused_geglu_w8a8` (:256): the static-scale int8 FF
   in two launches, h's int8 codes [T, H] (plain `reference_geglu_w8a8_codes`)
@@ -86,14 +88,18 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return reference_geglu(*args)
     if x.device.type != "cuda":
         raise ValueError(f"fused_geglu: no kernel for device {x.device}")
-    if any(t.dtype != torch.bfloat16 for t in args):
-        raise ValueError("the GEGLU kernel takes bf16 inputs and weights")
+    dtypes = {t.dtype for t in args}
+    if dtypes not in ({torch.bfloat16}, {torch.float32}):
+        raise ValueError(f"the GEGLU kernel takes bf16 or fp32 inputs and "
+                         f"weights, all of one dtype; got {dtypes}")
     c = x.shape[-1]
     hidden = w2.shape[1]
     if (w1.shape != (2 * hidden, c) or b1.shape != (2 * hidden,)
             or w2.shape != (c, hidden) or b2.shape != (c,)):
         raise ValueError(f"GEGLU shapes do not match: x {tuple(x.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    if x.dtype == torch.float32:
+        return _geglu_f32(x, w1, b1, w2, b2)
     if c % 8 or hidden % 8:
         raise ValueError(f"GEGLU kernel needs C and H divisible by 8, got "
                          f"C={c} H={hidden}")
@@ -120,7 +126,31 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out.reshape(x.shape)
 
 
+def _geglu_f32(x, w1, b1, w2, b2) -> torch.Tensor:
+    """The fp32 form's launch (shapes checked by fused_geglu)."""
+    c, hidden = x.shape[-1], w2.shape[1]
+    xf = x.reshape(-1, c).contiguous()
+    w1, b1, w2, b2 = (t.contiguous() for t in (w1, b1, w2, b2))
+    t = xf.shape[0]
+    out = torch.empty_like(xf)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        # h = a * gelu(gate) in fp32 [T, H], made by the first launch and
+        # read by the second
+        workspace = torch.empty(
+            lib.polyp_fused_geglu_f32_workspace(t, c, hidden),
+            dtype=torch.float32, device=x.device)
+        err = lib.polyp_fused_geglu_f32(
+            xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), workspace.data_ptr(), out.data_ptr(), t, c,
+            hidden, _build.stream_of(x))
+    _build.check(err, "fused GEGLU kernel (fp32)")
+    fused_geglu.f32_launches += 1
+    return out.reshape(x.shape)
+
+
 fused_geglu.launches = 0
+fused_geglu.f32_launches = 0
 
 
 def reference_geglu_w8a8(x: torch.Tensor, wq1: torch.Tensor,

@@ -690,8 +690,8 @@ def run_train(sd_batch: int = 8, sd_image_size: int = 256,
 def run_distill(batch: int = 8, image_size: int = 256, iters: int = 20,
                 train_steps: int = 6, student_steps: int = 20,
                 guidance_scale: float = 7.5) -> dict:
-    """The distill phase step (the reference's run_distill and
-    bench.py::bench_distill_train: the 40 → 20 phase, CFG 7.5 folded,
+    """The distill phase step (the reference's run_distill and the port's
+    cli/bench.py::bench_distill_train: the 40 → 20 phase, CFG 7.5 folded,
     adamw 1e-4 with weight decay 1e-2 behind the global-norm clip, at
     full SD size): train/distill.py::make_distill_step over
     make_applies' teacher (the CFG pair at 2× batch, under no_grad, two

@@ -281,6 +281,12 @@ def make_distill_step(student_apply: Callable[[Params, torch.Tensor,
     return step
 
 
+class ReparamGuardError(RuntimeError):
+    """check_reparam_converged's refusal: the ε→v warmup did not close
+    the head switch. A RuntimeError, as the reference raises it, so its
+    callers can tell it from a device or memory failure."""
+
+
 def check_reparam_converged(losses: list[float], min_steps: int = 50,
                             plateau_ratio: float = 0.6,
                             rel_err: float | None = None,
@@ -295,7 +301,7 @@ def check_reparam_converged(losses: list[float], min_steps: int = 50,
     if len(losses) < min_steps:
         return
     if rel_err is not None and rel_err > rel_err_tol:
-        raise RuntimeError(
+        raise ReparamGuardError(
             f"reparam warmup did not close the head switch: student x̂₀ vs "
             f"teacher x̂₀ rel L2 {rel_err:.3f} > {rel_err_tol} after the "
             f"warmup (the student has exact capacity for this target, so "
@@ -310,7 +316,7 @@ def check_reparam_converged(losses: list[float], min_steps: int = 50,
     if tail <= 1e-3 * head:
         return
     if tail < plateau_ratio * prev:
-        raise RuntimeError(
+        raise ReparamGuardError(
             f"reparam warmup has not converged: loss still dropping steeply "
             f"at the end of the budget (last-{k} mean {tail:.3e} vs "
             f"previous-{k} mean {prev:.3e}). Distilling from an un-closed "
