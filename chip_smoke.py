@@ -32,6 +32,9 @@ caught:
    bf16 (tolerance in TOLERANCE; at the UNet's shapes and every VAE decode
    shape at batches 2 and 16, every VAE encode shape at the train batch
    8; flash also at the train batch [8,1024,8,40]); the int8 kernels —
+   the fp32 forms (flash attention at
+   FLASH_F32_SHAPES beside fp32 SDPA, the GEGLU at GEGLU_F32_SHAPES beside
+   its plain fp32 cuBLAS chain, both against float64, relative to max |y|);
    the W8A8 dense (beside
    `_int_mm` on the codes), the static int8 GEGLU (beside `_int_mm` on the
    codes of x and h, and the bf16 GEGLU at the same shape) and the
@@ -78,7 +81,10 @@ caught:
    that layer and must agree within LAYER_REL_L2 (codes within
    GN_Q8_SHARE); the whole int8 forward must stay within
    INT8_FORWARD_NOISE times the CPU's own int8-vs-fp32 distance (see
-   there);
+   there); and the same UNet in fp32 on the card under no_grad (the fp32
+   inference path: flash attention's and the GEGLU's fp32 forms) against
+   the CPU's fp32 forward within FP32_REL_L2_TOLERANCE, launching exactly
+   FP32_UNET_FORWARD (counts set to 0 just before it, read just after);
 6. serves (serving_phase, about a minute): GenerationService over
    make_sampler's bf16 stack at the service defaults (UniPC, 25 steps,
    CFG 7.5, max_batch 8) behind the HTTP server on a loopback port —
@@ -262,10 +268,11 @@ caught:
    (GUARD_MESSAGES); each feed-forward call of --sd's fp32 model without
    autograd launched the GEGLU's fp32 form, which is then held to the
    plain version in float64 at every shape it ran (TOLERANCE);
-17. prints the kernel table (all nine kernel entries, with launches on
+17. prints the kernel table (all ten kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
-   class, launches a scratch forward, launches a distill step and
-   launches a tensor-parallel rank's forward) as one
+   class, launches a scratch forward, launches a distill step,
+   launches a tensor-parallel rank's forward and launches an fp32 SD
+   forward) as one
    JSON line, the card line, and last the result line {"ok": true,
    "device": {...}}. Each phase's seconds are printed as it ends
    ("[time]").
@@ -304,17 +311,20 @@ SD14_UNET_PARAMS = 859_520_964
 # product, as the TPU kernel does. A wrong tile or mask gives O(1) errors.
 TOLERANCE = {"flash_attention": 2e-2, "fused_geglu": 6e-2,
              "fused_group_norm": 6e-2, "fused_mha": 2e-2,
-             "fused_geglu_f32": 1e-4}
+             "fused_geglu_f32": 1e-4, "flash_attention_f32": 1e-4,
+             "fused_group_norm_f32": 1e-4}
 # ... except the fused MHA block, whose tolerance is relative to max |y|:
 # its outputs are small here (max |y| about 0.4: attention over 1024
 # near-uniform keys averages V down), and it rounds Q (after the scale),
 # K, V, the probabilities, each head's output and the result to bf16
 # (2^-9 relative each), as the plain bf16 version does. A wrong tile,
 # mask or head column gives O(1) of max |y|.
-# The GEGLU's fp32 form is held to the plain version in float64, relative
-# to max |y|: fp32 sums over C and H inputs are off by ~1e-6 of it, a wrong
-# tile or gate by O(1).
-RELATIVE_TO_MAX = {"fused_mha", "fused_geglu_f32"}
+# The fp32 forms of the GEGLU, of flash attention and of GroupNorm are held
+# to the function in float64, relative to max |y|: fp32 sums over C and H
+# inputs (d and Tk keys, a group's elements) are off by ~1e-6 of it, a wrong
+# tile, gate, rescale or group by O(1).
+RELATIVE_TO_MAX = {"fused_mha", "fused_geglu_f32", "flash_attention_f32",
+                   "fused_group_norm_f32"}
 # int8 kernels vs their plain version's fp32 result on the same inputs: the
 # kernels round their output to bf16 (2^-9 relative), and an int8 code of an
 # intermediate (the GEGLU's h) may break a rounding tie the other way. A
@@ -324,6 +334,12 @@ Q8_MAX_REL = 2 ** -6   # max |err| / max |y|
 GN_Q8_SHARE = 2e-3     # share of int8 codes one apart (never more)
 # relative L2 of a whole forward on the card (bf16) vs fp32 on the CPU
 REL_L2_TOLERANCE = 5e-2
+# ... and of an fp32 forward on the card (the fp32 kernels, TF32 off) vs
+# the same fp32 forward on the CPU: both are fp32 throughout and differ only
+# in summation order (the kernels' fixed orders, cuDNN's conv algorithms),
+# ~1e-6 a layer, so the 2 x 16 x 3 layers of the UNet stay far inside 1e-4;
+# bf16 rounding would give 1e-2, a wrong tile or mask O(1).
+FP32_REL_L2_TOLERANCE = 1e-4
 # one quantized layer of the card's int8 forward vs the same layer on the
 # CPU (fp32, plain versions) from the same input: bf16 output rounding,
 # twice on the patch-matrix conv path (dequantize, then + bias), and rare
@@ -376,6 +392,10 @@ STEP_FLASH = 5
 # and its operations over the peak of their type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# the fp32 GEGLU runs its products on the tensor cores in 3xTF32 (three TF32
+# products a product, for fp32 accuracy): its own design's ceiling is the
+# dense TF32 peak over 3, beside the fp32 bound above
+TF32X3_OPS_PER_S = 495e12 / 3
 
 
 # graph replays a device time averages over (each of `iters` calls)
@@ -455,7 +475,7 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
     row["bound_share"] = cost["bound_ms"] / row["ms"]
     extra = "".join(f", {k} {row[f'{k}_ms']:.4f} ms"
                     for k in (["library"] if library_fn else []) + list(others))
-    print(f"[check] {name} {shape}: max|err| {err:.3e} (plain bf16 "
+    print(f"[check] {name} {shape}: max|err| {err:.3e} (plain "
           f"{plain_err:.3e}, tol {tol:.1e}); kernel {row['ms']:.4f} ms "
           f"(events {row['event_ms']:.4f}), plain {row['plain_ms']:.4f} ms"
           f"{extra}, bound "
@@ -502,7 +522,8 @@ def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
 # launches of the bf16 GEGLU and of both int8 GEGLU forms and the dense, by
 # tile (and, for the dense, quantized x)
 ATTENTION_KERNELS = re.compile(
-    r"(flash_fwd_kernel|fused_mha_kernel|kv_project_kernel)(?:ILi(\d+)E)?")
+    r"(flash_fwd_kernel|flash_f32_kernel|fused_mha_kernel|kv_project_kernel"
+    r"|geglu_f32_kernel)(?:ILi(\d+)E)?")
 GEMM_KERNELS = re.compile(
     r"gemm_kernelI\w*?(GegluQ8PtUp|GegluQ8PtDown|GegluQ8Up|GegluQ8Down|GegluUp"
     r"|GegluDown|Dense)"
@@ -512,7 +533,8 @@ GEMM_KERNELS = re.compile(
 def ptxas_report(log: str) -> dict:
     """{"flash_fwd_kernel<40>": {"head_dim", "registers", "spill_bytes",
     "stack_bytes"}, "gemm_kernel<Dense<160,1>>": {...}} for the attention
-    and GEMM kernels (every template argument in the name), from nvcc's
+    kernels (bf16 and fp32 flash), the GEMM kernels (every template
+    argument in the name) and the fp32 GEGLU (by row tile), from nvcc's
     -Xptxas -v report."""
     report, name = {}, None
     for line in log.splitlines():
@@ -521,8 +543,9 @@ def ptxas_report(log: str) -> dict:
             gm = GEMM_KERNELS.search(line)
             name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
                     if m else None)
-            if name:
-                report[name] = {"head_dim": int(m.group(2) or 0) or None}
+            if name:  # the fp32 GEGLU's argument is its row tile
+                report[name] = {"head_dim": None if "geglu" in name
+                                else int(m.group(2) or 0) or None}
             elif gm:
                 args = ",".join(re.findall(r"L[ib](\d+)E", gm.group(2)))
                 name = f"gemm_kernel<{gm.group(1)}<{args}>>"
@@ -727,6 +750,76 @@ def check_kernels(dev: torch.device) -> list[dict]:
 
     rows += geglu_q8_rows(dev)
     rows += gn_rows(dev)
+    rows += fp32_rows(dev)
+    return rows
+
+
+# the fp32 flash form's shapes: SD's level-0 self-attention at CFG batch 2
+# (32x32 latents), the headline row, and every other head dim it takes
+FLASH_F32_SHAPES = ((2, 1024, 8, 40), (2, 1024, 8, 64), (2, 1024, 8, 80),
+                    (1, 1024, 8, 128))
+# the GEGLU fp32 form's (tokens, C): distill_ab --sd's four (its tiny UNet's
+# level 0 and mid block at batches 16 and 32; 2,048 x 32 the headline row),
+# then SD-v1-4's at 32x32 latents, CFG batch 2 (levels 0-2 and mid); H = 4C
+GEGLU_F32_SHAPES = ((2048, 32), (1024, 32), (512, 64), (256, 64),
+                    (2048, 320), (512, 640), (128, 1280), (32, 1280))
+
+
+def fp32_rows(dev: torch.device) -> list[dict]:
+    """The fp32 inference path's kernels against their plain versions in
+    float64 (TOLERANCE, relative to max |y|): flash attention's fp32 form
+    at FLASH_F32_SHAPES beside one F.scaled_dot_product_attention call on
+    the same fp32 tensors in BHTD (the library call, timed only here); the
+    GEGLU's fp32 form at GEGLU_F32_SHAPES, whose plain version is the fp32
+    cuBLAS chain (F.linear, the gate, F.linear; TF32 off), with its launch
+    plan (tokens a block, the cluster's blocks)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from polyp_tpu_torch import _build
+    from polyp_tpu_torch.ops.flash_attention import (
+        flash_attention, reference_attention)
+    from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
+
+    randn = randn_on(dev, seed=0)
+    rows = []
+    for n, t, h, d in FLASH_F32_SHAPES:
+        q, k, v = (randn(n, t, h, d).float() for _ in range(3))
+        bhtd = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+        rows.append(compare(
+            "flash_attention_f32", lambda: flash_attention(q, k, v),
+            lambda: reference_attention(q, k, v),
+            reference_attention(q.double(), k.double(), v.double()),
+            f"[{n},{t},{h},{d}]",
+            bound(4 * n * h * t * t * d, "fp32", nbytes(q, k, v) + nbytes(q)),
+            library_fn=lambda: F.scaled_dot_product_attention(*bhtd)))
+    lib = _build.library()
+    for tokens, c in GEGLU_F32_SHAPES:
+        h = 4 * c
+        case = geglu_case(randn, 1, c, tokens)
+        args = tuple(x.float() for x in case)
+        plan = (ctypes.c_int * 4)()
+        _build.check(lib.polyp_fused_geglu_f32_plan(tokens, c, h, plan),
+                     "the fp32 GEGLU's plan")
+        n_bytes = nbytes(*args) + nbytes(args[0])
+        row = compare(
+            "fused_geglu_f32", lambda: fused_geglu(*args),
+            lambda: reference_geglu(*args),
+            reference_geglu(*(x.double() for x in args)),
+            f"[{tokens},{c}]x[{c},{2 * h}]",
+            bound(6 * tokens * c * h, "fp32", n_bytes))
+        ceiling = max(n_bytes / HBM_BYTES_PER_S,
+                      6 * tokens * c * h / TF32X3_OPS_PER_S) * 1e3
+        rows.append({**row, "bound_3xtf32_ms": ceiling,
+                     "bound_3xtf32_share": ceiling / row["ms"],
+                     "rows_a_block": plan[0], "cluster": plan[1],
+                     "panel_columns": plan[2], "smem_bytes": plan[3]})
+        print(f"[plan] fused_geglu_f32 [{tokens},{c}]: {plan[0]} tokens a "
+              f"block, clusters of {plan[1]}, panels of {plan[2]} columns, "
+              f"{plan[3]} bytes of shared memory a block; its 3xTF32 "
+              f"ceiling {ceiling:.4f} ms, {ceiling / row['ms']:.3f} of it",
+              flush=True)
     return rows
 
 
@@ -950,9 +1043,20 @@ def dense_key(x, w, *args, **kwargs) -> tuple:
     return x.numel() // c, c, w.shape[0], x.dtype == torch.int8
 
 
+def group_norm_f64(x, weight, bias, groups: int, eps: float, act
+                   ) -> torch.Tensor:
+    """GN(+SiLU) in float64 (the plain group_norm computes in fp32): what
+    the fp32 GroupNorm is held to."""
+    import torch.nn.functional as F
+
+    y = F.group_norm(x.double(), groups, weight.double(), bias.double(), eps)
+    return F.silu(y) if act == "silu" else y
+
+
 def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
     """compare() of GN(+SiLU) (recorded under gn_key; an int8 epilogue
-    call held to reference_gn_q8 as gn_rows holds it), the bf16 GEGLU and
+    call held to reference_gn_q8 as gn_rows holds it, an fp32 call to
+    group_norm_f64), the bf16 GEGLU and
     both int8 GEGLUs (under their x's shape), the W8A8 dense (under
     dense_key) and flash attention (under flash_key) at every recorded
     shape, on inputs drawn as gn_rows, gemm_rows, geglu_q8_row and
@@ -986,6 +1090,16 @@ def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
         if q8:
             rows.append({**gn_q8_row(x, gamma, beta, groups, eps, act,
                                      label), "path_launches": calls})
+            continue
+        if dtype == torch.float32:
+            rows.append({**compare(
+                "fused_group_norm_f32",
+                lambda: fused_group_norm(x, gamma, beta, groups, eps, act),
+                lambda: group_norm(x, gamma, beta, groups, eps, act),
+                group_norm_f64(x, gamma, beta, groups, eps, act), label,
+                bound(10 * x.numel(), "fp32",
+                      2 * nbytes(x) + nbytes(gamma, beta))),
+                "path_launches": calls})
             continue
         rows.append({**compare(
             "fused_group_norm",
@@ -1091,12 +1205,55 @@ def int8_layers(card_model, cpu_model, forward, bank, t: torch.Tensor
     return out
 
 
-def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
+def fp32_forward_vs_cpu(unet_cpu, args: tuple, want: torch.Tensor,
+                        dev: torch.device, reset_counts, read_counts) -> dict:
+    """The fp32 inference path: an fp32 copy of `unet_cpu` on the card, its
+    forward on `args` under no_grad with TF32 off (the fp32 forms of flash
+    attention and the GEGLU, GroupNorm in fp32), every count set to 0 just
+    before it and read just after: exactly FP32_UNET_FORWARD, and within
+    FP32_REL_L2_TOLERANCE of `want` (the CPU's fp32 forward). The copy is
+    freed before it returns; then the fp32 GroupNorm at every shape the
+    forward gave it (`kernel_checks`, recorded_rows: flash's and the
+    GEGLU's fp32 shapes are fp32_rows')."""
+    from polyp_tpu_torch.models import sd14_unet
+
+    unet = sd14_unet(torch.float32, device="meta").to_empty(device=dev)
+    unet.load_state_dict(unet_cpu.state_dict())
+    with torch.no_grad(), ShapeRecorder({"fused_group_norm": gn_key}) as rec:
+        torch.cuda.synchronize()
+        reset_counts()
+        got = unet(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        launches = read_counts()
+    del unet
+    torch.cuda.empty_cache()
+    out = {"unet_fp32_rel_l2": rel_l2(got, want), "launches": launches,
+           "finite": bool(torch.isfinite(got).all())}
+    print(f"[check] card fp32 vs cpu fp32: UNet rel L2 "
+          f"{out['unet_fp32_rel_l2']:.3e} (tol {FP32_REL_L2_TOLERANCE:.0e}); "
+          f"launches {launches}", flush=True)
+    if launches != FP32_UNET_FORWARD:
+        raise AssertionError(f"fp32 UNet forward: launches {launches}, want "
+                             f"{FP32_UNET_FORWARD}")
+    if not (out["finite"] and got.shape == want.shape
+            and out["unet_fp32_rel_l2"] <= FP32_REL_L2_TOLERANCE):
+        raise AssertionError(f"fp32 UNet forward on the card: {out}")
+    gn = rec.seen["fused_group_norm"]
+    if {key[1] for key in gn} != {torch.float32} or (
+            sum(gn.values()) != FP32_UNET_FORWARD["fused_group_norm"]):
+        raise AssertionError(f"fp32 UNet forward's GroupNorm calls: {gn}")
+    out["kernel_checks"] = recorded_rows(rec.seen, dev)
+    return out
+
+
+def check_against_cpu(stack, dev: torch.device, scales: dict, reset_counts,
+                      read_counts) -> dict:
     """One UNet forward (latents 32×32, CFG batch 2) and one VAE decode
     (8×8 latents) with the kernels, vs the same weights in fp32 on the CPU
-    running the plain versions; and one w8a8_static UNet forward with
+    running the plain versions; one w8a8_static UNet forward with
     `scales`, whose every quantized layer is re-run on the CPU from the
-    card's input to it (int8_layers)."""
+    card's input to it (int8_layers); and the same UNet in fp32 on the card
+    against the CPU's fp32 forward (fp32_forward_vs_cpu)."""
     from polyp_tpu_torch.models import AutoencoderKL, sd14_unet
     from polyp_tpu_torch.ops import quant
 
@@ -1136,7 +1293,9 @@ def check_against_cpu(stack, dev: torch.device, scales: dict) -> dict:
            "gn_q8_max_code_diff": max_code,
            "unet_w8a8_static_rel_l2": rel_l2(got_q8, want_q8),
            "cpu_int8_vs_fp32_rel_l2": rel_l2(want_q8, want_unet),
-           "card_int8_vs_bf16_rel_l2": rel_l2(got_q8, got_unet)}
+           "card_int8_vs_bf16_rel_l2": rel_l2(got_q8, got_unet),
+           "fp32": fp32_forward_vs_cpu(unet_cpu, (x, t, ctx), want_unet, dev,
+                                       reset_counts, read_counts)}
     print(f"[check] card bf16 vs cpu fp32: UNet rel L2 "
           f"{out['unet_rel_l2']:.3e}, VAE decode rel L2 "
           f"{out['vae_rel_l2']:.3e} (tol {REL_L2_TOLERANCE:.0e})", flush=True)
@@ -2964,7 +3123,8 @@ SCRATCH_DISTILL_GENERATE, VAE_DISTILL_STEPS = 4, 20
 # run 71 GroupNorms each; the VAE step is the teacher's decode
 KERNEL_NAMES = ("flash_attention", "fused_geglu", "fused_group_norm",
                 "fused_w8a8_dense", "fused_geglu_w8a8", "fused_geglu_w8a8_pt",
-                "fused_group_norm_q8", "fused_mha", "fused_geglu_f32")
+                "fused_group_norm_q8", "fused_mha", "fused_geglu_f32",
+                "flash_attention_f32")
 
 
 def launches_of(**counts) -> dict:
@@ -2975,6 +3135,11 @@ def launches_of(**counts) -> dict:
 UNET_FORWARD = launches_of(flash_attention=5, fused_geglu=16,
                            fused_group_norm=61)
 VAE_DECODE = launches_of(fused_group_norm=30)
+# an fp32 UNet forward without autograd (SD-v1-4 at 32x32 latents, CFG
+# batch 2): the five level-0 self-attentions and the 16 feed-forwards take
+# the fp32 forms, GroupNorm its 61 calls; no bf16 form runs
+FP32_UNET_FORWARD = launches_of(flash_attention_f32=5, fused_geglu_f32=16,
+                                fused_group_norm=61)
 SD_DISTILL_STEP = launches_of(flash_attention=15, fused_geglu=32,
                               fused_group_norm=122)
 REPARAM_STEP = launches_of(flash_attention=10, fused_geglu=16,
@@ -4970,7 +5135,8 @@ def distill_ab_phase(dev: torch.device, card: str, reset_counts,
 def kernel_counters():
     """(reset, read) of every kernel's launch count: each wrapper's
     counter, read after the path that runs it; the GN epilogue and the
-    GEGLU's fp32 form have counters of their own."""
+    fp32 forms of the GEGLU and of flash attention have counters of their
+    own."""
     from polyp_tpu_torch.ops.flash_attention import flash_attention
     from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
     from polyp_tpu_torch.ops.fused_geglu import (
@@ -4987,7 +5153,8 @@ def kernel_counters():
         "fused_geglu_w8a8_pt": (fused_geglu_w8a8_pt, "launches"),
         "fused_group_norm_q8": (fused_group_norm, "q8_launches"),
         "fused_mha": (fused_mha, "launches"),
-        "fused_geglu_f32": (fused_geglu, "f32_launches")}
+        "fused_geglu_f32": (fused_geglu, "f32_launches"),
+        "flash_attention_f32": (flash_attention, "f32_launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -5047,7 +5214,9 @@ def main() -> int:
     kernel_resources = ptxas_report(log.read_text())
     for name, res in kernel_resources.items():
         d = res["head_dim"]
-        if name.startswith("flash"):
+        if name.startswith("flash_f32"):
+            res["dynamic_smem_bytes"] = lib.polyp_flash_f32_smem(d)
+        elif name.startswith("flash"):
             res["dynamic_smem_bytes"] = lib.polyp_flash_smem(d)
         elif name.startswith("fused_mha"):  # the UNet's 8 heads, Co = 8d
             res["dynamic_smem_bytes"] = lib.polyp_fused_mha_smem(8, d, 8 * d)
@@ -5284,7 +5453,8 @@ def main() -> int:
                              f"log): {spilled}")
 
     decoder_rel = check_tiny_decoder(tiny, dev)
-    agreement = check_against_cpu(stack, dev, static.quant_scales)
+    agreement = check_against_cpu(stack, dev, static.quant_scales,
+                                  reset_counts, read_counts)
     agreement["tiny_decoder_rel_l2"] = decoder_rel
     agreement["tiny_decoder_meta"] = meta
     phase("checks against the CPU")
@@ -5312,15 +5482,21 @@ def main() -> int:
                       "polyp_tpu/ops/fused_mha.py:241"),
         "fused_geglu_f32": ("distill_ab --sd",
                             "polyp_tpu_torch/csrc/fused_geglu.cu",
-                            "polyp_tpu/ops/fused_geglu.py:139")}
+                            "polyp_tpu/ops/fused_geglu.py:139"),
+        "flash_attention_f32": ("fp32 SD forward",
+                                "polyp_tpu_torch/csrc/flash_attention.cu",
+                                "polyp_tpu/ops/flash_attention.py:185")}
     # each kernel's launches on the main path that runs it
     path_launches = {name: path["launches"] for name, path in paths.items()}
     path_launches["distill_ab --sd"] = ab["launches"]
+    per_fp32_forward = agreement["fp32"]["launches"]
+    path_launches["fp32 SD forward"] = per_fp32_forward
     rows += (loop["kernel_checks"] + scratch["kernel_checks"]
              + sd_clis["kernel_checks"] + distilling["kernel_checks"]
              + gating["kernel_checks"]
              + multigpu["tensor_parallel"]["kernel_checks"]
-             + benching["kernel_checks"] + ab["kernel_checks"])
+             + benching["kernel_checks"] + ab["kernel_checks"]
+             + agreement["fp32"].pop("kernel_checks"))
     per_tp_forward = multigpu["tensor_parallel"]["launches_per_rank_forward"]
     table = []
     per_train_step = training["default"]["launches_per_step"]
@@ -5348,7 +5524,16 @@ def main() -> int:
                           "sd_reparam": REPARAM_STEP[name],
                           "scratch": SCRATCH_DISTILL_STEP[name],
                           "vae": VAE_DISTILL_STEP[name]},
-                      "launches_per_tp_rank_forward": per_tp_forward[name]})
+                      "launches_per_tp_rank_forward": per_tp_forward[name],
+                      "launches_per_fp32_sd_forward": per_fp32_forward[name]})
+    # GroupNorm's fp32 form (the fp32 SD forward's) beside its bf16 row: the
+    # forward's most launched shape
+    head = max((r for r in rows if r["name"] == "fused_group_norm_f32"),
+               key=lambda r: r["path_launches"])
+    table[[t["name"] for t in table].index("fused_group_norm")]["fp32"] = {
+        k: head[k] for k in ("shape", "path_launches", "max_abs_err",
+                             "tolerance", "ms", "plain_ms", "bound_ms",
+                             "bound_by")}
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,

@@ -32,10 +32,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, o, n, h, tq, tk, d, scale, stream
     "polyp_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # the same, all fp32
+    "polyp_flash_attention_f32_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                      _P],
     # x, w1, b1, w2, b2, workspace, out, t, c, h, stream
     "polyp_fused_geglu": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # the same, all fp32 (workspace: fp32 h [t, h])
-    "polyp_fused_geglu_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the same, all fp32, without a workspace
+    "polyp_fused_geglu_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, gamma, beta, y, n, c, hw, groups, eps, silu, is_bf16, act_scale,
     # stream
     "polyp_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
@@ -131,14 +134,19 @@ def library() -> ctypes.CDLL:
     # t, c, h -> bf16 elements of the GEGLU's h workspace [t, h]
     lib.polyp_fused_geglu_workspace.argtypes = [_I, _I, _I]
     lib.polyp_fused_geglu_workspace.restype = ctypes.c_longlong
-    lib.polyp_fused_geglu_f32_workspace.argtypes = [_I, _I, _I]
-    lib.polyp_fused_geglu_f32_workspace.restype = ctypes.c_longlong
+    # t, c, h, out[4] -> the GEGLU fp32 form's launch: tokens a block, the
+    # cluster's blocks, the panel's columns, shared memory bytes a block
+    lib.polyp_fused_geglu_f32_plan.argtypes = [_I, _I, _I,
+                                               ctypes.POINTER(ctypes.c_int)]
+    lib.polyp_fused_geglu_f32_plan.restype = ctypes.c_int
     # t, c, h, block_h (0: static form) -> bytes of int8 GEGLU workspace
     lib.polyp_geglu_w8a8_workspace.argtypes = [_I, _I, _I, _I]
     lib.polyp_geglu_w8a8_workspace.restype = ctypes.c_longlong
     # d (flash); h, d, co (fused MHA) -> bytes of dynamic shared memory a block
     lib.polyp_flash_smem.argtypes = [_I]
     lib.polyp_flash_smem.restype = ctypes.c_longlong
+    lib.polyp_flash_f32_smem.argtypes = [_I]
+    lib.polyp_flash_f32_smem.restype = ctypes.c_longlong
     lib.polyp_fused_mha_smem.argtypes = [_I, _I, _I]
     lib.polyp_fused_mha_smem.restype = ctypes.c_longlong
     # c, hw, groups, is_bf16, out[4] -> GroupNorm's plan: cluster, the

@@ -65,4 +65,45 @@ __device__ __forceinline__ void load_tile_async_vec8(bf16* dst, int ld_dst, cons
   }
 }
 
+// cp.async of 4 bytes (cp-size 4 takes .ca only); zeros where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// The fp32 twin of load_tile_async_vec8: a [rows x cols] fp32 tile, element
+// (r, c) = src[r * ld_src + c], 0 where r >= row_limit or c >= col_limit.
+// With vec4, 16 bytes a copy: `cols`, `ld_src`, `col_limit` and `ld_dst` are
+// multiples of 4 and `src` is 16-byte aligned; without, 4 bytes a copy and
+// any strides.
+__device__ __forceinline__ void load_tile_async_f32(float* dst, int ld_dst, const float* src,
+                                                    long long ld_src, int rows, int cols,
+                                                    int row_limit, int col_limit, bool vec4) {
+  if (vec4) {
+    const int vecs_per_row = cols / 4;
+    for (int i = threadIdx.x; i < rows * vecs_per_row; i += blockDim.x) {
+      const int r = i / vecs_per_row;
+      const int c = (i % vecs_per_row) * 4;
+      const bool valid = r < row_limit && c < col_limit;
+      cp_async16(dst + r * ld_dst + c, valid ? src + r * ld_src + c : src, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+      const int r = i / cols;
+      const int c = i % cols;
+      const bool valid = r < row_limit && c < col_limit;
+      cp_async4(dst + r * ld_dst + c, valid ? src + r * ld_src + c : src, valid);
+    }
+  }
+}
+
+// a · b over four consecutive elements, summed in order
+__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
 }  // namespace polyp

@@ -29,6 +29,26 @@
 // zeros that the masked loads put there, so no padded copy of Q/K/V is made
 // and the scale uses the true d. Ragged Tq and Tk are masked; BTHD strides
 // are read in place. Timed against the card's peak and SDPA in PERF.md.
+//
+// fp32 form (polyp_flash_attention_f32_fwd): the Pallas kernel takes any
+// dtype and keeps p in fp32 for fp32 v (flash_attention.py:84), so an fp32
+// model (an SD UNet loaded in fp32, run without autograd) takes this form.
+// It computes what the bf16 form does: fp32 scores, the online softmax in
+// exp2 of log2-scaled scores, p kept in fp32, the T x T matrix never in
+// device memory. Products in full fp32 on the CUDA cores (FFMA): TF32 tensor
+// cores keep 10 mantissa bits, about 5e-4 of a product, and the check is
+// 1e-4 of max |y|. So the bound is the fp32 rate, 67 TFLOP/s: 4*N*H*T*T*D =
+// 2.7 GFLOP at [2, 1024, 8, 40], 40 us. Design: a block owns 64 query rows
+// of one (n, h); its 256 threads form a 16 x 16 grid, each thread 4 query
+// rows x BK/16 keys of the scores (keys tx, tx + 16, ...), so a row's 16
+// threads are one half-warp and its max and sum reduce by shuffles. Q stays
+// in shared memory; K/V tiles of BK keys (64; 32 at d >= 128) are
+// double-buffered with cp.async. Rows of every tile are padded to d + 4
+// floats, which makes the float4 reads along d free of bank conflicts. P
+// goes to shared memory (each half-warp writes and reads only its own
+// rows, so a __syncwarp orders it) and P V accumulates 4 rows x ceil(d/16)
+// output columns a thread in registers. Any Tq and Tk; d = 40, 64, 80, 128,
+// 160.
 
 #include "attention_core.cuh"
 
@@ -160,6 +180,213 @@ extern "C" int polyp_flash_attention_fwd(const void* q, const void* k, const voi
   }
 }
 
+namespace {
+
+namespace f32 {
+
+constexpr int kBlockQ = 64;  // query rows a block
+constexpr int kThreads = 256;
+
+template <int D>
+struct Shape {
+  static constexpr int BK = D <= 80 ? 64 : 32;  // keys a tile
+  static constexpr int KJ = BK / 16;            // keys a thread
+  static constexpr int NC = (D + 15) / 16;      // output columns a thread
+  static constexpr int LD = D + 4;              // floats a row of Q, K, V
+  static constexpr int LDP = BK + 4;            // floats a row of P
+  static constexpr size_t kSmem = sizeof(float) * ((kBlockQ + 4 * BK) * LD + kBlockQ * LDP);
+};
+
+// two blocks an SM: at most 128 registers a thread (the compiler's own
+// choice spilled at d = 40, 80 and 128)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H, int Tq, int Tk,
+                 float score_log2) {
+  using S = Shape<D>;
+  constexpr int BK = S::BK, KJ = S::KJ, NC = S::NC, LD = S::LD, LDP = S::LDP;
+  extern __shared__ __align__(16) float fsmem[];
+  float* sQ = fsmem;                    // [kBlockQ][LD]
+  float* sKV = sQ + kBlockQ * LD;       // two stages of [K tile; V tile], [BK][LD] each
+  float* sP = sKV + 4 * BK * LD;        // [kBlockQ][LDP]
+
+  const int tx = threadIdx.x % 16;  // keys tx + 16 j; output columns tx + 16 c
+  const int ty = threadIdx.x / 16;  // query rows 4 ty .. 4 ty + 3
+  const int bh = blockIdx.x;
+  const int n = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.y * kBlockQ;
+  const long long row = static_cast<long long>(H) * D;  // token stride
+  const float* qb = q + (static_cast<long long>(n) * Tq) * row + h * D;
+  const float* kb = k + (static_cast<long long>(n) * Tk) * row + h * D;
+  const float* vb = v + (static_cast<long long>(n) * Tk) * row + h * D;
+  float* ob = o + (static_cast<long long>(n) * Tq) * row + h * D;
+
+  auto stage = [&](int it) { return sKV + (it & 1) * 2 * BK * LD; };
+  auto issue = [&](int it) {
+    const int k0 = it * BK;
+    float* sK = stage(it);
+    polyp::load_tile_async_f32(sK, LD, kb + k0 * row, row, BK, D, Tk - k0, D, true);
+    polyp::load_tile_async_f32(sK + BK * LD, LD, vb + k0 * row, row, BK, D, Tk - k0, D, true);
+  };
+
+  polyp::load_tile_async_f32(sQ, LD, qb + q0 * row, row, kBlockQ, D, Tq - q0, D, true);
+  issue(0);
+  polyp::cp_async_commit();
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+  const int n_k = (Tk + BK - 1) / BK;
+  for (int it = 0; it < n_k; ++it) {
+    if (it + 1 < n_k) {
+      issue(it + 1);  // into the stage every thread left at the last barrier
+      polyp::cp_async_commit();
+      polyp::cp_async_wait<1>();
+    } else {
+      polyp::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sK = stage(it);
+    const float* sV = sK + BK * LD;
+
+    // scores of rows 4 ty + i, keys tx + 16 j, summed over d in order
+    float s[4][KJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < D; kk += 4) {
+      float4 kv[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * LD + kk);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(sQ + (4 * ty + i) * LD + kk);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) s[i][j] = polyp::dot4(s[i][j], qv, kv[j]);
+      }
+    }
+
+    // the online softmax; keys past Tk get p = 0 (their V rows are zeros)
+    const int k_valid = Tk - it * BK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        s[i][j] = tx + 16 * j < k_valid ? s[i][j] * score_log2 : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);  // 0 on the first tile
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        sum += p;
+        sP[(4 * ty + i) * LDP + tx + 16 * j] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+    __syncwarp();  // this half-warp's P rows, written and read by it alone
+
+    // O += P V over the tile's keys, in key order
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = *reinterpret_cast<const float4*>(sP + (4 * ty + i) * LDP + kk);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int col = tx + 16 * c;
+          vv[c] = (D % 16 == 0 || col < D) ? sV[(kk + u) * LD + col] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pu = u == 0 ? p[i].x : u == 1 ? p[i].y : u == 2 ? p[i].z : p[i].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pu, vv[c], acc[i][c]);
+        }
+      }
+    }
+    __syncthreads();  // this stage, and P, may be refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + 4 * ty + i;
+    if (r >= Tq) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = tx + 16 * c;
+      if (D % 16 == 0 || col < D) ob[r * row + col] = acc[i][c] * inv;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_flash_f32(const float* q, const float* k, const float* v, float* o, int N,
+                             int H, int Tq, int Tk, float scale, cudaStream_t stream) {
+  const size_t smem = Shape<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(N * H, (Tq + kBlockQ - 1) / kBlockQ);
+  flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, H, Tq, Tk,
+                                                        scale * polyp::attn::kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
+}  // namespace
+
+// The fp32 form: q, k, v, o fp32 [N, T, H, D].
+extern "C" int polyp_flash_attention_f32_fwd(const void* q, const void* k, const void* v,
+                                             void* o, int n, int h, int tq, int tk, int d,
+                                             float scale, void* stream) {
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 40: return f32::launch_flash_f32<40>(qp, kp, vp, op, n, h, tq, tk, scale, s);
+    case 64: return f32::launch_flash_f32<64>(qp, kp, vp, op, n, h, tq, tk, scale, s);
+    case 80: return f32::launch_flash_f32<80>(qp, kp, vp, op, n, h, tq, tk, scale, s);
+    case 128: return f32::launch_flash_f32<128>(qp, kp, vp, op, n, h, tq, tk, scale, s);
+    case 160: return f32::launch_flash_f32<160>(qp, kp, vp, op, n, h, tq, tk, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Dynamic shared memory a flash block takes at head dim d (0 if d is not
 // built): chip_smoke.py reports it beside the registers.
 extern "C" long long polyp_flash_smem(int d) {
@@ -169,6 +396,18 @@ extern "C" long long polyp_flash_smem(int d) {
     case 80: return FlashShape<80>::kSmem;
     case 128: return FlashShape<128>::kSmem;
     case 160: return FlashShape<160>::kSmem;
+    default: return 0;
+  }
+}
+
+// ... and a block of the fp32 form
+extern "C" long long polyp_flash_f32_smem(int d) {
+  switch (d) {
+    case 40: return f32::Shape<40>::kSmem;
+    case 64: return f32::Shape<64>::kSmem;
+    case 80: return f32::Shape<80>::kSmem;
+    case 128: return f32::Shape<128>::kSmem;
+    case 160: return f32::Shape<160>::kSmem;
     default: return 0;
   }
 }

@@ -37,16 +37,41 @@
 // and H multiples of 8 (TMA's 16-byte strides).
 //
 // fp32 form (polyp_fused_geglu_f32), for the fp32 models the TPU kernel also
-// took (the tiny UNets of the distillation A/B): the same two launches on
-// CUDA cores, h kept in fp32 as the plain version keeps it for fp32 inputs.
-// Each block computes a 64 x 64 output tile from 16-wide K slices staged in
-// shared memory, 4 x 4 outputs a thread (two accumulator sets for a and gate
-// in the first launch), each sum in K order. Simple, not tuned: those
-// models' FFs are a few MFLOP. Any T, C and H.
+// took (the tiny UNets of the distillation A/B; an SD UNet loaded in fp32),
+// h kept in fp32 as the plain version keeps it for fp32 inputs. Products
+// to fp32 accuracy on the tensor cores in 3xTF32: each operand split into
+// a tf32 big part and a tf32 remainder, big·big + big·small + small·big
+// summed in fp32 accumulators (plain TF32 keeps 10 mantissa bits, about
+// 5e-4 of a product). Its bound is the fp32 rate the plain version runs at
+// (6·T·C·H at 67 TFLOP/s: 75 us at SD level 0, 2,048 x 320 -> 2,560), or
+// the weights' bytes where T is small. Its shapes have few tokens
+// (256-2,048) and, in the A/B, narrow C (32-64), so output tiles alone
+// leave most SMs idle. Design: one launch, and h never leaves the SM, as in
+// the TPU kernel (grid token tiles x hidden tiles, the second product
+// accumulated in VMEM). A block owns BM tokens (32 or 16) and a slice of
+// the hidden units; a thread-block cluster of up to 8 blocks along y (16
+// where few tokens leave SMs idle and the card places such a cluster)
+// splits H, so T = 256-2,048 gives 64-512 blocks (plan()). A block walks its slice
+// in chunks of 64 hidden units: a and gate for its rows (x and the chunk's
+// two W1 row ranges streamed through shared memory in 32-wide slices of
+// C), the erf gate in fp32, h split and kept in shared memory, then its
+// rows' partial output += h_chunk · W2[:, chunk]^T, W2 streamed in blocks
+// of 64 output columns, the partial sums in shared memory. Every slice and
+// block is a job of one cp.async ring (2-3 stages, one barrier a job), so
+// the next jobs' tiles load while this one computes. Within a job each
+// warp owns 16 rows x 8 or 16 columns as m16n8k8 mma.sync tiles, its
+// fragments read from rows padded by 4 floats (no bank conflicts). Then
+// the cluster adds its blocks' partial outputs in rank order through
+// distributed shared memory (each block a share of the columns), adds b2
+// and writes: no atomics, so runs repeat bit for bit. Any T, C and H: C
+// wider than the accumulator that fits in shared memory runs in panels of
+// output columns (h recomputed for each; 1,280 columns at BM = 32, 2,496
+// at 16), and C or H not a multiple of 4 take 4-byte copies.
 
 #include "gemm_core.cuh"
 
 using polyp::bf16;
+namespace cg = cooperative_groups;
 namespace gemm = polyp::gemm;
 
 namespace {
@@ -223,90 +248,387 @@ namespace {
 
 namespace f32 {
 
-constexpr int kTile = 64, kSlice = 16, kThreads = 256, kPer = kTile / 16;
+constexpr int kThreads = 256;
+constexpr int kHC = 64;          // hidden units a chunk
+constexpr int kKS = 32;          // C a first-product slice
+constexpr int kCB = 64;          // output columns a second-product block
+constexpr int kLDK = kKS + 4;    // floats a staged row of x and W1
+constexpr int kLDH = kHC + 4;    // floats a row of h and of a staged W2 block
+constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kWideCluster = 16; // the non-portable one, where the card takes it
 
-// kGated: out[T, N] = (x W[:N]^T + b[:N]) * gelu(x W[N:]^T + b[N:]) (launch 1,
-// W is w1 [2N, K]); else out[T, N] = x W^T + b (launch 2, W is w2 [N, K]).
-template <bool kGated>
+template <int BM>
+struct Tiles {
+  // warps: WM along the rows (16 each, one mma row tile), WN along the 64
+  // columns of a chunk or block, NT n8 tiles a warp
+  static constexpr int WM = BM / 16, WN = 8 / WM, NT = kHC / WN / 8;
+  // stages of the ring: as many as leave two blocks an SM room at SD
+  // level 0 (BM = 32) and level 1 (BM = 16)
+  static constexpr int S = BM == 32 ? 2 : 3;
+  static constexpr int kX = (BM + 2 * kHC) * kLDK;    // x slice + W1 a and gate slices
+  static constexpr int kStage = kX > kCB * kLDH ? kX : kCB * kLDH;  // floats
+  static constexpr int kFixed = S * kStage + 2 * BM * kLDH;  // the ring, h big and small
+  // bytes of shared memory with an accumulator of `cp` columns
+  static size_t smem(int cp) { return sizeof(float) * (kFixed + BM * (cp + 8)); }
+};
+
+// x = big + small, both tf32 (10 mantissa bits): big = x rounded, small =
+// the rounded remainder; big·big' + big·small' + small·big' carries a
+// product to about fp32's precision (3xTF32)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// c += a · b on the tensor cores, one m16n8k8 tile, fp32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a · b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma(c, as, bb);
+  mma(c, ab, bs);
+  mma(c, ab, bb);
+}
+
+// the B fragment of an m16n8k8 tile, split: rows n of a [n][k] tile (W
+// as it lies), k = k0 + t and k0 + t + 4
+__device__ __forceinline__ void b_frag(const float* w, int ld, int n, int k0, int t,
+                                       uint32_t (&bb)[2], uint32_t (&bs)[2]) {
+  split(w[n * ld + k0 + t], bb[0], bs[0]);
+  split(w[n * ld + k0 + t + 4], bb[1], bs[1]);
+}
+
+template <int BM>
 __global__ void __launch_bounds__(kThreads)
-    geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ b, float* __restrict__ out, int m, int n, int k) {
-  constexpr int kAcc = kGated ? 2 : 1;
-  __shared__ float xs[kSlice][kTile + 4];  // [k][row]
-  __shared__ float ws[kAcc][kSlice][kTile + 4];  // [k][column]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[kAcc][kPer][kPer] = {};
-  for (int k0 = 0; k0 < k; k0 += kSlice) {
-    for (int i = threadIdx.x; i < kTile * kSlice; i += kThreads) {
-      const int r = i / kSlice, kk = i % kSlice, gk = k0 + kk;
-      xs[kk][r] = (m0 + r < m && gk < k) ? x[static_cast<long long>(m0 + r) * k + gk] : 0.f;
-#pragma unroll
-      for (int g = 0; g < kAcc; ++g) {
-        ws[g][kk][r] = (n0 + r < n && gk < k)
-                           ? w[static_cast<long long>(g * n + n0 + r) * k + gk]
-                           : 0.f;
+geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                 const float* __restrict__ b1, const float* __restrict__ w2,
+                 const float* __restrict__ b2, float* __restrict__ out, int T, int C, int H,
+                 int cp, int vec4) {
+  using G = Tiles<BM>;
+  constexpr int NT = G::NT;
+  constexpr int W = 8 * NT;  // columns a warp
+  extern __shared__ __align__(16) float gsmem[];
+  float* ring = gsmem;                  // S stages of kStage floats
+  float* sHb = ring + G::S * G::kStage; // h of the chunk [BM][kLDH], tf32 big part
+  float* sHs = sHb + BM * kLDH;         // ... and small part
+  float* sAcc = sHs + BM * kLDH;        // partial output [BM][cp + 8]
+  const int ld_acc = cp + 8;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int m0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane >> 2, t4 = lane & 3;  // the mma fragments' group and thread
+  const int r0 = 16 * (warp / G::WN) + g8;  // fragment rows r0 and r0 + 8
+  const int c0 = (warp % G::WN) * W;        // the warp's first column
+  // this block's chunks of H: [ch0, ch0 + my_ch)
+  const int n_ch = (H + kHC - 1) / kHC;
+  const int ch0 = rank * (n_ch / cs) + min(rank, n_ch % cs);
+  const int my_ch = n_ch / cs + (rank < n_ch % cs ? 1 : 0);
+  const int n_s = (C + kKS - 1) / kKS;
+  const bool v4 = vec4 != 0;
+
+  for (int p0 = 0; p0 < C; p0 += cp) {  // panels of output columns
+    const int pw = min(cp, C - p0);
+    const int n_b = (pw + kCB - 1) / kCB;
+    const int per_ch = n_s + n_b;  // jobs a chunk: n_s slices, then n_b blocks
+    const int n_jobs = my_ch * per_ch;
+    for (int i = threadIdx.x; i < BM * ld_acc; i += kThreads) sAcc[i] = 0.f;
+
+    auto issue = [&](int j) {
+      const int h0 = (ch0 + j / per_ch) * kHC;
+      const int s = j % per_ch;
+      float* st = ring + (j % G::S) * G::kStage;
+      if (s < n_s) {
+        const int k0 = s * kKS;
+        polyp::load_tile_async_f32(st, kLDK, x + static_cast<long long>(m0) * C + k0, C, BM,
+                                   kKS, T - m0, C - k0, v4);
+        polyp::load_tile_async_f32(st + BM * kLDK, kLDK, w1 + static_cast<long long>(h0) * C + k0,
+                                   C, kHC, kKS, H - h0, C - k0, v4);
+        polyp::load_tile_async_f32(st + (BM + kHC) * kLDK, kLDK,
+                                   w1 + (static_cast<long long>(H) + h0) * C + k0, C, kHC, kKS,
+                                   H - h0, C - k0, v4);
+      } else {
+        const int col0 = p0 + (s - n_s) * kCB;
+        polyp::load_tile_async_f32(st, kLDH, w2 + static_cast<long long>(col0) * H + h0, H, kCB,
+                                   kHC, p0 + pw - col0, H - h0, v4);
       }
+    };
+
+    float ca[NT][4], cg_[NT][4];  // a and gate of the chunk, mma accumulator tiles
+    // S - 1 jobs in flight; a group is committed for every job, empty past
+    // the last, so "job j has landed" is always wait<S - 2>
+#pragma unroll
+    for (int j = 0; j < G::S - 1; ++j) {
+      if (j < n_jobs) issue(j);
+      polyp::cp_async_commit();
     }
-    __syncthreads();
+    for (int j = 0; j < n_jobs; ++j) {
+      polyp::cp_async_wait<G::S - 2>();
+      __syncthreads();  // job j has landed, and every thread is done with job j - 1
+      if (j + G::S - 1 < n_jobs) issue(j + G::S - 1);  // into job j - 1's stage
+      polyp::cp_async_commit();
+      const int s = j % per_ch;
+      const float* st = ring + (j % G::S) * G::kStage;
+      if (s < n_s) {  // a and gate over this slice of C, in order
+        if (s == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kSlice; ++kk) {
-      float xr[kPer];
+          for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) xr[i] = xs[kk][ty + 16 * i];
+            for (int e = 0; e < 4; ++e) ca[nt][e] = cg_[nt][e] = 0.f;
+          }
+        }
+        const float* sx = st;
+        const float* swa = st + BM * kLDK;
+        const float* swg = swa + kHC * kLDK;
 #pragma unroll
-      for (int g = 0; g < kAcc; ++g) {
+        for (int k = 0; k < kKS; k += 8) {
+          uint32_t ab[4], as[4];
+          split(sx[r0 * kLDK + k + t4], ab[0], as[0]);
+          split(sx[(r0 + 8) * kLDK + k + t4], ab[1], as[1]);
+          split(sx[r0 * kLDK + k + t4 + 4], ab[2], as[2]);
+          split(sx[(r0 + 8) * kLDK + k + t4 + 4], ab[3], as[3]);
 #pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const float wv = ws[g][kk][tx + 16 * j];
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t bb[2], bs[2];
+            b_frag(swa, kLDK, c0 + 8 * nt + g8, k, t4, bb, bs);
+            mma3(ca[nt], ab, as, bb, bs);
+            b_frag(swg, kLDK, c0 + 8 * nt + g8, k, t4, bb, bs);
+            mma3(cg_[nt], ab, as, bb, bs);
+          }
+        }
+        if (s == n_s - 1) {  // h of the chunk (0 past H), split for the second product
+          const int h0 = (ch0 + j / per_ch) * kHC;
 #pragma unroll
-          for (int i = 0; i < kPer; ++i) acc[g][i][j] = fmaf(xr[i], wv, acc[g][i][j]);
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = c0 + 8 * nt + 2 * t4;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float v[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int hid = h0 + col + e;
+                v[e] = hid < H ? gelu_gate(ca[nt][2 * half + e] + b1[hid],
+                                           cg_[nt][2 * half + e] + b1[H + hid])
+                               : 0.f;
+              }
+              uint32_t big[2], small[2];
+              split(v[0], big[0], small[0]);
+              split(v[1], big[1], small[1]);
+              const int at = (r0 + 8 * half) * kLDH + col;
+              *reinterpret_cast<float2*>(sHb + at) =
+                  make_float2(__uint_as_float(big[0]), __uint_as_float(big[1]));
+              *reinterpret_cast<float2*>(sHs + at) =
+                  make_float2(__uint_as_float(small[0]), __uint_as_float(small[1]));
+            }
+          }
+        }
+      } else {  // this block's partial output += h · W2 block^T over the chunk
+        float co[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) co[nt][e] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kHC; k += 8) {
+          const int at[4] = {r0 * kLDH + k + t4, (r0 + 8) * kLDH + k + t4,
+                             r0 * kLDH + k + t4 + 4, (r0 + 8) * kLDH + k + t4 + 4};
+          uint32_t ab[4], as[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ab[e] = __float_as_uint(sHb[at[e]]);
+            as[e] = __float_as_uint(sHs[at[e]]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t bb[2], bs[2];
+            b_frag(st, kLDH, c0 + 8 * nt + g8, k, t4, bb, bs);
+            mma3(co[nt], ab, as, bb, bs);
+          }
+        }
+        float* acc = sAcc + (s - n_s) * kCB + c0 + 2 * t4;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2* p = reinterpret_cast<float2*>(acc + (r0 + 8 * half) * ld_acc + 8 * nt);
+            float2 v = *p;
+            v.x += co[nt][2 * half];
+            v.y += co[nt][2 * half + 1];
+            *p = v;
+          }
         }
       }
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (row >= m || col >= n) continue;
-      float v = acc[0][i][j] + b[col];
-      if constexpr (kGated) v = gelu_gate(v, acc[kAcc - 1][i][j] + b[n + col]);
-      out[static_cast<long long>(row) * n + col] = v;
+
+    // the cluster's partial outputs added in rank order: this block takes
+    // columns [c_lo, c_lo + width) of the panel
+    cluster.sync();
+    const int per = (pw + cs - 1) / cs;
+    const int c_lo = min(pw, rank * per);
+    const int width = min(pw, c_lo + per) - c_lo;
+    for (int e = threadIdx.x; e < BM * width; e += kThreads) {
+      const int r = e / width;
+      const int c = c_lo + e % width;
+      if (m0 + r >= T) continue;
+      float v = 0.f;
+      for (int q = 0; q < cs; ++q) v += cluster.map_shared_rank(sAcc, q)[r * ld_acc + c];
+      out[static_cast<long long>(m0 + r) * C + p0 + c] = v + b2[p0 + c];
     }
+    cluster.sync();  // the peers have read this accumulator
   }
+}
+
+// The launch's plan (timed on the H100 at distill_ab's and SD's shapes,
+// PERF.md): the cluster splits H into up to 8 slices of whole chunks; the
+// row tile is 32 tokens where that gives every SM two blocks, else 16 where
+// that gives it one. With fewer tokens (SD's level 2 and mid) the cluster
+// grows to 16 slices where the card can place such a cluster, and wide
+// weights (C >= 256, tens of MB, read once per row tile) take 32-token
+// tiles where a quarter of the SMs still get a block.
+struct Plan {
+  int bm, cs;
+};
+
+template <int BM>
+struct Launch {
+  using G = Tiles<BM>;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  int cp = 0;
+
+  // the configuration, the widest panel (a multiple of kCB) whose
+  // accumulator fits, and the cluster (16 falls back to 8 where the card
+  // cannot place it)
+  cudaError_t prepare(int t, int c, int cs, int max_smem, cudaStream_t stream) {
+    cp = (c + kCB - 1) / kCB * kCB;
+    while (cp > kCB && G::smem(cp) > static_cast<size_t>(max_smem)) cp -= kCB;
+    const size_t smem = G::smem(cp);
+    auto kernel = geglu_f32_kernel<BM>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err == cudaSuccess && cs > kMaxCluster) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return err;
+    cfg.gridDim = dim3((t + BM - 1) / BM, cs);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = cs;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (cs > kMaxCluster) {
+      int clusters = 0;
+      if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess ||
+          clusters < 1) {
+        cudaGetLastError();  // clear a refusal of the query
+        cfg.gridDim.y = kMaxCluster;
+        attr[0].val.clusterDim.y = kMaxCluster;
+      }
+    }
+    return cudaSuccess;
+  }
+};
+
+int max_smem() {
+  int device = 0, bytes = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return bytes;
+}
+
+Plan plan(int t, int c, int h) {
+  Plan p;
+  const int n_ch = (h + kHC - 1) / kHC;
+  const long long sms = gemm::sm_count();
+  auto blocks = [&](int bm, int cs) { return static_cast<long long>((t + bm - 1) / bm) * cs; };
+  p.cs = n_ch < kMaxCluster ? n_ch : kMaxCluster;
+  if (blocks(32, p.cs) >= 2 * sms) {
+    p.bm = 32;
+  } else if (blocks(16, p.cs) >= sms) {
+    p.bm = 16;
+  } else {
+    p.cs = n_ch < kWideCluster ? n_ch : kWideCluster;
+    p.bm = c >= 256 && blocks(32, p.cs) * 4 >= sms ? 32 : 16;
+  }
+  return p;
+}
+
+template <int BM>
+cudaError_t launch(const float* x, const float* w1, const float* b1, const float* w2,
+                   const float* b2, float* out, int t, int c, int h, int cs,
+                   cudaStream_t stream) {
+  Launch<BM> l;
+  cudaError_t err = l.prepare(t, c, cs, max_smem(), stream);
+  if (err != cudaSuccess) return err;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w1) |
+        reinterpret_cast<uintptr_t>(w2)) % 16) == 0;
+  const int vec4 = c % 4 == 0 && h % 4 == 0 && aligned ? 1 : 0;
+  err = cudaLaunchKernelEx(&l.cfg, geglu_f32_kernel<BM>, x, w1, b1, w2, b2, out, t, c, h, l.cp,
+                           vec4);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t describe(int t, int c, int cs, int* out) {
+  Launch<BM> l;
+  cudaError_t err = l.prepare(t, c, cs, max_smem(), nullptr);
+  out[0] = BM;
+  out[1] = static_cast<int>(l.cfg.gridDim.y);
+  out[2] = l.cp;
+  out[3] = static_cast<int>(l.cfg.dynamicSmemBytes);
+  return err;
 }
 
 }  // namespace f32
 
 }  // namespace
 
-// fp32 elements of the h workspace [T, H] that polyp_fused_geglu_f32 needs.
-extern "C" long long polyp_fused_geglu_f32_workspace(int t, int c, int h) {
-  (void)c;
-  return static_cast<long long>(t) * h;
+// The fp32 form: x and out [T, C], w1 [2H, C], b1 [2H], w2 [C, H], b2 [C],
+// all fp32; one launch, no workspace.
+extern "C" int polyp_fused_geglu_f32(const void* x, const void* w1, const void* b1,
+                                     const void* w2, const void* b2, void* out, int t, int c,
+                                     int h, void* stream) {
+  if (t == 0) return cudaSuccess;
+  if (c < 1 || h < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const f32::Plan p = f32::plan(t, c, h);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* w1p = static_cast<const float*>(w1);
+  const auto* b1p = static_cast<const float*>(b1);
+  const auto* w2p = static_cast<const float*>(w2);
+  const auto* b2p = static_cast<const float*>(b2);
+  auto* op = static_cast<float*>(out);
+  return p.bm == 32 ? f32::launch<32>(xp, w1p, b1p, w2p, b2p, op, t, c, h, p.cs, s)
+                    : f32::launch<16>(xp, w1p, b1p, w2p, b2p, op, t, c, h, p.cs, s);
 }
 
-// The fp32 form: x and out [T, C], w1 [2H, C], b1 [2H], w2 [C, H], b2 [C],
-// all fp32; ws holds h [T, H].
-extern "C" int polyp_fused_geglu_f32(const void* x, const void* w1, const void* b1,
-                                     const void* w2, const void* b2, void* ws, void* out,
-                                     int t, int c, int h, void* stream) {
-  if (t == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* hs = static_cast<float*>(ws);
-  const dim3 block(f32::kThreads);
-  const int row_tiles = (t + f32::kTile - 1) / f32::kTile;
-  f32::geglu_f32_kernel<true><<<dim3((h + f32::kTile - 1) / f32::kTile, row_tiles), block, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), hs, t, h, c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  f32::geglu_f32_kernel<false><<<dim3((c + f32::kTile - 1) / f32::kTile, row_tiles), block, 0, s>>>(
-      hs, static_cast<const float*>(w2), static_cast<const float*>(b2),
-      static_cast<float*>(out), t, c, h);
-  return cudaGetLastError();
+// The fp32 form's launch for [t, c] x h, without launching it: out =
+// {tokens a block, the cluster's blocks, the panel's columns, dynamic shared
+// memory bytes}; chip_smoke.py prints it beside the kernel's times.
+extern "C" int polyp_fused_geglu_f32_plan(int t, int c, int h, int* out) {
+  const f32::Plan p = f32::plan(t, c, h);
+  return p.bm == 32 ? f32::describe<32>(t, c, p.cs, out) : f32::describe<16>(t, c, p.cs, out);
 }

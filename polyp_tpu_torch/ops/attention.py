@@ -7,8 +7,9 @@ would (attention.py:61-74): no mask, not causal, Tq ≥ 1024 and Tk ≥ 1024
 kernel was built for. At SD 256px that is every level-0 self-attention
 ([2B, 1024, 8, 40]). Everything else — CLIP's causal attention, the 77-token
 cross-attention, the VAE's single-head d=512 attention — takes the plain
-version. The policy looks at shapes only, never at the device: a CUDA
-tensor it sends to the kernel launches it or raises.
+version. The policy looks at shapes only, never at the device or the
+dtype: a CUDA tensor it sends to the kernel launches it (bf16, or the
+fp32 form for fp32) or raises.
 
 `use_fused_mha` is the policy of the whole-block fused MHA kernel
 (ops/fused_mha.py), which models/unet_blocks.py::Attention asks before

@@ -3,10 +3,12 @@
 `flash_attention` runs the CUDA kernel `csrc/flash_attention.cu` (which
 replaces the Pallas kernel `_flash_impl`, polyp_tpu/ops/flash_attention.py
 :185) on CUDA tensors, and the plain version `reference_attention` on CPU
-tensors. q, k, v are [N, T, H, D] (BTHD); the kernel takes bf16, head dims
-40, 64, 80, 128 and 160, and any T (ragged tiles are masked, no padding).
-It has no mask and no causal mode: the wrapper raises on either, and the
-dispatch in ops/attention.py keeps those consumers on the plain version.
+tensors. q, k, v are [N, T, H, D] (BTHD); the kernel takes bf16 or fp32
+(all three of one dtype; the fp32 form, for fp32 models without autograd,
+is counted apart as `flash_attention.f32_launches`), head dims 40, 64, 80,
+128 and 160, and any T (ragged tiles are masked, no padding). It has no
+mask and no causal mode: the wrapper raises on either, and the dispatch in
+ops/attention.py keeps those consumers on the plain version.
 
 Differentiable through a `torch.autograd.Function` whose backward
 recomputes through the plain version, as `_flash_vjp_bwd` does
@@ -50,27 +52,34 @@ def _forward(q: torch.Tensor, k: torch.Tensor,
         return reference_attention(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError("the flash kernel takes bf16 q, k, v; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype
+            and q.dtype in (torch.bfloat16, torch.float32)):
+        raise ValueError("the flash kernel takes bf16 or fp32 q, k, v, all "
+                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    fp32 = q.dtype == torch.float32
     n, tq, h, d = q.shape
     tk = k.shape[1]
     if k.shape != (n, tk, h, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} do not match")
-    if tk < 1 or -(-tq // 128) > 65535:  # 128 query rows a block
+    rows = 64 if fp32 else 128  # query rows a block
+    if tk < 1 or -(-tq // rows) > 65535:
         raise ValueError(f"flash kernel cannot tile tq={tq} tk={tk}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash kernel needs 16-byte aligned q, k and v")
     out = torch.empty_like(q)
     lib = _build.library()
+    entry = (lib.polyp_flash_attention_f32_fwd if fp32
+             else lib.polyp_flash_attention_fwd)
     with torch.cuda.device(q.device):
-        err = lib.polyp_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            n, h, tq, tk, d, 1.0 / math.sqrt(d), _build.stream_of(q))
-    _build.check(err, "flash attention kernel")
-    flash_attention.launches += 1
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    n, h, tq, tk, d, 1.0 / math.sqrt(d), _build.stream_of(q))
+    _build.check(err, "flash attention kernel" + (" (fp32)" if fp32 else ""))
+    if fp32:
+        flash_attention.f32_launches += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
@@ -105,3 +114,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0

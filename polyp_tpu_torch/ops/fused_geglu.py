@@ -7,8 +7,9 @@ its plain version on CPU tensors:
   `csrc/gemm_core.cuh`, replacing the Pallas kernel `fused_geglu`
   (polyp_tpu/ops/fused_geglu.py:139); plain `reference_geglu`. bf16, any
   token count, C and H multiples of 8; fp32 inputs and weights (the fp32
-  models the Pallas kernel also took) take the same file's fp32 form,
-  counted apart (`fused_geglu.f32_launches`), any C and H.
+  models the Pallas kernel also took) take the same file's fp32 form, one
+  launch with the hidden dimension split over a thread-block cluster,
+  counted apart (`fused_geglu.f32_launches`), any T, C and H.
 * `fused_geglu_w8a8` — `csrc/fused_geglu_w8a8.cu` (static form) on the
   GEMM core, replacing `fused_geglu_w8a8` (:256): the static-scale int8 FF
   in two launches, h's int8 codes [T, H] (plain `reference_geglu_w8a8_codes`)
@@ -70,10 +71,12 @@ def reference_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """Plain version, in the kernel's (and the TPU kernel's) order: a and
     gate in fp32, h = a * gelu_erf(gate) rounded to x's dtype, the second
     product in fp32, one rounding to x's dtype at the end. For fp32 inputs
-    that is plain fp32 math."""
-    a, gate = F.linear(x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
+    that is plain fp32 math; float64 inputs are computed in float64 (what
+    the fp32 form is held to)."""
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    a, gate = F.linear(x.to(f), w1.to(f), b1.to(f)).chunk(2, dim=-1)
     h = (a * F.gelu(gate)).to(x.dtype)
-    return F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
+    return F.linear(h.to(f), w2.to(f), b2.to(f)).to(x.dtype)
 
 
 def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -135,15 +138,9 @@ def _geglu_f32(x, w1, b1, w2, b2) -> torch.Tensor:
     out = torch.empty_like(xf)
     lib = _build.library()
     with torch.cuda.device(x.device):
-        # h = a * gelu(gate) in fp32 [T, H], made by the first launch and
-        # read by the second
-        workspace = torch.empty(
-            lib.polyp_fused_geglu_f32_workspace(t, c, hidden),
-            dtype=torch.float32, device=x.device)
         err = lib.polyp_fused_geglu_f32(
             xf.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), workspace.data_ptr(), out.data_ptr(), t, c,
-            hidden, _build.stream_of(x))
+            b2.data_ptr(), out.data_ptr(), t, c, hidden, _build.stream_of(x))
     _build.check(err, "fused GEGLU kernel (fp32)")
     fused_geglu.f32_launches += 1
     return out.reshape(x.shape)

@@ -31,6 +31,8 @@ import pytest
 import torch
 
 from polyp_tpu.ops import fused_mha as jfm
+from _torch_threads import _one_thread  # noqa: F401
+
 
 STEP = 32  # keys a step of the core
 TILE = 64  # keys a shared tile of the kernels

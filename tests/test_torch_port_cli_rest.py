@@ -60,6 +60,7 @@ from polyp_tpu_torch.models import importers as timp
 from polyp_tpu_torch.utils.checkpoint import load_pytree, tree_map
 from test_torch_port_eval_loop import (
     _jax_sd_stack, _projection, _samples, fabricate_corpus)
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _untrained(monkeypatch, module):

@@ -1,6 +1,7 @@
 """polyp_tpu_torch's CUDA kernels against their plain PyTorch versions, on
 the card, at shapes the main path does not reach: every head dim, ragged
-token counts, narrow widths, odd spatial sizes, fp32 GroupNorm, the int8
+token counts, narrow widths, odd spatial sizes, fp32 GroupNorm and
+attention, the int8
 kernels (W8A8 dense, static and per-token GEGLU, the GroupNorm int8
 epilogue) at main-path and ragged shapes, and the fused MHA block at
 chip_smoke.py's shapes, ragged ones and every head dim it was built for;
@@ -140,12 +141,51 @@ def test_flash_at_the_train_batch_forward_and_backward(dev):
         assert _max_err(a, b) < 2e-2 * b.float().abs().max().item()
 
 
+# The fp32 form against the plain version in float64 (its products are full
+# fp32 FFMA, so only the summation order differs: ~1e-6 of max |y|; a wrong
+# tile, mask or rescale gives O(1)), at every head dim and token counts that
+# cut its 64-row query tiles and its 64- (32- at d >= 128) key tiles
+# raggedly
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("n,tq,tk", [(2, 1024, 1024), (1, 1, 1), (1, 63, 65),
+                                     (1, 129, 127), (2, 1000, 1024),
+                                     (1, 1024, 77)])
+def test_flash_fp32_matches_plain_in_float64(dev, d, n, tq, tk):
+    q = _randn(dev, n, tq, 3, d, seed=21, dtype=torch.float32)
+    k = _randn(dev, n, tk, 3, d, seed=22, dtype=torch.float32)
+    v = _randn(dev, n, tk, 3, d, seed=23, dtype=torch.float32)
+    before = flash_attention.launches, flash_attention.f32_launches
+    with torch.no_grad():
+        got = flash_attention(q, k, v)
+    assert (flash_attention.launches, flash_attention.f32_launches) == (
+        before[0], before[1] + 1)
+    want = reference_attention(q.double(), k.double(), v.double())
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+def test_flash_fp32_repeats_bit_for_bit_and_takes_the_dispatch(dev):
+    """The fp32 SD level-0 shape [2, 1024, 8, 40] twice through the
+    dispatch (use_flash sends it to the kernel, whose fp32 form it then
+    launches): the same bits both times (fixed order, no atomics)."""
+    q, k, v = (_randn(dev, 2, 1024, 8, 40, seed=s, dtype=torch.float32)
+               for s in (24, 25, 26))
+    before = flash_attention.launches, flash_attention.f32_launches
+    with torch.no_grad():
+        a = dot_product_attention(q, k, v)
+        b = dot_product_attention(q, k, v)
+    assert (flash_attention.launches, flash_attention.f32_launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(a, b)
+
+
 def test_flash_refuses_what_it_cannot_do(dev):
     q = _randn(dev, 1, 1024, 2, 64)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, is_causal=True)
-    with pytest.raises(ValueError):
-        flash_attention(q.float(), q.float(), q.float())  # kernel is bf16
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q, q.float(), q)  # mixed dtypes
     with pytest.raises(ValueError):
         flash_attention(*(_randn(dev, 1, 1024, 2, 32),) * 3)  # head dim
 

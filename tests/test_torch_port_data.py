@@ -46,6 +46,8 @@ from polyp_tpu_torch.eval import quota as tquota
 from polyp_tpu_torch.eval import register as tregister
 from polyp_tpu_torch.track import tracker as ttracker
 from polyp_tpu_torch.utils import plotting as tplotting
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 CLASSES = ["AD", "HP", "AD", "ASS", "AD", "HP", "ASS", "AD", "HP", "AD"]

@@ -61,6 +61,8 @@ from polyp_tpu_torch.train import distill as tdistill
 from polyp_tpu_torch.train import distill_vae as tdvae
 from polyp_tpu_torch.train.sd_finetune import SDOptimizer
 from test_torch_port_lora import _init_like
+from _torch_threads import _one_thread  # noqa: F401
+
 
 LIMIT_S = 600   # each test's own limit: 3.5x its longest on a busy worker
 

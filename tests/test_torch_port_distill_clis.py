@@ -68,6 +68,8 @@ from test_torch_port_eval_loop import _jax_sd_stack, fabricate_corpus
 from test_torch_port_lora import (
     _init_like, jax_tiny_stack, port_tiny_stack, write_diffusers_dir)
 from test_torch_port_train import _nudged
+from _torch_threads import _one_thread  # noqa: F401
+
 
 LIMIT_S = 600   # each test's own limit: 3.5x its longest on a busy worker
 

@@ -36,6 +36,8 @@ from polyp_tpu.diffusion import schedule as jsched
 from polyp_tpu.train import distill as jdistill
 from polyp_tpu_torch.diffusion import schedule as tsched
 from polyp_tpu_torch.train import distill as tdistill
+from _torch_threads import _one_thread  # noqa: F401
+
 
 T = 64          # 8 → 4 → 2 nests (T % 16 == 0)
 MU, S2 = 0.3, 0.05

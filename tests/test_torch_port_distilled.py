@@ -43,6 +43,8 @@ from polyp_tpu_torch.models.unet_condition import tiny_condition_unet
 from polyp_tpu_torch.models.vae import tiny_vae
 from polyp_tpu_torch.train import distill as tdistill
 from test_torch_port_fused_mha import numpy_params
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 SD_SCHEDULE = dict(num_train_timesteps=1000, beta_schedule="scaled_linear",

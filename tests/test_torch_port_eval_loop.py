@@ -62,6 +62,8 @@ from test_torch_efficientnet_golden import fabricate_state_dict
 from test_torch_port_classifier import jax_draws
 from test_torch_port_lora import jax_tiny_stack, port_tiny_stack
 from test_torch_port_train import _nudged
+from _torch_threads import _one_thread  # noqa: F401
+
 
 COUNTS = {"train": {"AD": 10, "HP": 4, "ASS": 4},
           "valid": {"AD": 2, "HP": 2, "ASS": 2},

@@ -27,6 +27,7 @@ from polyp_tpu_torch.models.unet_condition import tiny_condition_unet
 from polyp_tpu_torch.ops import attention as tatt
 from polyp_tpu_torch.ops import fused_mha as tfm
 from polyp_tpu_torch.ops import quant as tquant
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _case(seed, b, tq, tk, c, ckv, h, d, co, self_attn=False):

@@ -23,6 +23,8 @@ import torch
 
 from polyp_tpu_torch.utils.checkpoint import load_pytree, tree_leaves
 from test_torch_port_eval_loop import fabricate_corpus
+from _torch_threads import _one_thread  # noqa: F401
+
 
 REPO = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 300

@@ -55,6 +55,8 @@ from polyp_tpu_torch.models import (
 from polyp_tpu_torch.models import importers as timp
 from polyp_tpu_torch.utils import checkpoint as tckpt
 from test_torch_port_models import _nchw, _normal, _to_nhwc
+from _torch_threads import _one_thread  # noqa: F401
+
 
 L = J_TINY_TEXT.max_length
 

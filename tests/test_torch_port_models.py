@@ -27,6 +27,8 @@ from polyp_tpu_torch.models import unet_blocks as tb
 from polyp_tpu_torch.models.clip_text import TINY_TEXT_CONFIG, CLIPTextModel
 from polyp_tpu_torch.models.unet_condition import tiny_condition_unet
 from polyp_tpu_torch.models.vae import tiny_vae
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-3, atol=1e-3)
 

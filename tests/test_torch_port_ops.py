@@ -32,6 +32,8 @@ from polyp_tpu_torch.ops import attention as tattn
 from polyp_tpu_torch.ops import fused_geglu as tfg
 from polyp_tpu_torch.ops import fused_gn as tgn
 from polyp_tpu_torch.ops import flash_attention as tfa
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -31,6 +31,8 @@ from polyp_tpu_torch.models.clip_tokenizer import HashTokenizer
 from polyp_tpu_torch.models.unet_condition import tiny_condition_unet
 from polyp_tpu_torch.models.vae import tiny_vae
 from polyp_tpu_torch import pipeline as tpipe
+from _torch_threads import _one_thread  # noqa: F401
+
 
 SD_SCHEDULE = dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
                    beta_start=0.00085, beta_end=0.012)

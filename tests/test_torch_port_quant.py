@@ -54,6 +54,8 @@ from polyp_tpu_torch.ops import fused_dense as tfd
 from polyp_tpu_torch.ops import fused_geglu as tfg
 from polyp_tpu_torch.ops import fused_gn as tgn
 from polyp_tpu_torch.ops import quant as tq
+from _torch_threads import _one_thread  # noqa: F401
+
 
 SD_SCHEDULE = dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
                    beta_start=0.00085, beta_end=0.012)

@@ -27,6 +27,8 @@ from polyp_tpu.diffusion import schedule as jsched
 from polyp_tpu_torch.diffusion import samplers as tsamp
 from polyp_tpu_torch.diffusion import schedule as tsched
 from test_torch_port_pipeline import SD_SCHEDULE, _toy_eps
+from _torch_threads import _one_thread  # noqa: F401
+
 
 SHAPE = (2, 4, 8, 8)
 LINEAR = dict(num_train_timesteps=1000, beta_schedule="linear",

@@ -58,6 +58,8 @@ from polyp_tpu_torch.train import resume as tresume
 from polyp_tpu_torch.train import scratch_ddpm as tddpm
 from polyp_tpu_torch.train.sd_finetune import StepDraws
 from test_torch_port_lora import _init_like
+from _torch_threads import _one_thread  # noqa: F401
+
 
 TWO_LEVELS = dict(down_block_types=("DownBlock2D", "AttnDownBlock2D"),
                   up_block_types=("AttnUpBlock2D", "UpBlock2D"),

@@ -43,6 +43,8 @@ from polyp_tpu_torch.serve import (
 from polyp_tpu_torch.tools import bench_serve
 from polyp_tpu_torch.utils import rng
 from test_torch_port_pipeline import SD_SCHEDULE, tiny_stacks  # noqa: F401
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -47,6 +47,8 @@ from polyp_tpu_torch.train import sd_finetune as tsf
 from polyp_tpu_torch.utils.checkpoint import tree_leaves
 from test_torch_port_lora import (
     jax_keep_mask, jax_tiny_stack, port_tiny_stack)
+from _torch_threads import _one_thread  # noqa: F401
+
 
 SD = dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
           beta_start=0.00085, beta_end=0.012)

@@ -34,6 +34,7 @@ from polyp_tpu_torch.utils.checkpoint import tree_leaves
 from test_torch_port_lora import jax_tiny_stack, port_tiny_stack
 from test_torch_port_train import (
     FLAG_SETS, LR, SD, TEXT_TARGETS, L, JaxDraws, _jax_tree, _setup)
+from _torch_threads import _one_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,8 @@ from polyp_tpu_torch.diffusion import schedule as tsched
 from polyp_tpu_torch.models import importers as timp
 from polyp_tpu_torch.models import vae as tvae
 from test_torch_port_models import _nchw, _normal, _perturbed, _to_nhwc
+from _torch_threads import _one_thread  # noqa: F401
+
 
 SD_SCHEDULE = dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
                    beta_start=0.00085, beta_end=0.012)

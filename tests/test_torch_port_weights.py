@@ -43,6 +43,8 @@ from test_torch_block_goldens import (
     fabricate_tiny_unet_sd,
     fabricate_tiny_vae_sd,
 )
+from _torch_threads import _one_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 MANIFESTS = ROOT / "tests" / "fixtures" / "manifests"
