@@ -391,11 +391,12 @@ STEP_FLASH = 5
 # time for a kernel's work is the larger of its bytes over the memory rate
 # and its operations over the peak of their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
-# the fp32 GEGLU runs its products on the tensor cores in 3xTF32 (three TF32
-# products a product, for fp32 accuracy): its own design's ceiling is the
-# dense TF32 peak over 3, beside the fp32 bound above
-TF32X3_OPS_PER_S = 495e12 / 3
+# the fp32 GEGLU and flash's fp32 form run their products on the tensor
+# cores in 3xTF32 (three TF32 products a product, for fp32 accuracy), so
+# their peak is the dense TF32 peak over 3 ("tf32x3"); bound_tf32x3 gives
+# the CUDA cores' fp32 rate's bound beside it
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
+                  "tf32x3": 495e12 / 3}
 
 
 # graph replays a device time averages over (each of `iters` calls)
@@ -446,6 +447,14 @@ def bound(ops: float, kind: str, n_bytes: int) -> dict:
             "bound_ops": ops, "bound_bytes": n_bytes}
 
 
+def bound_tf32x3(ops: float, n_bytes: int) -> dict:
+    """bound() of an fp32 kernel whose products run in 3xTF32, with the
+    bound at the CUDA cores' fp32 rate beside it (bound_fp32_ms; compare()
+    adds its share)."""
+    return {**bound(ops, "tf32x3", n_bytes),
+            "bound_fp32_ms": bound(ops, "fp32", n_bytes)["bound_ms"]}
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float().cpu(), b.float().cpu()
     return ((a - b).norm() / b.norm()).item()
@@ -473,6 +482,8 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
     # share of the kernel's time
     row["tflops"] = cost["bound_ops"] / row["ms"] / 1e9
     row["bound_share"] = cost["bound_ms"] / row["ms"]
+    if "bound_fp32_ms" in cost:
+        row["bound_fp32_share"] = cost["bound_fp32_ms"] / row["ms"]
     extra = "".join(f", {k} {row[f'{k}_ms']:.4f} ms"
                     for k in (["library"] if library_fn else []) + list(others))
     print(f"[check] {name} {shape}: max|err| {err:.3e} (plain "
@@ -765,14 +776,31 @@ GEGLU_F32_SHAPES = ((2048, 32), (1024, 32), (512, 64), (256, 64),
                     (2048, 320), (512, 640), (128, 1280), (32, 1280))
 
 
-def fp32_rows(dev: torch.device) -> list[dict]:
+def flash_f32_plan(lib, d: int) -> dict | None:
+    """The fp32 flash form's plan at head dim d (polyp_flash_f32_plan), or
+    None for a library without it (a parent checkout's)."""
+    import ctypes
+
+    if not hasattr(lib, "polyp_flash_f32_plan"):
+        return None
+    out = (ctypes.c_longlong * 6)()
+    if lib.polyp_flash_f32_plan(d, out) != 0:
+        raise AssertionError(f"no fp32 flash plan at d={d}")
+    return dict(zip(("query_rows", "keys_a_tile", "threads", "key_groups",
+                     "smem_bytes", "row_tiles_a_warp"), out))
+
+
+def fp32_rows(dev: torch.device, flash: bool = True,
+              geglu: bool = True) -> list[dict]:
     """The fp32 inference path's kernels against their plain versions in
-    float64 (TOLERANCE, relative to max |y|): flash attention's fp32 form
-    at FLASH_F32_SHAPES beside one F.scaled_dot_product_attention call on
-    the same fp32 tensors in BHTD (the library call, timed only here); the
+    float64 (TOLERANCE, relative to max |y|): with `flash`, flash
+    attention's fp32 form at FLASH_F32_SHAPES beside one F.scaled_dot_product_attention call on
+    the same fp32 tensors in BHTD (the library call, timed only here) and
+    its plan (flash_f32_plan; where the library has it); with `geglu`, the
     GEGLU's fp32 form at GEGLU_F32_SHAPES, whose plain version is the fp32
     cuBLAS chain (F.linear, the gate, F.linear; TF32 off), with its launch
-    plan (tokens a block, the cluster's blocks)."""
+    plan (tokens a block, the cluster's blocks). Both forms' bound is their
+    3xTF32 peak's, beside the CUDA cores' fp32 rate's (bound_tf32x3)."""
     import ctypes
 
     import torch.nn.functional as F
@@ -783,18 +811,26 @@ def fp32_rows(dev: torch.device) -> list[dict]:
     from polyp_tpu_torch.ops.fused_geglu import fused_geglu, reference_geglu
 
     randn = randn_on(dev, seed=0)
+    lib = _build.library()
     rows = []
-    for n, t, h, d in FLASH_F32_SHAPES:
+    for n, t, h, d in FLASH_F32_SHAPES if flash else ():
         q, k, v = (randn(n, t, h, d).float() for _ in range(3))
         bhtd = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
-        rows.append(compare(
+        plan = flash_f32_plan(lib, d)
+        ops, n_bytes = 4 * n * h * t * t * d, nbytes(q, k, v) + nbytes(q)
+        row = compare(
             "flash_attention_f32", lambda: flash_attention(q, k, v),
             lambda: reference_attention(q, k, v),
             reference_attention(q.double(), k.double(), v.double()),
-            f"[{n},{t},{h},{d}]",
-            bound(4 * n * h * t * t * d, "fp32", nbytes(q, k, v) + nbytes(q)),
-            library_fn=lambda: F.scaled_dot_product_attention(*bhtd)))
-    lib = _build.library()
+            f"[{n},{t},{h},{d}]", bound_tf32x3(ops, n_bytes),
+            library_fn=lambda: F.scaled_dot_product_attention(*bhtd))
+        row["plan"] = plan
+        print(f"[plan] flash_attention_f32 [{n},{t},{h},{d}]: {plan}; the "
+              f"fp32 rate's bound {row['bound_fp32_ms']:.4f} ms, "
+              f"{row['bound_fp32_share']:.3f} of it", flush=True)
+        rows.append(row)
+    if not geglu:
+        return rows
     for tokens, c in GEGLU_F32_SHAPES:
         h = 4 * c
         case = geglu_case(randn, 1, c, tokens)
@@ -808,18 +844,14 @@ def fp32_rows(dev: torch.device) -> list[dict]:
             lambda: reference_geglu(*args),
             reference_geglu(*(x.double() for x in args)),
             f"[{tokens},{c}]x[{c},{2 * h}]",
-            bound(6 * tokens * c * h, "fp32", n_bytes))
-        ceiling = max(n_bytes / HBM_BYTES_PER_S,
-                      6 * tokens * c * h / TF32X3_OPS_PER_S) * 1e3
-        rows.append({**row, "bound_3xtf32_ms": ceiling,
-                     "bound_3xtf32_share": ceiling / row["ms"],
-                     "rows_a_block": plan[0], "cluster": plan[1],
+            bound_tf32x3(6 * tokens * c * h, n_bytes))
+        rows.append({**row, "rows_a_block": plan[0], "cluster": plan[1],
                      "panel_columns": plan[2], "smem_bytes": plan[3]})
         print(f"[plan] fused_geglu_f32 [{tokens},{c}]: {plan[0]} tokens a "
               f"block, clusters of {plan[1]}, panels of {plan[2]} columns, "
-              f"{plan[3]} bytes of shared memory a block; its 3xTF32 "
-              f"ceiling {ceiling:.4f} ms, {ceiling / row['ms']:.3f} of it",
-              flush=True)
+              f"{plan[3]} bytes of shared memory a block; the fp32 rate's "
+              f"bound {row['bound_fp32_ms']:.4f} ms, "
+              f"{row['bound_fp32_share']:.3f} of it", flush=True)
     return rows
 
 
@@ -943,7 +975,35 @@ def gn_rows(dev: torch.device) -> list[dict]:
         if eps != 1e-5 or n not in Q8_BATCHES:
             continue  # the VAE is not quantized, nor any batch-16 path
         rows.append(gn_q8_row(x, gamma, beta, 32, eps, "silu", shape))
+    # GN without SiLU, which is one F.group_norm call (the library time):
+    # the Transformer2D norm at the headline level, then the VAE mid-block
+    # attention's norm at the VAE's batches
+    for n, c, hw in [(4, 320, 32)] + [(n, 512, 32) for n in VAE_BATCHES]:
+        x = randn(n, c, hw, hw, scale=2.0, shift=0.3)
+        gamma = randn(c, scale=0.1, shift=1.0).float()
+        beta = randn(c, scale=0.1).float()
+        rows.append(gn_plain_row(x, gamma, beta, 32, 1e-6,
+                                 group_norm(x.float(), gamma, beta, 32, 1e-6),
+                                 "fused_group_norm", f"[{n},{c},{hw},{hw}]"))
     return rows
+
+
+def gn_plain_row(x, gamma, beta, groups: int, eps: float, ref, name: str,
+                 shape: str) -> dict:
+    """compare() of GN without SiLU on `x` against `ref`, beside one
+    F.group_norm call on the same input (the library time; its CUDA
+    kernel takes the affine parameters only in x's dtype)."""
+    import torch.nn.functional as F
+
+    from polyp_tpu_torch.ops.fused_gn import fused_group_norm, group_norm
+
+    affine = gamma.to(x.dtype), beta.to(x.dtype)
+    return compare(
+        name, lambda: fused_group_norm(x, gamma, beta, groups, eps),
+        lambda: group_norm(x, gamma, beta, groups, eps), ref,
+        f"{shape} eps {eps:g}",
+        bound(10 * x.numel(), "fp32", 2 * nbytes(x) + nbytes(gamma, beta)),
+        library_fn=lambda: F.group_norm(x, groups, *affine, eps))
 
 
 def gn_q8_row(x, gamma, beta, groups: int, eps: float, act, shape: str
@@ -1056,7 +1116,8 @@ def group_norm_f64(x, weight, bias, groups: int, eps: float, act
 def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
     """compare() of GN(+SiLU) (recorded under gn_key; an int8 epilogue
     call held to reference_gn_q8 as gn_rows holds it, an fp32 call to
-    group_norm_f64), the bf16 GEGLU and
+    group_norm_f64 and, without SiLU, timed beside one F.group_norm
+    call), the bf16 GEGLU and
     both int8 GEGLUs (under their x's shape), the W8A8 dense (under
     dense_key) and flash attention (under flash_key) at every recorded
     shape, on inputs drawn as gn_rows, gemm_rows, geglu_q8_row and
@@ -1091,24 +1152,21 @@ def recorded_rows(seen: dict, dev: torch.device) -> list[dict]:
             rows.append({**gn_q8_row(x, gamma, beta, groups, eps, act,
                                      label), "path_launches": calls})
             continue
-        if dtype == torch.float32:
-            rows.append({**compare(
-                "fused_group_norm_f32",
+        fp32 = dtype == torch.float32
+        name = "fused_group_norm_f32" if fp32 else "fused_group_norm"
+        ref = (group_norm_f64(x, gamma, beta, groups, eps, act) if fp32
+               else group_norm(x.float(), gamma, beta, groups, eps, act))
+        if act is None and fp32:  # the fp32 forward's: one F.group_norm
+            row = gn_plain_row(x, gamma, beta, groups, eps, ref, name,
+                               str(list(shape)))
+        else:
+            row = compare(
+                name,
                 lambda: fused_group_norm(x, gamma, beta, groups, eps, act),
-                lambda: group_norm(x, gamma, beta, groups, eps, act),
-                group_norm_f64(x, gamma, beta, groups, eps, act), label,
-                bound(10 * x.numel(), "fp32",
-                      2 * nbytes(x) + nbytes(gamma, beta))),
-                "path_launches": calls})
-            continue
-        rows.append({**compare(
-            "fused_group_norm",
-            lambda: fused_group_norm(x, gamma, beta, groups, eps, act),
-            lambda: group_norm(x, gamma, beta, groups, eps, act),
-            group_norm(x.float(), gamma, beta, groups, eps, act), label,
-            bound(10 * x.numel(), "fp32",
-                  2 * nbytes(x) + nbytes(gamma, beta))),
-            "path_launches": calls})
+                lambda: group_norm(x, gamma, beta, groups, eps, act), ref,
+                label, bound(10 * x.numel(), "fp32",
+                             2 * nbytes(x) + nbytes(gamma, beta)))
+        rows.append({**row, "path_launches": calls})
     for shape, calls in sorted(seen.get("fused_geglu", {}).items()):
         *lead, c = shape
         n, per_image = lead[0], math.prod(lead[1:])
@@ -5066,8 +5124,8 @@ def geglu_f32_rows(seen: Counter, dev: torch.device) -> list[dict]:
             lambda: reference_geglu(*args),
             reference_geglu(*(t.double() for t in args)),
             f"[{tokens},{c}]x[{c},{2 * h}]",
-            bound(6 * tokens * c * h, "fp32",
-                  nbytes(*args) + nbytes(args[0]))),
+            bound_tf32x3(6 * tokens * c * h,
+                         nbytes(*args) + nbytes(args[0]))),
             "path_launches": calls})
     return rows
 
@@ -5530,10 +5588,25 @@ def main() -> int:
     # forward's most launched shape
     head = max((r for r in rows if r["name"] == "fused_group_norm_f32"),
                key=lambda r: r["path_launches"])
-    table[[t["name"] for t in table].index("fused_group_norm")]["fp32"] = {
+    gn_entry = table[[t["name"] for t in table].index("fused_group_norm")]
+    gn_entry["fp32"] = {
         k: head[k] for k in ("shape", "path_launches", "max_abs_err",
-                             "tolerance", "ms", "plain_ms", "bound_ms",
-                             "bound_by")}
+                             "tolerance", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by")}
+    # ... and without SiLU (one F.group_norm call: library_ms) at the
+    # Transformer2D norm's headline shape
+    head = next(r for r in rows if r["name"] == "fused_group_norm"
+                and r["library_ms"] is not None)
+    gn_entry["no_silu"] = {k: head[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")}
+    # the fp32 forms' bound at the CUDA cores' fp32 rate beside their 3xTF32
+    # one (bound_ms), and flash's fp32 plan
+    for name in ("flash_attention_f32", "fused_geglu_f32"):
+        head = next(r for r in rows if r["name"] == name)
+        table[[t["name"] for t in table].index(name)].update(
+            {k: head[k] for k in ("bound_fp32_ms", "bound_fp32_share", "plan")
+             if k in head})
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,

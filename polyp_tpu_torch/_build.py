@@ -147,6 +147,11 @@ def library() -> ctypes.CDLL:
     lib.polyp_flash_smem.restype = ctypes.c_longlong
     lib.polyp_flash_f32_smem.argtypes = [_I]
     lib.polyp_flash_f32_smem.restype = ctypes.c_longlong
+    # d, out[6] -> the fp32 flash form's plan: query rows a block, keys a
+    # tile, threads a block, key groups, shared memory bytes a block, row
+    # tiles a warp
+    lib.polyp_flash_f32_plan.argtypes = [_I, ctypes.POINTER(ctypes.c_longlong)]
+    lib.polyp_flash_f32_plan.restype = ctypes.c_int
     lib.polyp_fused_mha_smem.argtypes = [_I, _I, _I]
     lib.polyp_fused_mha_smem.restype = ctypes.c_longlong
     # c, hw, groups, is_bf16, out[4] -> GroupNorm's plan: cluster, the

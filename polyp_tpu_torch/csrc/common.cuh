@@ -106,4 +106,44 @@ __device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
   return fmaf(a.w, b.w, acc);
 }
 
+// 3xTF32: products to about fp32's accuracy on the tensor cores. x = big +
+// small, both tf32 (10 mantissa bits): big = x rounded to nearest, ties
+// away from zero (cvt.rna's rounding for every finite x, done here on the
+// bits by an integer add and mask: the conversion unit cvt runs on issues
+// at a quarter of the integer and fp32 pipes' rate, which bounds a kernel
+// that splits every operand it reads), small = the rounded remainder;
+// big·big' + big·small' + small·big' carries a product to about fp32's
+// precision, where one tf32 product keeps about 5e-4 of it.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+
+// c += a · b on the tensor cores, one m16n8k8 tile, tf32 in, fp32
+// accumulators. Fragments (PTX ISA, "Matrix Fragments for mma.m16n8k8",
+// .tf32), g = lane / 4, t = lane % 4:
+//   A: a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B: b0 = B[t][g], b1 = B[t+4][g]
+//   C: c0, c1 = C[g][2t, 2t+1], c2, c3 = C[g+8][2t, 2t+1]
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a · b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3_tf32(float (&c)[4], const uint32_t (&ab)[4],
+                                          const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                          const uint32_t (&bs)[2]) {
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+
 }  // namespace polyp

@@ -42,9 +42,10 @@
 // to fp32 accuracy on the tensor cores in 3xTF32: each operand split into
 // a tf32 big part and a tf32 remainder, big·big + big·small + small·big
 // summed in fp32 accumulators (plain TF32 keeps 10 mantissa bits, about
-// 5e-4 of a product). Its bound is the fp32 rate the plain version runs at
-// (6·T·C·H at 67 TFLOP/s: 75 us at SD level 0, 2,048 x 320 -> 2,560), or
-// the weights' bytes where T is small. Its shapes have few tokens
+// 5e-4 of a product), the split rounded on the bits (common.cuh). Its
+// bound is 6·T·C·H at the 3xTF32 peak, 495 / 3 TFLOP/s (30 us at SD level
+// 0, 2,048 x 320 -> 2,560; 75 us at the 67 TFLOP/s fp32 rate the plain
+// version runs at), or the weights' bytes where T is small. Its shapes have few tokens
 // (256-2,048) and, in the A/B, narrow C (32-64), so output tiles alone
 // leave most SMs idle. Design: one launch, and h never leaves the SM, as in
 // the TPU kernel (grid token tiles x hidden tiles, the second product
@@ -272,44 +273,16 @@ struct Tiles {
   static size_t smem(int cp) { return sizeof(float) * (kFixed + BM * (cp + 8)); }
 };
 
-// x = big + small, both tf32 (10 mantissa bits): big = x rounded, small =
-// the rounded remainder; big·big' + big·small' + small·big' carries a
-// product to about fp32's precision (3xTF32)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-
-// c += a · b on the tensor cores, one m16n8k8 tile, fp32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a · b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  mma(c, as, bb);
-  mma(c, ab, bs);
-  mma(c, ab, bb);
-}
+// the 3xTF32 arithmetic: common.cuh
+using polyp::mma3_tf32;
+using polyp::split_tf32_bits;
 
 // the B fragment of an m16n8k8 tile, split: rows n of a [n][k] tile (W
 // as it lies), k = k0 + t and k0 + t + 4
 __device__ __forceinline__ void b_frag(const float* w, int ld, int n, int k0, int t,
                                        uint32_t (&bb)[2], uint32_t (&bs)[2]) {
-  split(w[n * ld + k0 + t], bb[0], bs[0]);
-  split(w[n * ld + k0 + t + 4], bb[1], bs[1]);
+  split_tf32_bits(w[n * ld + k0 + t], bb[0], bs[0]);
+  split_tf32_bits(w[n * ld + k0 + t + 4], bb[1], bs[1]);
 }
 
 template <int BM>
@@ -399,17 +372,17 @@ geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
         for (int k = 0; k < kKS; k += 8) {
           uint32_t ab[4], as[4];
-          split(sx[r0 * kLDK + k + t4], ab[0], as[0]);
-          split(sx[(r0 + 8) * kLDK + k + t4], ab[1], as[1]);
-          split(sx[r0 * kLDK + k + t4 + 4], ab[2], as[2]);
-          split(sx[(r0 + 8) * kLDK + k + t4 + 4], ab[3], as[3]);
+          split_tf32_bits(sx[r0 * kLDK + k + t4], ab[0], as[0]);
+          split_tf32_bits(sx[(r0 + 8) * kLDK + k + t4], ab[1], as[1]);
+          split_tf32_bits(sx[r0 * kLDK + k + t4 + 4], ab[2], as[2]);
+          split_tf32_bits(sx[(r0 + 8) * kLDK + k + t4 + 4], ab[3], as[3]);
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             uint32_t bb[2], bs[2];
             b_frag(swa, kLDK, c0 + 8 * nt + g8, k, t4, bb, bs);
-            mma3(ca[nt], ab, as, bb, bs);
+            mma3_tf32(ca[nt], ab, as, bb, bs);
             b_frag(swg, kLDK, c0 + 8 * nt + g8, k, t4, bb, bs);
-            mma3(cg_[nt], ab, as, bb, bs);
+            mma3_tf32(cg_[nt], ab, as, bb, bs);
           }
         }
         if (s == n_s - 1) {  // h of the chunk (0 past H), split for the second product
@@ -428,8 +401,8 @@ geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                                : 0.f;
               }
               uint32_t big[2], small[2];
-              split(v[0], big[0], small[0]);
-              split(v[1], big[1], small[1]);
+              split_tf32_bits(v[0], big[0], small[0]);
+              split_tf32_bits(v[1], big[1], small[1]);
               const int at = (r0 + 8 * half) * kLDH + col;
               *reinterpret_cast<float2*>(sHb + at) =
                   make_float2(__uint_as_float(big[0]), __uint_as_float(big[1]));
@@ -459,7 +432,7 @@ geglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
           for (int nt = 0; nt < NT; ++nt) {
             uint32_t bb[2], bs[2];
             b_frag(st, kLDH, c0 + 8 * nt + g8, k, t4, bb, bs);
-            mma3(co[nt], ab, as, bb, bs);
+            mma3_tf32(co[nt], ab, as, bb, bs);
           }
         }
         float* acc = sAcc + (s - n_s) * kCB + c0 + 2 * t4;

@@ -141,15 +141,19 @@ def test_flash_at_the_train_batch_forward_and_backward(dev):
         assert _max_err(a, b) < 2e-2 * b.float().abs().max().item()
 
 
-# The fp32 form against the plain version in float64 (its products are full
-# fp32 FFMA, so only the summation order differs: ~1e-6 of max |y|; a wrong
-# tile, mask or rescale gives O(1)), at every head dim and token counts that
-# cut its 64-row query tiles and its 64- (32- at d >= 128) key tiles
-# raggedly
+# The fp32 form against the plain version in float64. Its products run on
+# the tensor cores in 3xTF32 (each operand a tf32 big part plus a tf32
+# remainder, three products a product), which keeps them to about fp32's
+# precision, so the error is fp32 rounding and summation order: ~1e-6 of
+# max |y|; a wrong tile, fragment order, mask or rescale gives O(1). The
+# token counts cut its 64-row query tiles (and their 16-row tiles), its
+# 64-key tiles and the 32-key halves its two key groups take raggedly; at
+# Tk = 17 and 31 the second group never sees a valid key.
 @pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
 @pytest.mark.parametrize("n,tq,tk", [(2, 1024, 1024), (1, 1, 1), (1, 63, 65),
                                      (1, 129, 127), (2, 1000, 1024),
-                                     (1, 1024, 77)])
+                                     (1, 1024, 77), (1, 17, 17), (1, 65, 31),
+                                     (1, 100, 33), (3, 200, 97)])
 def test_flash_fp32_matches_plain_in_float64(dev, d, n, tq, tk):
     q = _randn(dev, n, tq, 3, d, seed=21, dtype=torch.float32)
     k = _randn(dev, n, tk, 3, d, seed=22, dtype=torch.float32)
