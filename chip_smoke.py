@@ -34,7 +34,13 @@ caught:
    8; flash also at the train batch [8,1024,8,40]); the int8 kernels —
    the fp32 forms (flash attention at
    FLASH_F32_SHAPES beside fp32 SDPA, the GEGLU at GEGLU_F32_SHAPES beside
-   its plain fp32 cuBLAS chain, both against float64, relative to max |y|);
+   its plain fp32 cuBLAS chain, the fused MHA at MHA_F32_SHAPES beside four
+   fp32 F.linear + SDPA and run twice for the same bits, all against
+   float64, relative to max |y|); both attention kernels in both dtypes at
+   the tiny stack's path's shapes (TINY_ATTENTION: flash on [4,1024,2,16],
+   the fused MHA on x [4,1024,32], 2 heads of 16; tiny_path_rows) and at
+   every head dim of HEAD_DIM_CHECKS (each padded width, one inside a wider
+   one, one no multiple of 8) at a small shape, untimed (head_dim_rows);
    the W8A8 dense (beside
    `_int_mm` on the codes), the static int8 GEGLU (beside `_int_mm` on the
    codes of x and h, and the bf16 GEGLU at the same shape) and the
@@ -63,6 +69,17 @@ caught:
      tiny decoder (32 images); w8a8_static with no bf16 head, calibrated
      on the folded trajectory, 4 steps, batch 32, tiny decoder (held
      within INT8_IMAGE_REL_L2 of the bf16 4-step images);
+   - the fp32 path with the fused MHA (fp32_fused_path_phase, "fp32
+     fused-MHA path"): StableDiffusionSampler(load_sd_stack(dtype=
+     torch.float32), fused_mha=True) at 256px, FP32_PATH_STEPS DDIM
+     steps, CFG 7.5, batch 2, launching exactly FP32_FUSED_UNET_FORWARD a
+     step, its latents within FP32_FUSED_LATENT_REL_L2 of the same sampler
+     unfused (FP32_UNET_FORWARD a step), images/s of both; the tiny stack
+     (2 heads of 16 at level 0) in bf16 and fp32, fused (the fused MHA at
+     d = 16) and unfused (flash at d = 16), its latents held against the
+     same sampler on the CPU (plain versions, the same weights and x_T):
+     fp32 within FP32_FUSED_LATENT_REL_L2, bf16 within TINY_BF16_NOISE
+     times the CPU's own bf16 run's distance from its fp32 run;
    Each requires finite images, PNGs of 256×256×3, and a launch count
    above zero for each kernel that path runs; images/s of each path are
    printed side by side, beside the UNet-only and decode-only seconds and
@@ -84,7 +101,9 @@ caught:
    there); and the same UNet in fp32 on the card under no_grad (the fp32
    inference path: flash attention's and the GEGLU's fp32 forms) against
    the CPU's fp32 forward within FP32_REL_L2_TOLERANCE, launching exactly
-   FP32_UNET_FORWARD (counts set to 0 just before it, read just after);
+   FP32_UNET_FORWARD (counts set to 0 just before it, read just after),
+   and again inside fused_mha_region(True), launching exactly
+   FP32_FUSED_UNET_FORWARD, within the same tolerance;
 6. serves (serving_phase, about a minute): GenerationService over
    make_sampler's bf16 stack at the service defaults (UniPC, 25 steps,
    CFG 7.5, max_batch 8) behind the HTTP server on a loopback port —
@@ -259,8 +278,9 @@ caught:
    every GroupNorm and dense call recorded (ShapeRecorder) and held to its
    plain version at its shape (recorded_rows), the int8 and bf16 decodes
    timed and compared by relative L2;
-16. runs polyp_tpu_torch.tools.distill_ab at its defaults
-   (distill_ab_phase, "distill A/B"; `[distill_ab]` lines): --sd in this
+16. runs polyp_tpu_torch.tools.distill_ab at a fifth of its default depth
+   (DISTILL_AB_ARGS: 120 train steps in phases of 40, a 20-step reparam
+   warmup) (distill_ab_phase, "distill A/B"; `[distill_ab]` lines): --sd in this
    process, every count set to 0 just before it and read just after, and
    the unconditional mode beside it as a process of its own (no other
    phase shares the card with them); every row a finite rel RMSE, a
@@ -268,11 +288,11 @@ caught:
    (GUARD_MESSAGES); each feed-forward call of --sd's fp32 model without
    autograd launched the GEGLU's fp32 form, which is then held to the
    plain version in float64 at every shape it ran (TOLERANCE);
-17. prints the kernel table (all ten kernel entries, with launches on
+17. prints the kernel table (all eleven kernel entries, with launches on
    the main path that runs each, launches a train step, launches a loop
    class, launches a scratch forward, launches a distill step,
    launches a tensor-parallel rank's forward and launches an fp32 SD
-   forward) as one
+   forward, unfused and fused) as one
    JSON line, the card line, and last the result line {"ok": true,
    "device": {...}}. Each phase's seconds are printed as it ends
    ("[time]").
@@ -312,19 +332,20 @@ SD14_UNET_PARAMS = 859_520_964
 TOLERANCE = {"flash_attention": 2e-2, "fused_geglu": 6e-2,
              "fused_group_norm": 6e-2, "fused_mha": 2e-2,
              "fused_geglu_f32": 1e-4, "flash_attention_f32": 1e-4,
-             "fused_group_norm_f32": 1e-4}
+             "fused_group_norm_f32": 1e-4, "fused_mha_f32": 1e-4}
 # ... except the fused MHA block, whose tolerance is relative to max |y|:
 # its outputs are small here (max |y| about 0.4: attention over 1024
 # near-uniform keys averages V down), and it rounds Q (after the scale),
 # K, V, the probabilities, each head's output and the result to bf16
 # (2^-9 relative each), as the plain bf16 version does. A wrong tile,
 # mask or head column gives O(1) of max |y|.
-# The fp32 forms of the GEGLU, of flash attention and of GroupNorm are held
-# to the function in float64, relative to max |y|: fp32 sums over C and H
-# inputs (d and Tk keys, a group's elements) are off by ~1e-6 of it, a wrong
-# tile, gate, rescale or group by O(1).
+# The fp32 forms of the GEGLU, of flash attention, of GroupNorm and of the
+# fused MHA are held to the function in float64, relative to max |y|: fp32
+# sums over C and H inputs (d and Tk keys, a group's elements, the heads)
+# are off by ~1e-6 of it, a wrong tile, gate, rescale, group or head by
+# O(1), one TF32 product a product by ~4e-4.
 RELATIVE_TO_MAX = {"fused_mha", "fused_geglu_f32", "flash_attention_f32",
-                   "fused_group_norm_f32"}
+                   "fused_group_norm_f32", "fused_mha_f32"}
 # int8 kernels vs their plain version's fp32 result on the same inputs: the
 # kernels round their output to bf16 (2^-9 relative), and an int8 code of an
 # intermediate (the GEGLU's h) may break a rounding tie the other way. A
@@ -340,6 +361,22 @@ REL_L2_TOLERANCE = 5e-2
 # ~1e-6 a layer, so the 2 x 16 x 3 layers of the UNet stay far inside 1e-4;
 # bf16 rounding would give 1e-2, a wrong tile or mask O(1).
 FP32_REL_L2_TOLERANCE = 1e-4
+# the fp32 path with the fused MHA (fp32_fused_path_phase): DDIM steps of
+# the SD-v1-4 and the tiny samplers, and the fused SD sampler's latents
+# against the unfused one's from the same seed. Both are fp32 throughout
+# (the fused MHA's fp32 form against fp32 projections and flash's fp32
+# form) and differ in summation order, ~1e-6 a forward (an fp32 forward
+# is 7.3e-6 rel L2 from the CPU's, PERF.md §6), which CFG 7.5 and the steps
+# grow; bf16 rounding would give 1e-2, a wrong head, tile or mask O(1).
+FP32_PATH_STEPS = 4
+TINY_PATH_STEPS = 2
+FP32_FUSED_LATENT_REL_L2 = 1e-3
+# the tiny stack's bf16 latents on the card against the same sampler in
+# fp32 on the CPU (plain versions, the same weights and x_T): held to twice
+# the CPU's own bf16 run's distance from it (2.5e-2 there for random
+# weights), as INT8_FORWARD_NOISE holds the int8 forward; a wrong head,
+# tile or mask gives O(1)
+TINY_BF16_NOISE = 2.0
 # one quantized layer of the card's int8 forward vs the same layer on the
 # CPU (fp32, plain versions) from the same input: bf16 output rounding,
 # twice on the patch-matrix conv path (dequantize, then + bias), and rare
@@ -533,8 +570,8 @@ def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
 # launches of the bf16 GEGLU and of both int8 GEGLU forms and the dense, by
 # tile (and, for the dense, quantized x)
 ATTENTION_KERNELS = re.compile(
-    r"(flash_fwd_kernel|flash_f32_kernel|fused_mha_kernel|kv_project_kernel"
-    r"|geglu_f32_kernel)(?:ILi(\d+)E)?")
+    r"(flash_fwd_kernel|flash_f32_kernel|fused_mha_f32_kernel|fused_mha_kernel"
+    r"|kv_project_f32_kernel|kv_project_kernel|geglu_f32_kernel)(?:ILi(\d+)E)?")
 GEMM_KERNELS = re.compile(
     r"gemm_kernelI\w*?(GegluQ8PtUp|GegluQ8PtDown|GegluQ8Up|GegluQ8Down|GegluUp"
     r"|GegluDown|Dense)"
@@ -688,6 +725,23 @@ def dense_row(randn, m: int, c: int, o: int, int8_in: bool,
 
 
 def check_kernels(dev: torch.device) -> list[dict]:
+    """Every kernel against its plain version at its main paths' shapes,
+    the first row of each kernel its headline shape."""
+    rows = attention_rows(dev)
+    # rows 2 and 5 (the bf16 GEGLU and the W8A8 dense) at every main-path
+    # shape
+    rows += gemm_rows(dev)
+    rows += geglu_q8_rows(dev)
+    rows += gn_rows(dev)
+    rows += fp32_rows(dev)
+    rows += mha_f32_rows(dev)
+    rows += tiny_path_rows(dev)
+    return rows
+
+
+def attention_rows(dev: torch.device) -> list[dict]:
+    """Flash attention and the fused MHA block in bf16 at the SD stack's
+    shapes (the first row of each its headline)."""
     import torch.nn.functional as F
 
     from polyp_tpu_torch.ops.flash_attention import (
@@ -754,14 +808,67 @@ def check_kernels(dev: torch.device) -> list[dict]:
             bound(ops, "bf16", nbytes(x, ctx, *w) + 2 * b * tq * co),
             library_fn=lambda: unfused(sdpa),
             unfused=lambda: unfused(flash_attention)))
+    return rows
 
-    # rows 2 and 5 (the bf16 GEGLU and the W8A8 dense) at every main-path
-    # shape
-    rows += gemm_rows(dev)
 
-    rows += geglu_q8_rows(dev)
-    rows += gn_rows(dev)
-    rows += fp32_rows(dev)
+# the tiny stack's level-0 self-attention at 256 px under CFG batch 2
+# (fp32_fused_path_phase): 2 heads of 16 at 1,024 tokens, C = 32
+TINY_ATTENTION = (4, 1024, 2, 16)
+
+
+def tiny_path_rows(dev: torch.device) -> list[dict]:
+    """Both attention kernels in both dtypes at the shapes the tiny stack's
+    path gives them (TINY_ATTENTION): flash on q, k, v [4, 1024, 2, 16] and
+    the fused MHA block on x [4, 1024, 32] with 2 heads of 16, each
+    against its plain version (bf16: in fp32 on the same inputs; fp32: in
+    float64, relative to max |y|) with TOLERANCE, beside the library call
+    (SDPA; four F.linear + SDPA) and the bound."""
+    import torch.nn.functional as F
+
+    from polyp_tpu_torch.ops.flash_attention import (
+        flash_attention, reference_attention)
+    from polyp_tpu_torch.ops.fused_mha import (
+        fused_mha_linear, reference_mha_linear)
+
+    randn = randn_on(dev, seed=2)
+    n, t, h, d = TINY_ATTENTION
+    c = h * d
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        ref = torch.float64 if f32 else torch.float32
+        suffix = "_f32" if f32 else ""
+        cost = bound_tf32x3 if f32 else (lambda ops, b: bound(ops, "bf16",
+                                                                b))
+
+        q, k, v = (randn(n, t, h, d).to(dtype) for _ in range(3))
+        rows.append(compare(
+            "flash_attention" + suffix, lambda: flash_attention(q, k, v),
+            lambda: reference_attention(q, k, v),
+            reference_attention(*(x.to(ref) for x in (q, k, v))),
+            f"[{n},{t},{h},{d}]",
+            cost(4 * n * h * t * t * d, nbytes(q, k, v) + nbytes(q)),
+            library_fn=lambda: sdpa(q, k, v)))
+        x = randn(n, t, c).to(dtype)
+        w = tuple(m.to(dtype) for m in (
+            randn(c, c, scale=c ** -0.5), randn(c, c, scale=c ** -0.5),
+            randn(c, c, scale=c ** -0.5), randn(c, c, scale=c ** -0.5)))
+
+        def library():
+            q, k, v = (F.linear(x, wt).view(n, t, h, d) for wt in w[:3])
+            return F.linear(sdpa(q, k, v).reshape(n, t, c), w[3])
+
+        rows.append(compare(
+            "fused_mha" + suffix,
+            lambda: fused_mha_linear(x, x, *w, num_heads=h, head_dim=d),
+            lambda: reference_mha_linear(x, x, *w, num_heads=h, head_dim=d),
+            reference_mha_linear(x.to(ref), x.to(ref),
+                                 *(m.to(ref) for m in w), num_heads=h,
+                                 head_dim=d),
+            f"x[{n},{t},{c}] ctx[{n},{t},{c}] {h}x{d}",
+            cost(8 * n * t * c * c + 4 * n * h * t * t * d,
+                 nbytes(x, *w) + nbytes(x)),
+            library_fn=library))
     return rows
 
 
@@ -852,6 +959,153 @@ def fp32_rows(dev: torch.device, flash: bool = True,
               f"{plan[3]} bytes of shared memory a block; the fp32 rate's "
               f"bound {row['bound_fp32_ms']:.4f} ms, "
               f"{row['bound_fp32_share']:.3f} of it", flush=True)
+    return rows
+
+
+# the fused MHA's fp32 form's shapes (b, tq, c, tk or None for
+# self-attention, ckv, heads, d): SD's level-0 self-attention at 256 px
+# under CFG batch 2 (the headline row: the fp32 fused path's), levels 0 and
+# 1 at 512 px, the tiny stack's level 0 (2 heads of 16) and a ragged
+# 77-token KV
+MHA_F32_SHAPES = ((2, 1024, 320, None, 320, 8, 40),
+                  (2, 4096, 320, None, 320, 8, 40),
+                  (2, 1024, 640, None, 640, 8, 80),
+                  (2, 1024, 32, None, 32, 2, 16),
+                  (2, 1024, 320, 77, 768, 8, 40))
+
+
+def mha_f32_rows(dev: torch.device) -> list[dict]:
+    """The fused MHA's fp32 form at MHA_F32_SHAPES against its plain
+    version in float64 (TOLERANCE, relative to max |y|), run twice for the
+    same bits; beside it, timed only here, four fp32 F.linear and one fp32
+    F.scaled_dot_product_attention (the library call; TF32 off). Its bound
+    counts the four products at the true d (x Wq, ctx Wk, ctx Wv, o Wo)
+    and QKᵀ, PV, as the reference's cost estimate counts them
+    (polyp_tpu/ops/fused_mha.py:269-276, there at the padded width), at
+    the 3xTF32 peak, the CUDA cores' fp32 rate's beside it."""
+    import torch.nn.functional as F
+
+    from polyp_tpu_torch.ops.fused_mha import (
+        fused_mha_linear, reference_mha_linear)
+
+    randn = randn_on(dev, seed=0)
+    rows = []
+    for b, tq, c, tk, ckv, h, d in MHA_F32_SHAPES:
+        co = c
+        x = randn(b, tq, c).float()
+        ctx = x if tk is None else randn(b, tk, ckv).float()
+        tk = ctx.shape[1]
+        w = tuple(t.float() for t in (
+            randn(h * d, c, scale=c ** -0.5),
+            randn(h * d, ckv, scale=ckv ** -0.5),
+            randn(h * d, ckv, scale=ckv ** -0.5),
+            randn(co, h * d, scale=(h * d) ** -0.5)))
+
+        def kernel():
+            return fused_mha_linear(x, ctx, *w, num_heads=h, head_dim=d)
+
+        def library():
+            q, k, v = (F.linear(t, wt).view(b, -1, h, d).transpose(1, 2)
+                       for t, wt in ((x, w[0]), (ctx, w[1]), (ctx, w[2])))
+            o = F.scaled_dot_product_attention(q, k, v)
+            return F.linear(o.transpose(1, 2).reshape(b, tq, h * d), w[3])
+
+        ops = 2 * b * (tq * c + 2 * tk * ckv + tq * co) * h * d \
+            + 4 * b * h * tq * tk * d
+        row = compare(
+            "fused_mha_f32", kernel,
+            lambda: reference_mha_linear(x, ctx, *w, num_heads=h,
+                                         head_dim=d),
+            reference_mha_linear(x.double(), ctx.double(),
+                                 *(t.double() for t in w), num_heads=h,
+                                 head_dim=d),
+            f"x[{b},{tq},{c}] ctx[{b},{tk},{ckv}] {h}x{d}",
+            bound_tf32x3(ops, nbytes(x, ctx, *w) + 4 * b * tq * co),
+            library_fn=library)
+        row["bit_repeat"] = bool(torch.equal(kernel(), kernel()))
+        print(f"[check] fused_mha_f32 {row['shape']}: two runs bit-equal "
+              f"{row['bit_repeat']}; the fp32 rate's bound "
+              f"{row['bound_fp32_ms']:.4f} ms, {row['bound_fp32_share']:.3f} "
+              f"of it", flush=True)
+        if not row["bit_repeat"]:
+            raise AssertionError(f"fused_mha_f32 {row['shape']}: two runs "
+                                 f"differ")
+        rows.append(row)
+    return rows
+
+
+# head dims both attention kernels are held at in both dtypes (untimed):
+# every padded width they are built for (16 ... 128), one inside a wider
+# width (8, 24, 100) and one the wrappers pad to a multiple of 8 (33)
+HEAD_DIM_CHECKS = (8, 16, 24, 32, 33, 40, 48, 64, 80, 96, 100, 112, 128)
+
+
+def head_dim_rows(dev: torch.device) -> list[dict]:
+    """Flash attention (q [2, 200, 3, d], k and v [2, 130, 3, d]) and the
+    fused MHA (x [1, 200, 64] self-attention, 3 heads of d, Co 72) in bf16
+    and fp32 at every d of HEAD_DIM_CHECKS: each call launches its kernel
+    (its counter moves by one) and agrees with the plain version, in fp32
+    on the same bf16 inputs (TOLERANCE) or in float64 (the fp32 forms,
+    relative to max |y|). At d >= 40 the wrapper's call (with the zero
+    padding of a d that is no multiple of 8) and the plain version in the
+    same dtype are timed (time_ms)."""
+    from polyp_tpu_torch.ops.flash_attention import (
+        flash_attention, reference_attention)
+    from polyp_tpu_torch.ops.fused_mha import (
+        fused_mha, fused_mha_linear, reference_mha_linear)
+
+    randn = randn_on(dev, seed=1)
+    rows = []
+    for d in HEAD_DIM_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            f32 = dtype == torch.float32
+            ref = torch.float64 if f32 else torch.float32
+            q = randn(2, 200, 3, d).to(dtype)
+            k, v = (randn(2, 130, 3, d).to(dtype) for _ in range(2))
+            x = randn(1, 200, 64).to(dtype)
+            w = tuple(t.to(dtype) for t in (
+                randn(3 * d, 64, scale=0.125), randn(3 * d, 64, scale=0.125),
+                randn(3 * d, 64, scale=0.125),
+                randn(72, 3 * d, scale=(3 * d) ** -0.5)))
+            cases = (
+                ("flash_attention", flash_attention,
+                 "f32_launches" if f32 else "launches",
+                 lambda: flash_attention(q, k, v),
+                 lambda: reference_attention(q, k, v),
+                 reference_attention(*(t.to(ref) for t in (q, k, v)))),
+                ("fused_mha", fused_mha,
+                 "f32_launches" if f32 else "launches",
+                 lambda: fused_mha_linear(x, x, *w, num_heads=3, head_dim=d),
+                 lambda: reference_mha_linear(x, x, *w, num_heads=3,
+                                              head_dim=d),
+                 reference_mha_linear(x.to(ref), x.to(ref),
+                                      *(t.to(ref) for t in w), num_heads=3,
+                                      head_dim=d)))
+            for name, fn, counter, call, plain, want in cases:
+                before = getattr(fn, counter)
+                got = call()
+                torch.cuda.synchronize()
+                key = name + ("_f32" if f32 else "")
+                err = (got.to(ref) - want).abs().max().item()
+                tol = TOLERANCE[key] * (want.abs().max().item()
+                                        if key in RELATIVE_TO_MAX else 1.0)
+                rows.append({"name": key, "d": d, "max_abs_err": err,
+                             "tolerance": tol,
+                             "launched": getattr(fn, counter) - before})
+                if not (err <= tol and rows[-1]["launched"] == 1):
+                    raise AssertionError(f"{key} at d={d}: {rows[-1]}")
+                if d >= 40:
+                    rows[-1].update(ms=time_ms(call), plain_ms=time_ms(plain))
+    worst = {}
+    for r in rows:
+        worst[r["name"]] = max(worst.get(r["name"], 0.0),
+                               r["max_abs_err"] / r["tolerance"])
+    print(f"[check] both attention kernels at head dims {HEAD_DIM_CHECKS} "
+          f"in bf16 and fp32: each launched, worst error / tolerance "
+          f"{worst}; ms (kernel, plain) at d >= 40: "
+          + "; ".join(f"{r['name']} d={r['d']} {r['ms']:.4f}, "
+                      f"{r['plain_ms']:.4f}" for r in rows if "ms" in r),
+          flush=True)
     return rows
 
 
@@ -1269,11 +1523,15 @@ def fp32_forward_vs_cpu(unet_cpu, args: tuple, want: torch.Tensor,
     forward on `args` under no_grad with TF32 off (the fp32 forms of flash
     attention and the GEGLU, GroupNorm in fp32), every count set to 0 just
     before it and read just after: exactly FP32_UNET_FORWARD, and within
-    FP32_REL_L2_TOLERANCE of `want` (the CPU's fp32 forward). The copy is
-    freed before it returns; then the fp32 GroupNorm at every shape the
-    forward gave it (`kernel_checks`, recorded_rows: flash's and the
-    GEGLU's fp32 shapes are fp32_rows')."""
+    FP32_REL_L2_TOLERANCE of `want` (the CPU's fp32 forward); its fused
+    twin, the same forward inside fused_mha_region(True) (the five level-0
+    self-attentions in the fused MHA's fp32 form): exactly
+    FP32_FUSED_UNET_FORWARD, within the same tolerance of `want`. The copy
+    is freed before it returns; then the fp32 GroupNorm at every shape the
+    forward gave it (`kernel_checks`, recorded_rows: flash's, the GEGLU's
+    and the fused MHA's fp32 shapes are fp32_rows' and mha_f32_rows')."""
     from polyp_tpu_torch.models import sd14_unet
+    from polyp_tpu_torch.ops.attention import fused_mha_region
 
     unet = sd14_unet(torch.float32, device="meta").to_empty(device=dev)
     unet.load_state_dict(unet_cpu.state_dict())
@@ -1283,18 +1541,37 @@ def fp32_forward_vs_cpu(unet_cpu, args: tuple, want: torch.Tensor,
         got = unet(*(a.to(dev) for a in args))
         torch.cuda.synchronize()
         launches = read_counts()
+    with torch.no_grad(), fused_mha_region(True):
+        reset_counts()
+        fused = unet(*(a.to(dev) for a in args))
+        torch.cuda.synchronize()
+        fused_launches = read_counts()
     del unet
     torch.cuda.empty_cache()
     out = {"unet_fp32_rel_l2": rel_l2(got, want), "launches": launches,
-           "finite": bool(torch.isfinite(got).all())}
+           "finite": bool(torch.isfinite(got).all()),
+           "fused_unet_fp32_rel_l2": rel_l2(fused, want),
+           "fused_launches": fused_launches,
+           "fused_finite": bool(torch.isfinite(fused).all()),
+           "fused_vs_unfused_rel_l2": rel_l2(fused, got)}
     print(f"[check] card fp32 vs cpu fp32: UNet rel L2 "
           f"{out['unet_fp32_rel_l2']:.3e} (tol {FP32_REL_L2_TOLERANCE:.0e}); "
           f"launches {launches}", flush=True)
-    if launches != FP32_UNET_FORWARD:
-        raise AssertionError(f"fp32 UNet forward: launches {launches}, want "
-                             f"{FP32_UNET_FORWARD}")
-    if not (out["finite"] and got.shape == want.shape
-            and out["unet_fp32_rel_l2"] <= FP32_REL_L2_TOLERANCE):
+    print(f"[check] card fp32 inside fused_mha_region(True) vs cpu fp32: "
+          f"UNet rel L2 {out['fused_unet_fp32_rel_l2']:.3e} (tol "
+          f"{FP32_REL_L2_TOLERANCE:.0e}; vs the card's unfused forward "
+          f"{out['fused_vs_unfused_rel_l2']:.3e}); launches "
+          f"{fused_launches}", flush=True)
+    for name, (n, want_n) in {
+            "fp32 UNet forward": (launches, FP32_UNET_FORWARD),
+            "fused fp32 UNet forward": (fused_launches,
+                                        FP32_FUSED_UNET_FORWARD)}.items():
+        if n != want_n:
+            raise AssertionError(f"{name}: launches {n}, want {want_n}")
+    if not (out["finite"] and out["fused_finite"] and got.shape == want.shape
+            and fused.shape == want.shape
+            and out["unet_fp32_rel_l2"] <= FP32_REL_L2_TOLERANCE
+            and out["fused_unet_fp32_rel_l2"] <= FP32_REL_L2_TOLERANCE):
         raise AssertionError(f"fp32 UNet forward on the card: {out}")
     gn = rec.seen["fused_group_norm"]
     if {key[1] for key in gn} != {torch.float32} or (
@@ -3182,7 +3459,7 @@ SCRATCH_DISTILL_GENERATE, VAE_DISTILL_STEPS = 4, 20
 KERNEL_NAMES = ("flash_attention", "fused_geglu", "fused_group_norm",
                 "fused_w8a8_dense", "fused_geglu_w8a8", "fused_geglu_w8a8_pt",
                 "fused_group_norm_q8", "fused_mha", "fused_geglu_f32",
-                "flash_attention_f32")
+                "flash_attention_f32", "fused_mha_f32")
 
 
 def launches_of(**counts) -> dict:
@@ -3198,6 +3475,11 @@ VAE_DECODE = launches_of(fused_group_norm=30)
 # the fp32 forms, GroupNorm its 61 calls; no bf16 form runs
 FP32_UNET_FORWARD = launches_of(flash_attention_f32=5, fused_geglu_f32=16,
                                 fused_group_norm=61)
+# ... and its fused twin, inside fused_mha_region(True): the five level-0
+# self-attentions take the fused MHA's fp32 form, so flash runs in neither
+# form
+FP32_FUSED_UNET_FORWARD = launches_of(fused_mha_f32=5, fused_geglu_f32=16,
+                                      fused_group_norm=61)
 SD_DISTILL_STEP = launches_of(flash_attention=15, fused_geglu=32,
                               fused_group_norm=122)
 REPARAM_STEP = launches_of(flash_attention=10, fused_geglu=16,
@@ -5058,6 +5340,11 @@ def bench_phase(stack, dev: torch.device, card: str, reset_counts,
 # autograd), the unconditional mode beside it as a process of its own;
 # nothing else runs on the card meanwhile
 DISTILL_AB_TIMEOUT_S = 600
+# distill_ab's depth here: a fifth of its defaults (600 train steps in
+# phases of 200, a 100-step reparam warmup), to keep chip_smoke.py inside
+# its time limit; the rows, the guard and the fp32 GEGLU's launches and
+# shapes are checked as at the defaults
+DISTILL_AB_ARGS = ["--train_steps", "120", "--steps_per_phase", "40"]
 DISTILL_AB_ROWS = ("teacher_4step", "epsilon", "v_prediction")
 _AB_ROW = re.compile(r"^(teacher-4step|epsilon|v_prediction)\b.*?"
                      r"(?:rel RMSE: ([0-9.eE+-]+|nan|inf)|(REFUSED))")
@@ -5132,20 +5419,21 @@ def geglu_f32_rows(seen: Counter, dev: torch.device) -> list[dict]:
 
 def distill_ab_phase(dev: torch.device, card: str, reset_counts,
                      read_counts) -> dict:
-    """polyp_tpu_torch.tools.distill_ab on the card (phase 16 of the
-    module docstring)."""
+    """polyp_tpu_torch.tools.distill_ab on the card at DISTILL_AB_ARGS'
+    depth (phase 16 of the module docstring)."""
     from polyp_tpu_torch.tools import distill_ab
 
     start = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "polyp_tpu_torch.tools.distill_ab"],
+        [sys.executable, "-m", "polyp_tpu_torch.tools.distill_ab",
+         *DISTILL_AB_ARGS],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         printed = io.StringIO()
         reset_counts()
         with ShapeRecorder({"fused_geglu": geglu_f32_key}) as rec, \
                 contextlib.redirect_stdout(printed):
-            sd_rows = distill_ab.main(["--sd"])
+            sd_rows = distill_ab.main(["--sd", *DISTILL_AB_ARGS])
         torch.cuda.synchronize()
         launches = read_counts()
         sd_s = time.perf_counter() - start
@@ -5190,11 +5478,164 @@ def distill_ab_phase(dev: torch.device, card: str, reset_counts,
     return out
 
 
+def fp32_fused_path_phase(dev: torch.device, card: str, reset_counts,
+                          read_counts) -> dict:
+    """The fp32 path with the fused MHA, through the entry points a user
+    calls (phase 4 of the module docstring): the fp32 SD-v1-4 stack from
+    load_sd_stack(dtype=torch.float32) (random weights from seed 0) under
+    StableDiffusionSampler(..., fused_mha=True), the reference's fp32
+    sampler under POLYP_FUSED_MHA=1, and the same sampler unfused; then the
+    tiny stack (2 heads of 16 at level 0, 1,024 tokens at 256 px) in bf16
+    and fp32, fused and unfused, each held against the same sampler on the
+    CPU (cpu_latents). Each denoise (256 px, CFG 7.5, batch 2, DDIM) runs
+    with every count set to 0 just before it and read just after; its
+    decode follows, and images must be finite; the SD samplers' generate
+    is then timed (images/s). The stacks are freed before it returns."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.pipeline import StableDiffusionSampler
+
+    schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
+                                        0.012)
+
+    def sampler_of(stack, fused: bool, steps: int):
+        return StableDiffusionSampler(
+            stack.unet, stack.vae, stack.text, stack.tokenizer, schedule,
+            image_size=256, num_steps=steps, guidance_scale=7.5,
+            sampler="ddim", fused_mha=fused)
+
+    def run(stack, fused: bool, steps: int, timed: bool,
+            init: torch.Tensor | None = None) -> dict:
+        sampler = sampler_of(stack, fused, steps)
+        cond, uncond = sampler.encode_prompt(PROMPT), sampler.encode_prompt("")
+        torch.cuda.synchronize()
+        reset_counts()
+        latents = sampler.denoise(cond, uncond, 2,
+                                  torch.Generator(dev).manual_seed(0),
+                                  init=init)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        images = sampler.decode(latents)
+        res = {"steps": steps, "launches": launches, "latents": latents,
+               "images_finite": bool(torch.isfinite(images).all()),
+               "images_shape": list(images.shape)}
+        if timed:
+            start = time.perf_counter()
+            sampler.generate(cond, uncond, 2,
+                             torch.Generator(dev).manual_seed(0))
+            torch.cuda.synchronize()
+            res["generate_s"] = time.perf_counter() - start
+            res["images_per_s"] = 2 / res["generate_s"]
+        if not (res["images_finite"] and res["images_shape"] == [2, 3, 256,
+                                                                  256]):
+            raise AssertionError(f"fp32 fused path: images {res}")
+        return res
+
+    def per_steps(forward: dict, steps: int) -> dict:
+        return {k: v * steps for k, v in forward.items()}
+
+    out = {"card": card}
+    stack = load_sd_stack(None, dtype=torch.float32, seed=0)
+    if next(stack.unet.parameters()).dtype != torch.float32:
+        raise AssertionError("load_sd_stack(dtype=torch.float32) is not fp32")
+    for name, fused, forward in (
+            ("sd_fp32_fused", True, FP32_FUSED_UNET_FORWARD),
+            ("sd_fp32_unfused", False, FP32_UNET_FORWARD)):
+        out[name] = run(stack, fused, FP32_PATH_STEPS, timed=True)
+        want = per_steps(forward, FP32_PATH_STEPS)
+        if out[name]["launches"] != want:
+            raise AssertionError(f"{name}: launches {out[name]['launches']},"
+                                 f" want {want}")
+    del stack
+    torch.cuda.empty_cache()
+    rel = rel_l2(out["sd_fp32_fused"]["latents"],
+                 out["sd_fp32_unfused"]["latents"])
+    out["sd_fused_vs_unfused_latent_rel_l2"] = rel
+    print(f"[fp32 path] SD-v1-4 fp32, 256 px, {FP32_PATH_STEPS} DDIM steps, "
+          f"CFG 7.5, batch 2 on {card}: fused MHA "
+          f"{out['sd_fp32_fused']['images_per_s']:.3f} images/s "
+          f"({out['sd_fp32_fused']['generate_s']:.3f} s), unfused "
+          f"{out['sd_fp32_unfused']['images_per_s']:.3f} images/s "
+          f"({out['sd_fp32_unfused']['generate_s']:.3f} s); latents fused vs "
+          f"unfused rel L2 {rel:.3e} (tol {FP32_FUSED_LATENT_REL_L2:.0e}); "
+          f"launches fused {out['sd_fp32_fused']['launches']}", flush=True)
+    if not rel <= FP32_FUSED_LATENT_REL_L2:
+        raise AssertionError(f"fp32 fused latents differ from unfused by "
+                             f"{rel} > {FP32_FUSED_LATENT_REL_L2}")
+
+    def cpu_latents(stack, dtype: torch.dtype, init: torch.Tensor
+                    ) -> torch.Tensor:
+        """The same tiny sampler on the CPU (plain versions, unfused) over
+        the card stack's weights in `dtype`, from the same x_T."""
+        cpu = load_sd_stack(None, dtype=dtype, tiny=True, device="cpu",
+                            seed=0)
+        for part in ("unet", "text"):
+            getattr(cpu, part).load_state_dict(
+                getattr(stack, part).state_dict())
+        sampler = sampler_of(cpu, False, TINY_PATH_STEPS)
+        return sampler.denoise(sampler.encode_prompt(PROMPT),
+                               sampler.encode_prompt(""), 2, None,
+                               init=init.cpu())
+
+    # the tiny stack: its three level-0 self-attentions (2 heads of 16 at
+    # 1,024 tokens) a forward take the fused MHA when it is on and flash
+    # when not, in the stack's dtype; nothing else takes either. Its
+    # latents are held against the same sampler's on the CPU from the same
+    # x_T: fp32 within FP32_FUSED_LATENT_REL_L2 of the CPU's fp32; bf16
+    # against the CPU's fp32 run of the bf16 weights, within
+    # TINY_BF16_NOISE times the CPU's own bf16 run's distance from it
+    init = torch.randn((2, 4, 32, 32), device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        tiny = load_sd_stack(None, dtype=dtype, tiny=True, seed=0)
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        want_fp32 = cpu_latents(tiny, torch.float32, init)
+        if dtype == torch.float32:
+            limit = FP32_FUSED_LATENT_REL_L2
+        else:
+            cpu_bf16 = rel_l2(cpu_latents(tiny, dtype, init), want_fp32)
+            out[f"tiny_{tag}_cpu_bf16_vs_fp32_latent_rel_l2"] = cpu_bf16
+            limit = TINY_BF16_NOISE * cpu_bf16
+        for fused in (True, False):
+            name = f"tiny_{tag}_{'fused' if fused else 'unfused'}"
+            res = out[name] = run(tiny, fused, TINY_PATH_STEPS, timed=False,
+                                  init=init)
+            res["latent_rel_l2_vs_cpu_fp32"] = rel = rel_l2(res["latents"],
+                                                            want_fp32)
+            res["latent_rel_l2_limit"] = limit
+            if not rel <= limit:
+                raise AssertionError(f"{name}: latents {rel} from the CPU's "
+                                     f"fp32 latents, more than {limit}")
+            n = res["launches"]
+            took = 3 * TINY_PATH_STEPS
+            want = {"fused_mha" + suffix: took if fused else 0,
+                    "flash_attention" + suffix: 0 if fused else took}
+            others = [k for k in ("fused_mha", "fused_mha_f32",
+                                  "flash_attention", "flash_attention_f32")
+                      if k not in want and n[k]]
+            if {k: n[k] for k in want} != want or others:
+                raise AssertionError(f"{name}: launches {n}, want {want}")
+        print(f"[fp32 path] tiny stack {tag}, {TINY_PATH_STEPS} DDIM steps: "
+              f"fused launches {out[f'tiny_{tag}_fused']['launches']}; "
+              f"unfused launches {out[f'tiny_{tag}_unfused']['launches']}; "
+              f"latents rel L2 from the CPU's fp32 run: fused "
+              f"{out[f'tiny_{tag}_fused']['latent_rel_l2_vs_cpu_fp32']:.3e},"
+              f" unfused "
+              f"{out[f'tiny_{tag}_unfused']['latent_rel_l2_vs_cpu_fp32']:.3e}"
+              f" (tol {limit:.3e})", flush=True)
+        del tiny
+    torch.cuda.empty_cache()
+    for res in out.values():
+        if isinstance(res, dict):
+            res.pop("latents", None)
+    return out
+
+
 def kernel_counters():
     """(reset, read) of every kernel's launch count: each wrapper's
     counter, read after the path that runs it; the GN epilogue and the
-    fp32 forms of the GEGLU and of flash attention have counters of their
-    own."""
+    fp32 forms of the GEGLU, of flash attention and of the fused MHA have
+    counters of their own."""
     from polyp_tpu_torch.ops.flash_attention import flash_attention
     from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
     from polyp_tpu_torch.ops.fused_geglu import (
@@ -5212,7 +5653,8 @@ def kernel_counters():
         "fused_group_norm_q8": (fused_group_norm, "q8_launches"),
         "fused_mha": (fused_mha, "launches"),
         "fused_geglu_f32": (fused_geglu, "f32_launches"),
-        "flash_attention_f32": (flash_attention, "f32_launches")}
+        "flash_attention_f32": (flash_attention, "f32_launches"),
+        "fused_mha_f32": (fused_mha, "f32_launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -5276,7 +5718,10 @@ def main() -> int:
             res["dynamic_smem_bytes"] = lib.polyp_flash_f32_smem(d)
         elif name.startswith("flash"):
             res["dynamic_smem_bytes"] = lib.polyp_flash_smem(d)
-        elif name.startswith("fused_mha"):  # the UNet's 8 heads, Co = 8d
+        elif name.startswith("fused_mha_f32"):  # the UNet's 8 heads, Co = 8d
+            res["dynamic_smem_bytes"] = lib.polyp_fused_mha_f32_smem(8, d,
+                                                                     8 * d)
+        elif name.startswith("fused_mha"):
             res["dynamic_smem_bytes"] = lib.polyp_fused_mha_smem(8, d, 8 * d)
         print(f"[regs] {name}: {res}", flush=True)
     phase("card and build")
@@ -5285,6 +5730,7 @@ def main() -> int:
 
     with torch.no_grad():
         rows = check_kernels(dev)
+        head_dims = head_dim_rows(dev)
     phase("kernel checks")
 
     # as a user calls it: with no device, the stack is built on the card
@@ -5410,6 +5856,10 @@ def main() -> int:
                 profile_denoise(name, sampler, batch)
         phase("distilled paths")
 
+        fp32_path = fp32_fused_path_phase(dev, card, reset_counts,
+                                          read_counts)
+        phase("fp32 fused-MHA path")
+
         serving = serving_phase(stack, tiny, card, reset_counts,
                                 read_counts, tmp)
         phase("serving")
@@ -5469,6 +5919,7 @@ def main() -> int:
             raise AssertionError(f"{name} images differ from {ref} images "
                                  f"by {rel} > {limit}")
     # each path must have run each of its kernels
+    # (the fp32 fused-MHA path checks its launches exactly in its phase)
     need = {"bf16": ("flash_attention", "fused_geglu", "fused_group_norm"),
             "bf16_unipc": ("flash_attention", "fused_geglu",
                            "fused_group_norm"),
@@ -5489,7 +5940,8 @@ def main() -> int:
                 raise AssertionError(f"{name} path never launched {kernel}")
     # five level-0 self-attentions per forward at 256px, 8 steps, one batch:
     # all through the fused kernel when it is enabled, all through flash
-    # when not, and never under int8 (the kernel is bf16-only)
+    # when not, and never under int8 (the kernel would bypass the int8
+    # projections)
     exact = {"distilled_bf16": {"fused_mha": 40, "flash_attention": 0},
              "distilled_bf16_unfused": {"fused_mha": 0,
                                         "flash_attention": 40},
@@ -5543,12 +5995,18 @@ def main() -> int:
                             "polyp_tpu/ops/fused_geglu.py:139"),
         "flash_attention_f32": ("fp32 SD forward",
                                 "polyp_tpu_torch/csrc/flash_attention.cu",
-                                "polyp_tpu/ops/flash_attention.py:185")}
+                                "polyp_tpu/ops/flash_attention.py:185"),
+        "fused_mha_f32": ("fp32 fused SD sampler",
+                          "polyp_tpu_torch/csrc/fused_mha.cu",
+                          "polyp_tpu/ops/fused_mha.py:241")}
     # each kernel's launches on the main path that runs it
     path_launches = {name: path["launches"] for name, path in paths.items()}
     path_launches["distill_ab --sd"] = ab["launches"]
     per_fp32_forward = agreement["fp32"]["launches"]
+    per_fused_fp32_forward = agreement["fp32"]["fused_launches"]
     path_launches["fp32 SD forward"] = per_fp32_forward
+    path_launches["fp32 fused SD sampler"] = fp32_path["sd_fp32_fused"][
+        "launches"]
     rows += (loop["kernel_checks"] + scratch["kernel_checks"]
              + sd_clis["kernel_checks"] + distilling["kernel_checks"]
              + gating["kernel_checks"]
@@ -5583,7 +6041,9 @@ def main() -> int:
                           "scratch": SCRATCH_DISTILL_STEP[name],
                           "vae": VAE_DISTILL_STEP[name]},
                       "launches_per_tp_rank_forward": per_tp_forward[name],
-                      "launches_per_fp32_sd_forward": per_fp32_forward[name]})
+                      "launches_per_fp32_sd_forward": per_fp32_forward[name],
+                      "launches_per_fused_fp32_sd_forward":
+                          per_fused_fp32_forward[name]})
     # GroupNorm's fp32 form (the fp32 SD forward's) beside its bf16 row: the
     # forward's most launched shape
     head = max((r for r in rows if r["name"] == "fused_group_norm_f32"),
@@ -5602,11 +6062,16 @@ def main() -> int:
         "bound_by")}
     # the fp32 forms' bound at the CUDA cores' fp32 rate beside their 3xTF32
     # one (bound_ms), and flash's fp32 plan
-    for name in ("flash_attention_f32", "fused_geglu_f32"):
+    for name in ("flash_attention_f32", "fused_geglu_f32", "fused_mha_f32"):
         head = next(r for r in rows if r["name"] == name)
         table[[t["name"] for t in table].index(name)].update(
             {k: head[k] for k in ("bound_fp32_ms", "bound_fp32_share", "plan")
              if k in head})
+    # the fused MHA's fp32 form's registers and spills at the widths its
+    # rows run (ptxas, sm_90a)
+    table[[t["name"] for t in table].index("fused_mha_f32")]["registers"] = {
+        k: v for k, v in kernel_resources.items()
+        if k.startswith(("fused_mha_f32_kernel", "kv_project_f32_kernel"))}
     detail = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "phases_s": phases, "checks": rows, "main_paths": paths,
@@ -5616,6 +6081,7 @@ def main() -> int:
               "distill": distilling, "quant_gate": gating,
               "multigpu": multigpu, "roofline_modes": roofline_modes,
               "bench": benching, "distill_ab": ab,
+              "fp32_fused_path": fp32_path, "head_dim_checks": head_dims,
               "attention_kernel_resources": kernel_resources,
               "card_vs_cpu": agreement}
     out = ROOT / "chiprun_out"

@@ -55,6 +55,8 @@ SIGNATURES = {
     # x, ctx, wq, wk, wv, wo, k_ws, v_ws, out, b, tq, tk, c, ckv, h, d, co,
     # scale, stream
     "polyp_fused_mha": [_P] * 9 + [_I] * 8 + [_F, _P],
+    # the same, all fp32 (workspaces fp32)
+    "polyp_fused_mha_f32": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -131,6 +133,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.polyp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.polyp_cuda_error_string.restype = ctypes.c_char_p
+    # device -> the most dynamic shared memory a block may take there
+    lib.polyp_smem_optin.argtypes = [_I]
+    lib.polyp_smem_optin.restype = ctypes.c_longlong
     # t, c, h -> bf16 elements of the GEGLU's h workspace [t, h]
     lib.polyp_fused_geglu_workspace.argtypes = [_I, _I, _I]
     lib.polyp_fused_geglu_workspace.restype = ctypes.c_longlong
@@ -154,6 +159,8 @@ def library() -> ctypes.CDLL:
     lib.polyp_flash_f32_plan.restype = ctypes.c_int
     lib.polyp_fused_mha_smem.argtypes = [_I, _I, _I]
     lib.polyp_fused_mha_smem.restype = ctypes.c_longlong
+    lib.polyp_fused_mha_f32_smem.argtypes = [_I, _I, _I]
+    lib.polyp_fused_mha_f32_smem.restype = ctypes.c_longlong
     # c, hw, groups, is_bf16, out[4] -> GroupNorm's plan: cluster, the
     # largest slice's vectors, those kept in shared memory, threads a block
     lib.polyp_group_norm_plan.argtypes = [

@@ -3,9 +3,10 @@
 Every UNet, VAE and CLIP attention calls `dot_product_attention`. It takes
 the flash kernel (ops/flash_attention.py) where the reference's policy
 would (attention.py:61-74): no mask, not causal, Tq ≥ 1024 and Tk ≥ 1024
-(`profitable`, flash_attention.py:53-56) and a head dim ≤ 128 that the
-kernel was built for. At SD 256px that is every level-0 self-attention
-([2B, 1024, 8, 40]). Everything else — CLIP's causal attention, the 77-token
+(`profitable`, flash_attention.py:53-56) and a head dim ≤ 128 (`supported`,
+:49; the kernel takes every such d). At SD 256px that is every level-0
+self-attention ([2B, 1024, 8, 40]); in the tiny UNet the level-0 one
+([2B, 1024, 2, 16]). Everything else — CLIP's causal attention, the 77-token
 cross-attention, the VAE's single-head d=512 attention — takes the plain
 version. The policy looks at shapes only, never at the device or the
 dtype: a CUDA tensor it sends to the kernel launches it (bf16, or the
@@ -30,7 +31,6 @@ import torch
 from polyp_tpu_torch.ops import fused_mha as fm
 from polyp_tpu_torch.ops import quant
 from polyp_tpu_torch.ops.flash_attention import (
-    SUPPORTED_HEAD_DIMS,
     flash_attention,
     reference_attention,
 )
@@ -38,10 +38,9 @@ from polyp_tpu_torch.ops.flash_attention import (
 
 def use_flash(q: torch.Tensor, k: torch.Tensor,
               mask: torch.Tensor | None, is_causal: bool) -> bool:
-    d = q.shape[-1]
     return (mask is None and not is_causal
             and q.shape[1] >= 1024 and k.shape[1] >= 1024
-            and d <= 128 and d in SUPPORTED_HEAD_DIMS)
+            and q.shape[-1] <= 128)
 
 
 _FUSED_MHA: contextvars.ContextVar[bool] = contextvars.ContextVar(
@@ -66,7 +65,7 @@ def use_fused_mha(x: torch.Tensor, ctx: torch.Tensor, num_heads: int,
     fused MHA kernel: only inside `fused_mha_region(True)`, for
     self-attention (cross-attention's 77-token KV costs the kernel more
     than it saves, :47-51), with no quantization mode active (the kernel
-    is bf16-only and would bypass the int8 projections, :54-57), and
+    would bypass the int8 projections, :54-57), and
     where fused_mha.supported admits the shapes (no qkv bias, Tq a
     multiple of 128 and ≥ 1024, head_dim ≤ 128)."""
     return (_FUSED_MHA.get() and is_self and quant.quantization() is None

@@ -5,10 +5,15 @@ replaces the Pallas kernel `_flash_impl`, polyp_tpu/ops/flash_attention.py
 :185) on CUDA tensors, and the plain version `reference_attention` on CPU
 tensors. q, k, v are [N, T, H, D] (BTHD); the kernel takes bf16 or fp32
 (all three of one dtype; the fp32 form, for fp32 models without autograd,
-is counted apart as `flash_attention.f32_launches`), head dims 40, 64, 80,
-128 and 160, and any T (ragged tiles are masked, no padding). It has no
-mask and no causal mode: the wrapper raises on either, and the dispatch in
-ops/attention.py keeps those consumers on the plain version.
+is counted apart as `flash_attention.f32_launches`), every head dim up to
+128 and 160, and any T (ragged tiles are masked, no padding). It is built
+for padded widths (16, 32, 40, 48, 64, 80, 96, 112, 128, 160) and reads a
+head dim that is a multiple of 8 in place; any other d the wrapper
+zero-pads to the next multiple of 8 and slices the output back, as the
+reference pads to 64 (flash_attention.py:167-176): zero columns add
+nothing to QKᵀ, and the scale is the true d's. It has no mask and no causal
+mode: the wrapper raises on either, and the dispatch in ops/attention.py
+keeps those consumers on the plain version.
 
 Differentiable through a `torch.autograd.Function` whose backward
 recomputes through the plain version, as `_flash_vjp_bwd` does
@@ -22,8 +27,6 @@ import math
 import torch
 
 from polyp_tpu_torch import _build
-
-SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,6 +68,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor,
     rows = 64 if fp32 else 128  # query rows a block
     if tk < 1 or -(-tq // rows) > 65535:
         raise ValueError(f"flash kernel cannot tile tq={tq} tk={tk}")
+    # the kernel reads rows of d8 elements in 16-byte pieces: a head dim
+    # that is no multiple of 8 is zero-padded to one
+    d8 = -(-d // 8) * 8
+    if d8 != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, d8 - d)) for t in (q, k, v))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash kernel needs 16-byte aligned q, k and v")
@@ -74,13 +82,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor,
              else lib.polyp_flash_attention_fwd)
     with torch.cuda.device(q.device):
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    n, h, tq, tk, d, 1.0 / math.sqrt(d), _build.stream_of(q))
+                    n, h, tq, tk, d8, 1.0 / math.sqrt(d), _build.stream_of(q))
     _build.check(err, "flash attention kernel" + (" (fp32)" if fp32 else ""))
     if fp32:
         flash_attention.f32_launches += 1
     else:
         flash_attention.launches += 1
-    return out
+    return out if d8 == d else out[..., :d]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -107,9 +115,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "the flash kernel has no mask and no causal mode; the dispatch "
             "in ops/attention.py keeps masked and causal attention plain")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel head dims are {SUPPORTED_HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
+    # the reference's d <= 128 (its supported(), flash_attention.py:39-50),
+    # and 160
+    d = q.shape[-1]
+    if not (0 < d <= 128 or d == 160):
+        raise ValueError(f"the flash kernel takes head dims up to 128 and "
+                         f"160, got {d}")
     return _FlashAttention.apply(q, k, v)
 
 

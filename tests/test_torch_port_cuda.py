@@ -3,9 +3,11 @@ the card, at shapes the main path does not reach: every head dim, ragged
 token counts, narrow widths, odd spatial sizes, fp32 GroupNorm and
 attention, the int8
 kernels (W8A8 dense, static and per-token GEGLU, the GroupNorm int8
-epilogue) at main-path and ragged shapes, and the fused MHA block at
-chip_smoke.py's shapes, ragged ones and every head dim it was built for;
-and the EfficientNet classifier's forward and train step against the CPU.
+epilogue) at main-path and ragged shapes, and the fused MHA block, bf16
+and fp32, at chip_smoke.py's shapes, ragged ones and head dims at, between
+and on either side of every padded width the attention kernels are built
+for; and the EfficientNet classifier's forward and train step against the
+CPU.
 
 These tests need an NVIDIA card and nvcc; elsewhere they skip. This file
 imports no JAX, so it runs on a machine without it:
@@ -34,12 +36,18 @@ from polyp_tpu_torch.ops import fused_gn, quant
 from polyp_tpu_torch.ops import fused_mha as fm
 from polyp_tpu_torch.ops.attention import dot_product_attention
 from polyp_tpu_torch.ops.flash_attention import (
-    SUPPORTED_HEAD_DIMS,
     flash_attention,
     reference_attention,
 )
 
 pytestmark = pytest.mark.cuda
+
+# Head dims for the attention kernels: every padded width they are built for
+# (16, 32, 40, 48, 64, 80, 96, 112, 128; 160 for flash), a d that runs
+# inside a wider one (8, 24, 100), and one that is no multiple of 8 (33:
+# the wrappers pad it to 40)
+HEAD_DIMS = (8, 16, 24, 32, 33, 40, 48, 64, 80, 96, 100, 112, 128)
+FLASH_HEAD_DIMS = HEAD_DIMS + (160,)
 
 
 @pytest.fixture
@@ -62,7 +70,7 @@ def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("tq,tk", [(1024, 1024), (200, 130), (64, 77)])
 def test_flash_matches_plain(dev, d, tq, tk):
     q = _randn(dev, 2, tq, 3, d, seed=1)
@@ -80,7 +88,7 @@ def test_flash_matches_plain(dev, d, tq, tk):
 # token counts that cut the 128-row query tiles and the 64-key tiles
 # raggedly: one token, one past a tile, one short of one, and the
 # cross-attention length 77 (its last key tile holds 13 valid keys)
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("tq,tk", [(1, 1), (63, 65), (129, 127), (1000, 1024),
                                    (1024, 77)])
 def test_flash_ragged_tiles(dev, d, tq, tk):
@@ -149,7 +157,7 @@ def test_flash_at_the_train_batch_forward_and_backward(dev):
 # token counts cut its 64-row query tiles (and their 16-row tiles), its
 # 64-key tiles and the 32-key halves its two key groups take raggedly; at
 # Tk = 17 and 31 the second group never sees a valid key.
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("n,tq,tk", [(2, 1024, 1024), (1, 1, 1), (1, 63, 65),
                                      (1, 129, 127), (2, 1000, 1024),
                                      (1, 1024, 77), (1, 17, 17), (1, 65, 31),
@@ -190,8 +198,8 @@ def test_flash_refuses_what_it_cannot_do(dev):
         flash_attention(q, q, q, is_causal=True)
     with pytest.raises(ValueError, match="one dtype"):
         flash_attention(q, q.float(), q)  # mixed dtypes
-    with pytest.raises(ValueError):
-        flash_attention(*(_randn(dev, 1, 1024, 2, 32),) * 3)  # head dim
+    with pytest.raises(ValueError, match="up to 128"):
+        flash_attention(*(_randn(dev, 1, 1024, 2, 136),) * 3)  # head dim
 
 
 def test_dispatch_sends_level0_self_attention_to_the_kernel(dev):
@@ -827,6 +835,14 @@ def _mha_case(dev, b, tq, c, tk, ckv, h, d, co):
     (2, 256, 128, None, 0, 10, 64, 200),
     (1, 130, 64, 77, 48, 10, 64, 101),
     (1, 192, 96, None, 0, 9, 40, 90),
+    # the tiny UNet's level 0 (2 heads of 16), and the other head dims:
+    # every padded width, one inside a wider width, one padded to 40
+    (2, 1024, 32, None, 0, 2, 16, 32),
+    *((1, 200, 64, 77, 40, 3, d, 72)
+      for d in (8, 24, 32, 33, 48, 96, 100, 112, 128)),
+    # C and Ckv no multiple of 8 (the wrapper zero-pads the channels)
+    (1, 200, 100, None, 0, 3, 40, 100),
+    (1, 200, 64, 77, 36, 3, 33, 72),
 ])
 def test_fused_mha_matches_plain(dev, b, tq, c, tk, ckv, h, d, co):
     args = _mha_case(dev, b, tq, c, tk, ckv, h, d, co)
@@ -857,19 +873,92 @@ def test_fused_mha_public_layout_and_repeatability(dev):
 
 
 def test_fused_mha_refuses_what_it_cannot_do(dev):
-    x, ctx, wq, wk, wv, wo = _mha_case(dev, 1, 128, 64, None, 0, 2, 32, 64)
-    with pytest.raises(ValueError, match="head dims"):
-        fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=2, head_dim=32)
     x, ctx, wq, wk, wv, wo = _mha_case(dev, 1, 128, 80, None, 0, 2, 40, 80)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="one dtype"):
         fm.fused_mha_linear(x.float(), ctx.float(), wq, wk, wv, wo,
                             num_heads=2, head_dim=40)
+    with pytest.raises(ValueError, match="one dtype"):
+        fm.fused_mha_linear(x.half(), ctx.half(), wq.half(), wk.half(),
+                            wv.half(), wo.half(), num_heads=2, head_dim=40)
     with pytest.raises(ValueError, match="do not match"):
         fm.fused_mha_linear(x, ctx, wq[:40], wk, wv, wo, num_heads=2,
                             head_dim=40)
     with pytest.raises(ValueError, match="do not match"):
         fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=1,
                             head_dim=40)
+    x, ctx, wq, wk, wv, wo = _mha_case(dev, 1, 128, 136, None, 0, 1, 136,
+                                       136)
+    with pytest.raises(ValueError, match="up to 128"):
+        fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=1,
+                            head_dim=136)
+
+
+# ---------------------------------------------------------------------------
+# The fused MHA's fp32 form against its plain version in float64. Every
+# product runs in 3xTF32 and nothing is rounded to bf16, so the error is
+# fp32 rounding and summation order: held to 1e-4 of max |y|, as flash's
+# fp32 form is; one tf32 product a product, a wrong tile, mask or head
+# column gives 1e-3 .. O(1). Ragged Tq and Tk cut the 64-row query tiles,
+# the key tiles (64 keys at d <= 48, 32 above) and their key groups' halves;
+# H = 3, 8 and 10 put one, one and two heads on a block of the cluster.
+# ---------------------------------------------------------------------------
+
+
+def _mha_case_f32(dev, b, tq, c, tk, ckv, h, d, co):
+    return tuple(t.float() for t in _mha_case(dev, b, tq, c, tk, ckv, h, d,
+                                              co))
+
+
+@pytest.mark.parametrize("b,tq,c,tk,ckv,h,d,co", [
+    (2, 1024, 320, None, 0, 8, 40, 320),   # SD level 0 at 256 px, CFG
+    (2, 1024, 640, None, 0, 8, 80, 640),   # level 1 at 512 px
+    (2, 1024, 32, None, 0, 2, 16, 32),     # the tiny UNet's level 0
+    (2, 256, 320, 77, 768, 8, 40, 320),    # a ragged 77-token KV
+    (1, 200, 64, 130, 40, 3, 40, 72),
+    (1, 130, 64, 77, 48, 10, 64, 101),     # two heads a block, odd Co
+    (1, 65, 96, 17, 64, 10, 128, 200),
+    *((1, 129, 64, 97, 40, 3, d, 72)
+      for d in (8, 16, 24, 32, 33, 48, 64, 80, 96, 100, 112, 128)),
+    (1, 129, 100, None, 0, 3, 40, 100),    # C and Ckv no multiple of 8
+    (1, 129, 60, 97, 36, 3, 33, 72),
+])
+def test_fused_mha_fp32_matches_plain_in_float64(dev, b, tq, c, tk, ckv, h,
+                                                  d, co):
+    args = _mha_case_f32(dev, b, tq, c, tk, ckv, h, d, co)
+    before = fm.fused_mha.launches, fm.fused_mha.f32_launches
+    with torch.no_grad():
+        got = fm.fused_mha_linear(*args, num_heads=h, head_dim=d)
+    want = fm.reference_mha_linear(*(a.double() for a in args),
+                                   num_heads=h, head_dim=d)
+    assert (fm.fused_mha.launches, fm.fused_mha.f32_launches) == (
+        before[0], before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (b, tq, co)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+def test_fused_mha_fp32_repeats_bit_for_bit(dev):
+    """The fp32 SD level-0 shape twice, and through the reference's layout:
+    the same bits (fixed-order sums over heads, no atomics)."""
+    x, ctx, wq, wk, wv, wo = _mha_case_f32(dev, 2, 1024, 320, None, 0, 8,
+                                           40, 320)
+    with torch.no_grad():
+        a = fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=8,
+                                head_dim=40)
+        b = fm.fused_mha_linear(x, ctx, wq, wk, wv, wo, num_heads=8,
+                                head_dim=40)
+        c = fm.fused_mha(x, ctx, wq.t(), wk.t(), wv.t(), wo.t(),
+                         num_heads=8, head_dim=40)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_fused_mha_fp32_refuses_more_than_shared_memory_holds(dev):
+    """32 heads of 128 put four o_h tiles on a block of the cluster, past
+    the card's shared memory: the wrapper names it rather than fail in the
+    launch."""
+    args = _mha_case_f32(dev, 1, 128, 64, None, 0, 32, 128, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        fm.fused_mha_linear(*args, num_heads=32, head_dim=128)
 
 
 def test_attention_module_takes_the_fused_kernel_where_enabled(dev):
@@ -888,6 +977,27 @@ def test_attention_module_takes_the_fused_kernel_where_enabled(dev):
     assert (fm.fused_mha.launches, flash_attention.launches) == (
         before[0] + 1, before[1] + 1)
     assert _max_err(fused, plain) <= 2e-2 * plain.abs().max().item()
+
+
+def test_fp32_attention_module_takes_the_fused_fp32_form(dev):
+    """An fp32 Attention block inside fused_mha_region(True): the fused
+    MHA's fp32 form, no flash; within 1e-4 of max |y| of the unfused block
+    (flash's fp32 form)."""
+    from polyp_tpu_torch.models.unet_blocks import Attention
+    from polyp_tpu_torch.ops.attention import fused_mha_region
+
+    attn = Attention(320, 8, 40, dtype=torch.float32, device=dev)
+    x = _randn(dev, 2, 1024, 320, seed=7, dtype=torch.float32)
+    counts = (lambda: (fm.fused_mha.launches, fm.fused_mha.f32_launches,
+                       flash_attention.launches,
+                       flash_attention.f32_launches))
+    with torch.no_grad():
+        before = counts()
+        plain = attn(x)
+        with fused_mha_region(True):
+            fused = attn(x)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 1, 0, 1)
+    assert _max_err(fused, plain) <= 1e-4 * plain.abs().max().item()
 
 
 def test_entry_points_build_on_the_card_by_default(dev):

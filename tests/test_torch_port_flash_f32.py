@@ -1,12 +1,13 @@
-"""The order flash attention's fp32 form computes in
-(polyp_tpu_torch/csrc/flash_attention.cu, namespace f32), written out on
-the CPU and held against the JAX package's attention and float64.
+"""The order flash attention's fp32 form computes in (its core,
+polyp_tpu_torch/csrc/attention_core.cuh, namespace f32, which the fused
+MHA's fp32 form runs too), written out on the CPU and held against the JAX
+package's attention and float64.
 
 * Its index algebra, lane by lane in float64: one warp's m16n8k8 TF32
   fragments (PTX's layout) for QK^T with the K rows each lane reads
   (`key_of_lane`: lanes g = 0..7 take keys 0, 4, 1, 5, 2, 6, 3, 7 of an
   8-key tile) and the head dims each k8 step takes (pairs of steps one
-  float4 a row, d = 40's last step a float2), so that lane (g, t) ends
+  float4 a row, a last step of 8 a float2), so that lane (g, t) ends
   with the scores of keys t and t + 4, which is where P V's A fragment
   wants them: P is reused from the registers, V's rows read in order, its
   columns in the lanes' float4 groups (`vgroup_of_lane`), and each output
@@ -34,7 +35,8 @@ import torch
 from _torch_threads import _one_thread  # noqa: F401
 
 LOG2E = 1.4426950408889634
-HEAD_DIMS = (40, 64, 80, 128, 160)
+# the padded widths the kernel is built for
+HEAD_DIMS = (16, 32, 40, 48, 64, 80, 96, 112, 128, 160)
 
 
 KEY_GROUPS = 2  # key groups a row tile (the kernel's Chosen<D>::KS)
@@ -287,7 +289,7 @@ def test_tf32_rounds_half_away_from_zero():
 # Tq/Tk ragged against the 64-row query tiles, the 64-key tiles and their
 # two groups' halves at d = 128; Tk = 17 leaves the second group with no
 # valid key
-@pytest.mark.parametrize("d", (40, 64, 80, 128))
+@pytest.mark.parametrize("d", (16, 40, 48, 64, 80, 112, 128))
 @pytest.mark.parametrize("tq,tk", [(63, 65), (129, 127), (31, 17)])
 def test_3xtf32_order_matches_jax_and_float64(d, tq, tk):
     q, k, v = _qkv(d + tq, tq, tk, d)

@@ -106,6 +106,9 @@ def test_flash_gradients_match_jax():
     ((2, 77, 12, 64), (2, 77, 12, 64), True, False),     # CLIP
     ((1, 1024, 1, 512), (1, 1024, 1, 512), False, False),  # VAE mid, d=512
     ((2, 4096, 8, 160), (2, 4096, 8, 160), False, False),  # d > 128
+    ((2, 1024, 2, 16), (2, 1024, 2, 16), False, True),   # tiny level-0 self
+    ((2, 1024, 8, 32), (2, 1024, 8, 32), False, True),   # 32-wide heads
+    ((2, 4096, 4, 96), (2, 4096, 4, 96), False, True),   # 96-wide heads
 ])
 def test_dispatch_policy(shape_q, shape_k, causal, flash):
     q = torch.empty(shape_q, device="meta")
@@ -119,8 +122,8 @@ def test_flash_wrapper_refuses_mask_causal_and_head_dim():
         tfa.flash_attention(q, q, q, is_causal=True)
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(q, q, q, mask=torch.ones(1, 1, 8, 8, dtype=bool))
-    with pytest.raises(ValueError):
-        tfa.flash_attention(*(torch.zeros(1, 8, 1, 32),) * 3)
+    with pytest.raises(ValueError, match="up to 128"):
+        tfa.flash_attention(*(torch.zeros(1, 8, 1, 136),) * 3)
 
 
 # ---------------------------------------------------------------------------

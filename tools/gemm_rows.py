@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Rows 2-6 of PERF.md's kernel table (the bf16 GEGLU, GroupNorm, the
-static int8 GEGLU, the W8A8 dense and the per-token int8 GEGLU), the fp32
-forms of rows 1 and 2 (flash attention and the GEGLU in fp32) and the
-sampling loops' device time,
+static int8 GEGLU, the W8A8 dense and the per-token int8 GEGLU), rows 1
+and 7 in bf16 (flash attention and the fused MHA at the SD stack's
+shapes), the fp32 forms of rows 1 and 2 (flash attention and the GEGLU in
+fp32) and the sampling loops' device time,
 for the polyp_tpu_torch of any checkout, so that two commits are compared
 on one card in one call.
 
     python3 tools/gemm_rows.py --root DIR --tag NAME
                                [--rows geglu,dense,geglu_q8,geglu_q8_pt,gn,
-                                       flash_f32,geglu_f32 | all | none]
+                                       attention,flash_f32,geglu_f32
+                                       | all | none]
                                [--no-profiles]
 
 Needs a CUDA card. It builds the kernels of DIR/polyp_tpu_torch and runs
 chip_smoke.py's `gemm_rows`, `geglu_q8_rows` and `gn_rows` (this
 checkout's: device time from a CUDA graph of 20 calls, the CUDA-event time
-of the same calls, the plain version, the yardsticks, the bound) and
-`fp32_rows` (flash's fp32 form, the GEGLU's, or both) on that
-package at every main-path shape; then, on
+of the same calls, the plain version, the yardsticks, the bound),
+`attention_rows` and `fp32_rows` (flash's fp32 form, the GEGLU's, or
+both) on that package at every main-path shape; then, on
 the full-width SD-v1-4 stack (random weights, seed 0) at 256px,
 `profile_loop` over one batch of four loops: w8a8_static under CFG (20
 DDIM steps, 5-step bf16 head, batch 2), dynamic w8a8 under CFG (the same
@@ -41,8 +43,8 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-ROWS = ("geglu", "dense", "geglu_q8", "geglu_q8_pt", "gn", "flash_f32",
-        "geglu_f32")
+ROWS = ("geglu", "dense", "geglu_q8", "geglu_q8_pt", "gn", "attention",
+        "flash_f32", "geglu_f32")
 
 
 def main() -> int:
@@ -94,6 +96,8 @@ def main() -> int:
                 per_token="geglu_q8_pt" in rows)
         if "gn" in rows:
             out["rows"] += smoke.gn_rows(dev)
+        if "attention" in rows:
+            out["rows"] += smoke.attention_rows(dev)
         if "flash_f32" in rows or "geglu_f32" in rows:
             out["rows"] += smoke.fp32_rows(dev, flash="flash_f32" in rows,
                                            geglu="geglu_f32" in rows)
