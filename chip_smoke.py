@@ -13,7 +13,9 @@ caught:
    attention kernels (flash at every head dim, the fused MHA, its K/V
    projection) and the GEMM kernels (the GEMM core's instantiations for
    the bf16 GEGLU's two launches, the dense and both int8 GEGLU forms'
-   two launches) from the build's -Xptxas -v log; a spill of an
+   two launches, bf16 and fp32: DenseF32, GegluQ8UpF32, GegluQ8DownF32,
+   GegluQ8PtUpF32, GegluQ8PtDownF32) from the build's -Xptxas -v log; a
+   spill of an
    attention kernel at d <= 80 (every head dim a path runs) or of any GEMM
    kernel fails the run after the main paths;
 3. holds each kernel against its plain PyTorch version at the shapes each
@@ -48,7 +50,13 @@ caught:
    pair and the static form) — by relative L2 and max error (Q8_REL_L2,
    Q8_MAX_REL),
    and GroupNorm's int8 epilogue by the share of codes that differ (at
-   most one code, in at most GN_Q8_SHARE of the elements);
+   most one code, in at most GN_Q8_SHARE of the elements); the int8
+   kernels' fp32 forms (q8_f32_rows: fp32 x, biases and output, at level
+   0 of the CFG batch 4 and at every shape of the fp32 SD forward) against
+   their plain versions in fp32, the dense within Q8_F32_DENSE_MAX_REL of
+   max |y| and the GEGLUs as the bf16 forms, each run twice for the same
+   bits, beside `_int_mm` on the codes and the layer's fp32 cuBLAS
+   products (TF32 off);
 4. drives the main paths on the full-width SD-v1-4 stack (UNet 859,520,964
    params, VAE decoder, CLIP ViT-L/14 text encoder; bf16, random weights
    from seed 0) through generate_to_dir, each twice (first run through
@@ -79,7 +87,10 @@ caught:
      d = 16) and unfused (flash at d = 16), its latents held against the
      same sampler on the CPU (plain versions, the same weights and x_T):
      fp32 within FP32_FUSED_LATENT_REL_L2, bf16 within TINY_BF16_NOISE
-     times the CPU's own bf16 run's distance from its fp32 run;
+     times the CPU's own bf16 run's distance from its fp32 run; and the
+     fp32 SD sampler under quantize="w8a8_static" (calibrated first; the
+     int8 kernels' fp32 forms, FP32_STATIC_FORWARD a step), images/s
+     beside the fp32 sampler's;
    Each requires finite images, PNGs of 256×256×3, and a launch count
    above zero for each kernel that path runs; images/s of each path are
    printed side by side, beside the UNet-only and decode-only seconds and
@@ -103,7 +114,10 @@ caught:
    the CPU's fp32 forward within FP32_REL_L2_TOLERANCE, launching exactly
    FP32_UNET_FORWARD (counts set to 0 just before it, read just after),
    and again inside fused_mha_region(True), launching exactly
-   FP32_FUSED_UNET_FORWARD, within the same tolerance;
+   FP32_FUSED_UNET_FORWARD, within the same tolerance; then that fp32 UNet
+   under w8a8_static, layer by layer against the CPU as the bf16 int8
+   forward is (int8_layers), launching exactly FP32_STATIC_FORWARD, and
+   under dynamic w8a8, launching exactly FP32_DYNAMIC_FORWARD;
 6. serves (serving_phase, about a minute): GenerationService over
    make_sampler's bf16 stack at the service defaults (UniPC, 25 steps,
    CFG 7.5, max_batch 8) behind the HTTP server on a loopback port —
@@ -352,6 +366,10 @@ RELATIVE_TO_MAX = {"fused_mha", "fused_geglu_f32", "flash_attention_f32",
 # wrong scale, tile or mask gives O(1).
 Q8_REL_L2 = 4e-3
 Q8_MAX_REL = 2 ** -6   # max |err| / max |y|
+# ... the W8A8 dense's fp32 form against its plain version in fp32: the same
+# codes and int32 sums, one fp32 dequantize (an FMA on the card), so only
+# last-bit rounding; a flipped code of x moves y by ~5e-4 of max |y|
+Q8_F32_DENSE_MAX_REL = 1e-6
 GN_Q8_SHARE = 2e-3     # share of int8 codes one apart (never more)
 # relative L2 of a whole forward on the card (bf16) vs fp32 on the CPU
 REL_L2_TOLERANCE = 5e-2
@@ -537,14 +555,20 @@ def compare(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
 
 
 def compare_q8(name: str, kernel_fn, plain_fn, fp32_ref: torch.Tensor,
-               shape: str, cost: dict, **others) -> dict:
-    """An int8 kernel (bf16 out) vs its plain version's fp32 result; times
+               shape: str, cost: dict, max_rel: float = Q8_MAX_REL,
+               repeat: bool = False, **others) -> dict:
+    """An int8 kernel (bf16 or fp32 out) vs its plain version's fp32
+    result: relative L2 within Q8_REL_L2 and max error within `max_rel` of
+    max |y|; with `repeat`, a second call must give the same bits. Times
     any `others` (yardsticks timed only here) as compare() does."""
     out = kernel_fn()
+    again = kernel_fn() if repeat else out
     torch.cuda.synchronize()
     err = (out.float() - fp32_ref).abs().max().item()
     rel = rel_l2(out, fp32_ref)
-    tol = Q8_MAX_REL * fp32_ref.abs().max().item()
+    tol = max_rel * fp32_ref.abs().max().item()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name} {shape}: two calls differ")
     row = {"name": name, "shape": shape, "max_abs_err": err,
            "max_abs_tolerance": tol, "rel_l2": rel,
            "rel_l2_tolerance": Q8_REL_L2,
@@ -573,8 +597,9 @@ ATTENTION_KERNELS = re.compile(
     r"(flash_fwd_kernel|flash_f32_kernel|fused_mha_f32_kernel|fused_mha_kernel"
     r"|kv_project_f32_kernel|kv_project_kernel|geglu_f32_kernel)(?:ILi(\d+)E)?")
 GEMM_KERNELS = re.compile(
-    r"gemm_kernelI\w*?(GegluQ8PtUp|GegluQ8PtDown|GegluQ8Up|GegluQ8Down|GegluUp"
-    r"|GegluDown|Dense)"
+    r"gemm_kernelI\w*?(GegluQ8PtUpF32|GegluQ8PtDownF32|GegluQ8UpF32"
+    r"|GegluQ8DownF32|DenseF32|GegluQ8PtUp|GegluQ8PtDown|GegluQ8Up"
+    r"|GegluQ8Down|GegluUp|GegluDown|Dense)"
     r"I((?:Li\d+E|Lb[01]E)+)")
 
 
@@ -724,6 +749,61 @@ def dense_row(randn, m: int, c: int, o: int, int8_in: bool,
         products=lambda: quant.int_mm(codes, wq))
 
 
+def dense_f32_row(randn, m: int, c: int, o: int, int8_in: bool,
+                  what: str) -> dict:
+    """compare_q8() of the W8A8 dense's fp32 form (fp32 x and bias, or the
+    codes of x with an fp32 output) against its plain version in fp32,
+    within Q8_F32_DENSE_MAX_REL of max |y|, run twice for the same bits,
+    beside the product alone (`_int_mm` on the codes) and the layer's fp32
+    cuBLAS product (F.linear, TF32 off)."""
+    import torch.nn.functional as F
+
+    from polyp_tpu_torch.ops import quant
+    from polyp_tpu_torch.ops.fused_dense import (
+        fused_w8a8_dense, reference_w8a8_dense)
+
+    xf = randn(m, c).float()
+    w = randn(o, c, scale=c ** -0.5).float()
+    wq, sw = quant.weight_q8_matrix(w)
+    bias = randn(o, scale=0.1).float()
+    s = amax_scale(xf)
+    codes = quant.quantize_activation(xf, s)[0]
+    args = (codes if int8_in else xf, wq, sw, bias, s)
+    return compare_q8(
+        "fused_w8a8_dense_f32",
+        lambda: fused_w8a8_dense(*args, out_dtype=torch.float32),
+        lambda: reference_w8a8_dense(*args, out_dtype=torch.float32),
+        reference_w8a8_dense(*args, out_dtype=torch.float32),
+        f"{what} [{m},{c}]x[{c},{o}]",
+        bound(2 * m * c * o, "int8", nbytes(*args) + 4 * m * o),
+        max_rel=Q8_F32_DENSE_MAX_REL, repeat=True,
+        products=lambda: quant.int_mm(codes, wq),
+        cublas_fp32=lambda: F.linear(xf, w, bias))
+
+
+# the fp32 SD forward's batch: CFG batch 2 at 32×32 latents (the UNet runs
+# the pair in one batch)
+Q8_F32_BATCH = 2
+
+
+def q8_f32_rows(dev: torch.device) -> list[dict]:
+    """Rows 4-6's fp32 forms, the first row of each its headline shape
+    (level 0 of the CFG batch 4, where the bf16 forms are timed: to_q
+    [4096,320]x[320,320], the FF [4096,320]x[320,2560]), then every shape
+    of the fp32 SD forward (Q8_F32_BATCH: DENSE_CASES, FF_LEVELS): the
+    dense by dense_f32_row, both int8 GEGLUs by geglu_q8_row(f32=True)."""
+    randn = randn_on(dev, seed=0)
+    rows = [dense_f32_row(randn, 4 * 1024, 320, 320, False, "to_q")]
+    rows += [dense_f32_row(randn, Q8_F32_BATCH * per_image, c, o, int8_in,
+                           what)
+             for per_image, c, o, int8_in, what in DENSE_CASES]
+    for static in (True, False):
+        rows.append(geglu_q8_row(randn, 4, 320, 1024, static, f32=True))
+        rows += [geglu_q8_row(randn, Q8_F32_BATCH, c, per_image, static,
+                              f32=True) for c, per_image in FF_LEVELS]
+    return rows
+
+
 def check_kernels(dev: torch.device) -> list[dict]:
     """Every kernel against its plain version at its main paths' shapes,
     the first row of each kernel its headline shape."""
@@ -732,6 +812,7 @@ def check_kernels(dev: torch.device) -> list[dict]:
     # shape
     rows += gemm_rows(dev)
     rows += geglu_q8_rows(dev)
+    rows += q8_f32_rows(dev)
     rows += gn_rows(dev)
     rows += fp32_rows(dev)
     rows += mha_f32_rows(dev)
@@ -1115,13 +1196,17 @@ Q8_BATCHES = (4, 32)
 
 def geglu_q8_row(randn, n: int, c: int, per_image: int, static: bool,
                  others: bool = True, hidden: int | None = None,
-                 shape_tag: str = "") -> dict:
+                 shape_tag: str = "", f32: bool = False) -> dict:
     """compare_q8() of row 4 (`static`, two calibrated scales) or row 6
     (per-token scales) on x [n, per_image, C] and GEGLU weights drawn by
     geglu_case (H = `hidden`, default 4C), beside (with `others`) two
     yardsticks timed here only: its two products alone (`_int_mm` on int8
     codes of x and of h) and the bf16 GEGLU (row 4) or the static form
-    (row 6) on the same x and weights."""
+    (row 6) on the same x and weights. With `f32`, the fp32 form (x and
+    biases fp32, name + "_f32"), run twice for the same bits, beside the
+    products alone and the layer's two fp32 cuBLAS products (F.linear,
+    TF32 off); its bound also with h's codes written and read once
+    (bound_with_h_ms)."""
     import torch.nn.functional as F
 
     from polyp_tpu_torch.ops import quant
@@ -1131,6 +1216,8 @@ def geglu_q8_row(randn, n: int, c: int, per_image: int, static: bool,
 
     h, tokens = hidden or 4 * c, n * per_image
     x, w1, b1, w2, b2 = geglu_case(randn, n, c, per_image, h)
+    if f32:
+        x, w1, b1, w2, b2 = (t.float() for t in (x, w1, b1, w2, b2))
     shape = f"{shape_tag}[{tokens},{c}]x[{c},{2 * h}]"
     ops = 6 * tokens * c * h
     q8 = (*quant.weight_q8_matrix(w1), b1, *quant.weight_q8_matrix(w2), b2)
@@ -1138,11 +1225,29 @@ def geglu_q8_row(randn, n: int, c: int, per_image: int, static: bool,
     a, gate = F.linear(x.float(), w1.float(), b1.float()).chunk(2, dim=-1)
     s2 = amax_scale(a * F.gelu(gate))
     xq = quant.quantize_activation(x, s1)[0].reshape(tokens, c)
-    hq = quant.quantize_activation(a * F.gelu(gate), s2)[0].reshape(tokens, h)
+    hf = a * F.gelu(gate)
+    hq = quant.quantize_activation(hf, s2)[0].reshape(tokens, h)
 
     def products():
         return quant.int_mm(xq, q8[0]), quant.int_mm(hq, q8[3])
 
+    if f32:
+        name = "fused_geglu_w8a8_f32" if static else "fused_geglu_w8a8_pt_f32"
+        scales = (s1, s2) if static else ()
+        kernel = fused_geglu_w8a8 if static else fused_geglu_w8a8_pt
+        plain = reference_geglu_w8a8 if static else reference_geglu_w8a8_pt
+        cost = bound(ops, "int8", 2 * nbytes(x) + nbytes(*q8, *scales))
+        row = compare_q8(
+            name, lambda: kernel(x, *q8, *scales),
+            lambda: plain(x, *q8, *scales), plain(x, *q8, *scales), shape,
+            cost, repeat=True,
+            **(dict(products=products,
+                    cublas_fp32=lambda: (F.linear(x, w1, b1),
+                                         F.linear(hf, w2, b2)))
+               if others else {}))
+        row["bound_with_h_ms"] = (cost["bound_bytes"] + 2 * tokens * h) / (
+            HBM_BYTES_PER_S) * 1e3
+        return row
     if static:
         yardsticks = dict(products=products,
                           bf16_geglu=lambda: fused_geglu(x, w1, b1, w2, b2))
@@ -1517,8 +1622,59 @@ def int8_layers(card_model, cpu_model, forward, bank, t: torch.Tensor
     return out
 
 
+def fp32_int8_forwards(unet, unet_cpu, args: tuple, bank, dev: torch.device,
+                       reset_counts, read_counts) -> dict:
+    """The fp32 int8 path: the fp32 card copy `unet` under w8a8_static
+    (`bank` at the forward's timesteps), layer by layer against the CPU's
+    fp32 `unet_cpu` (int8_layers: within LAYER_REL_L2), launching exactly
+    FP32_STATIC_FORWARD; then under dynamic w8a8, launching exactly
+    FP32_DYNAMIC_FORWARD, finite. Counts set to 0 just before each
+    forward and read just after it (int8_layers' CPU re-runs launch
+    nothing on the card)."""
+    from polyp_tpu_torch.ops import quant
+
+    x, t, ctx = args
+
+    def forward(model, device):
+        return model(x.to(device), t.to(device), ctx.to(device))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    layers = int8_layers(unet, unet_cpu, forward, bank, t)
+    static = read_counts()
+    static_out = layers.pop("output")
+    with torch.no_grad(), quant.override("w8a8"):
+        torch.cuda.synchronize()
+        reset_counts()
+        dynamic_out = forward(unet, dev)
+        torch.cuda.synchronize()
+        dynamic = read_counts()
+    out = {**layers, "static_launches": static,
+           "dynamic_launches": dynamic,
+           "static_finite": bool(torch.isfinite(static_out).all()),
+           "dynamic_finite": bool(torch.isfinite(dynamic_out).all()),
+           "static_dtype": str(static_out.dtype)}
+    print(f"[check] card fp32 w8a8_static UNet forward, layer by layer vs "
+          f"cpu fp32 from the card's inputs: {layers['layers_checked']} "
+          f"layer calls, max rel L2 {layers['layer_max_rel_l2']:.3e} "
+          f"({layers['worst_layer']}; tol {LAYER_REL_L2:.0e}); GN int8 codes "
+          f"differing {layers['gn_q8_codes_differing']:.3e}; launches "
+          f"{static}; dynamic w8a8 launches {dynamic}", flush=True)
+    for name, (n, want_n) in {
+            "fp32 w8a8_static UNet forward": (static, FP32_STATIC_FORWARD),
+            "fp32 w8a8 UNet forward": (dynamic, FP32_DYNAMIC_FORWARD)
+    }.items():
+        if n != want_n:
+            raise AssertionError(f"{name}: launches {n}, want {want_n}")
+    if not (out["static_finite"] and out["dynamic_finite"]
+            and static_out.dtype == dynamic_out.dtype == torch.float32):
+        raise AssertionError(f"fp32 int8 UNet forwards: {out}")
+    return out
+
+
 def fp32_forward_vs_cpu(unet_cpu, args: tuple, want: torch.Tensor,
-                        dev: torch.device, reset_counts, read_counts) -> dict:
+                        dev: torch.device, reset_counts, read_counts,
+                        bank=None) -> dict:
     """The fp32 inference path: an fp32 copy of `unet_cpu` on the card, its
     forward on `args` under no_grad with TF32 off (the fp32 forms of flash
     attention and the GEGLU, GroupNorm in fp32), every count set to 0 just
@@ -1526,10 +1682,13 @@ def fp32_forward_vs_cpu(unet_cpu, args: tuple, want: torch.Tensor,
     FP32_REL_L2_TOLERANCE of `want` (the CPU's fp32 forward); its fused
     twin, the same forward inside fused_mha_region(True) (the five level-0
     self-attentions in the fused MHA's fp32 form): exactly
-    FP32_FUSED_UNET_FORWARD, within the same tolerance of `want`. The copy
-    is freed before it returns; then the fp32 GroupNorm at every shape the
-    forward gave it (`kernel_checks`, recorded_rows: flash's, the GEGLU's
-    and the fused MHA's fp32 shapes are fp32_rows' and mha_f32_rows')."""
+    FP32_FUSED_UNET_FORWARD, within the same tolerance of `want`; with
+    `bank` (w8a8_static scales), the same copy under both int8 modes
+    (fp32_int8_forwards, `int8`). The copy is freed before it returns;
+    then the fp32 GroupNorm at every shape the forward gave it
+    (`kernel_checks`, recorded_rows: flash's, the GEGLU's, the fused
+    MHA's and the int8 kernels' fp32 shapes are fp32_rows',
+    mha_f32_rows' and q8_f32_rows')."""
     from polyp_tpu_torch.models import sd14_unet
     from polyp_tpu_torch.ops.attention import fused_mha_region
 
@@ -1546,6 +1705,8 @@ def fp32_forward_vs_cpu(unet_cpu, args: tuple, want: torch.Tensor,
         fused = unet(*(a.to(dev) for a in args))
         torch.cuda.synchronize()
         fused_launches = read_counts()
+    int8 = (fp32_int8_forwards(unet, unet_cpu, args, bank, dev, reset_counts,
+                               read_counts) if bank is not None else None)
     del unet
     torch.cuda.empty_cache()
     out = {"unet_fp32_rel_l2": rel_l2(got, want), "launches": launches,
@@ -1553,7 +1714,7 @@ def fp32_forward_vs_cpu(unet_cpu, args: tuple, want: torch.Tensor,
            "fused_unet_fp32_rel_l2": rel_l2(fused, want),
            "fused_launches": fused_launches,
            "fused_finite": bool(torch.isfinite(fused).all()),
-           "fused_vs_unfused_rel_l2": rel_l2(fused, got)}
+           "fused_vs_unfused_rel_l2": rel_l2(fused, got), "int8": int8}
     print(f"[check] card fp32 vs cpu fp32: UNet rel L2 "
           f"{out['unet_fp32_rel_l2']:.3e} (tol {FP32_REL_L2_TOLERANCE:.0e}); "
           f"launches {launches}", flush=True)
@@ -1630,7 +1791,7 @@ def check_against_cpu(stack, dev: torch.device, scales: dict, reset_counts,
            "cpu_int8_vs_fp32_rel_l2": rel_l2(want_q8, want_unet),
            "card_int8_vs_bf16_rel_l2": rel_l2(got_q8, got_unet),
            "fp32": fp32_forward_vs_cpu(unet_cpu, (x, t, ctx), want_unet, dev,
-                                       reset_counts, read_counts)}
+                                       reset_counts, read_counts, bank)}
     print(f"[check] card bf16 vs cpu fp32: UNet rel L2 "
           f"{out['unet_rel_l2']:.3e}, VAE decode rel L2 "
           f"{out['vae_rel_l2']:.3e} (tol {REL_L2_TOLERANCE:.0e})", flush=True)
@@ -1678,7 +1839,7 @@ def check_tiny_decoder(tiny, dev: torch.device) -> float:
 # the dense's policies under names of their own, GegluQ8Down (static) and
 # GegluQ8PtDown (per-token, whose earlier kernels were geglu_q8_pt_partial
 # and geglu_q8_pt_reduce)
-FAMILIES = {"w8a8_dense": ("Dense<", "dense_q8_kernel"),
+FAMILIES = {"w8a8_dense": ("Dense<", "DenseF32<", "dense_q8_kernel"),
             "bf16_geglu": ("GegluUp<", "GegluDown<", "geglu_partial_kernel",
                            "geglu_reduce_kernel"),
             "int8_geglu_pt": ("GegluQ8Pt", "geglu_q8_pt"),
@@ -3459,7 +3620,9 @@ SCRATCH_DISTILL_GENERATE, VAE_DISTILL_STEPS = 4, 20
 KERNEL_NAMES = ("flash_attention", "fused_geglu", "fused_group_norm",
                 "fused_w8a8_dense", "fused_geglu_w8a8", "fused_geglu_w8a8_pt",
                 "fused_group_norm_q8", "fused_mha", "fused_geglu_f32",
-                "flash_attention_f32", "fused_mha_f32")
+                "flash_attention_f32", "fused_mha_f32",
+                "fused_w8a8_dense_f32", "fused_geglu_w8a8_f32",
+                "fused_geglu_w8a8_pt_f32")
 
 
 def launches_of(**counts) -> dict:
@@ -3480,6 +3643,17 @@ FP32_UNET_FORWARD = launches_of(flash_attention_f32=5, fused_geglu_f32=16,
 # form
 FP32_FUSED_UNET_FORWARD = launches_of(fused_mha_f32=5, fused_geglu_f32=16,
                                       fused_group_norm=61)
+# ... under w8a8_static: the int8 kernels' fp32 forms at the bf16 int8
+# forward's counts (promoted_launches): the dense 174 (every quantized
+# linear and 1×1 conv), the static GEGLU 16, GroupNorm's int8 epilogue 60
+# of its 61; under dynamic w8a8 the per-token GEGLU 16 and no epilogue
+FP32_STATIC_FORWARD = launches_of(flash_attention_f32=5, fused_group_norm=61,
+                                  fused_group_norm_q8=60,
+                                  fused_w8a8_dense_f32=174,
+                                  fused_geglu_w8a8_f32=16)
+FP32_DYNAMIC_FORWARD = launches_of(flash_attention_f32=5, fused_group_norm=61,
+                                   fused_w8a8_dense_f32=174,
+                                   fused_geglu_w8a8_pt_f32=16)
 SD_DISTILL_STEP = launches_of(flash_attention=15, fused_geglu=32,
                               fused_group_norm=122)
 REPARAM_STEP = launches_of(flash_attention=10, fused_geglu=16,
@@ -5484,7 +5658,9 @@ def fp32_fused_path_phase(dev: torch.device, card: str, reset_counts,
     calls (phase 4 of the module docstring): the fp32 SD-v1-4 stack from
     load_sd_stack(dtype=torch.float32) (random weights from seed 0) under
     StableDiffusionSampler(..., fused_mha=True), the reference's fp32
-    sampler under POLYP_FUSED_MHA=1, and the same sampler unfused; then the
+    sampler under POLYP_FUSED_MHA=1, the same sampler unfused, and unfused
+    under quantize="w8a8_static" (calibrated before its counted run: the
+    int8 kernels' fp32 forms, FP32_STATIC_FORWARD a step); then the
     tiny stack (2 heads of 16 at level 0, 1,024 tokens at 256 px) in bf16
     and fp32, fused and unfused, each held against the same sampler on the
     CPU (cpu_latents). Each denoise (256 px, CFG 7.5, batch 2, DDIM) runs
@@ -5498,16 +5674,22 @@ def fp32_fused_path_phase(dev: torch.device, card: str, reset_counts,
     schedule = DiffusionSchedule.create(1000, "scaled_linear", 0.00085,
                                         0.012)
 
-    def sampler_of(stack, fused: bool, steps: int):
+    def sampler_of(stack, fused: bool, steps: int, quantize=None):
         return StableDiffusionSampler(
             stack.unet, stack.vae, stack.text, stack.tokenizer, schedule,
             image_size=256, num_steps=steps, guidance_scale=7.5,
-            sampler="ddim", fused_mha=fused)
+            sampler="ddim", fused_mha=fused, quantize=quantize)
 
     def run(stack, fused: bool, steps: int, timed: bool,
-            init: torch.Tensor | None = None) -> dict:
-        sampler = sampler_of(stack, fused, steps)
+            init: torch.Tensor | None = None, quantize=None) -> dict:
+        sampler = sampler_of(stack, fused, steps, quantize)
         cond, uncond = sampler.encode_prompt(PROMPT), sampler.encode_prompt("")
+        calibration_s = None
+        if quantize:  # calibrates (w8a8_static) before the counted run
+            start = time.perf_counter()
+            sampler.for_prompt(PROMPT)
+            torch.cuda.synchronize()
+            calibration_s = time.perf_counter() - start
         torch.cuda.synchronize()
         reset_counts()
         latents = sampler.denoise(cond, uncond, 2,
@@ -5518,7 +5700,8 @@ def fp32_fused_path_phase(dev: torch.device, card: str, reset_counts,
         images = sampler.decode(latents)
         res = {"steps": steps, "launches": launches, "latents": latents,
                "images_finite": bool(torch.isfinite(images).all()),
-               "images_shape": list(images.shape)}
+               "images_shape": list(images.shape),
+               "calibration_s": calibration_s}
         if timed:
             start = time.perf_counter()
             sampler.generate(cond, uncond, 2,
@@ -5538,15 +5721,29 @@ def fp32_fused_path_phase(dev: torch.device, card: str, reset_counts,
     stack = load_sd_stack(None, dtype=torch.float32, seed=0)
     if next(stack.unet.parameters()).dtype != torch.float32:
         raise AssertionError("load_sd_stack(dtype=torch.float32) is not fp32")
-    for name, fused, forward in (
-            ("sd_fp32_fused", True, FP32_FUSED_UNET_FORWARD),
-            ("sd_fp32_unfused", False, FP32_UNET_FORWARD)):
-        out[name] = run(stack, fused, FP32_PATH_STEPS, timed=True)
+    for name, fused, quantize, forward in (
+            ("sd_fp32_fused", True, None, FP32_FUSED_UNET_FORWARD),
+            ("sd_fp32_unfused", False, None, FP32_UNET_FORWARD),
+            ("sd_fp32_w8a8_static", False, "w8a8_static",
+             FP32_STATIC_FORWARD)):
+        out[name] = run(stack, fused, FP32_PATH_STEPS, timed=True,
+                        quantize=quantize)
         want = per_steps(forward, FP32_PATH_STEPS)
         if out[name]["launches"] != want:
             raise AssertionError(f"{name}: launches {out[name]['launches']},"
                                  f" want {want}")
     del stack
+    q8 = out["sd_fp32_w8a8_static"]
+    q8["latent_rel_l2_vs_fp32"] = rel_l2(q8["latents"],
+                                         out["sd_fp32_unfused"]["latents"])
+    print(f"[fp32 path] SD-v1-4 fp32 under w8a8_static (the int8 kernels' "
+          f"fp32 forms), 256 px, {FP32_PATH_STEPS} DDIM steps, CFG 7.5, "
+          f"batch 2 on {card}: {q8['images_per_s']:.3f} images/s "
+          f"({q8['generate_s']:.3f} s; calibration {q8['calibration_s']:.2f}"
+          f" s) beside the fp32 sampler's "
+          f"{out['sd_fp32_unfused']['images_per_s']:.3f}; latents "
+          f"{q8['latent_rel_l2_vs_fp32']:.3e} rel L2 from its; launches "
+          f"{q8['launches']}", flush=True)
     torch.cuda.empty_cache()
     rel = rel_l2(out["sd_fp32_fused"]["latents"],
                  out["sd_fp32_unfused"]["latents"])
@@ -5634,8 +5831,8 @@ def fp32_fused_path_phase(dev: torch.device, card: str, reset_counts,
 def kernel_counters():
     """(reset, read) of every kernel's launch count: each wrapper's
     counter, read after the path that runs it; the GN epilogue and the
-    fp32 forms of the GEGLU, of flash attention and of the fused MHA have
-    counters of their own."""
+    fp32 forms of the GEGLU, of flash attention, of the fused MHA and of
+    the three int8 kernels have counters of their own."""
     from polyp_tpu_torch.ops.flash_attention import flash_attention
     from polyp_tpu_torch.ops.fused_dense import fused_w8a8_dense
     from polyp_tpu_torch.ops.fused_geglu import (
@@ -5654,7 +5851,10 @@ def kernel_counters():
         "fused_mha": (fused_mha, "launches"),
         "fused_geglu_f32": (fused_geglu, "f32_launches"),
         "flash_attention_f32": (flash_attention, "f32_launches"),
-        "fused_mha_f32": (fused_mha, "f32_launches")}
+        "fused_mha_f32": (fused_mha, "f32_launches"),
+        "fused_w8a8_dense_f32": (fused_w8a8_dense, "f32_launches"),
+        "fused_geglu_w8a8_f32": (fused_geglu_w8a8, "f32_launches"),
+        "fused_geglu_w8a8_pt_f32": (fused_geglu_w8a8_pt, "f32_launches")}
 
     def reset_counts():
         for fn, attr in counters.values():
@@ -5998,7 +6198,16 @@ def main() -> int:
                                 "polyp_tpu/ops/flash_attention.py:185"),
         "fused_mha_f32": ("fp32 fused SD sampler",
                           "polyp_tpu_torch/csrc/fused_mha.cu",
-                          "polyp_tpu/ops/fused_mha.py:241")}
+                          "polyp_tpu/ops/fused_mha.py:241"),
+        "fused_w8a8_dense_f32": ("fp32 SD w8a8_static sampler",
+                                 "polyp_tpu_torch/csrc/fused_dense.cu",
+                                 "polyp_tpu/ops/fused_dense.py:97"),
+        "fused_geglu_w8a8_f32": ("fp32 SD w8a8_static sampler",
+                                 "polyp_tpu_torch/csrc/fused_geglu_w8a8.cu",
+                                 "polyp_tpu/ops/fused_geglu.py:256"),
+        "fused_geglu_w8a8_pt_f32": ("fp32 SD w8a8 forward",
+                                    "polyp_tpu_torch/csrc/fused_geglu_w8a8.cu",
+                                    "polyp_tpu/ops/fused_geglu.py:398")}
     # each kernel's launches on the main path that runs it
     path_launches = {name: path["launches"] for name, path in paths.items()}
     path_launches["distill_ab --sd"] = ab["launches"]
@@ -6007,6 +6216,10 @@ def main() -> int:
     path_launches["fp32 SD forward"] = per_fp32_forward
     path_launches["fp32 fused SD sampler"] = fp32_path["sd_fp32_fused"][
         "launches"]
+    path_launches["fp32 SD w8a8_static sampler"] = fp32_path[
+        "sd_fp32_w8a8_static"]["launches"]
+    path_launches["fp32 SD w8a8 forward"] = agreement["fp32"]["int8"][
+        "dynamic_launches"]
     rows += (loop["kernel_checks"] + scratch["kernel_checks"]
              + sd_clis["kernel_checks"] + distilling["kernel_checks"]
              + gating["kernel_checks"]
@@ -6043,7 +6256,10 @@ def main() -> int:
                       "launches_per_tp_rank_forward": per_tp_forward[name],
                       "launches_per_fp32_sd_forward": per_fp32_forward[name],
                       "launches_per_fused_fp32_sd_forward":
-                          per_fused_fp32_forward[name]})
+                          per_fused_fp32_forward[name],
+                      "launches_per_fp32_sd_int8_forward": {
+                          mode: agreement["fp32"]["int8"][f"{mode}_launches"][
+                              name] for mode in ("static", "dynamic")}})
     # GroupNorm's fp32 form (the fp32 SD forward's) beside its bf16 row: the
     # forward's most launched shape
     head = max((r for r in rows if r["name"] == "fused_group_norm_f32"),

@@ -44,11 +44,17 @@ SIGNATURES = {
     "polyp_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
     # x, x_is_int8, wq, sw, bias, act_scale, out, m, c, o, stream
     "polyp_w8a8_dense": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the same with fp32 x (or int8 x), an fp32 bias and an fp32 out
+    "polyp_w8a8_dense_f32": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, wq1, sw1, b1, wq2, sw2, b2, act_scale1, act_scale2, workspace, out,
     # t, c, h, stream
     "polyp_geglu_w8a8": [_P] * 11 + [_I, _I, _I, _P],
+    # the same with fp32 x, b1, b2 and out
+    "polyp_geglu_w8a8_f32": [_P] * 11 + [_I, _I, _I, _P],
     # x, wq1, sw1, b1, wq2, sw2, b2, workspace, out, t, c, h, block_h, stream
     "polyp_geglu_w8a8_pt": [_P] * 9 + [_I, _I, _I, _I, _P],
+    # the same with fp32 x, b1, b2 and out
+    "polyp_geglu_w8a8_pt_f32": [_P] * 9 + [_I, _I, _I, _I, _P],
     # x, wq1, sw1, b1, workspace, t, c, h, block_h, stream: the per-token
     # form's first launch alone (codes, then sh, in the workspace)
     "polyp_geglu_w8a8_pt_up": [_P] * 5 + [_I, _I, _I, _I, _P],

@@ -168,7 +168,7 @@ cudaError_t launch_up(const void* x, const void* w1, const void* b1, bf16* h, in
                       int hidden, cudaStream_t stream) {
   using P = GegluUp<BM, BN>;
   typename P::Params p{};
-  cudaError_t err = gemm::encode_map(&p.x, x, false, t, c, BM);
+  cudaError_t err = gemm::encode_map(&p.x, x, gemm::Elem::kBf16, t, c, BM);
   if (err == cudaSuccess) err = gemm::weight_map(&p.w1, w1, false, 2LL * hidden, c, BN);
   if (err != cudaSuccess) return err;
   p.b1 = static_cast<const bf16*>(b1);
@@ -184,7 +184,7 @@ cudaError_t launch_down(const bf16* h, const void* w2, const void* b2, void* out
                         int hidden, cudaStream_t stream) {
   using P = GegluDown<BM, BN>;
   typename P::Params p{};
-  cudaError_t err = gemm::encode_map(&p.h, h, false, t, hidden, BM);
+  cudaError_t err = gemm::encode_map(&p.h, h, gemm::Elem::kBf16, t, hidden, BM);
   if (err == cudaSuccess) err = gemm::weight_map(&p.w2, w2, false, c, hidden, BN);
   if (err != cudaSuccess) return err;
   p.b2 = static_cast<const bf16*>(b2);

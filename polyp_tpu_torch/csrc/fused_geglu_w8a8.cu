@@ -75,6 +75,22 @@
 // multiples of 16; C at most 2,560 (static) or 2,432 (per-token: the panel
 // and its row statistics beside two rings of two stages; the core refuses
 // wider).
+//
+// The fp32 forms (GegluQ8UpF32 and GegluQ8DownF32; GegluQ8PtUpF32 and
+// GegluQ8PtDownF32) take fp32 x, b1 and b2 and write fp32, as the TPU
+// kernels do for an fp32 model (they quantize x.astype(float32) and return
+// x's dtype). The int32 products, h in fp32 and its codes are the bf16
+// forms': launch 1 reads its panel of x as fp32 (eight values, two 16-byte
+// loads, a step: polyp::X8), and the per-token form takes each row's amax
+// from fp32 loads; the panel holds codes, so its size, and the widest C,
+// do not change. Launch 1 reads b1 as fp32 straight from device memory in
+// its epilogue, not through the scratch (fp32 b1 there would leave the
+// static form one stage at C = 2,560). Launch 2 adds an fp32 b2 and writes
+// fp32. What bounds them: the same integer products and erf epilogue, and
+// bytes that fp32 x and out double (at 4096×320→2560: 10.5 MB of x and
+// out, 3.1 µs at 3.35 TB/s, against the products' 2.6 µs).
+
+#include <type_traits>
 
 #include "fused_dense.cuh"
 #include "gemm_core.cuh"
@@ -94,18 +110,21 @@ __device__ __forceinline__ float gelu_gate(float a, float g) {
 // panel and store): BM tokens × 64 hidden units from an A-stationary panel
 // of quantized x, the two consumer warpgroups on alternate tiles (each all
 // BM rows, in BM / 64 wgmma row blocks) with a ring each. acc[2b] and
-// acc[2b + 1] hold a and gate of row block b.
-template <int BM>
+// acc[2b + 1] hold a and gate of row block b. X is the type of x and b1:
+// bf16, or fp32 (the fp32 forms).
+template <int BM, class X>
 struct Q8Up : gemm::Policy {
   static constexpr int kRows = BM, kBN = 64, kRings = 2, kInFlight = 1, kBlocksPerSM = 1;
   static constexpr int kRowBlocks = BM / gemm::kWgRows;
   static constexpr int kAcc = 2 * kRowBlocks;
+  static constexpr bool kF32 = std::is_same_v<X, float>;
   using Acc = int;
   static constexpr int kWBytes = kBN * gemm::kChunkBytes;       // one W1 half's chunk
   static constexpr int kStageBytes = 2 * kWBytes;                // a and gate chunks
   static constexpr int kPanelChunkBytes = BM * gemm::kChunkBytes;
-  // a tile's columns of sw1 (a, gate: fp32) and b1 (a, gate: bf16)
-  static constexpr int kScratchBytes = 2 * kBN * 4 + 2 * kBN * 2;
+  // a tile's columns of sw1 (a, gate: fp32) and, in the bf16 forms, of b1
+  // (a, gate: bf16; the fp32 forms read theirs in the epilogue)
+  static constexpr int kScratchBytes = kF32 ? 2 * kBN * 4 : 2 * kBN * 4 + 2 * kBN * 2;
   template <class Params>
   __device__ static void load(const Params& p, unsigned char* st, int kc, int, int n0,
                               uint64_t* bar) {
@@ -131,11 +150,11 @@ struct Q8Up : gemm::Policy {
   }
   // the epilogue's scales and biases, in flight while the products run:
   // 16-byte copies (zeros past H, a multiple of 16), sw1 a and gate, then
-  // b1 a and gate
+  // (bf16 forms) b1 a and gate
   template <class Params>
   __device__ static void tile_begin(const Params& p, unsigned char* scratch, int n0) {
     const int tid = threadIdx.x & 127;
-    if (tid < 48) {
+    if (tid < (kF32 ? 32 : 48)) {
       const int part = tid < 32 ? tid / 16 : 2 + (tid - 32) / 8;  // sa, sg, ba, bg
       const int v = tid < 32 ? tid % 16 : (tid - 32) % 8;          // 16-byte vector
       const int per = part < 2 ? 4 : 8;                            // elements a vector
@@ -149,13 +168,27 @@ struct Q8Up : gemm::Policy {
     }
     polyp::cp_async_commit();
   }
+  // b1 (a: part 0, gate: part 1) of the tile's columns lc, lc + 1, as fp32:
+  // from the scratch (bf16 forms) or from device memory (fp32 forms), 0 past
+  // H
+  template <class Params>
+  __device__ static float2 b1_pair(const Params& p, const unsigned char* scratch, int n0, int lc,
+                                   int part) {
+    if constexpr (kF32) {
+      return n0 + lc < p.n ? __ldg(reinterpret_cast<const float2*>(p.b1 + part * p.n + n0 + lc))
+                           : make_float2(0.f, 0.f);
+    } else {
+      return polyp::load_pair(reinterpret_cast<const bf16*>(scratch + 2 * kBN * 4) +
+                              part * kBN + lc);
+    }
+  }
 };
 
 // Launch 1 of the static form, a GEMM core policy: the codes of h for BM
-// tokens × 64 hidden units.
-template <int BM>
-struct GegluQ8Up : Q8Up<BM> {
-  using Base = Q8Up<BM>;
+// tokens × 64 hidden units, from x and b1 of type X.
+template <int BM, class X>
+struct GegluQ8UpT : Q8Up<BM, X> {
+  using Base = Q8Up<BM, X>;
   using Base::kBN;
   using Base::kPanelChunkBytes;
   using Base::kRowBlocks;
@@ -164,9 +197,9 @@ struct GegluQ8Up : Q8Up<BM> {
   static_assert(BM * kLd <= kStageBytes, "the staged codes take the tile's last stage");
   struct Params {
     CUtensorMap w1;  // W1q [2H, C] int8, boxes of [64 rows][128 B]
-    const bf16* x;   // [T, C]
+    const X* x;      // [T, C]
     const float* sw1;
-    const bf16* b1;
+    const X* b1;
     const float* sx;
     const float* sh;
     int8_t* out;    // codes [T, H]
@@ -179,14 +212,13 @@ struct GegluQ8Up : Q8Up<BM> {
     const float sx = *p.sx;
     const float inv_x = 1.f / sx;
     const int vecs = p.n_k * (gemm::kChunkBytes / 8);  // 8-code vectors a row
-    for (int v = threadIdx.x; v < BM * vecs; v += gemm::consumers<GegluQ8Up>()) {
+    for (int v = threadIdx.x; v < BM * vecs; v += gemm::consumers<GegluQ8UpT>()) {
       const int r = v / vecs;
       const int col = (v % vecs) * 8;
       uint2 codes = make_uint2(0u, 0u);
       if (m0 + r < p.m && col < p.c) {
-        codes = polyp::quant_bf16x8_bits(
-            *reinterpret_cast<const uint4*>(p.x + static_cast<long long>(m0 + r) * p.c + col), sx,
-            inv_x);
+        codes = polyp::X8<X>::load(p.x + static_cast<long long>(m0 + r) * p.c + col)
+                    .codes(sx, inv_x);
       }
       *reinterpret_cast<uint2*>(dst + (col / gemm::kChunkBytes) * kPanelChunkBytes +
                                 gemm::swizzle128(r, col % gemm::kChunkBytes)) = codes;
@@ -203,8 +235,6 @@ struct GegluQ8Up : Q8Up<BM> {
                                unsigned char*, int m0, int n0) {
     const float* p_sa = reinterpret_cast<const float*>(scratch);
     const float* p_sg = p_sa + kBN;
-    const bf16* p_ba = reinterpret_cast<const bf16*>(p_sg + kBN);
-    const bf16* p_bg = p_ba + kBN;
     const float sx = *p.sx;
     const float sh = *p.sh;
     const float inv_h = 1.f / sh;
@@ -215,15 +245,15 @@ struct GegluQ8Up : Q8Up<BM> {
     // the scratch has landed for every thread, and every wgmma of the
     // warpgroup has read the stage the codes take
     polyp::cp_async_wait<0>();
-    gemm::tile_sync<GegluQ8Up>();
+    gemm::tile_sync<GegluQ8UpT>();
 #pragma unroll
     for (int jj = 0; jj < kBN / 8; ++jj) {
       const int lc = 8 * jj + c;  // the tile's column
       const bool in = n0 + lc < p.n;
       const float2 sa = *reinterpret_cast<const float2*>(p_sa + lc);
       const float2 sg = *reinterpret_cast<const float2*>(p_sg + lc);
-      const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_ba + lc));
-      const float2 bg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_bg + lc));
+      const float2 ba = Base::b1_pair(p, scratch, n0, lc, 0);
+      const float2 bg = Base::b1_pair(p, scratch, n0, lc, 1);
       const float ma[2] = {sx * sa.x, sx * sa.y}, mg[2] = {sx * sg.x, sx * sg.y};
       const float ab[2] = {ba.x, ba.y}, gb[2] = {bg.x, bg.y};
       float hv[kRowBlocks][2][2];
@@ -266,7 +296,7 @@ struct GegluQ8Up : Q8Up<BM> {
         }
       }
     }
-    gemm::tile_sync<GegluQ8Up>();
+    gemm::tile_sync<GegluQ8UpT>();
     constexpr int kVecs = kBN / 16;  // 16 codes a store
 #pragma unroll
     for (int q = 0; q < BM * kVecs / 128; ++q) {
@@ -282,16 +312,21 @@ struct GegluQ8Up : Q8Up<BM> {
 };
 
 template <int BM>
+struct GegluQ8Up : GegluQ8UpT<BM, bf16> {};
+template <int BM>
+struct GegluQ8UpF32 : GegluQ8UpT<BM, float> {};
+
+template <class P>
 cudaError_t launch_up(const void* x, const void* w1, const void* sw1, const void* b1,
                       const void* sx, const void* sh, int8_t* h, int t, int c, int hidden,
                       cudaStream_t stream) {
-  using P = GegluQ8Up<BM>;
+  using X = std::remove_cv_t<std::remove_pointer_t<decltype(P::Params::x)>>;
   typename P::Params p{};
   const cudaError_t err = gemm::weight_map(&p.w1, w1, true, 2LL * hidden, c, P::kBN);
   if (err != cudaSuccess) return err;
-  p.x = static_cast<const bf16*>(x);
+  p.x = static_cast<const X*>(x);
   p.sw1 = static_cast<const float*>(sw1);
-  p.b1 = static_cast<const bf16*>(b1);
+  p.b1 = static_cast<const X*>(b1);
   p.sx = static_cast<const float*>(sx);
   p.sh = static_cast<const float*>(sh);
   p.out = h;
@@ -304,11 +339,12 @@ cudaError_t launch_up(const void* x, const void* w1, const void* sw1, const void
 
 // Launch 1 of the per-token form, a GEMM core policy: the codes of h and
 // the group scales sh for BM tokens, a block's hidden tiles in whole groups
-// (the core's units). The panel's extra room holds three rows of BM values:
-// sx, the running |h| max of the group (float bits) and the group's sh.
-template <int BM>
-struct GegluQ8PtUp : Q8Up<BM> {
-  using Base = Q8Up<BM>;
+// (the core's units), from x and b1 of type X. The panel's extra room holds
+// three rows of BM values: sx, the running |h| max of the group (float
+// bits) and the group's sh.
+template <int BM, class X>
+struct GegluQ8PtUpT : Q8Up<BM, X> {
+  using Base = Q8Up<BM, X>;
   using Base::kBN;
   using Base::kPanelChunkBytes;
   using Base::kRowBlocks;
@@ -319,9 +355,9 @@ struct GegluQ8PtUp : Q8Up<BM> {
   static constexpr int kBarrier = Base::kRings + 1;
   struct Params {
     CUtensorMap w1;  // W1q [2H, C] int8, boxes of [64 rows][128 B]
-    const bf16* x;   // [T, C]
+    const X* x;      // [T, C]
     const float* sw1;
-    const bf16* b1;
+    const X* b1;
     int8_t* out;    // codes [T, H]
     float* sh;      // [T, groups]
     float* slots;   // a block's fp32 h of one group: [blocks][BM][block_h]
@@ -344,9 +380,10 @@ struct GegluQ8PtUp : Q8Up<BM> {
   }
   // the row scales, then the panel quantized with them. Each pass is
   // latency-bound (x is read from L2, 16 bytes a load), so every thread
-  // issues kBatch independent loads before it uses any: four threads a row
-  // for the amax (rows past T take 1e-12 / 127), then the codes 8 a vector
-  // (zeros past T and past C up to whole chunks)
+  // issues kBatch independent loads of eight values (one 16-byte load of
+  // bf16, two of fp32) before it uses any: four threads a row for the amax
+  // (rows past T take 1e-12 / 127), then the codes 8 a vector (zeros past T
+  // and past C up to whole chunks)
   __device__ static void panel(const Params& p, unsigned char* dst, int m0) {
     constexpr int kBatch = 8;
     static_assert(kThreads == 4 * BM, "four threads a row");
@@ -356,19 +393,18 @@ struct GegluQ8PtUp : Q8Up<BM> {
     const int x_vecs = p.c / 8;  // 8-element vectors a row of x
     {
       const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-      const bf16* row = p.x + static_cast<long long>(m0 + r) * p.c;
+      const X* row = p.x + static_cast<long long>(m0 + r) * p.c;
       const bool live = m0 + r < p.m;
       float m = 0.f;
       for (int v0 = part; v0 < x_vecs; v0 += 4 * kBatch) {
-        uint4 raw[kBatch];
+        polyp::X8<X> raw[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           const int v = v0 + 4 * u;
-          raw[u] = live && v < x_vecs ? *reinterpret_cast<const uint4*>(row + v * 8)
-                                      : make_uint4(0u, 0u, 0u, 0u);
+          raw[u] = live && v < x_vecs ? polyp::X8<X>::load(row + v * 8) : polyp::X8<X>::zero();
         }
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u) m = fmaxf(m, polyp::absmax_bf16x8(raw[u]));
+        for (int u = 0; u < kBatch; ++u) m = fmaxf(m, raw[u].absmax());
       }
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
@@ -380,15 +416,14 @@ struct GegluQ8PtUp : Q8Up<BM> {
     gemm::named_sync(kBarrier, kThreads);
     const int vecs = p.n_k * (gemm::kChunkBytes / 8);  // 8-code vectors a panel row
     for (int v0 = threadIdx.x; v0 < BM * vecs; v0 += kBatch * kThreads) {
-      uint4 raw[kBatch];
+      polyp::X8<X> raw[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int v = v0 + u * kThreads;
         const int r = v / vecs, col = (v % vecs) * 8;
-        const bf16* src = p.x + static_cast<long long>(m0 + r) * p.c + col;
-        raw[u] = v < BM * vecs && m0 + r < p.m && col < p.c
-                     ? *reinterpret_cast<const uint4*>(src)
-                     : make_uint4(0u, 0u, 0u, 0u);
+        const X* src = p.x + static_cast<long long>(m0 + r) * p.c + col;
+        raw[u] = v < BM * vecs && m0 + r < p.m && col < p.c ? polyp::X8<X>::load(src)
+                                                             : polyp::X8<X>::zero();
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -398,7 +433,7 @@ struct GegluQ8PtUp : Q8Up<BM> {
         const float s = sx[r];
         *reinterpret_cast<uint2*>(dst + (col / gemm::kChunkBytes) * kPanelChunkBytes +
                                   gemm::swizzle128(r, col % gemm::kChunkBytes)) =
-            col < p.c ? polyp::quant_bf16x8_bits(raw[u], s, 1.f / s) : make_uint2(0u, 0u);
+            col < p.c ? raw[u].codes(s, 1.f / s) : make_uint2(0u, 0u);
       }
     }
   }
@@ -410,8 +445,6 @@ struct GegluQ8PtUp : Q8Up<BM> {
                                int n0) {
     const float* p_sa = reinterpret_cast<const float*>(scratch);
     const float* p_sg = p_sa + kBN;
-    const bf16* p_ba = reinterpret_cast<const bf16*>(p_sg + kBN);
-    const bf16* p_bg = p_ba + kBN;
     const float* sx = row_scales(extra);
     const int tid = threadIdx.x & 127;
     const int lane = tid & 31;
@@ -420,7 +453,7 @@ struct GegluQ8PtUp : Q8Up<BM> {
     float* h = slot(p) + (n0 - n0 / p.block_h * p.block_h);  // the tile's first column
     // the scratch has landed for every thread of the warpgroup
     polyp::cp_async_wait<0>();
-    gemm::tile_sync<GegluQ8PtUp>();
+    gemm::tile_sync<GegluQ8PtUpT>();
     float rmax[kRowBlocks][2] = {};
 #pragma unroll
     for (int jj = 0; jj < kBN / 8; ++jj) {
@@ -428,8 +461,8 @@ struct GegluQ8PtUp : Q8Up<BM> {
       if (n0 + lc >= p.n) continue;
       const float2 sa = *reinterpret_cast<const float2*>(p_sa + lc);
       const float2 sg = *reinterpret_cast<const float2*>(p_sg + lc);
-      const float2 ba = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_ba + lc));
-      const float2 bg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p_bg + lc));
+      const float2 ba = Base::b1_pair(p, scratch, n0, lc, 0);
+      const float2 bg = Base::b1_pair(p, scratch, n0, lc, 1);
       const float wa[2] = {sa.x, sa.y}, wg[2] = {sg.x, sg.y};
       const float ab[2] = {ba.x, ba.y}, gb[2] = {bg.x, bg.y};
 #pragma unroll
@@ -523,11 +556,17 @@ struct GegluQ8PtUp : Q8Up<BM> {
   }
 };
 
+template <int BM>
+struct GegluQ8PtUp : GegluQ8PtUpT<BM, bf16> {};
+template <int BM>
+struct GegluQ8PtUpF32 : GegluQ8PtUpT<BM, float> {};
+
 using PtUp = GegluQ8PtUp<64>;
+using PtUpF32 = GegluQ8PtUpF32<64>;
 
 // The per-token form's workspace, in bytes: the codes [T, H] int8, sh
 // [T, H / block_h] fp32 and launch 1's slots, one a block (each offset a
-// multiple of 16).
+// multiple of 16). The fp32 form's plan has the same blocks.
 struct PtWorkspace {
   long long sh, slots, bytes;
 };
@@ -547,49 +586,41 @@ bool pt_shape_ok(int h, int block_h) {
   return block_h > 0 && block_h % 16 == 0 && h % block_h == 0;
 }
 
-}  // namespace
-
-// Bytes of workspace the int8 GEGLU needs: the static form's h codes [T, H]
-// (block_h == 0), or the per-token form's codes, group scales and slots
-// (0 for a block_h it cannot take).
-extern "C" long long polyp_geglu_w8a8_workspace(int t, int c, int h, int block_h) {
-  if (block_h == 0) return static_cast<long long>(t) * h;
-  return pt_shape_ok(h, block_h) ? pt_workspace(t, c, h, block_h).bytes : 0;
-}
-
-extern "C" int polyp_geglu_w8a8(const void* x, const void* w1, const void* sw1, const void* b1,
-                                const void* w2, const void* sw2, const void* b2, const void* sx,
-                                const void* sh, void* ws, void* out, int t, int c, int h,
-                                void* stream) {
+// Both launches of the static form, x and the biases of type X.
+template <class X>
+int geglu_w8a8(const void* x, const void* w1, const void* sw1, const void* b1, const void* w2,
+               const void* sw2, const void* b2, const void* sx, const void* sh, void* ws,
+               void* out, int t, int c, int h, cudaStream_t s) {
+  constexpr bool kF32 = std::is_same_v<X, float>;
+  using Wide = std::conditional_t<kF32, GegluQ8UpF32<128>, GegluQ8Up<128>>;
+  using Narrow = std::conditional_t<kF32, GegluQ8UpF32<64>, GegluQ8Up<64>>;
   if (t == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* codes = static_cast<int8_t*>(ws);
   // 128-token panels (a W1 tile serves twice the tokens) where the panel
   // leaves deep rings and the panels cover a quarter of the SMs; else 64
   // (more panels, so fewer blocks quantize the same one)
   const bool wide = c <= 640 && (t + 127) / 128 * 4 >= gemm::sm_count();
-  const cudaError_t err = wide ? launch_up<128>(x, w1, sw1, b1, sx, sh, codes, t, c, h, s)
-                               : launch_up<64>(x, w1, sw1, b1, sx, sh, codes, t, c, h, s);
+  const cudaError_t err = wide ? launch_up<Wide>(x, w1, sw1, b1, sx, sh, codes, t, c, h, s)
+                               : launch_up<Narrow>(x, w1, sw1, b1, sx, sh, codes, t, c, h, s);
   if (err != cudaSuccess) return err;
-  return polyp::geglu_q8_down(codes, w2, sw2, b2, sh, out, t, h, c, s);
+  return polyp::geglu_q8_down(codes, w2, sw2, b2, sh, out, t, h, c, kF32, s);
 }
 
-// Launch 1 of the per-token form alone: the codes at the workspace's start
-// ([T, H] int8) and sh after them ([T, H / block_h] fp32, at the first
-// multiple of 16 bytes past T·H).
-extern "C" int polyp_geglu_w8a8_pt_up(const void* x, const void* w1, const void* sw1,
-                                      const void* b1, void* ws, int t, int c, int h, int block_h,
-                                      void* stream) {
+// Launch 1 of the per-token form alone, x and b1 of type X.
+template <class P>
+int geglu_w8a8_pt_up(const void* x, const void* w1, const void* sw1, const void* b1, void* ws,
+                     int t, int c, int h, int block_h, cudaStream_t stream) {
+  using X = std::remove_cv_t<std::remove_pointer_t<decltype(P::Params::x)>>;
   if (!pt_shape_ok(h, block_h)) return cudaErrorInvalidValue;
   if (t == 0) return cudaSuccess;
   const PtWorkspace w = pt_workspace(t, c, h, block_h);
-  PtUp::Params p{};
-  const cudaError_t err = gemm::weight_map(&p.w1, w1, true, 2LL * h, c, PtUp::kBN);
+  typename P::Params p{};
+  const cudaError_t err = gemm::weight_map(&p.w1, w1, true, 2LL * h, c, P::kBN);
   if (err != cudaSuccess) return err;
   unsigned char* base = static_cast<unsigned char*>(ws);
-  p.x = static_cast<const bf16*>(x);
+  p.x = static_cast<const X*>(x);
   p.sw1 = static_cast<const float*>(sw1);
-  p.b1 = static_cast<const bf16*>(b1);
+  p.b1 = static_cast<const X*>(b1);
   p.out = static_cast<int8_t*>(ws);
   p.sh = reinterpret_cast<float*>(base + w.sh);
   p.slots = reinterpret_cast<float*>(base + w.slots);
@@ -599,16 +630,74 @@ extern "C" int polyp_geglu_w8a8_pt_up(const void* x, const void* w1, const void*
   p.c = c;
   p.block_h = block_h;
   p.groups = h / block_h;
-  return gemm::launch<PtUp>(p, static_cast<cudaStream_t>(stream));
+  return gemm::launch<P>(p, stream);
+}
+
+// Both launches of the per-token form, x and the biases of type X.
+template <class P>
+int geglu_w8a8_pt(const void* x, const void* w1, const void* sw1, const void* b1, const void* w2,
+                  const void* sw2, const void* b2, void* ws, void* out, int t, int c, int h,
+                  int block_h, cudaStream_t stream) {
+  using X = std::remove_cv_t<std::remove_pointer_t<decltype(P::Params::x)>>;
+  const cudaError_t err = static_cast<cudaError_t>(
+      geglu_w8a8_pt_up<P>(x, w1, sw1, b1, ws, t, c, h, block_h, stream));
+  if (err != cudaSuccess || t == 0) return err;
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  return polyp::geglu_q8_pt_down(base, base + pt_workspace(t, c, h, block_h).sh, w2, sw2, b2, out,
+                                 t, h, c, block_h, std::is_same_v<X, float>, stream);
+}
+
+}  // namespace
+
+// Bytes of workspace the int8 GEGLU needs: the static form's h codes [T, H]
+// (block_h == 0), or the per-token form's codes, group scales and slots
+// (0 for a block_h it cannot take). The same for both dtypes.
+extern "C" long long polyp_geglu_w8a8_workspace(int t, int c, int h, int block_h) {
+  if (block_h == 0) return static_cast<long long>(t) * h;
+  return pt_shape_ok(h, block_h) ? pt_workspace(t, c, h, block_h).bytes : 0;
+}
+
+extern "C" int polyp_geglu_w8a8(const void* x, const void* w1, const void* sw1, const void* b1,
+                                const void* w2, const void* sw2, const void* b2, const void* sx,
+                                const void* sh, void* ws, void* out, int t, int c, int h,
+                                void* stream) {
+  return geglu_w8a8<bf16>(x, w1, sw1, b1, w2, sw2, b2, sx, sh, ws, out, t, c, h,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The static form's fp32 form: fp32 x, b1, b2 and out; the h codes at the
+// workspace's start, as in the bf16 form.
+extern "C" int polyp_geglu_w8a8_f32(const void* x, const void* w1, const void* sw1,
+                                    const void* b1, const void* w2, const void* sw2,
+                                    const void* b2, const void* sx, const void* sh, void* ws,
+                                    void* out, int t, int c, int h, void* stream) {
+  return geglu_w8a8<float>(x, w1, sw1, b1, w2, sw2, b2, sx, sh, ws, out, t, c, h,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// Launch 1 of the per-token form alone: the codes at the workspace's start
+// ([T, H] int8) and sh after them ([T, H / block_h] fp32, at the first
+// multiple of 16 bytes past T·H).
+extern "C" int polyp_geglu_w8a8_pt_up(const void* x, const void* w1, const void* sw1,
+                                      const void* b1, void* ws, int t, int c, int h, int block_h,
+                                      void* stream) {
+  return geglu_w8a8_pt_up<PtUp>(x, w1, sw1, b1, ws, t, c, h, block_h,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int polyp_geglu_w8a8_pt(const void* x, const void* w1, const void* sw1, const void* b1,
                                    const void* w2, const void* sw2, const void* b2, void* ws,
                                    void* out, int t, int c, int h, int block_h, void* stream) {
-  const cudaError_t err = static_cast<cudaError_t>(
-      polyp_geglu_w8a8_pt_up(x, w1, sw1, b1, ws, t, c, h, block_h, stream));
-  if (err != cudaSuccess || t == 0) return err;
-  unsigned char* base = static_cast<unsigned char*>(ws);
-  return polyp::geglu_q8_pt_down(base, base + pt_workspace(t, c, h, block_h).sh, w2, sw2, b2, out,
-                                 t, h, c, block_h, static_cast<cudaStream_t>(stream));
+  return geglu_w8a8_pt<PtUp>(x, w1, sw1, b1, w2, sw2, b2, ws, out, t, c, h, block_h,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The per-token form's fp32 form: fp32 x, b1, b2 and out; the codes and sh
+// in the workspace as in the bf16 form.
+extern "C" int polyp_geglu_w8a8_pt_f32(const void* x, const void* w1, const void* sw1,
+                                       const void* b1, const void* w2, const void* sw2,
+                                       const void* b2, void* ws, void* out, int t, int c, int h,
+                                       int block_h, void* stream) {
+  return geglu_w8a8_pt<PtUpF32>(x, w1, sw1, b1, w2, sw2, b2, ws, out, t, c, h, block_h,
+                                static_cast<cudaStream_t>(stream));
 }

@@ -28,9 +28,10 @@
 //   L2 a FLOP.
 // * Persistent blocks walk the output tiles; the producer streams on across
 //   tile boundaries, so a tile's first chunks load while the previous
-//   tile's epilogue runs. The epilogue turns the sums into bf16 outputs in
-//   registers, stages them in shared memory (in the tile's last ring stage
-//   where it fits) and writes them out in coalesced 16-byte stores.
+//   tile's epilogue runs. The epilogue turns the sums into outputs in
+//   registers (bf16, or fp32 for the int8 kernels' fp32 forms: the policy's
+//   Out), stages them in shared memory (in the tile's last ring stage where
+//   it fits) and writes them out in coalesced 16-byte stores.
 // * An A-stationary mode (the int8 GEGLU's first product, whose epilogue
 //   dominates): a block keeps its row panel of A, all of K, in shared
 //   memory, written once by its own threads, and walks that panel's column
@@ -384,8 +385,11 @@ struct Wgmma<160> {
 //   load(p, stage, kc, m0, n0, bar)   the TMA copies of chunk kc;
 //   mma(p, stage, acc)                fence, wgmma over the chunk for the
 //                                     calling warpgroup's rows, commit;
-//   epilogue(p, col, v)               the bf16 outputs of columns col and
-//                                     col + 1 from v[kAcc][2], their sums;
+//   epilogue(p, col, v)               the outputs of columns col and col + 1
+//                                     (an OutPair<Out>) from v[kAcc][2],
+//                                     their sums;
+//   Out              bf16 (Policy) or float: the type of `out` and of the
+//                    staged output tile;
 //   kRings           1 (Policy): one or two consumer warpgroups share each
 //                    tile, 64 rows each (two halve B's reads from L2), fed
 //                    by one ring. 2: two warpgroups take alternate tiles,
@@ -422,6 +426,7 @@ struct Wgmma<160> {
 //                    fp32 ones there), and K is never split over a
 //                    cluster, so the folds keep their order.
 struct Policy {
+  using Out = bf16;
   static constexpr int kRings = 1;
   static constexpr int kPanelChunkBytes = 0;
   static constexpr int kPanelExtraBytes = 0;
@@ -474,12 +479,31 @@ struct Ring {
   __device__ void wait_full(uint64_t* full, int i) const { mbar_wait(&full[slot(i)], parity(i)); }
 };
 
-// The staged bf16 output tile [kRows][kBN + 8] (the padding puts the eight
-// rows of a fragment on distinct banks). It takes the stage of the tile's
-// last chunk, held back from the producer until the tile is written out,
-// where the stage is large enough, and room after the ring where not.
+// Two outputs of an epilogue, of the policy's output type: bf16 (the
+// default) or fp32 (the int8 kernels' fp32 forms).
+template <class T>
+struct OutPair;
+template <>
+struct OutPair<bf16> {
+  using type = __nv_bfloat162;
+  __device__ static type of(float a, float b) { return __floats2bfloat162_rn(a, b); }
+};
+template <>
+struct OutPair<float> {
+  using type = float2;
+  __device__ static type of(float a, float b) { return make_float2(a, b); }
+};
+
+// The staged output tile [kRows][kBN + 8] of P::Out (the padding puts the
+// eight rows of a fragment on distinct banks: for bf16 pairs, and for the
+// fp32 pairs of each half-warp's store phase). It takes the stage of the
+// tile's last chunk, held back from the producer until the tile is written
+// out, where the stage is large enough, and room after the ring where not:
+// an fp32 tile takes twice a bf16 one's bytes.
 template <class P>
-__host__ __device__ constexpr int out_tile_bytes() { return P::kRows * (P::kBN + 8) * 2; }
+__host__ __device__ constexpr int out_tile_bytes() {
+  return P::kRows * (P::kBN + 8) * static_cast<int>(sizeof(typename P::Out));
+}
 template <class P>
 __host__ __device__ constexpr bool out_in_stage() {
   return out_tile_bytes<P>() <= P::kStageBytes;
@@ -494,13 +518,17 @@ __host__ __device__ constexpr bool out_in_stage() {
 template <class P>
 __device__ __forceinline__ void store_tile(const typename P::Params& p,
                                            typename P::Acc (&acc)[P::kAcc][P::kBN / 2],
-                                           bf16* tile, int m0, int n0) {
+                                           typename P::Out* tile, int m0, int n0) {
+  using Pair = typename OutPair<typename P::Out>::type;
   constexpr int LD = P::kBN + 8;
   constexpr int kVecs = P::kBN / 8;
+  // 16-byte vectors of a staged row: kVecs of bf16, twice as many of fp32
+  constexpr int kRowVecs = P::kBN * static_cast<int>(sizeof(typename P::Out)) / 16;
+  constexpr int kPer = 16 / static_cast<int>(sizeof(typename P::Out));
   const int lane = threadIdx.x & 31;
   const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);
   const int c = (lane & 3) * 2;
-  __nv_bfloat162 out[kVecs][2];
+  Pair out[kVecs][2];
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
 #pragma unroll
@@ -512,7 +540,7 @@ __device__ __forceinline__ void store_tile(const typename P::Params& p,
         v[a][1] = acc[a][4 * j + 2 * half + 1];
       }
       out[j][half] = n0 + 8 * j + c < p.n ? P::epilogue(p, n0 + 8 * j + c, v)
-                                          : __floats2bfloat162_rn(0.f, 0.f);
+                                          : OutPair<typename P::Out>::of(0.f, 0.f);
     }
   }
   // every wgmma of the block has read the stage the tile may take, and the
@@ -522,19 +550,19 @@ __device__ __forceinline__ void store_tile(const typename P::Params& p,
   for (int j = 0; j < kVecs; ++j) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8 * half) * LD + 8 * j + c) = out[j][half];
+      *reinterpret_cast<Pair*>(tile + (r + 8 * half) * LD + 8 * j + c) = out[j][half];
     }
   }
   consumer_sync<consumers<P>()>();
-  // kRows · kVecs / consumers = kVecs / 2 vectors a thread
+  // kRows · kRowVecs / consumers = kRowVecs / 2 vectors a thread
 #pragma unroll
-  for (int q = 0; q < kVecs / 2; ++q) {
+  for (int q = 0; q < kRowVecs / 2; ++q) {
     const int i = threadIdx.x + q * consumers<P>();
-    const int row = m0 + i / kVecs;
-    const int col = n0 + (i % kVecs) * 8;
+    const int row = m0 + i / kRowVecs;
+    const int col = n0 + (i % kRowVecs) * kPer;
     if (row < p.m && col < p.n) {
       *reinterpret_cast<uint4*>(p.out + static_cast<long long>(row) * p.n + col) =
-          *reinterpret_cast<const uint4*>(tile + (i / kVecs) * LD + (i % kVecs) * 8);
+          *reinterpret_cast<const uint4*>(tile + (i / kRowVecs) * LD + (i % kRowVecs) * kPer);
     }
   }
 }
@@ -596,8 +624,11 @@ __device__ __forceinline__ void reduce_store(const typename P::Params& p,
         }
       }
     }
-    uint4 packed;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
+    // the 8 outputs: one 16-byte store of bf16, two of fp32
+    using Pair = typename OutPair<typename P::Out>::type;
+    constexpr int kStores = static_cast<int>(sizeof(Pair)) * 4 / 16;
+    uint4 packed[kStores];
+    Pair* o = reinterpret_cast<Pair*>(packed);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       T pair[P::kAcc][2];
@@ -608,7 +639,9 @@ __device__ __forceinline__ void reduce_store(const typename P::Params& p,
       }
       o[e] = P::epilogue(p, n0 + c + 2 * e, pair);
     }
-    *reinterpret_cast<uint4*>(p.out + static_cast<long long>(m0 + r) * p.n + n0 + c) = packed;
+    uint4* dst = reinterpret_cast<uint4*>(p.out + static_cast<long long>(m0 + r) * p.n + n0 + c);
+#pragma unroll
+    for (int u = 0; u < kStores; ++u) dst[u] = packed[u];
   }
 }
 
@@ -767,7 +800,7 @@ __global__ void __launch_bounds__(consumers<P>() + 32, P::kBlocksPerSM)
         continue;
       }
       unsigned char* out = out_in_stage<P>() ? rings + last * P::kStageBytes : scratch;
-      store_tile<P>(p, acc, reinterpret_cast<bf16*>(out), m0, n0);
+      store_tile<P>(p, acc, reinterpret_cast<typename P::Out*>(out), m0, n0);
     } else {
       P::store(p, acc, rings + last * P::kStageBytes, scratch, extra, m0, n0);
     }
@@ -801,21 +834,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a row-major [rows, cols] tensor of bf16 (int8 = false) or
-// int8, read in boxes of [box_rows, 128 bytes] with the 128-byte swizzle.
-// The base must be 16-byte aligned and a row a multiple of 16 bytes.
-inline cudaError_t encode_map(CUtensorMap* map, const void* base, bool int8, long long rows,
+// A tensor map's element type, by its bytes.
+enum class Elem { kInt8 = 1, kBf16 = 2, kFp32 = 4 };
+
+// The map of a row-major [rows, cols] tensor of int8, bf16 or fp32, read in
+// boxes of [box_rows, 128 bytes] (128, 64 or 32 elements) with the 128-byte
+// swizzle. The base must be 16-byte aligned and a row a multiple of 16
+// bytes.
+inline cudaError_t encode_map(CUtensorMap* map, const void* base, Elem type, long long rows,
                               long long cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const int elem = int8 ? 1 : 2;
+  const int elem = static_cast<int>(type);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * elem)};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChunkBytes / elem),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        2, const_cast<void*>(base), dims, strides, box, steps,
+  const CUtensorMapDataType dtype = type == Elem::kInt8   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                    : type == Elem::kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUresult r = fn(map, dtype, 2, const_cast<void*>(base), dims, strides, box, steps,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -833,7 +872,8 @@ inline cudaError_t weight_map(CUtensorMap* map, const void* base, bool int8, lon
   auto it = cache.find(key);
   if (it == cache.end()) {
     CUtensorMap fresh;
-    const cudaError_t err = encode_map(&fresh, base, int8, rows, cols, box_rows);
+    const cudaError_t err =
+        encode_map(&fresh, base, int8 ? Elem::kInt8 : Elem::kBf16, rows, cols, box_rows);
     if (err != cudaSuccess) return err;
     it = cache.emplace(key, fresh).first;
   }

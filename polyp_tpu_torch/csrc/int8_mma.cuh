@@ -1,7 +1,7 @@
 // int8 helpers of the W8A8 kernels: the round-half-to-even quantize every
 // int8 kernel applies, its division-free form (the dense and both int8
-// GEGLU forms), the packing of codes into words and the amax of eight bf16
-// values.
+// GEGLU forms), the packing of codes into words, the amax and codes of
+// eight bf16 or four fp32 values, and X8, eight activations of either type.
 #pragma once
 
 #include "common.cuh"
@@ -81,6 +81,66 @@ __device__ __forceinline__ float absmax_bf16x8(uint4 v) {
   float m = 0.f;
   for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(__bfloat162float(e[i])));
   return m;
+}
+
+// Four fp32 values (one 16-byte vector) quantized with scale s (inv = 1/s,
+// IEEE) into four int8 codes packed little-endian into one word:
+// quant_s8_bits for each, the division taken for all four where one of
+// them is too near a tie. An fp32 x has far more values near a tie than a
+// bf16 one (24 bits of precision against 8), so this branch is taken more
+// often than quant_bf16x8_bits', and it is what keeps the codes bit-equal
+// to quant_s8 and torch.round.
+__device__ __forceinline__ uint32_t quant_f32x4_bits(float4 v, float s, float inv) {
+  bool n0, n1, n2, n3;
+  const uint32_t q0 = quant_s8_bits(v.x, inv, &n0), q1 = quant_s8_bits(v.y, inv, &n1);
+  const uint32_t q2 = quant_s8_bits(v.z, inv, &n2), q3 = quant_s8_bits(v.w, inv, &n3);
+  if (n0 | n1 | n2 | n3) {
+    return pack_s8x4(quant_s8(v.x, s), quant_s8(v.y, s), quant_s8(v.z, s), quant_s8(v.w, s));
+  }
+  return pack_low_bytes(q0, q1, q2, q3);
+}
+
+__device__ __forceinline__ float absmax_f32x4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// Eight activations of an int8 kernel's input x, bf16 (one 16-byte load)
+// or fp32 (two): the loads, the amax and the codes of each, so that a
+// kernel's quantize is written once for both input types.
+template <class T>
+struct X8;
+
+template <>
+struct X8<bf16> {
+  uint4 v;
+  __device__ static X8 load(const bf16* p) { return {*reinterpret_cast<const uint4*>(p)}; }
+  __device__ static X8 zero() { return {make_uint4(0u, 0u, 0u, 0u)}; }
+  __device__ float absmax() const { return absmax_bf16x8(v); }
+  __device__ uint2 codes(float s, float inv) const { return quant_bf16x8_bits(v, s, inv); }
+};
+
+template <>
+struct X8<float> {
+  float4 lo, hi;
+  __device__ static X8 load(const float* p) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return {q[0], q[1]};
+  }
+  __device__ static X8 zero() {
+    return {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
+  __device__ float absmax() const { return fmaxf(absmax_f32x4(lo), absmax_f32x4(hi)); }
+  __device__ uint2 codes(float s, float inv) const {
+    return make_uint2(quant_f32x4_bits(lo, s, inv), quant_f32x4_bits(hi, s, inv));
+  }
+};
+
+// Two values of a bias (bf16 or fp32) as fp32.
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
 }  // namespace polyp

@@ -27,8 +27,10 @@ its plain version on CPU tensors:
 
 Weights are in torch's Linear layout: w1 [2H, C] with a = rows :H and gate
 = rows H: (diffusers' `chunk(2)`), w2 [C, H]; the int8 kernels take them
-quantized once outside (`quant.module_weight_q8`), bf16 x, any token count,
-and C and H multiples of 16.
+quantized once outside (`quant.module_weight_q8`), any token count, and C
+and H multiples of 16. Their x and biases are all bf16, or all fp32: the
+fp32 forms (the same file, counted apart as `f32_launches`) return fp32,
+as the Pallas kernels compute in and return x's dtype.
 
 Inference only, as in the reference (ops/dispatch.py): FeedForward takes
 these paths only when autograd is off, and the wrappers raise if asked to
@@ -179,6 +181,15 @@ def reference_geglu_w8a8_codes(x: torch.Tensor, wq1: torch.Tensor,
     return quant.quantize_activation(a * F.gelu(gate), act_scale2)[0]
 
 
+def row_codes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-token form's x codes: each row of x [..., C] (in fp32)
+    quantized with its own scale sx = max(|x[t, :]|, 1e-12) / 127. Returns
+    (codes [T, C] int8, sx [T, 1] fp32)."""
+    x32 = x.reshape(-1, x.shape[-1]).float()
+    sxr = x32.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
+    return torch.clamp(torch.round(x32 / sxr), -127, 127).to(torch.int8), sxr
+
+
 def reference_geglu_w8a8_pt_codes(x: torch.Tensor, wq1: torch.Tensor,
                                   sw1: torch.Tensor, b1: torch.Tensor
                                   ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -191,9 +202,7 @@ def reference_geglu_w8a8_pt_codes(x: torch.Tensor, wq1: torch.Tensor,
     c = x.shape[-1]
     hidden = wq1.shape[0] // 2
     bh = block_h(c, hidden)
-    x32 = x.reshape(-1, c).float()
-    sxr = x32.abs().amax(dim=1, keepdim=True).clamp(min=1e-12) / 127.0
-    xq = torch.clamp(torch.round(x32 / sxr), -127, 127).to(torch.int8)
+    xq, sxr = row_codes(x)
     h1 = quant.int_mm(xq, wq1).float() * (sxr * sw1) + b1.float()
     a, gate = h1.chunk(2, dim=-1)
     h = a * F.gelu(gate)
@@ -246,8 +255,10 @@ def reference_geglu_w8a8_pt(x: torch.Tensor, wq1: torch.Tensor,
 def _check_q8_geglu(name: str, x, wq1, sw1, b1, wq2, sw2, b2) -> None:
     c = x.shape[-1]
     hidden = wq2.shape[1]
-    if any(t.dtype != torch.bfloat16 for t in (x, b1, b2)):
-        raise ValueError(f"the {name} kernel takes bf16 x and biases")
+    dtypes = {t.dtype for t in (x, b1, b2)}
+    if dtypes not in ({torch.bfloat16}, {torch.float32}):
+        raise ValueError(f"the {name} kernel takes x and biases all bf16 or "
+                         f"all fp32, got {sorted(map(str, dtypes))}")
     if (wq1.dtype != torch.int8 or wq2.dtype != torch.int8
             or wq1.shape != (2 * hidden, c) or wq2.shape != (c, hidden)
             or sw1.shape != (2 * hidden,) or sw2.shape != (c,)
@@ -263,10 +274,11 @@ def _check_q8_geglu(name: str, x, wq1, sw1, b1, wq2, sw2, b2) -> None:
 
 def _q8_geglu_launch(name: str, entry: str, x: torch.Tensor, weights,
                      scales, group: int) -> torch.Tensor:
-    """Launch either int8 GEGLU form: contiguity and alignment, the
-    workspace that the C side sizes in bytes (`group` = 0 for the static
-    form's h codes, else block_h for the per-token form's codes, group
-    scales and first-launch slots), the error check."""
+    """Launch either int8 GEGLU form, bf16 or (fp32 x: `entry` + "_f32")
+    fp32: contiguity and alignment, the workspace that the C side sizes in
+    bytes (`group` = 0 for the static form's h codes, else block_h for the
+    per-token form's codes, group scales and first-launch slots), the error
+    check."""
     wq1, sw1, b1, wq2, sw2, b2 = (t.contiguous() for t in weights)
     c = x.shape[-1]
     hidden = wq2.shape[1]
@@ -284,10 +296,20 @@ def _q8_geglu_launch(name: str, entry: str, x: torch.Tensor, weights,
         ptrs = [p.data_ptr() for p in (xf, wq1, sw1, b1, wq2, sw2, b2,
                                        *scales)]
         sizes = (t, c, hidden, group) if group else (t, c, hidden)
-        err = getattr(lib, entry)(*ptrs, workspace.data_ptr(),
-                                  out.data_ptr(), *sizes, _build.stream_of(x))
-    _build.check(err, f"{name} kernel")
+        f32 = x.dtype == torch.float32
+        err = getattr(lib, entry + ("_f32" if f32 else ""))(
+            *ptrs, workspace.data_ptr(), out.data_ptr(), *sizes,
+            _build.stream_of(x))
+    _build.check(err, f"{name} kernel" + (" (fp32)" if f32 else ""))
     return out.reshape(x.shape)
+
+
+def _count(fn, x: torch.Tensor) -> None:
+    """One launch of `fn`'s bf16 or fp32 form."""
+    if x.dtype == torch.float32:
+        fn.f32_launches += 1
+    else:
+        fn.launches += 1
 
 
 def fused_geglu_w8a8(x: torch.Tensor, wq1: torch.Tensor, sw1: torch.Tensor,
@@ -311,7 +333,7 @@ def fused_geglu_w8a8(x: torch.Tensor, wq1: torch.Tensor, sw1: torch.Tensor,
                              "device")
     out = _q8_geglu_launch("static W8A8 GEGLU", "polyp_geglu_w8a8", x,
                            weights, (act_scale1, act_scale2), 0)
-    fused_geglu_w8a8.launches += 1
+    _count(fused_geglu_w8a8, x)
     return out
 
 
@@ -332,9 +354,11 @@ def fused_geglu_w8a8_pt(x: torch.Tensor, wq1: torch.Tensor,
     group = block_h(x.shape[-1], wq2.shape[1])
     out = _q8_geglu_launch("per-token W8A8 GEGLU", "polyp_geglu_w8a8_pt", x,
                            weights, (), group)
-    fused_geglu_w8a8_pt.launches += 1
+    _count(fused_geglu_w8a8_pt, x)
     return out
 
 
 fused_geglu_w8a8.launches = 0
+fused_geglu_w8a8.f32_launches = 0
 fused_geglu_w8a8_pt.launches = 0
+fused_geglu_w8a8_pt.f32_launches = 0

@@ -371,15 +371,25 @@ def module_weight_q8(module: torch.nn.Module
     return hit[1], hit[2]
 
 
+# `torch._int_mm` on a CUDA tensor takes M > 16 only
+_INT_MM_MIN_ROWS = 17
+
+
 def int_mm(a: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
     """s8 [M, K] × s8 [N, K]ᵀ → s32 [M, N] (`torch._int_mm`). On a CUDA
-    tensor `_int_mm` needs M > 16 and K, N multiples of 8; this raises on
-    anything else rather than fall back."""
+    tensor `_int_mm` needs M > 16 and K, N multiples of 8: an M ≤ 16 is
+    padded with rows of zeros to 17 and the result cut back to M rows
+    (rows are independent, so exact: the one-sample int8 conv at a 4×4
+    level); K or N that is no multiple of 8 raises rather than fall
+    back."""
     m, k = a.shape
     n = b_rows.shape[0]
-    if a.is_cuda and (m <= 16 or k % 8 or n % 8):
+    if a.is_cuda and (k % 8 or n % 8):
         raise ValueError(f"int8 matmul [{m},{k}]x[{k},{n}] on CUDA needs "
-                         "M > 16 and K, N multiples of 8")
+                         "K, N multiples of 8")
+    if a.is_cuda and m < _INT_MM_MIN_ROWS:
+        a = torch.cat([a, a.new_zeros(_INT_MM_MIN_ROWS - m, k)])
+        return torch._int_mm(a, b_rows.contiguous().t())[:m]
     return torch._int_mm(a.contiguous(), b_rows.contiguous().t())
 
 

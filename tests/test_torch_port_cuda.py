@@ -457,6 +457,14 @@ def _amax_scale(x):
     return (x.float().abs().amax() * 1.05 / 127).reshape(())
 
 
+# the dtype cases: bf16 x or its codes with a bf16 output (the bf16 form);
+# fp32 x, or its codes with an fp32 output (the GroupNorm hand-off of an
+# fp32 model), with an fp32 bias (the fp32 form)
+DENSE_FORMS = [(False, torch.bfloat16), (True, torch.bfloat16),
+               (False, torch.float32), (True, torch.float32)]
+DENSE_FORM_IDS = ["False", "True", "fp32", "int8-fp32"]
+
+
 # every width the tile plan picks (160 at O = 320/640/1280, 128 at O = 72,
 # 64 at O = 64), K split over a cluster (M = 64 and 16 at C = 1280: 4; M =
 # 77 at C = 768: 2), rings that wrap (C = 1280 at M = 4096, C = 2560), and
@@ -467,51 +475,127 @@ def _amax_scale(x):
                                    (77, 768, 1280), (64, 1280, 1280),
                                    (16, 1280, 1280), (4096, 1280, 1280),
                                    (1000, 2560, 1280), (300, 64, 64)])
-@pytest.mark.parametrize("int8_in", [False, True])
-def test_w8a8_dense_matches_plain(dev, m, c, o, int8_in):
-    x = _randn(dev, m, c, seed=1)
+@pytest.mark.parametrize("int8_in,dtype", DENSE_FORMS, ids=DENSE_FORM_IDS)
+def test_w8a8_dense_matches_plain(dev, m, c, o, int8_in, dtype):
+    """The bf16 form is held as every int8 kernel (_q8_close); the fp32
+    form computes the plain version's fp32 math on the same int32 sums, so
+    it is held to 1e-6 of max |y| (the epilogue's fused multiply-add)."""
+    x = _randn(dev, m, c, seed=1, dtype=dtype)
     wq, sw = quant.weight_q8_matrix(_randn(dev, o, c, scale=c ** -0.5,
                                            seed=2))
-    bias = _randn(dev, o, scale=0.1, seed=3)
+    bias = _randn(dev, o, scale=0.1, seed=3, dtype=dtype)
     s = _amax_scale(x)
     if int8_in:
         x = quant.quantize_activation(x, s)[0]
-    before = fd.fused_w8a8_dense.launches
+    f32 = dtype == torch.float32
+    counter = "f32_launches" if f32 else "launches"
+    before = getattr(fd.fused_w8a8_dense, counter)
     with torch.no_grad():
-        got = fd.fused_w8a8_dense(x, wq, sw, bias, s,
-                                  out_dtype=torch.bfloat16)
+        got = fd.fused_w8a8_dense(x, wq, sw, bias, s, out_dtype=dtype)
     want = fd.reference_w8a8_dense(*(t.cpu() for t in (x, wq, sw, bias, s)),
                                    out_dtype=torch.float32)
-    assert fd.fused_w8a8_dense.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == (m, o)
-    _q8_close(got, want)
+    assert getattr(fd.fused_w8a8_dense, counter) == before + 1
+    assert got.dtype == dtype and got.shape == (m, o)
+    if f32:
+        assert _max_err(got.cpu(), want) <= 1e-6 * want.abs().max().item()
+    else:
+        _q8_close(got, want)
 
 
 @pytest.mark.parametrize("m,c,o", [(32768, 320, 320), (64, 1280, 1280)])
-@pytest.mark.parametrize("int8_in", [False, True])
-def test_w8a8_dense_repeats_bit_for_bit(dev, m, c, o, int8_in):
+@pytest.mark.parametrize("int8_in,dtype", DENSE_FORMS, ids=DENSE_FORM_IDS)
+def test_w8a8_dense_repeats_bit_for_bit(dev, m, c, o, int8_in, dtype):
     """to_q at the distilled batch 32 and level 2 at the CFG batch (K split
     over a cluster): a fixed order of sums, so the same bits twice."""
-    x = _randn(dev, m, c, seed=1)
+    x = _randn(dev, m, c, seed=1, dtype=dtype)
     wq, sw = quant.weight_q8_matrix(_randn(dev, o, c, scale=c ** -0.5,
                                            seed=2))
     s = _amax_scale(x)
     if int8_in:
         x = quant.quantize_activation(x, s)[0]
     with torch.no_grad():
-        a = fd.fused_w8a8_dense(x, wq, sw, None, s, out_dtype=torch.bfloat16)
-        b = fd.fused_w8a8_dense(x, wq, sw, None, s, out_dtype=torch.bfloat16)
-    assert torch.equal(a, b)
+        a = fd.fused_w8a8_dense(x, wq, sw, None, s, out_dtype=dtype)
+        b = fd.fused_w8a8_dense(x, wq, sw, None, s, out_dtype=dtype)
+    assert a.dtype == dtype and torch.equal(a, b)
 
 
-def _q8_geglu_case(dev, t, c, h):
-    x = _randn(dev, 1, t, c, seed=1)
+def _near_ties(dev, shape, s, seed=0):
+    """fp32 x at (k + 0.5)·s and one ulp either side of it (k from -130 to
+    129, past the clip too): the quantize's tie path, which fp32 x meets
+    far more often than bf16 x."""
+    g = torch.Generator().manual_seed(seed)
+    v = ((torch.randint(-130, 130, shape, generator=g).double() + 0.5)
+         * float(s)).float()
+    nudge = torch.randint(-1, 2, shape, generator=g)
+    up = torch.nextafter(v, torch.tensor(float("inf")))
+    down = torch.nextafter(v, torch.tensor(float("-inf")))
+    return torch.where(nudge > 0, up, torch.where(nudge < 0, down, v)).to(dev)
+
+
+# (M, C): to_q at the fp32 SD forward's level 0 (CFG batch 2), ragged M at
+# C = 1280 (ten chunks through the fp32 form's four stages), C = 320 (2.5
+# chunks), one row
+@pytest.mark.parametrize("m,c", [(2048, 320), (77, 1280), (300, 320),
+                                 (1, 64)])
+def test_w8a8_dense_fp32_codes_are_torch_round(dev, m, c):
+    """The fp32 form's x codes, read through the kernel itself: with W = I
+    (int8 ones, scales 1) and no bias, y = code · sx exactly, so round(y /
+    sx) is the code it made. At and one ulp beside the ties they equal
+    quantize_activation's (torch.round) bit for bit."""
+    s = torch.tensor(0.03, device=dev)
+    x = _near_ties(dev, (m, c), s, seed=m)
+    eye = torch.eye(c, dtype=torch.int8, device=dev)
+    ones = torch.ones(c, device=dev)
+    with torch.no_grad():
+        y = fd.fused_w8a8_dense(x, eye, ones, None, s)
+    codes = torch.round(y.cpu() / s.cpu()).to(torch.int8)
+    assert torch.equal(codes, quant.quantize_activation(x.cpu(), s.cpu())[0])
+
+
+def _q8_geglu_case(dev, t, c, h, dtype=torch.bfloat16):
+    x = _randn(dev, 1, t, c, seed=1, dtype=dtype)
     w1 = _randn(dev, 2 * h, c, scale=c ** -0.5, seed=2)
-    b1 = _randn(dev, 2 * h, scale=0.1, seed=3)
+    b1 = _randn(dev, 2 * h, scale=0.1, seed=3, dtype=dtype)
     w2 = _randn(dev, c, h, scale=h ** -0.5, seed=4)
-    b2 = _randn(dev, c, scale=0.1, seed=5)
+    b2 = _randn(dev, c, scale=0.1, seed=5, dtype=dtype)
     q1, q2 = quant.weight_q8_matrix(w1), quant.weight_q8_matrix(w2)
     return x, (*q1, b1, *q2, b2), (w1, b1, w2, b2)
+
+
+def _q8_geglu_codes_on_card(x, weights, scales=None):
+    """The fp32 int8 GEGLU's h codes (and, per-token, its group scales) as
+    its first launch leaves them in the workspace: a call of the C entry
+    (polyp_geglu_w8a8_f32 with `scales`, else polyp_geglu_w8a8_pt_f32)
+    with a workspace of the test's own."""
+    lib = _build.library()
+    t, c = x.numel() // x.shape[-1], x.shape[-1]
+    h = weights[3].shape[1]
+    bh = 0 if scales else fg.block_h(c, h)
+    ws = torch.empty(lib.polyp_geglu_w8a8_workspace(t, c, h, bh),
+                     dtype=torch.uint8, device=x.device)
+    out = torch.empty_like(x)
+    ptrs = [w.data_ptr() for w in (x, *weights, *(scales or ()))]
+    sizes = (t, c, h) if scales else (t, c, h, bh)
+    entry = lib.polyp_geglu_w8a8_f32 if scales else lib.polyp_geglu_w8a8_pt_f32
+    _build.check(entry(*ptrs, ws.data_ptr(), out.data_ptr(), *sizes,
+                       _build.stream_of(x)), "int8 GEGLU fp32 form")
+    torch.cuda.synchronize()
+    codes = ws[:t * h].view(torch.int8).view(t, h).cpu()
+    if scales:
+        return codes, None
+    at = (t * h + 15) // 16 * 16
+    return codes, ws[at:at + t * (h // bh) * 4].view(torch.float32).view(
+        t, h // bh).cpu()
+
+
+def _h_codes_close(got, want, what):
+    """h codes of the card and of the plain version: the same fp32 math
+    but for erf (erff against torch's), so they differ only at ties: at
+    most one code apart, in at most 2e-3 of them."""
+    diff = (got.int() - want.int()).abs()
+    share = (diff > 0).float().mean().item()
+    print(f"{what}: h codes differing {share:.3e} (max {diff.max().item()})")
+    assert diff.max().item() <= 1 and share <= 2e-3
 
 
 # the static form: 128-token panels at C <= 640 and T >= 128 (ragged last
@@ -528,34 +612,87 @@ def _q8_geglu_case(dev, t, c, h):
                                    (300, 768, 3072), (32768, 320, 1280),
                                    (8192, 640, 2560), (2048, 1280, 5120),
                                    (512, 1280, 5120), (8, 2560, 64)])
-def test_geglu_w8a8_matches_plain(dev, t, c, h):
-    x, weights, (w1, b1, w2, b2) = _q8_geglu_case(dev, t, c, h)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_geglu_w8a8_matches_plain(dev, t, c, h, dtype):
+    """Both forms against the plain version's fp32 result (_q8_close); the
+    fp32 form's h codes also against the plain version's (_h_codes_close)."""
+    x, weights, (w1, b1, w2, b2) = _q8_geglu_case(dev, t, c, h, dtype)
     s1 = _amax_scale(x)
     a, gate = torch.nn.functional.linear(x.float(), w1.float(),
                                          b1.float()).chunk(2, dim=-1)
     s2 = _amax_scale(a * torch.nn.functional.gelu(gate))
-    before = fg.fused_geglu_w8a8.launches
+    f32 = dtype == torch.float32
+    counter = "f32_launches" if f32 else "launches"
+    before = getattr(fg.fused_geglu_w8a8, counter)
     with torch.no_grad():
         got = fg.fused_geglu_w8a8(x, *weights, s1, s2)
-    want = fg.reference_geglu_w8a8(*(w.cpu() for w in (x, *weights, s1, s2)),
-                                   out_dtype=torch.float32)
-    assert fg.fused_geglu_w8a8.launches == before + 1
-    assert got.shape == x.shape
+    cpu = [w.cpu() for w in (x, *weights, s1, s2)]
+    want = fg.reference_geglu_w8a8(*cpu, out_dtype=torch.float32)
+    assert getattr(fg.fused_geglu_w8a8, counter) == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
     _q8_close(got, want)
+    if f32:
+        codes, _ = _q8_geglu_codes_on_card(x, weights, (s1, s2))
+        _h_codes_close(codes, fg.reference_geglu_w8a8_codes(
+            cpu[0], *cpu[1:4], *cpu[7:]), f"static [{t},{c}]x[{c},{2 * h}]")
 
 
 @pytest.mark.parametrize("t,c,h", [(32768, 320, 1280), (64, 1280, 5120)])
-def test_geglu_w8a8_repeats_bit_for_bit(dev, t, c, h):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_geglu_w8a8_repeats_bit_for_bit(dev, t, c, h, dtype):
     """Level 0 at the distilled batch 32 and the mid block at the CFG batch
     (hidden tiles split over 40 blocks, the second product's K over a
     cluster): sums in a fixed order, so the same bits twice."""
-    x, weights, (w1, b1, w2, b2) = _q8_geglu_case(dev, t, c, h)
+    x, weights, (w1, b1, w2, b2) = _q8_geglu_case(dev, t, c, h, dtype)
     s1 = _amax_scale(x)
     s2 = torch.tensor(0.02, device=dev)
     with torch.no_grad():
         a = fg.fused_geglu_w8a8(x, *weights, s1, s2)
         b = fg.fused_geglu_w8a8(x, *weights, s1, s2)
-    assert torch.equal(a, b)
+    assert a.dtype == dtype and torch.equal(a, b)
+
+
+def _x_code_probe(dev, t, c, s):
+    """x at ties and weights that carry x's codes into h's (H = C): W1's a
+    rows the identity (int8 ones) at scales 1/s, its gate rows zero with a
+    gate bias of 10 (gelu(10) = 10 exactly in fp32), so a = code · (s ·
+    1/s) and h = 10 · a, with no erf rounding between them."""
+    x = _near_ties(dev, (1, t, c), s, seed=t + c)
+    wq1 = torch.cat([torch.eye(c, dtype=torch.int8, device=dev),
+                     torch.zeros(c, c, dtype=torch.int8, device=dev)])
+    sw1 = torch.cat([torch.full((c,), 1 / s, device=dev),
+                     torch.ones(c, device=dev)])
+    b1 = torch.cat([torch.zeros(c, device=dev),
+                    torch.full((c,), 10.0, device=dev)])
+    wq2, sw2 = quant.weight_q8_matrix(_randn(dev, c, c, scale=c ** -0.5))
+    return x, (wq1, sw1, b1, wq2, sw2, torch.zeros(c, device=dev))
+
+
+# (T, C = H): the fp32 SD forward's level-0 and mid-block widths, a ragged
+# last panel
+@pytest.mark.parametrize("t,c", [(2048, 320), (32, 1280), (130, 640)])
+def test_geglu_w8a8_fp32_x_codes_are_torch_round(dev, t, c):
+    """Both fp32 forms' x codes, read through their h codes (_x_code_probe):
+    static (s = 2^-5, sh = 10) h's codes are x's; per-token, h's codes are
+    an injective function of the row's x codes (sx[t] from the row's
+    amax), computed without erf: bit-equal to the plain version's in both
+    forms, which quantizes with torch.round."""
+    s = 2.0 ** -5
+    x, weights = _x_code_probe(dev, t, c, s)
+    s1 = torch.tensor(s, device=dev)
+    s2 = torch.tensor(10.0, device=dev)
+    with torch.no_grad():
+        static, _ = _q8_geglu_codes_on_card(x, weights, (s1, s2))
+        pt, sh = _q8_geglu_codes_on_card(x, weights)
+    cpu = [w.cpu() for w in (x, *weights)]
+    xq = quant.quantize_activation(cpu[0], s1.cpu())[0].reshape(t, c)
+    assert torch.equal(static, xq)
+    assert torch.equal(static, fg.reference_geglu_w8a8_codes(
+        *cpu[:4], s1.cpu(), s2.cpu()))
+    want_q, want_s = fg.reference_geglu_w8a8_pt_codes(*cpu[:4])
+    assert torch.equal(pt, want_q) and torch.equal(sh, want_s)
 
 
 def test_geglu_w8a8_refuses_what_it_cannot_do(dev):
@@ -592,16 +729,28 @@ def test_geglu_w8a8_refuses_what_it_cannot_do(dev):
                                    (256, 1280, 5120), (130, 64, 272),
                                    (200, 640, 2560), (40, 128, 64),
                                    (8, 2432, 64)])
-def test_geglu_w8a8_pt_matches_plain(dev, t, c, h):
-    x, weights, _ = _q8_geglu_case(dev, t, c, h)
-    before = fg.fused_geglu_w8a8_pt.launches
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_geglu_w8a8_pt_matches_plain(dev, t, c, h, dtype):
+    """Both forms against the plain version's fp32 result (_q8_close); the
+    fp32 form's h codes also against the plain version's
+    (_h_codes_close), and its group scales to 1e-6 relative."""
+    x, weights, _ = _q8_geglu_case(dev, t, c, h, dtype)
+    f32 = dtype == torch.float32
+    counter = "f32_launches" if f32 else "launches"
+    before = getattr(fg.fused_geglu_w8a8_pt, counter)
     with torch.no_grad():
         got = fg.fused_geglu_w8a8_pt(x, *weights)
-    want = fg.reference_geglu_w8a8_pt(*(w.cpu() for w in (x, *weights)),
-                                      out_dtype=torch.float32)
-    assert fg.fused_geglu_w8a8_pt.launches == before + 1
-    assert got.shape == x.shape
+    cpu = [w.cpu() for w in (x, *weights)]
+    want = fg.reference_geglu_w8a8_pt(*cpu, out_dtype=torch.float32)
+    assert getattr(fg.fused_geglu_w8a8_pt, counter) == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
     _q8_close(got, want)
+    if f32:
+        codes, sh = _q8_geglu_codes_on_card(x, weights)
+        want_q, want_s = fg.reference_geglu_w8a8_pt_codes(*cpu[:4])
+        torch.testing.assert_close(sh, want_s, rtol=1e-6, atol=0)
+        _h_codes_close(codes, want_q, f"per-token [{t},{c}]x[{c},{2 * h}]")
 
 
 def _pt_codes_on_card(x, wq1, sw1, b1):
@@ -652,14 +801,16 @@ def test_geglu_w8a8_pt_launches_match_their_plain_versions(dev, t, c, h):
 
 
 @pytest.mark.parametrize("t,c,h", [(4096, 320, 1280), (64, 1280, 5120)])
-def test_geglu_w8a8_pt_repeats_bit_for_bit(dev, t, c, h):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_geglu_w8a8_pt_repeats_bit_for_bit(dev, t, c, h, dtype):
     """CFG level 0 and the mid block (one group a block, ten blocks a
     panel): every sum in a fixed order, so the same bits twice."""
-    x, weights, _ = _q8_geglu_case(dev, t, c, h)
+    x, weights, _ = _q8_geglu_case(dev, t, c, h, dtype)
     with torch.no_grad():
         a = fg.fused_geglu_w8a8_pt(x, *weights)
         b = fg.fused_geglu_w8a8_pt(x, *weights)
-    assert torch.equal(a, b)
+    assert a.dtype == dtype and torch.equal(a, b)
 
 
 def test_geglu_w8a8_pt_refuses_what_it_cannot_do(dev):
@@ -780,8 +931,30 @@ def test_int8_kernels_refuse_what_they_cannot_do(dev):
     wq, sw = quant.weight_q8_matrix(_randn(dev, 64, 72))
     with pytest.raises(ValueError, match="C % 16"):
         fd.fused_w8a8_dense(x, wq, sw, None, _amax_scale(x))
-    with pytest.raises(ValueError, match="bf16 or int8"):
-        fd.fused_w8a8_dense(x.float(), wq, sw, None, _amax_scale(x))
+    # mixed dtypes and other floats raise: fp32 x with a bf16 bias (or a
+    # bf16 output), fp16 x, bf16 x with an fp32 output
+    y = _randn(dev, 40, 64)
+    wq64, sw64 = quant.weight_q8_matrix(_randn(dev, 64, 64))
+    with pytest.raises(ValueError, match="bias of its output's dtype"):
+        fd.fused_w8a8_dense(y.float(), wq64, sw64, _randn(dev, 64),
+                            _amax_scale(y))
+    with pytest.raises(ValueError, match="returns x's dtype"):
+        fd.fused_w8a8_dense(y.float(), wq64, sw64, None, _amax_scale(y),
+                            out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16, fp32 or int8 x"):
+        fd.fused_w8a8_dense(y.half(), wq64, sw64, None, _amax_scale(y))
+    with pytest.raises(ValueError, match="returns x's dtype"):
+        fd.fused_w8a8_dense(y, wq64, sw64, None, _amax_scale(y),
+                            out_dtype=torch.float32)
+    xg, weights, _ = _q8_geglu_case(dev, 8, 64, 256)
+    mixed = (*weights[:2], weights[2].float(), *weights[3:])
+    s = torch.tensor(0.02, device=dev)
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        fg.fused_geglu_w8a8(xg.float(), *weights, s, s)
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        fg.fused_geglu_w8a8_pt(xg, *mixed)
+    with pytest.raises(ValueError, match="all bf16 or all fp32"):
+        fg.fused_geglu_w8a8_pt(xg.half(), *weights)
     with pytest.raises(ValueError, match="fp32 on x's device"):
         fd.fused_w8a8_dense(_randn(dev, 40, 64), *quant.weight_q8_matrix(
             _randn(dev, 64, 64)), None, torch.tensor(0.1))
@@ -793,9 +966,131 @@ def test_int8_kernels_refuse_what_they_cannot_do(dev):
         fd.fused_w8a8_dense(flat[1:].view(40, 64), *quant.weight_q8_matrix(
             _randn(dev, 64, 64)), None, _amax_scale(x),
             out_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="M > 16"):
-        quant.int_mm(torch.zeros(8, 64, dtype=torch.int8, device=dev),
-                     torch.zeros(64, 64, dtype=torch.int8, device=dev))
+    # `torch._int_mm` takes M > 16 only: int_mm pads M <= 16 and cuts the
+    # product back, equal to the CPU's
+    g = torch.Generator().manual_seed(0)
+    b = torch.randint(-127, 128, (64, 64), generator=g, dtype=torch.int8)
+    for m in (1, 8, 16):
+        a = torch.randint(-127, 128, (m, 64), generator=g, dtype=torch.int8)
+        got = quant.int_mm(a.to(dev), b.to(dev))
+        assert got.shape == (m, 64)
+        assert torch.equal(got.cpu(), quant.int_mm(a, b))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int_mm(torch.zeros(32, 60, dtype=torch.int8, device=dev),
+                     torch.zeros(64, 60, dtype=torch.int8, device=dev))
+
+
+# the CPU quant tests' fp32 UNet (tests/test_torch_port_quant.py): levels 64
+# and 128 wide, so that every conv, projection and FF is quantizable
+QUANT_UNET = dict(in_channels=4, out_channels=4, block_out_channels=(64, 128),
+                  layers_per_block=1, cross_attention_dim=64,
+                  attention_num_heads=2,
+                  down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                  up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
+# the int8 kernels' launch counters: (function, attribute)
+Q8_COUNTERS = {"dense": (fd.fused_w8a8_dense, "launches"),
+               "dense_f32": (fd.fused_w8a8_dense, "f32_launches"),
+               "geglu": (fg.fused_geglu_w8a8, "launches"),
+               "geglu_f32": (fg.fused_geglu_w8a8, "f32_launches"),
+               "geglu_pt": (fg.fused_geglu_w8a8_pt, "launches"),
+               "geglu_pt_f32": (fg.fused_geglu_w8a8_pt, "f32_launches"),
+               "gn_q8": (fused_gn.fused_group_norm, "q8_launches")}
+
+
+def _q8_counts():
+    return {k: getattr(fn, a) for k, (fn, a) in Q8_COUNTERS.items()}
+
+
+@pytest.fixture(scope="module")
+def fp32_quant_unet():
+    """QUANT_UNET in fp32 on the CPU (seeded init, every parameter nudged
+    so biases and norm scales are exercised) and its w8a8_static tables,
+    calibrated on the CPU over a 3-point CFG trajectory."""
+    from polyp_tpu_torch.diffusion import DiffusionSchedule
+    from polyp_tpu_torch.diffusion.calibrate import calibrate_unet_scales
+    from polyp_tpu_torch.models.unet_condition import UNet2DCondition
+
+    torch.manual_seed(0)
+    unet = UNet2DCondition(**QUANT_UNET).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    cond, uncond = (torch.randn(1, 8, 64, generator=g) for _ in range(2))
+    scales = calibrate_unet_scales(
+        unet, DiffusionSchedule.create(1000, "scaled_linear", 0.00085, 0.012),
+        (2, 4, 16, 16), cond, uncond, num_steps=3, guidance_scale=7.5,
+        init=torch.randn(2, 4, 16, 16, generator=g))
+    return unet, scales
+
+
+@pytest.mark.parametrize("mode", ["w8a8_static", "w8a8"])
+def test_fp32_quant_unet_runs_on_the_card(dev, fp32_quant_unet, mode):
+    """An fp32 UNet under an int8 mode runs its quantized layers through
+    the int8 kernels' fp32 forms, as the reference's kernels compute in
+    x's dtype: every quantized linear and 1×1 conv the dense (w8a8_static:
+    also the GroupNorm int8 hand-off), the four transformer FFs the static
+    or per-token GEGLU, and no bf16 form. Its output is finite and within
+    int8 noise of the same forward on the CPU (plain versions): card vs
+    CPU at most twice the CPU's own int8-vs-fp32 distance (a code that
+    breaks a tie the other way cascades; chip_smoke.py's
+    INT8_FORWARD_NOISE)."""
+    import copy
+
+    unet, scales = fp32_quant_unet
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 4, 16, 16, generator=g)
+    ctx = torch.randn(2, 8, 64, generator=g)
+    t = torch.tensor([700, 700])
+    bank = quant.ScaleBank(scales) if mode == "w8a8_static" else None
+    with torch.no_grad():
+        fp32 = unet(x, t, ctx)
+        with quant.override(mode, scales=bank, t=t):
+            want = unet(x, t, ctx)
+        card = copy.deepcopy(unet).to(dev)
+        before = _q8_counts()
+        with quant.override(mode, scales=bank, t=t.to(dev)):
+            got = card(x.to(dev), t.to(dev), ctx.to(dev))
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in _q8_counts().items()}
+    geglu = "geglu_f32" if mode == "w8a8_static" else "geglu_pt_f32"
+    assert ran[geglu] == 4 and ran["dense_f32"] > 0, ran
+    assert not any(ran[k] for k in ("dense", "geglu", "geglu_pt")), ran
+    assert (ran["gn_q8"] > 0) == (mode == "w8a8_static"), ran
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    noise = ((want - fp32).norm() / fp32.norm()).item()
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    print(f"{mode}: card vs cpu rel L2 {rel:.3e}; cpu int8 vs fp32 "
+          f"{noise:.3e}; launches {ran}")
+    assert 0 < noise and rel <= 2 * noise
+
+
+def test_quantized_student_samples_one_image(dev, tmp_path, monkeypatch):
+    """A folded-guidance student under w8a8_static (the full-width SD-v1-4
+    UNet, random weights from seed 0, 2 trailing DDIM steps) samples one
+    image at 256 px: its 4×4 level's int8 convs run with M = N·Ho·Wo = 16,
+    under `torch._int_mm`'s M > 16, which int_mm pads."""
+    from polyp_tpu_torch.cli.common import load_sd_stack
+    from polyp_tpu_torch.cli.distill_sd import make_student_sampler
+
+    monkeypatch.setenv("POLYP_TORCH_QUANT_CACHE", str(tmp_path))
+    rows = []
+    real = quant.int_mm
+
+    def recording(a, b_rows):
+        rows.append(a.shape[0])
+        return real(a, b_rows)
+
+    monkeypatch.setattr(quant, "int_mm", recording)
+    stack = load_sd_stack(None, dtype=torch.bfloat16, seed=0)
+    sampler = make_student_sampler(stack, stack.unet, num_steps=2,
+                                   quantize="w8a8_static")
+    with torch.no_grad():
+        images = sampler.for_prompt("a colonoscopy image of a polyp")(1, 0)
+    torch.cuda.synchronize()
+    assert images.shape == (1, 3, 256, 256)
+    assert bool(torch.isfinite(images.float()).all())
+    assert 16 in rows, sorted(set(rows))
 
 
 # ---------------------------------------------------------------------------

@@ -173,12 +173,30 @@ def test_w8a8_conv_matches_jax(k, stride, pad, int8_in):
 
 
 def test_int_mm_refuses_cuda_shapes_it_cannot_take():
-    a = torch.zeros(8, 16, dtype=torch.int8)
-    b = torch.zeros(16, 16, dtype=torch.int8)
-    assert tq.int_mm(a, b).shape == (8, 16)  # the CPU path has no such rule
+    """`torch._int_mm` on CUDA takes M > 16 and K, N multiples of 8. On a
+    (mocked) CUDA tensor int_mm pads an M of 1 or 16 with zero rows to 17
+    and cuts the product back, equal to the CPU product; K or N that is no
+    multiple of 8 raises."""
+    rng = np.random.default_rng(3)
+    b = torch.from_numpy(rng.integers(-127, 128, (24, 32), dtype=np.int8))
+    for m in (1, 16):
+        a = torch.from_numpy(rng.integers(-127, 128, (m, 32), dtype=np.int8))
+        want = tq.int_mm(a, b)  # the CPU path takes any M
+        assert want.shape == (m, 24)
+        real = torch._int_mm
+        with mock.patch.object(torch.Tensor, "is_cuda", True), \
+                mock.patch.object(torch, "_int_mm", side_effect=real) as spy:
+            got = tq.int_mm(a, b)
+        assert spy.call_args[0][0].shape == (17, 32)
+        assert torch.equal(got, want)
+        assert torch.equal(want, (a.int() @ b.int().t()))
     with mock.patch.object(torch.Tensor, "is_cuda", True):
-        with pytest.raises(ValueError, match="M > 16"):
-            tq.int_mm(a, b)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tq.int_mm(torch.zeros(20, 12, dtype=torch.int8),
+                      torch.zeros(16, 12, dtype=torch.int8))
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tq.int_mm(torch.zeros(20, 16, dtype=torch.int8),
+                      torch.zeros(12, 16, dtype=torch.int8))
 
 
 def test_scale_tables_match_jax():
@@ -235,25 +253,60 @@ def test_layer_selection_skip_and_only():
 # the kernels' plain versions against the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("m", [256, 200])
-@pytest.mark.parametrize("bias", [True, False])
-def test_w8a8_dense_plain_matches_pallas_interpret(m, bias):
+def _near_ties(seed, shape, s):
+    """fp32 values at (k + 0.5)·s and one ulp either side of it (k from -130
+    to 129, past the clip too): the quantize's tie path, which an fp32 x
+    meets far more often than a bf16 one."""
+    rng = np.random.default_rng(seed)
+    v = ((rng.integers(-130, 130, shape) + 0.5) * np.float64(s)).astype(
+        np.float32)
+    nudge = rng.integers(-1, 2, shape)
+    up, down = (np.nextafter(v, np.float32(d)) for d in (np.inf, -np.inf))
+    return np.where(nudge > 0, up, np.where(nudge < 0, down, v))
+
+
+@pytest.mark.parametrize("bias,m,ties", [
+    (True, 256, False), (True, 200, False), (False, 256, False),
+    (False, 200, False), (True, 200, True)],
+    ids=["True-256", "True-200", "False-256", "False-200", "fp32-ties"])
+def test_w8a8_dense_plain_matches_pallas_interpret(bias, m, ties):
     """Kernel 5, ragged M included. Same codes, same int32 sums, the same
-    fp32 dequantize + bias: rtol 1e-6."""
-    x, w = _normal(8, (m, 64)), _normal(9, (64, 96), 0.1)
+    fp32 dequantize + bias: rtol 1e-6. The fp32-output case (the fp32
+    form's contract: fp32 x, fp32 bias, `out_dtype=torch.float32`) draws x
+    at and one ulp beside the quantize's ties, holds its codes equal to
+    JAX's, and its int8 hand-off (the codes with an fp32 output) to the
+    same Pallas output."""
+    w = _normal(9, (64, 96), 0.1)
+    if ties:
+        s = np.float32(0.03)
+        x = _near_ties(8, (m, 64), s)
+    else:
+        x = _normal(8, (m, 64))
+        s = _scale(x)
     b = _normal(10, (96,), 0.05) if bias else None
-    s = _scale(x)
     with interpret:
         want = jfd.fused_w8a8_dense.__wrapped__(
             jnp.asarray(x), jnp.asarray(w), None if b is None else
             jnp.asarray(b), jnp.float32(s), block_m=128)
+    assert np.asarray(want).dtype == np.float32
     wq, sw = tq.weight_q8_matrix(_t(w.T))
-    before = tfd.fused_w8a8_dense.launches
-    got = tfd.fused_w8a8_dense(_t(x), wq, sw, None if b is None else _t(b),
-                               torch.tensor(s))
-    assert tfd.fused_w8a8_dense.launches == before  # CPU: plain version
+    before = tfd.fused_w8a8_dense.launches, tfd.fused_w8a8_dense.f32_launches
+    args = (wq, sw, None if b is None else _t(b), torch.tensor(s))
+    got = tfd.fused_w8a8_dense(_t(x), *args,
+                               out_dtype=torch.float32 if ties else None)
+    # CPU: plain version
+    assert (tfd.fused_w8a8_dense.launches,
+            tfd.fused_w8a8_dense.f32_launches) == before
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
+    if ties:
+        codes = tq.quantize_activation(_t(x), torch.tensor(s))[0]
+        jcodes = jq._quantize_activation(jnp.asarray(x), jnp.float32(s))[0]
+        np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+        handoff = tfd.fused_w8a8_dense(codes, *args, out_dtype=torch.float32)
+        np.testing.assert_allclose(handoff.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_w8a8_dense_plain_takes_prequantized_int8():
@@ -282,27 +335,79 @@ def _port_q8(w1, b1, w2, b2):
     return wq1, sw1, _t(b1), wq2, sw2, _t(b2)
 
 
-@pytest.mark.parametrize("block_h", [128, 64])
-def test_geglu_w8a8_plain_matches_pallas_interpret(block_h):
+def _pallas_h_codes(kernel, x, w1, b1, group, sh=None):
+    """The h codes a Pallas int8 GEGLU makes inside it, read through its own
+    output: with W2 = I (C = H) its weight quantizes to 127·I at scales
+    1/127, so out[t, j] = hq[t, j] · sh to fp32 rounding and round(out /
+    sh) is hq. `sh` is h's static scale; without it, the per-token form's
+    scale of each row's group of `group` hidden units is read as the
+    group's largest |out| / 127 (its code of ±127). Returns (codes [T, H],
+    scales [T, H / group])."""
+    c = x.shape[-1]
+    out = np.asarray(kernel(*map(jnp.asarray, (
+        x, w1, b1, np.eye(c, dtype=np.float32), np.zeros(c, np.float32)))))
+    out = out.reshape(-1, c // group, group)
+    if sh is None:
+        sh = np.abs(out).max(axis=2) / np.float32(127)
+    sh = np.broadcast_to(np.float32(sh), out.shape[:2])
+    codes = np.round(out / sh[..., None]).astype(np.int8)
+    return codes.reshape(-1, c), np.ascontiguousarray(sh)
+
+
+def _h_codes_close(got, want):
+    """h codes computed apart agree but at ties (the two erf
+    implementations): at most one code apart, in at most 2e-3 of them."""
+    diff = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 2e-3
+
+
+@pytest.mark.parametrize("block_h,fp32", [(128, False), (64, False),
+                                          (128, True)],
+                         ids=["128", "64", "fp32-codes"])
+def test_geglu_w8a8_plain_matches_pallas_interpret(block_h, fp32):
     """Kernel 4 (int32 accumulation across hidden tiles). The TPU kernel's
     GELU uses an erf polynomial (|err| ≤ 1.5e-7) where torch uses erf, so h
     can differ in its last bits and a code can flip at a tie: relative L2
-    ≤ 2e-3, and most outputs agree to 1e-5."""
-    c, h = 64, 128
+    ≤ 2e-3, and most outputs agree to 1e-5. The fp32-output case (C = H, so
+    that the Pallas kernel's own h codes read back through W2 = I) holds
+    the x codes equal to JAX's, the h codes one apart at most at ties, and
+    the plain second half fed the Pallas kernel's codes to its output at
+    rel 1e-6."""
+    c, h = (128, 128) if fp32 else (64, 128)
     x = _normal(13, (1, 256, c))
     w1, b1, w2, b2 = _geglu_weights(c, h, 14)
     s1 = _scale(x)
     a, g = np.split(x @ w1 + b1, 2, axis=-1)
     s2 = _scale(np.asarray(a * jax.nn.gelu(g, approximate=False)))
+    kernel = functools.partial(jfg.fused_geglu_w8a8.__wrapped__,
+                               act_scale1=s1, act_scale2=s2, block_t=128,
+                               block_h=block_h)
     with interpret:
-        want = jfg.fused_geglu_w8a8.__wrapped__(
-            *map(jnp.asarray, (x, w1, b1, w2, b2)), s1, s2, block_t=128,
-            block_h=block_h)
-    got = tfg.fused_geglu_w8a8(_t(x), *_port_q8(w1, b1, w2, b2),
-                               torch.tensor(s1), torch.tensor(s2))
+        want = np.asarray(kernel(*map(jnp.asarray, (x, w1, b1, w2, b2))))
+        jcodes = _pallas_h_codes(kernel, x, w1, b1, c, s2)[0] if fp32 else None
+    assert want.dtype == np.float32
+    weights = _port_q8(w1, b1, w2, b2)
+    ts1, ts2 = torch.tensor(s1), torch.tensor(s2)
+    before = tfg.fused_geglu_w8a8.launches, tfg.fused_geglu_w8a8.f32_launches
+    got = tfg.fused_geglu_w8a8(_t(x), *weights, ts1, ts2)
+    assert (tfg.fused_geglu_w8a8.launches,
+            tfg.fused_geglu_w8a8.f32_launches) == before
+    assert got.dtype == torch.float32
     assert _rel(got.numpy(), want) <= 2e-3
-    close = np.isclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    close = np.isclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     assert close.mean() >= 0.95
+    if fp32:
+        np.testing.assert_array_equal(
+            tq.quantize_activation(_t(x), ts1)[0].numpy(),
+            np.asarray(jq._quantize_activation(jnp.asarray(x),
+                                               jnp.float32(s1))[0]))
+        wq1, sw1, tb1, wq2, sw2, tb2 = weights
+        _h_codes_close(tfg.reference_geglu_w8a8_codes(
+            _t(x), wq1, sw1, tb1, ts1, ts2), jcodes)
+        forced = tfd.reference_w8a8_dense(_t(jcodes), wq2, sw2, tb2, ts2,
+                                          out_dtype=torch.float32)
+        np.testing.assert_allclose(forced.numpy(), want.reshape(-1, c),
+                                   rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("c,tokens,out_dtype", [
@@ -333,25 +438,60 @@ def test_static_geglu_split_is_the_dense_over_h_codes(c, tokens, out_dtype):
     assert torch.equal(split.reshape(whole.shape), whole)
 
 
-@pytest.mark.parametrize("c,tokens", [(64, 256), (320, 128)])
-def test_geglu_w8a8_pt_plain_matches_pallas_interpret(c, tokens):
+@pytest.mark.parametrize("c,tokens,fp32", [(64, 256, False),
+                                            (320, 128, False),
+                                            (1280, 128, True)],
+                         ids=["64-256", "320-128", "fp32-codes"])
+def test_geglu_w8a8_pt_plain_matches_pallas_interpret(c, tokens, fp32):
     """Kernel 6 with the reference's block_h (C=320: hidden 1280 in two
     groups of 640, so h is quantized per (row, group)). Row scales and
     group scales come from the same fp32 values; the erf polynomial can
-    flip a code at a tie: relative L2 ≤ 2e-3."""
-    h = 4 * c
+    flip a code at a tie: relative L2 ≤ 2e-3. The fp32-output case (C = H
+    = 1280: five groups of 256, so that the Pallas kernel's own h codes
+    and group scales read back through W2 = I) holds the row codes of x
+    equal to JAX's, the h codes one apart at most at ties, and the plain
+    second half fed the Pallas kernel's codes and scales to its output at
+    rel 1e-6. (The kernel's erf polynomial moves a group's scale from the
+    plain version's by up to ~3e-4, so the scales are its own.)"""
+    h = c if fp32 else 4 * c
     x = _normal(15, (1, tokens, c))
     w1, b1, w2, b2 = _geglu_weights(c, h, 16)
     bt, bh = jfg._BLOCKS.get(c, (jfg.DEFAULT_BLOCK_T, jfg.DEFAULT_BLOCK_H))
     assert tfg.block_h(c, h) == jfg._tile(h, bh, 128)
+    kernel = functools.partial(jfg.fused_geglu_w8a8_pt.__wrapped__,
+                               block_t=bt, block_h=bh)
+    weights = _port_q8(w1, b1, w2, b2)
+    wq1, sw1, tb1, wq2, sw2, tb2 = weights
     with interpret:
-        want = jfg.fused_geglu_w8a8_pt.__wrapped__(
-            *map(jnp.asarray, (x, w1, b1, w2, b2)), block_t=bt, block_h=bh)
+        want = np.asarray(kernel(*map(jnp.asarray, (x, w1, b1, w2, b2))))
+        if fp32:
+            jcodes, jsh = _pallas_h_codes(kernel, x, w1, b1,
+                                          tfg.block_h(c, h))
+    assert want.dtype == np.float32
     oracle = jfg.reference_geglu_w8a8_pt(*map(jnp.asarray, (x, w1, b1, w2,
                                                             b2)))
-    got = tfg.fused_geglu_w8a8_pt(_t(x), *_port_q8(w1, b1, w2, b2))
+    before = (tfg.fused_geglu_w8a8_pt.launches,
+              tfg.fused_geglu_w8a8_pt.f32_launches)
+    got = tfg.fused_geglu_w8a8_pt(_t(x), *weights)
+    assert (tfg.fused_geglu_w8a8_pt.launches,
+            tfg.fused_geglu_w8a8_pt.f32_launches) == before
+    assert got.dtype == torch.float32
     assert _rel(got.numpy(), want) <= 2e-3
     assert _rel(got.numpy(), oracle) <= 2e-3
+    if fp32:
+        x32 = jnp.asarray(x).reshape(-1, c)
+        sxr = jnp.maximum(jnp.max(jnp.abs(x32), axis=1, keepdims=True),
+                          1e-12) / 127.0
+        np.testing.assert_array_equal(
+            tfg.row_codes(_t(x))[0].numpy(),
+            np.asarray(jnp.clip(jnp.round(x32 / sxr), -127, 127)
+                       .astype(jnp.int8)))
+        _h_codes_close(tfg.reference_geglu_w8a8_pt_codes(_t(x), wq1, sw1,
+                                                         tb1)[0], jcodes)
+        forced = tfg.reference_geglu_w8a8_pt_down(_t(jcodes), _t(jsh), wq2,
+                                                  sw2, tb2, torch.float32)
+        np.testing.assert_allclose(forced.numpy(), want.reshape(-1, c),
+                                   rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("c,tokens,out_dtype", [

@@ -3,22 +3,24 @@
 static int8 GEGLU, the W8A8 dense and the per-token int8 GEGLU), rows 1
 and 7 in bf16 (flash attention and the fused MHA at the SD stack's
 shapes), the fp32 forms of rows 1 and 2 (flash attention and the GEGLU in
-fp32) and the sampling loops' device time,
+fp32) and of rows 4-6 (the int8 kernels on fp32 x) and the sampling
+loops' device time,
 for the polyp_tpu_torch of any checkout, so that two commits are compared
 on one card in one call.
 
     python3 tools/gemm_rows.py --root DIR --tag NAME
                                [--rows geglu,dense,geglu_q8,geglu_q8_pt,gn,
-                                       attention,flash_f32,geglu_f32
-                                       | all | none]
+                                       attention,flash_f32,geglu_f32,
+                                       int8_f32 | all | none]
                                [--no-profiles]
 
 Needs a CUDA card. It builds the kernels of DIR/polyp_tpu_torch and runs
 chip_smoke.py's `gemm_rows`, `geglu_q8_rows` and `gn_rows` (this
 checkout's: device time from a CUDA graph of 20 calls, the CUDA-event time
 of the same calls, the plain version, the yardsticks, the bound),
-`attention_rows` and `fp32_rows` (flash's fp32 form, the GEGLU's, or
-both) on that package at every main-path shape; then, on
+`attention_rows`, `fp32_rows` (flash's fp32 form, the GEGLU's, or
+both) and `q8_f32_rows` (a checkout from before the int8 kernels' fp32
+forms has none) on that package at every main-path shape; then, on
 the full-width SD-v1-4 stack (random weights, seed 0) at 256px,
 `profile_loop` over one batch of four loops: w8a8_static under CFG (20
 DDIM steps, 5-step bf16 head, batch 2), dynamic w8a8 under CFG (the same
@@ -44,7 +46,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 ROWS = ("geglu", "dense", "geglu_q8", "geglu_q8_pt", "gn", "attention",
-        "flash_f32", "geglu_f32")
+        "flash_f32", "geglu_f32", "int8_f32")
 
 
 def main() -> int:
@@ -101,6 +103,8 @@ def main() -> int:
         if "flash_f32" in rows or "geglu_f32" in rows:
             out["rows"] += smoke.fp32_rows(dev, flash="flash_f32" in rows,
                                            geglu="geglu_f32" in rows)
+        if "int8_f32" in rows:
+            out["rows"] += smoke.q8_f32_rows(dev)
     if not args.no_profiles:
         out["loops"] = profiles(smoke, dev)
     dest = HERE / "chiprun_out"
